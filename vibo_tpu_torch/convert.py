@@ -1,0 +1,49 @@
+"""Parameter trees between the JAX package and the port.
+
+Both packages keep the same tree:
+
+    {"encoder":   [{"w": (in, out), "b": (out,)}, ...],      x @ w + b
+     "item_post": {"a": {"mu": (M, K), "logvar": (M, K)},
+                   "b": {"mu": (M, 1), "logvar": (M, 1)}}}
+
+so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
+either direction unchanged. Leaves are float32 tensors that require grad.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vibo_tpu_torch._device import resolve_device
+
+
+def tree_map(fn, tree):
+    """Apply fn to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in a fixed order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def params_from_jax(tree, device=None) -> dict:
+    """A tree of numpy arrays (the JAX params) -> trainable torch leaves."""
+    dev = resolve_device(device)
+    return tree_map(
+        lambda x: torch.tensor(np.asarray(x, np.float32), device=dev,
+                               requires_grad=True), tree)
+
+
+def params_to_numpy(params) -> dict:
+    """Port params -> a tree of float32 numpy arrays (the JAX layout)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

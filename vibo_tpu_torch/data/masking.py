@@ -1,0 +1,77 @@
+"""Hold-out masking and the Dataset container (numpy copy of
+`vibo_tpu.data.masking`'s `Dataset` and `holdout_split`).
+
+Protocol (arXiv:2002.00276 section 6.3): hide a fraction of the OBSERVED
+cells; train on the rest; the hidden cells are the imputation test set.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(eq=False)
+class Dataset:
+    """Dense response data with train/held-out masks.
+
+    response:     (N, M) float32 {0, 1}; zero where unobserved.
+    train_mask:   (N, M) float32; observed cells used for training.
+    heldout_mask: (N, M) float32; observed cells hidden for imputation eval,
+                  disjoint from train_mask.
+    """
+    response: np.ndarray
+    train_mask: np.ndarray
+    heldout_mask: np.ndarray
+    name: str = "dataset"
+    num_persons: int | None = None
+    num_items: int | None = None
+    person_ids: list | None = None
+    item_ids: list | None = None
+    num_categories: int = 2
+
+    def __post_init__(self):
+        if self.num_persons is None:
+            self.num_persons = self.response.shape[0]
+        if self.num_items is None:
+            self.num_items = self.response.shape[1]
+
+    @property
+    def shape(self):
+        return self.response.shape
+
+
+def holdout_split(response: np.ndarray, mask: np.ndarray,
+                  holdout_frac: float = 0.1, seed: int = 0,
+                  name: str = "dataset", person_ids: list | None = None,
+                  item_ids: list | None = None,
+                  num_categories: int = 2) -> Dataset:
+    """Hide `holdout_frac` of the observed cells uniformly at random.
+
+    Draws in row blocks from one generator: `Generator.random` fills its
+    output sequentially from the bit stream, so the blocked draw gives the
+    same hide pattern as one (N, M) draw with ~3 row blocks of scratch."""
+    rng = np.random.default_rng(seed + 101)
+    n, m = mask.shape
+    heldout_mask = np.empty((n, m), np.float32)
+    train_mask = np.empty((n, m), np.float32)
+    block = max(1, min(n, (1 << 24) // max(1, m)))
+    rbuf = np.empty((block, m), np.float64)
+    observed = np.empty((block, m), bool)
+    hide = np.empty((block, m), bool)
+    for s in range(0, n, block):
+        e = min(n, s + block)
+        b = e - s
+        rng.random(out=rbuf[:b])
+        np.greater(mask[s:e], 0, out=observed[:b])
+        np.less(rbuf[:b], holdout_frac, out=hide[:b])
+        hide[:b] &= observed[:b]
+        np.copyto(heldout_mask[s:e], hide[:b], casting="unsafe")
+        np.logical_not(hide[:b], out=hide[:b])
+        observed[:b] &= hide[:b]
+        np.copyto(train_mask[s:e], observed[:b], casting="unsafe")
+    return Dataset(response=np.asarray(response, np.float32),
+                   train_mask=train_mask, heldout_mask=heldout_mask, name=name,
+                   person_ids=person_ids, item_ids=item_ids,
+                   num_categories=num_categories)

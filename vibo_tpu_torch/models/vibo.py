@@ -1,0 +1,250 @@
+"""VIBO: amortized variational inference for IRT (counterpart of
+`vibo_tpu.models.vibo`, the binary 1PL/2PL part with free-form item
+posteriors and the diagonal ability posterior).
+
+Generative model: theta_i ~ N(0, I_K), item d_j ~ N(0, I), r_ij ~
+Bernoulli(sigmoid(a_j . theta_i - b_j)) on observed cells. Posterior:
+q(d) per-item diagonal Gaussians; q(theta_i | d, r_i) an MLP encoder on the
+response row, conditioned on a flattened item draw ("sample") or on the
+item-posterior means ("mean").
+
+The training objective takes its noise from outside (`sample_noise`, or
+noise the caller made), so the tests feed the JAX package and the port the
+same numbers. Everything outside this scope raises NotImplementedError
+naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from vibo_tpu_torch._device import resolve_device
+from vibo_tpu_torch.convert import tree_leaves
+from vibo_tpu_torch.models import networks
+from vibo_tpu_torch.ops import distributions as dist
+from vibo_tpu_torch.ops import links, pallas_elbo
+from vibo_tpu_torch.ops.packing import packed_row_valid
+
+@dataclasses.dataclass(frozen=True)
+class VIBOConfig:
+    """The JAX config's fields that the port reads; values outside the
+    port's scope raise. The deep link's and the item encoder's own fields
+    come with the ROADMAP items that port them."""
+    num_items: int
+    irt_model: str = "2pl"
+    num_categories: int = 2
+    ability_dim: int = 1
+    hidden_dim: int = 256
+    conditional_posterior: bool = True
+    condition_on: str = "sample"
+    theta_posterior: str = "diag"
+    item_encoder: bool = False
+    use_pallas: bool = False
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.irt_model not in links.IRT_MODELS:
+            raise ValueError(
+                f"irt_model must be one of {links.IRT_MODELS}")
+        if self.condition_on not in ("sample", "mean", "stats"):
+            raise ValueError(f"condition_on must be 'sample', 'mean' or "
+                             f"'stats', got {self.condition_on!r}")
+        if self.theta_posterior not in ("diag", "chol", "laplace",
+                                        "laplace-w"):
+            raise ValueError(f"unknown theta_posterior "
+                             f"{self.theta_posterior!r}")
+        gaps = []
+        if self.irt_model not in ("1pl", "2pl"):
+            gaps.append(f"irt_model={self.irt_model!r} (3pl: ROADMAP queue A "
+                        "item 9; grm/gpcm: item 12; deep: item 13)")
+        if self.theta_posterior != "diag":
+            gaps.append(f"theta_posterior={self.theta_posterior!r} (ROADMAP "
+                        "queue A item 14)")
+        if self.conditional_posterior and self.condition_on == "stats":
+            gaps.append("condition_on='stats' (ROADMAP queue A item 14)")
+        if self.item_encoder:
+            gaps.append("item_encoder=True (ROADMAP queue A item 14)")
+        if self.num_categories != 2:
+            gaps.append("num_categories != 2 (ROADMAP queue A item 12)")
+        if gaps:
+            raise NotImplementedError("not ported yet: " + "; ".join(gaps))
+
+
+class VIBO:
+    """VIBO model on one device; params are a tree of tensors
+    (`convert` module docstring)."""
+
+    def __init__(self, cfg: VIBOConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._head_spec = networks.item_head_spec(cfg.irt_model,
+                                                  cfg.ability_dim)
+        self._item_feat_dim = (
+            networks.item_feat_dim(cfg.num_items, cfg.irt_model,
+                                   cfg.ability_dim)
+            if cfg.conditional_posterior else 0)
+
+    # ------------------------------------------------------------- params
+
+    def init_params(self, seed: int = 0) -> dict:
+        """Fresh trainable params from a seeded generator on the device."""
+        cfg = self.cfg
+        g = torch.Generator(device=self.device)
+        g.manual_seed(seed)
+        dims = [2 * cfg.num_items + self._item_feat_dim, cfg.hidden_dim,
+                cfg.hidden_dim, 2 * cfg.ability_dim]
+        params = {
+            "item_post": networks.init_item_posterior(
+                cfg.num_items, cfg.irt_model, cfg.ability_dim, g,
+                self.device),
+            "encoder": networks.init_mlp(dims, g, self.device),
+        }
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        return params
+
+    # ------------------------------------------------------ item posterior
+
+    def item_dist(self, params: dict) -> dict:
+        """The free-form item posterior {name: {'mu', 'logvar': (M, D)}}."""
+        return params["item_post"]
+
+    def item_posterior_mean(self, params: dict) -> dict:
+        return {name: p["mu"] for name, p in self.item_dist(params).items()}
+
+    def item_kl_from(self, post: dict) -> torch.Tensor:
+        """Analytic sum_j KL(q(d_j) || N(0, I)) over all items and params."""
+        return sum(dist.kl_standard_normal(p["mu"], p["logvar"]).sum()
+                   for p in post.values())
+
+    def _item_feats(self, post: dict, item_sample: dict):
+        """What q(theta | r, .) conditions on, flattened: the item draw
+        ("sample"), the item-posterior means ("mean"), or None
+        (mean-field)."""
+        if not self.cfg.conditional_posterior:
+            return None
+        if self.cfg.condition_on == "mean":
+            item_sample = {name: p["mu"] for name, p in post.items()}
+        return networks.flatten_item_sample(item_sample)
+
+    def _link_params(self, item_sample: dict, num_items: int):
+        """Item sample -> (a (M, K), b (M,)); 1PL is 2PL with unit a."""
+        a = item_sample.get("a")
+        if a is None:
+            a = torch.ones((num_items, self.cfg.ability_dim),
+                           device=item_sample["b"].device)
+        return a, item_sample["b"][..., 0]
+
+    # ---------------------------------------------------- ability encoder
+
+    def encode(self, params: dict, response, mask, item_sample):
+        """Dense encoder -> (mu, logvar, None), each (B, K). item_sample is
+        what the encoder conditions on (a draw or the means); None under
+        mean-field."""
+        if response.shape[-1] != self.cfg.num_items:
+            raise ValueError(
+                f"response has {response.shape[-1]} items but the model was "
+                f"configured with num_items={self.cfg.num_items}")
+        feats = (networks.flatten_item_sample(item_sample)
+                 if self.cfg.conditional_posterior else None)
+        return networks.apply_ability_encoder(
+            params["encoder"], response, mask, feats,
+            compute_dtype=self.cfg.compute_dtype)
+
+    def _encode_packed(self, params: dict, packed, item_feats,
+                       transposed: bool = False):
+        """Encoder on the int8 code (fused first layer); transposed=True
+        returns (muT, logvarT, None) as (K, B)."""
+        if packed.shape[-1] != self.cfg.num_items:
+            raise ValueError(
+                f"packed has {packed.shape[-1]} items but the model was "
+                f"configured with num_items={self.cfg.num_items}")
+        return networks.apply_ability_encoder_packed(
+            params["encoder"], packed, item_feats,
+            compute_dtype=self.cfg.compute_dtype,
+            transposed_head=transposed)
+
+    def wants_transposed_theta(self) -> bool:
+        """True when the packed train path runs theta as (K, B): the fused
+        kernels are on and the family is diagonal (always, in the port's
+        scope)."""
+        return self.cfg.use_pallas
+
+    # --------------------------------------------------------- objective
+
+    def sample_noise(self, batch: int, num_samples: int,
+                     transposed: bool = False,
+                     generator: torch.Generator | None = None):
+        """Exogenous noise for elbo_packed_sums: ({name: (S, M, D)} item eps,
+        theta eps (S, B, K), or (S, K, B) when transposed)."""
+        cfg = self.cfg
+        item_eps = {
+            name: torch.randn((num_samples, cfg.num_items, d),
+                              generator=generator, device=self.device)
+            for name, d in sorted(self._head_spec.items())}
+        shape = ((num_samples, cfg.ability_dim, batch) if transposed
+                 else (num_samples, batch, cfg.ability_dim))
+        return item_eps, torch.randn(shape, generator=generator,
+                                     device=self.device)
+
+    def elbo_packed_sums(self, params: dict, packed, item_eps: dict,
+                         theta_eps, row_weight=None,
+                         transposed: bool = False):
+        """(loglik_sum, kl_theta_sum, kl_items) from the int8 code and
+        exogenous noise, the first two averaged over the sample axis.
+
+        The loglik runs the one-pass fused 2PL kernel (its uniform-cotangent
+        contract holds: it is summed into the loss). row_weight ((B,), 0/1)
+        masks the theta-KL of rows with no observed cell; None derives it
+        from the code. transposed: theta in (K, B), theta_eps from
+        sample_noise(..., transposed=True). Same math either way."""
+        if not self.cfg.use_pallas:
+            raise NotImplementedError(
+                "the port's packed objective runs the fused kernels "
+                "(use_pallas=True); the decoded-data path is ROADMAP queue A "
+                "item 4")
+        post = self.item_dist(params)
+        valid = (packed_row_valid(packed) if row_weight is None
+                 else row_weight)
+        m = packed.shape[-1]
+        lls, klts = [], []
+        for s in range(theta_eps.shape[0]):
+            item_sample = {
+                name: dist.reparameterize_eps(item_eps[name][s],
+                                              post[name]["mu"],
+                                              post[name]["logvar"])
+                for name in item_eps}
+            mu, logvar, _ = self._encode_packed(
+                params, packed, self._item_feats(post, item_sample),
+                transposed=transposed)
+            theta = dist.reparameterize_eps(theta_eps[s], mu, logvar)
+            a, b = self._link_params(item_sample, m)
+            if transposed:
+                lls.append(pallas_elbo.masked_loglik_2pl_packed_train_t(
+                    theta, a, b, packed))
+                kl = dist.kl_standard_normal(mu, logvar).sum(0)
+            else:
+                lls.append(pallas_elbo.masked_loglik_2pl_packed_train(
+                    theta, a, b, packed).sum())
+                kl = dist.kl_standard_normal(mu, logvar).sum(-1)
+            klts.append((kl * valid).sum())
+        return (torch.stack(lls).mean(), torch.stack(klts).mean(),
+                self.item_kl_from(post))
+
+    # ------------------------------------------------- scoring / imputation
+
+    def response_prob(self, params: dict, theta, item_sample: dict):
+        """p(r_ij = 1) matrix (B, M)."""
+        del params
+        lp = {"b": item_sample["b"][..., 0]}
+        if "a" in item_sample:
+            lp["a"] = item_sample["a"]
+        return links.response_prob(self.cfg.irt_model, theta, lp)
+
+    def impute_prob_with_items(self, params: dict, response, mask,
+                               item_mean: dict):
+        """Posterior-mean ability through the link at the item means (B, M)."""
+        mu, _, _ = self.encode(params, response, mask, item_mean)
+        return self.response_prob(params, mu, item_mean)

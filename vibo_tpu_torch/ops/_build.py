@@ -1,0 +1,138 @@
+"""Build and bind the hand-written CUDA kernels under `vibo_tpu_torch/csrc/`.
+
+Each `csrc/*.cu` file has a plain C interface (pointers, sizes, strides and a
+`cudaStream_t`, returning `cudaGetLastError()`), is compiled by `nvcc` for
+`sm_90a` into its own shared library and loaded with `ctypes`. Libraries go to
+`build/vibo_tpu_torch/` beside the package, named by a hash of the source and
+the flags, so a changed source rebuilds and an unchanged one is reused. All
+missing libraries are compiled at once, one `nvcc` process per source.
+
+Nothing here runs at import time: the CPU tests import every module without
+`nvcc`, and a build starts only at the first launch on a CUDA tensor (or
+through `build()`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "vibo_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
+                       " the CUDA kernels cannot be built on this machine")
+
+
+def lib_path(source: str) -> Path:
+    """Library path for csrc/<source>, keyed by a hash of source + flags."""
+    src = CSRC_DIR / source
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def all_sources() -> list[str]:
+    return sorted(p.name for p in CSRC_DIR.glob("*.cu"))
+
+
+def build(sources=None) -> dict:
+    """Compile every source in `sources` (default: all of csrc/) whose
+    library is missing, all nvcc processes started together. Returns
+    {source: {"seconds": wall time of its build or 0.0 if cached,
+    "log": path of the nvcc/ptxas output}}. Raises on any failure."""
+    sources = all_sources() if sources is None else list(sources)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    for s in sources:
+        lib = lib_path(s)
+        log = lib.with_suffix(".log")
+        out[s] = {"seconds": 0.0, "log": str(log)}
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / s)]
+        procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, lib, log, time.perf_counter())
+    failed = []
+    for s, (proc, tmp, lib, log, t0) in procs.items():
+        text, _ = proc.communicate()
+        out[s]["seconds"] = time.perf_counter() - t0
+        log.write_text(text)
+        if proc.returncode != 0:
+            failed.append(f"{s} (exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+class Kernel:
+    """One C entry point of a csrc/ library with a launch counter.
+
+    `launches` counts successful launches through __call__ only; the
+    wrapper calls it where it launches the kernel and nowhere else."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes: list):
+        self.name, self.source, self.symbol = name, source, symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._lib = None
+
+    def _bind(self):
+        if self._fn is None:
+            lib_file = lib_path(self.source)
+            if not lib_file.exists():
+                build([self.source])
+            self._lib = ctypes.CDLL(str(lib_file))
+            fn = getattr(self._lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = self._lib.vibo_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, *args) -> None:
+        rc = self._bind()(*args)
+        if rc != 0:
+            msg = self._lib.vibo_error_string(rc).decode()
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"{msg} (cudaError {rc})")
+        self.launches += 1
+
+
+KERNELS: dict[str, Kernel] = {}
+
+
+def register(kernel: Kernel) -> Kernel:
+    KERNELS[kernel.name] = kernel
+    return kernel
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+P, I = ctypes.c_void_p, ctypes.c_int
