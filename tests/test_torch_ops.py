@@ -81,3 +81,11 @@ def test_distributions_likelihood_objectives_match_jax(data):
                                        0.5))
     _close(objectives.elbo(tw[0], tw[1], tw[2], 0.25),
            jobj.elbo(jw[0], jw[1], jw[2], 0.25))
+
+
+def test_logits_2pl_takes_per_sample_items(data):
+    (jt, ja, jb), (tt, ta, tb) = _both(data["theta"], data["a"], data["b"])
+    a2, b2 = torch.stack([ta, 2 * ta]), torch.stack([tb, -tb])
+    got = links.logits_2pl(tt, a2, b2)
+    for s, (ja_s, jb_s) in enumerate([(ja, jb), (2 * ja, -jb)]):
+        _close(got[s], jlinks.logits_2pl(jt[s], ja_s, jb_s))

@@ -1,7 +1,9 @@
-"""The port's training step against the JAX one: five packed full-batch
+"""The port's training steps against the JAX ones: five packed full-batch
 steps (clip by global norm + Adam) on the same params and numpy noise track
-`make_optimizer` + `elbo_packed_sums` at f32 within 1e-4 (relative to each
-array's largest magnitude: the frameworks sum in different orders).
+`make_optimizer` + `elbo_packed_sums`, and three decoded-data minibatch
+steps on JAX's replayed noise track `make_step`, at f32 within 1e-4
+(relative to each array's largest magnitude: the frameworks sum in
+different orders). `batch_iterator` gives JAX's batches byte for byte.
 
 Also held on their own: the clip (optax scales by max/norm only above the
 threshold, with no epsilon) and torch.optim.Adam against optax.adam."""
@@ -13,6 +15,7 @@ import optax
 import pytest
 import torch
 
+from vibo_tpu.data.masking import holdout_split as jholdout
 from vibo_tpu.models import VIBO as JVIBO, VIBOConfig as JConfig
 from vibo_tpu.ops import objectives as jobj
 from vibo_tpu.ops.pallas_elbo import pack_responses as jpack
@@ -22,6 +25,8 @@ from vibo_tpu_torch.models import VIBO, VIBOConfig
 from vibo_tpu_torch.ops.packing import packed_on_device
 from vibo_tpu_torch.train import Trainer, TrainConfig, make_optimizer
 from vibo_tpu_torch.train.trainer import clip_by_global_norm_
+
+from jax_noise_replay import replay_noise
 
 N, M, K, H, STEPS = 40, 24, 2, 16, 5
 
@@ -114,3 +119,118 @@ def test_adam_matches_optax():
         opt.step()
     np.testing.assert_allclose(xt.detach().numpy(), np.asarray(xj),
                                rtol=1e-6, atol=1e-7)
+
+
+def test_batch_iterator_byte_equal_to_jax():
+    from vibo_tpu.data.masking import batch_iterator as jbatches
+    from vibo_tpu_torch.data import batch_iterator
+    rng = np.random.default_rng(3)
+    ds = jholdout((rng.random((23, 9)) < 0.5).astype(np.float32),
+                  (rng.random((23, 9)) < 0.9).astype(np.float32), 0.2,
+                  seed=1)
+    for seed, epoch in ((0, 0), (5, 3)):
+        got = list(batch_iterator(ds, 10, seed, epoch))
+        want = list(jbatches(ds, 10, seed, epoch))
+        assert len(got) == len(want) == 3
+        for (r, m), (jr, jm) in zip(got, want):
+            assert r.dtype == jr.dtype and m.dtype == jm.dtype
+            assert r.tobytes() == jr.tobytes() and m.tobytes() == jm.tobytes()
+        assert not got[-1][1][3:].any()          # zero-padded last batch
+
+
+@pytest.mark.parametrize("objective,use_pallas,s", [
+    ("elbo", True, 1), ("iwae", False, 2)])
+def test_minibatch_steps_track_jax(objective, use_pallas, s):
+    """Three decoded-data minibatch steps (item_scale = batch / N) on JAX's
+    own noise, replayed from its step keys, track `Trainer.make_step`."""
+    from vibo_tpu.train.trainer import (Trainer as JTrainer,
+                                        TrainConfig as JTrainConfig)
+    from vibo_tpu_torch.data import batch_iterator
+    rng = np.random.default_rng(4)
+    ds = jholdout((rng.random((N, M)) < 0.5).astype(np.float32),
+                  (rng.random((N, M)) < 0.85).astype(np.float32), 0.1,
+                  seed=2)
+    batch = 16
+    kw = dict(num_items=M, irt_model="2pl", ability_dim=K, hidden_dim=H,
+              use_pallas=use_pallas, compute_dtype="float32")
+    lr, max_norm = 2e-2, 5.0
+    tcfg = dict(lr=lr, max_grad_norm=max_norm, num_mc_samples=s,
+                objective=objective, batch_size=batch)
+    jmodel = JVIBO(JConfig(**kw))
+    jtrainer = JTrainer(jmodel, JTrainConfig(**tcfg))
+    jparams = jmodel.init_params(jax.random.key(6))
+    opt_state = jtrainer.optimizer.init(jparams)
+    jstep = jtrainer.make_step(batch / N, s)
+
+    model = VIBO(VIBOConfig(**kw), device="cpu")
+    trainer = Trainer(model, TrainConfig(**tcfg), device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    optimizer = make_optimizer(params, lr)
+    names = {"a": (M, K), "b": (M, 1)}
+    keys = jax.random.split(jax.random.key(9), 3)
+    for key, (resp, mask) in zip(keys, batch_iterator(ds, batch, 0, 0)):
+        jparams, opt_state, jaux = jstep(jparams, opt_state, key,
+                                         jnp.asarray(resp), jnp.asarray(mask))
+        item_eps, theta_eps = replay_noise(key, s, names, batch, K)
+        aux = trainer.minibatch_step_with_noise(
+            params, optimizer, torch.from_numpy(resp),
+            torch.from_numpy(mask), item_eps, theta_eps, batch / N)
+        _close(aux["elbo"], jaux["elbo"], 1e-4)
+    for p, q in zip(tree_leaves(params), jax.tree.leaves(jparams)):
+        _close(p.detach(), q, 1e-4)
+
+
+@pytest.mark.parametrize("objective", ["elbo", "iwae"])
+def test_minibatch_step_draws_sample_noise(objective):
+    """minibatch_step is minibatch_step_with_noise on sample_noise(batch,
+    num_mc_samples) drawn from the same generator: both leave the same
+    params."""
+    rng = np.random.default_rng(6)
+    resp = torch.from_numpy((rng.random((16, M)) < 0.5).astype(np.float32))
+    mask = torch.from_numpy((rng.random((16, M)) < 0.8).astype(np.float32))
+    model = VIBO(VIBOConfig(num_items=M, ability_dim=K, hidden_dim=H,
+                            use_pallas=True), device="cpu")
+    trainer = Trainer(model, TrainConfig(objective=objective,
+                                         num_mc_samples=2), device="cpu")
+    runs = []
+    for with_noise in (False, True):
+        params = model.init_params(1)
+        optimizer = make_optimizer(params, 1e-2)
+        gen = torch.Generator()
+        gen.manual_seed(7)
+        if with_noise:
+            item_eps, theta_eps = model.sample_noise(16, 2, generator=gen)
+            aux = trainer.minibatch_step_with_noise(
+                params, optimizer, resp, mask, item_eps, theta_eps, 0.4)
+        else:
+            aux = trainer.minibatch_step(params, optimizer, resp, mask, 0.4,
+                                         gen)
+        runs.append((aux, tree_leaves(params)))
+    (aux0, p0), (aux1, p1) = runs
+    assert set(aux0) == set(aux1) == {"elbo", "loglik", "kl_theta",
+                                      "kl_items"}
+    assert all(torch.equal(aux0[k], aux1[k]) for k in aux0)
+    assert all(torch.equal(x, y) for x, y in zip(p0, p1))
+
+
+def test_fit_runs_both_paths_and_checks_options():
+    rng = np.random.default_rng(5)
+    ds = jholdout((rng.random((30, 12)) < 0.5).astype(np.float32),
+                  (rng.random((30, 12)) < 0.9).astype(np.float32), 0.2,
+                  seed=0)
+    model = VIBO(VIBOConfig(num_items=12, hidden_dim=8, use_pallas=True),
+                 device="cpu")
+    for extra in ({}, {"batch_size": 8}, {"batch_size": 8,
+                                          "objective": "iwae",
+                                          "num_mc_samples": 2}):
+        res = Trainer(model, TrainConfig(epochs=3, eval_every=2, **extra),
+                      device="cpu").fit(ds)
+        assert [h["epoch"] for h in res["history"]
+                if h["event"] == "train"] == [0, 1, 2]
+        assert np.isfinite(res["final_elbo"]) and res["cells_per_sec"] > 0
+        assert res["best"]["epoch"] >= 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(model, TrainConfig(epochs=1, objective="iwae"),
+                device="cpu").fit(ds)
+    with pytest.raises(ValueError, match="objective"):
+        Trainer(model, TrainConfig(objective="mle"), device="cpu")

@@ -6,6 +6,10 @@ Tolerances: 1e-4 relative to each array's largest magnitude at f32 (the two
 frameworks sum in different orders); 2e-2 at bf16, where the two round the
 encoder's operands at the same places but accumulate in different orders,
 so a rounding flip of one bf16 operand moves a value by up to 2^-8.
+
+The decoded-data `elbo` and `iwae` are held the same way, on JAX's own
+noise replayed from its key, for use_pallas on and off, 1PL and 2PL, S = 1
+to 3, item_scale < 1 and an all-missing row.
 """
 
 import jax
@@ -20,6 +24,8 @@ from vibo_tpu.ops.pallas_elbo import pack_responses as jpack
 from vibo_tpu_torch.convert import params_from_jax, tree_leaves
 from vibo_tpu_torch.models import VIBO, VIBOConfig
 from vibo_tpu_torch.ops import objectives
+
+from jax_noise_replay import replay_noise
 
 N, M, K, H, S = 29, 37, 3, 24, 2
 
@@ -76,3 +82,149 @@ def test_elbo_packed_sums_terms_and_grads(transposed, dtype, cond, tol):
     for p, g in zip(leaves, jleaves):
         assert p.grad.shape == g.shape
         _close(p.grad, g, tol)
+
+
+# ------------------------------------------------ decoded-data objectives
+#
+# JAX draws its noise from a key inside elbo/iwae; the port's cores take it
+# from outside, replayed from the same key (jax_noise_replay).
+
+DN, DM, DK, DH = 13, 21, 2, 16
+
+
+def _decoded_setup(irt_model, use_pallas, dtype, cond, seed=0):
+    rng = np.random.default_rng(seed)
+    resp = (rng.random((DN, DM)) < 0.55).astype(np.float32)
+    mask = (rng.random((DN, DM)) < 0.8).astype(np.float32)
+    mask[3] = 0.0                          # an all-missing row: inert
+    kw = dict(num_items=DM, irt_model=irt_model, ability_dim=DK,
+              hidden_dim=DH, conditional_posterior=cond,
+              use_pallas=use_pallas, compute_dtype=dtype)
+    jmodel = JVIBO(JConfig(**kw))
+    jparams = jmodel.init_params(jax.random.key(seed + 1))
+    model = VIBO(VIBOConfig(**kw), device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    names = {n: (DM, d) for n, d in
+             ({"a": DK, "b": 1} if irt_model == "2pl" else {"b": 1}).items()}
+    return resp, mask, jmodel, jparams, model, params, names
+
+
+def _check_grads(params, jgrads, tol):
+    jleaves = jax.tree.leaves(jgrads)       # dict keys sorted, as tree_leaves
+    leaves = tree_leaves(params)
+    assert len(leaves) == len(jleaves)
+    for p, g in zip(leaves, jleaves):
+        assert p.grad.shape == g.shape
+        _close(p.grad, g, tol)
+
+
+DECODED_CASES = [  # use_pallas, irt_model, S, item_scale, dtype, cond, tol
+    (True, "2pl", 1, 0.25, "float32", True, 1e-4),
+    (True, "2pl", 2, 0.5, "float32", True, 1e-4),
+    (False, "2pl", 2, 1.0, "float32", True, 1e-4),
+    (True, "1pl", 2, 0.5, "float32", False, 1e-4),
+    (False, "1pl", 1, 0.3, "float32", True, 1e-4),
+    (True, "2pl", 2, 0.5, "bfloat16", True, 2e-2),
+]
+
+
+@pytest.mark.parametrize("use_pallas,irt,s,scale,dtype,cond,tol",
+                         DECODED_CASES)
+def test_elbo_decoded_terms_and_grads(use_pallas, irt, s, scale, dtype, cond,
+                                      tol):
+    resp, mask, jmodel, jparams, model, params, names = _decoded_setup(
+        irt, use_pallas, dtype, cond)
+    key = jax.random.key(7)
+    (_, jaux), jgrads = jax.value_and_grad(
+        lambda p: jmodel.elbo(p, key, jnp.asarray(resp), jnp.asarray(mask),
+                              scale, s), has_aux=True)(jparams)
+    item_eps, theta_eps = replay_noise(key, s, names, DN, DK)
+    bound, aux = model.elbo_eps(params, torch.from_numpy(resp),
+                                torch.from_numpy(mask), item_eps, theta_eps,
+                                scale)
+    bound.backward()
+    for name in ("elbo", "loglik", "kl_theta", "kl_items"):
+        _close(aux[name].detach(), jaux[name], tol)
+    _check_grads(params, jgrads, tol)
+
+
+@pytest.mark.parametrize("use_pallas,irt,s,scale,dtype,cond,tol", [
+    (True, "2pl", 3, 0.5, "float32", True, 1e-4),
+    (False, "2pl", 1, 1.0, "float32", True, 1e-4),
+    (True, "1pl", 2, 0.25, "float32", False, 1e-4),
+    (False, "1pl", 2, 0.7, "float32", True, 1e-4),
+    (True, "2pl", 2, 0.5, "bfloat16", True, 2e-2),
+])
+def test_iwae_decoded_bound_and_grads(use_pallas, irt, s, scale, dtype, cond,
+                                      tol):
+    resp, mask, jmodel, jparams, model, params, names = _decoded_setup(
+        irt, use_pallas, dtype, cond, seed=1)
+    key = jax.random.key(8)
+    jbound, jgrads = jax.value_and_grad(
+        lambda p: jmodel.iwae(p, key, jnp.asarray(resp), jnp.asarray(mask),
+                              s, scale))(jparams)
+    item_eps, theta_eps = replay_noise(key, s, names, DN, DK)
+    bound = model.iwae_eps(params, torch.from_numpy(resp),
+                           torch.from_numpy(mask), item_eps, theta_eps, scale)
+    bound.backward()
+    _close(bound.detach(), jbound, tol)
+    _check_grads(params, jgrads, tol)
+
+
+def test_elbo_packed_sums_without_fused_kernels():
+    """use_pallas=False decodes the code and runs the decoded-data path."""
+    rng = np.random.default_rng(2)
+    resp = (rng.random((N, M)) < 0.55).astype(np.float32)
+    mask = (rng.random((N, M)) < 0.8).astype(np.float32)
+    mask[5] = 0.0
+    packed = jpack(resp, mask)
+    kw = dict(num_items=M, irt_model="2pl", ability_dim=K, hidden_dim=H,
+              use_pallas=False)
+    jmodel = JVIBO(JConfig(**kw))
+    jparams = jmodel.init_params(jax.random.key(3))
+    item_eps = {"a": rng.standard_normal((S, M, K)).astype(np.float32),
+                "b": rng.standard_normal((S, M, 1)).astype(np.float32)}
+    theta_eps = rng.standard_normal((S, N, K)).astype(np.float32)
+
+    def jbound(p):
+        terms = jmodel.elbo_packed_sums(
+            p, jnp.asarray(packed), jax.tree.map(jnp.asarray, item_eps),
+            jnp.asarray(theta_eps))
+        return jobj.elbo(*terms), terms
+
+    (_, jterms), jgrads = jax.value_and_grad(jbound, has_aux=True)(jparams)
+    model = VIBO(VIBOConfig(**kw), device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    terms = model.elbo_packed_sums(
+        params, torch.from_numpy(packed),
+        {k: torch.from_numpy(v) for k, v in item_eps.items()},
+        torch.from_numpy(theta_eps))
+    objectives.elbo(*terms).backward()
+    for got, want in zip(terms, jterms):
+        _close(got.detach(), want, 1e-4)
+    _check_grads(params, jgrads, 1e-4)
+    with pytest.raises(ValueError, match="use_pallas"):
+        model.elbo_packed_sums(params, torch.from_numpy(packed),
+                               {k: torch.from_numpy(v)
+                                for k, v in item_eps.items()},
+                               torch.from_numpy(theta_eps), transposed=True)
+
+
+@pytest.mark.parametrize("objective", ["elbo", "iwae"])
+def test_generator_wrappers_draw_sample_noise(objective):
+    """VIBO.elbo / VIBO.iwae are their eps-taking cores on
+    sample_noise(batch, S) drawn from the same generator."""
+    resp, mask, _, _, model, params, _ = _decoded_setup("2pl", True,
+                                                        "float32", True)
+    resp, mask = torch.from_numpy(resp), torch.from_numpy(mask)
+    gens = [torch.Generator(), torch.Generator()]
+    for g in gens:
+        g.manual_seed(5)
+    item_eps, theta_eps = model.sample_noise(DN, 2, generator=gens[1])
+    if objective == "elbo":
+        got, _ = model.elbo(params, resp, mask, 0.5, 2, gens[0])
+        want, _ = model.elbo_eps(params, resp, mask, item_eps, theta_eps, 0.5)
+    else:
+        got = model.iwae(params, resp, mask, 2, 0.5, gens[0])
+        want = model.iwae_eps(params, resp, mask, item_eps, theta_eps, 0.5)
+    assert torch.equal(got, want)

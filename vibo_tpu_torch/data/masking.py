@@ -1,5 +1,6 @@
-"""Hold-out masking and the Dataset container (numpy copy of
-`vibo_tpu.data.masking`'s `Dataset` and `holdout_split`).
+"""Hold-out masking, the Dataset container and person minibatches (numpy
+copy of `vibo_tpu.data.masking`'s `Dataset`, `holdout_split` and
+`batch_iterator`).
 
 Protocol (arXiv:2002.00276 section 6.3): hide a fraction of the OBSERVED
 cells; train on the rest; the hidden cells are the imputation test set.
@@ -75,3 +76,25 @@ def holdout_split(response: np.ndarray, mask: np.ndarray,
                    train_mask=train_mask, heldout_mask=heldout_mask, name=name,
                    person_ids=person_ids, item_ids=item_ids,
                    num_categories=num_categories)
+
+
+def batch_iterator(ds: Dataset, batch_size: int, seed: int, epoch: int):
+    """Yield (response, train_mask) person minibatches, reshuffled per epoch
+    by a permutation from default_rng((seed * 100003 + epoch) & 0x7FFFFFFF).
+
+    The last partial batch is zero-padded (mask 0 rows) so every step has
+    the same shape; the objectives treat such rows as inert."""
+    n = ds.response.shape[0]
+    rng = np.random.default_rng((seed * 100003 + epoch) & 0x7FFFFFFF)
+    perm = rng.permutation(n)
+    for start in range(0, n, batch_size):
+        idx = perm[start:start + batch_size]
+        resp = ds.response[idx]
+        mask = ds.train_mask[idx]
+        if idx.shape[0] < batch_size:
+            pad = batch_size - idx.shape[0]
+            resp = np.concatenate([resp, np.zeros((pad, resp.shape[1]),
+                                                  resp.dtype)])
+            mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]),
+                                                  mask.dtype)])
+        yield resp, mask

@@ -1,18 +1,30 @@
-"""Held-out imputation accuracy (counterpart of
-`vibo_tpu.evaluation.imputation_accuracy`).
+"""Held-out imputation accuracy and the IWAE test log-likelihood
+(counterpart of `vibo_tpu.evaluation.imputation_accuracy`, `full_item_dist`
+and `iwae_loglik`).
 
-Protocol (arXiv:2002.00276 section 6.3): encode each person's train-visible
-responses, push the posterior-mean ability and the item-posterior means
-through the link, predict p > 0.5 on the hidden cells.
+Protocol (arXiv:2002.00276 sections 6.3-6.4): encode each person's
+train-visible responses; push the posterior-mean ability and the
+item-posterior means through the link and predict p > 0.5 on the hidden
+cells; bound log p(r) of the hidden cells with IWAE-S.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from vibo_tpu_torch.data.masking import Dataset
 from vibo_tpu_torch.models.vibo import VIBO
+from vibo_tpu_torch.ops import objectives
+
+
+def _rows_f32(x: np.ndarray, s: int, e: int, rows: int, dev) -> torch.Tensor:
+    """x[s:e] as f32 on dev, zero-padded to `rows` rows."""
+    out = np.zeros((rows, x.shape[1]), np.float32)
+    out[:e - s] = x[s:e]
+    return torch.from_numpy(out).to(dev)
 
 
 @torch.no_grad()
@@ -42,3 +54,66 @@ def imputation_accuracy(model: VIBO, params, ds: Dataset,
     return {"acc": correct / max(total, 1.0),
             "base_rate": float(counts.max()) / max(total, 1.0),
             "num_heldout": int(total)}
+
+
+def full_item_dist(model: VIBO, params) -> dict:
+    """The item posterior every evaluation shares. Free-form (the port's
+    scope) it does not depend on the data; the amortized item encoder that
+    pools the dataset's columns is ROADMAP queue A item 14."""
+    return model.item_dist(params)
+
+
+@torch.no_grad()
+def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
+                block_size: int = 16384, on: str = "heldout",
+                generator: torch.Generator | None = None,
+                noise=None) -> dict:
+    """IWAE-S bound on log p(r) over the evaluated cells, summed over person
+    blocks: on='heldout' (the paper's test metric) the hidden cells, on=
+    'train' the training ones. The encoder conditions on the train-visible
+    responses either way.
+
+    Blocks: one block of N rows when N <= block_size, else blocks of
+    block_size rows over the data zero-padded to a multiple of it; padded
+    rows have no evaluated cell and drop out of every term. Each block's
+    bound counts the shared item terms with item_scale = real rows / N, so
+    they sum to exactly one count over the dataset. The model runs with
+    use_pallas=False, as the JAX evaluator does; samples run in chunks of
+    at most 10 to bound the (chunk, B, M) logits.
+
+    Noise: noise(block_index, rows) -> (item_eps {name: (S, M, D)},
+    theta_eps (S, rows, K)) when given (the tests replay the JAX keys
+    through it), else model.sample_noise drawn from `generator`."""
+    if on not in ("heldout", "train"):
+        raise ValueError(f"on must be 'heldout' or 'train', got {on!r}")
+    if model.cfg.use_pallas:
+        model = VIBO(dataclasses.replace(model.cfg, use_pallas=False),
+                     device=model.device)
+    dev = model.device
+    n = ds.response.shape[0]
+    rows = n if n <= block_size else block_size
+    chunk = max(d for d in range(1, min(num_samples, 10) + 1)
+                if num_samples % d == 0)
+    emask_host = ds.train_mask if on == "train" else ds.heldout_mask
+    post = full_item_dist(model, params)
+    total, cells = 0.0, 0.0
+    for bi, s in enumerate(range(0, n, rows)):
+        e = min(s + rows, n)
+        resp, tmask, emask = (_rows_f32(x, s, e, rows, dev)
+                              for x in (ds.response, ds.train_mask,
+                                        emask_host))
+        if noise is None:
+            item_eps, theta_eps = model.sample_noise(rows, num_samples,
+                                                     generator=generator)
+        else:
+            item_eps, theta_eps = noise(bi, rows)
+        log_w = [model.iwae_log_weights(
+                     params, resp, tmask,
+                     {k: v[c:c + chunk] for k, v in item_eps.items()},
+                     theta_eps[c:c + chunk], (e - s) / n, eval_mask=emask,
+                     post=post)
+                 for c in range(0, num_samples, chunk)]
+        total += float(objectives.iwae_bound(torch.cat(log_w)))
+        cells += float(emask_host[s:e].sum())
+    return {"loglik": total, "loglik_per_cell": total / max(cells, 1.0),
+            "num_cells": int(cells), "num_samples": num_samples}

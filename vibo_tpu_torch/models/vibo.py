@@ -8,10 +8,16 @@ q(d) per-item diagonal Gaussians; q(theta_i | d, r_i) an MLP encoder on the
 response row, conditioned on a flattened item draw ("sample") or on the
 item-posterior means ("mean").
 
-The training objective takes its noise from outside (`sample_noise`, or
-noise the caller made), so the tests feed the JAX package and the port the
-same numbers. Everything outside this scope raises NotImplementedError
-naming the ROADMAP item that ports it.
+Objectives: the packed full-batch ELBO on the int8 code
+(`elbo_packed_sums`), and the ELBO and IWAE bounds on decoded (response,
+mask) minibatches (`elbo`, `iwae`), whose masked loglik runs the general
+kernel op under `use_pallas` (`loglik_per_person`). Each objective has a
+core that takes its noise from outside (`elbo_eps`, `iwae_eps`,
+`elbo_packed_sums`), so the tests feed the JAX package and the port the
+same numbers; `sample_noise` draws that noise from a torch.Generator, and
+`elbo` / `iwae` wrap it around the decoded-data cores. Samples run
+batched along a leading axis. Everything outside this scope raises NotImplementedError naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ from vibo_tpu_torch._device import resolve_device
 from vibo_tpu_torch.convert import tree_leaves
 from vibo_tpu_torch.models import networks
 from vibo_tpu_torch.ops import distributions as dist
-from vibo_tpu_torch.ops import links, pallas_elbo
-from vibo_tpu_torch.ops.packing import packed_row_valid
+from vibo_tpu_torch.ops import likelihood, links, objectives, pallas_elbo
+from vibo_tpu_torch.ops.packing import decode_packed, packed_row_valid
+
 
 @dataclasses.dataclass(frozen=True)
 class VIBOConfig:
@@ -119,18 +126,39 @@ class VIBO:
         return sum(dist.kl_standard_normal(p["mu"], p["logvar"]).sum()
                    for p in post.values())
 
-    def _item_feats(self, post: dict, item_sample: dict):
-        """What q(theta | r, .) conditions on, flattened: the item draw
-        ("sample"), the item-posterior means ("mean"), or None
-        (mean-field)."""
+    def item_log_ratio_from(self, post: dict, sample: dict) -> torch.Tensor:
+        """log p(d) - log q(d) of an item draw (IWAE weights), summed over
+        items and params; a draw with a leading sample axis gives (S,)."""
+        total = 0.0
+        items = (-2, -1)
+        for name in sorted(post):
+            p, z = post[name], sample[name]
+            total = total + (
+                dist.standard_normal_log_prob(z).sum(items)
+                - dist.gaussian_log_prob(z, p["mu"], p["logvar"]).sum(items))
+        return total
+
+    def theta_logq(self, theta, mu, logvar) -> torch.Tensor:
+        """Per-person log q(theta_i) (IWAE weights), the diagonal family."""
+        return dist.gaussian_log_prob(theta, mu, logvar).sum(-1)
+
+    def _encoder_conditioning(self, post: dict, item_sample: dict):
+        """What q(theta | r, .) conditions on: the item draw ("sample"), the
+        item-posterior means ("mean"), or None (mean-field)."""
         if not self.cfg.conditional_posterior:
             return None
         if self.cfg.condition_on == "mean":
-            item_sample = {name: p["mu"] for name, p in post.items()}
-        return networks.flatten_item_sample(item_sample)
+            return {name: p["mu"] for name, p in post.items()}
+        return item_sample
+
+    def _item_feats(self, post: dict, item_sample: dict):
+        """_encoder_conditioning, flattened (None under mean-field)."""
+        cond = self._encoder_conditioning(post, item_sample)
+        return None if cond is None else networks.flatten_item_sample(cond)
 
     def _link_params(self, item_sample: dict, num_items: int):
-        """Item sample -> (a (M, K), b (M,)); 1PL is 2PL with unit a."""
+        """Item sample -> (a (..., M, K), b (..., M)); 1PL is 2PL with a
+        unit a of (M, K), shared over any sample axis."""
         a = item_sample.get("a")
         if a is None:
             a = torch.ones((num_items, self.cfg.ability_dim),
@@ -172,12 +200,118 @@ class VIBO:
         scope)."""
         return self.cfg.use_pallas
 
+    # ------------------------------------------------------------ decoder
+
+    def loglik_per_person(self, params: dict, theta, item_sample: dict,
+                          response, mask) -> torch.Tensor:
+        """Masked Bernoulli log p(r_i | theta_i, d) summed over items ->
+        (..., B). theta and the item draw may carry a leading sample axis.
+        use_pallas runs the general kernel op (1PL as unit discriminations
+        sized from the data); otherwise the links and the likelihood."""
+        del params
+        a, b = self._link_params(item_sample, mask.shape[-1])
+        if self.cfg.use_pallas:
+            return pallas_elbo.masked_loglik_2pl(theta, a, b, response, mask)
+        if self.cfg.irt_model == "1pl":
+            logits = links.logits_1pl(theta, b)
+        else:
+            logits = links.logits_2pl(theta, a, b)
+        return likelihood.masked_loglik_per_person(logits, response, mask)
+
     # --------------------------------------------------------- objective
+
+    def _draw(self, params: dict, response, mask, item_eps: dict, theta_eps,
+              post: dict | None = None):
+        """What elbo and iwae share, all S samples at once: the item draws
+        (S, M, D) from `post` (None = item_dist), the encoder on (response,
+        mask) conditioned on them, and theta (S, B, K). Returns (post,
+        item_sample, mu, logvar, theta)."""
+        if post is None:
+            post = self.item_dist(params)
+        item_sample = {
+            name: dist.reparameterize_eps(item_eps[name], post[name]["mu"],
+                                          post[name]["logvar"])
+            for name in item_eps}
+        mu, logvar, _ = self.encode(
+            params, response, mask,
+            self._encoder_conditioning(post, item_sample))
+        theta = dist.reparameterize_eps(theta_eps, mu, logvar)
+        return post, item_sample, mu, logvar, theta
+
+    def elbo_sums(self, params: dict, response, mask, item_eps: dict,
+                  theta_eps, row_weight=None):
+        """(loglik_sum, kl_theta_sum, kl_items) on decoded data from
+        exogenous noise (sample_noise), the first two averaged over the
+        sample axis. Rows with no observed cell (the zero padding of a last
+        minibatch) are inert: their loglik is 0 by the mask and row_weight
+        ((B,), None = derived from the mask) drops their KL."""
+        post, item_sample, mu, logvar, theta = self._draw(
+            params, response, mask, item_eps, theta_eps)
+        ll = self.loglik_per_person(params, theta, item_sample, response,
+                                    mask)
+        valid = ((mask.sum(-1) > 0).to(mu.dtype) if row_weight is None
+                 else row_weight)
+        kl = (dist.kl_standard_normal(mu, logvar).sum(-1) * valid).sum(-1)
+        return ll.sum(-1).mean(), kl.mean(), self.item_kl_from(post)
+
+    def elbo_eps(self, params: dict, response, mask, item_eps: dict,
+                 theta_eps, item_scale: float = 1.0):
+        """Minibatch ELBO (scalar) and its aux dict from exogenous noise; the
+        item KL enters scaled by item_scale (batch / N)."""
+        ll, klt, kli = self.elbo_sums(params, response, mask, item_eps,
+                                      theta_eps)
+        bound = objectives.elbo(ll, klt, kli, item_scale)
+        return bound, {"elbo": bound, "loglik": ll, "kl_theta": klt,
+                       "kl_items": kli}
+
+    def elbo(self, params: dict, response, mask, item_scale: float = 1.0,
+             num_samples: int = 1, generator: torch.Generator | None = None):
+        """elbo_eps with num_samples draws of noise from `generator`."""
+        item_eps, theta_eps = self.sample_noise(
+            response.shape[-2], num_samples, generator=generator)
+        return self.elbo_eps(params, response, mask, item_eps, theta_eps,
+                             item_scale)
+
+    def iwae_log_weights(self, params: dict, response, mask, item_eps: dict,
+                         theta_eps, item_scale: float = 1.0,
+                         eval_mask=None, post: dict | None = None
+                         ) -> torch.Tensor:
+        """(S,) importance log-weights log p(r, theta_s, d_s) - log
+        q(theta_s, d_s), item terms scaled by item_scale. The encoder
+        conditions on (response, mask); the loglik and the valid rows (any
+        evaluated cell) use eval_mask (None = mask). post: the item
+        posterior to draw from (None = item_dist)."""
+        emask = mask if eval_mask is None else eval_mask
+        post, item_sample, mu, logvar, theta = self._draw(
+            params, response, mask, item_eps, theta_eps, post)
+        ll = self.loglik_per_person(params, theta, item_sample, response,
+                                    emask).sum(-1)
+        valid = (emask.sum(-1) > 0).to(mu.dtype)
+        lp = (dist.standard_normal_log_prob(theta).sum(-1) * valid).sum(-1)
+        lq = (self.theta_logq(theta, mu, logvar) * valid).sum(-1)
+        ratio = self.item_log_ratio_from(post, item_sample)
+        return objectives.importance_log_weights(ll, lp, lq, ratio, 0.0,
+                                                 item_scale)
+
+    def iwae_eps(self, params: dict, response, mask, item_eps: dict,
+                 theta_eps, item_scale: float = 1.0) -> torch.Tensor:
+        """IWAE-S bound (scalar) on the minibatch from exogenous noise."""
+        return objectives.iwae_bound(self.iwae_log_weights(
+            params, response, mask, item_eps, theta_eps, item_scale))
+
+    def iwae(self, params: dict, response, mask, num_samples: int = 100,
+             item_scale: float = 1.0,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """iwae_eps with num_samples draws of noise from `generator`."""
+        item_eps, theta_eps = self.sample_noise(
+            response.shape[-2], num_samples, generator=generator)
+        return self.iwae_eps(params, response, mask, item_eps, theta_eps,
+                             item_scale)
 
     def sample_noise(self, batch: int, num_samples: int,
                      transposed: bool = False,
                      generator: torch.Generator | None = None):
-        """Exogenous noise for elbo_packed_sums: ({name: (S, M, D)} item eps,
+        """Exogenous noise for the objectives: ({name: (S, M, D)} item eps,
         theta eps (S, B, K), or (S, K, B) when transposed)."""
         cfg = self.cfg
         item_eps = {
@@ -195,19 +329,24 @@ class VIBO:
         """(loglik_sum, kl_theta_sum, kl_items) from the int8 code and
         exogenous noise, the first two averaged over the sample axis.
 
-        The loglik runs the one-pass fused 2PL kernel (its uniform-cotangent
-        contract holds: it is summed into the loss). row_weight ((B,), 0/1)
+        With use_pallas the encoder's first layer and the loglik run the
+        fused kernels (the one-pass loglik's uniform-cotangent contract
+        holds: it is summed into the loss); without it the code is decoded
+        and elbo_sums runs on (response, mask). row_weight ((B,), 0/1)
         masks the theta-KL of rows with no observed cell; None derives it
         from the code. transposed: theta in (K, B), theta_eps from
-        sample_noise(..., transposed=True). Same math either way."""
-        if not self.cfg.use_pallas:
-            raise NotImplementedError(
-                "the port's packed objective runs the fused kernels "
-                "(use_pallas=True); the decoded-data path is ROADMAP queue A "
-                "item 4")
-        post = self.item_dist(params)
+        sample_noise(..., transposed=True), fused kernels only. Same math
+        either way."""
         valid = (packed_row_valid(packed) if row_weight is None
                  else row_weight)
+        if not self.cfg.use_pallas:
+            if transposed:
+                raise ValueError("transposed=True requires the fused kernels "
+                                 "(use_pallas=True)")
+            mask, response = decode_packed(packed)
+            return self.elbo_sums(params, response, mask, item_eps,
+                                  theta_eps, valid)
+        post = self.item_dist(params)
         m = packed.shape[-1]
         lls, klts = [], []
         for s in range(theta_eps.shape[0]):

@@ -89,12 +89,15 @@ class Kernel:
     """One C entry point of a csrc/ library with a launch counter.
 
     `launches` counts successful launches through __call__ only; the
-    wrapper calls it where it launches the kernel and nowhere else."""
+    wrapper calls it where it launches the kernel and nowhere else.
+    `launches_by` splits the count by the `variant` the wrapper names (the
+    input reader of a kernel templated on it), or is empty."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list):
         self.name, self.source, self.symbol = name, source, symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.launches_by: dict[str, int] = {}
         self._fn = None
         self._lib = None
 
@@ -113,13 +116,15 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, variant: str | None = None) -> None:
         rc = self._bind()(*args)
         if rc != 0:
             msg = self._lib.vibo_error_string(rc).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"{msg} (cudaError {rc})")
         self.launches += 1
+        if variant is not None:
+            self.launches_by[variant] = self.launches_by.get(variant, 0) + 1
 
 
 KERNELS: dict[str, Kernel] = {}
@@ -133,6 +138,7 @@ def register(kernel: Kernel) -> Kernel:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_by = {}
 
 
 P, I = ctypes.c_void_p, ctypes.c_int

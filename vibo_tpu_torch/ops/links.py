@@ -4,7 +4,8 @@
   2PL: p = sigmoid(a_j . theta_i - b_j)
   3PL: p = g_j + (1 - g_j) sigmoid(a_j . theta_i - b_j), g_j = sigmoid(g~_j)
 
-Shapes: theta (..., B, K), a (M, K), b (M,), g_hat (M,) -> (..., B, M).
+Shapes: theta (..., B, K), a (M, K), b (M,), g_hat (M,) -> (..., B, M); the
+item params may also carry theta's leading sample axes.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ def logits_1pl(theta, b):
 
 
 def logits_2pl(theta, a, b):
-    return torch.einsum("...bk,mk->...bm", theta, a) - b[..., None, :]
+    """theta (..., B, K), a (..., M, K), b (..., M) -> (..., B, M); a and b
+    may carry theta's leading sample axes or not (shared)."""
+    return theta @ a.transpose(-1, -2) - b[..., None, :]
 
 
 def logits_3pl(theta, a, b):

@@ -1,17 +1,26 @@
-"""One-pass fused 2PL training log-likelihood on the int8 response code.
+"""Masked 2PL Bernoulli log-likelihood ops (counterpart of
+`vibo_tpu.ops.pallas_elbo`, same module name), each a
+`torch.autograd.Function` with its Pallas op's custom-VJP contract:
 
-Counterpart of the training kernels of `vibo_tpu.ops.pallas_elbo` (same
-module name):
-
+  masked_loglik_2pl                 theta, a, b, resp, mask -> ll (B,)
+  masked_loglik_2pl_packed          theta, a, b, int8 code  -> ll (B,)
   masked_loglik_2pl_packed_train_t  thetaT (K, B) -> scalar sum_i ll_i
   masked_loglik_2pl_packed_train    theta (B, K)  -> per-person ll (B,)
 
-The training ELBO only consumes ll.sum(), so the value and all gradients come
-from ONE pass over the code (one exp and one log1p per cell): the kernel
-emits (ll, dtheta, da, db) and the backward only rescales them. On a CUDA
-tensor both layouts run the hand-written kernel of csrc/loglik_2pl.cu
-(theta addressed through its strides, so no transpose is copied); on a CPU
-tensor the plain PyTorch version below runs. Nothing else falls back.
+The first two are the general op: its VJP is exact for any per-person
+cotangent, and a leading sample axis (theta (S, B, K), with a, b and the
+data each per-sample or shared) runs as one launch. On a CUDA tensor they
+run csrc/masked_loglik_2pl.cu, one source templated on the cell reader
+(dense f32 resp/mask, or the int8 code).
+
+The training ELBO on the code only consumes ll.sum(), so the last two take
+the value and all gradients from ONE pass over the code (one exp and one
+log1p per cell): the kernel emits (ll, dtheta, da, db) and the backward only
+rescales them. On a CUDA tensor both layouts run csrc/loglik_2pl.cu (theta
+addressed through its strides, so no transpose is copied).
+
+On a CPU tensor each op runs the plain PyTorch version beside its kernel.
+Nothing else falls back.
 """
 
 from __future__ import annotations
@@ -29,8 +38,15 @@ L = ctypes.c_longlong
 TRAIN = _build.register(_build.Kernel(
     "loglik_2pl_train", "loglik_2pl.cu", "loglik_2pl_train",
     [P, L, L, P, P, P, P, L, L, P, P, P, P, P, P, P, I, I, I, I, P]))
-MAX_K = 8                   # the kernel is instantiated for K = 1..8
+MASKED_FWD = _build.register(_build.Kernel(
+    "masked_loglik_2pl_fwd", "masked_loglik_2pl.cu", "masked_loglik_2pl_fwd",
+    [P, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
+MASKED_BWD = _build.register(_build.Kernel(
+    "masked_loglik_2pl_bwd", "masked_loglik_2pl.cu", "masked_loglik_2pl_bwd",
+    [P, P, P, L, P, L, P, P, P, L, P, P, P, P, P, I, I, I, I, I, P]))
+MAX_K = 8                   # the kernels are instantiated for K = 1..8
 STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_2pl.cu: scratch rows
+MASKED_BWD_STUDENTS = 32    # BWD_TBS in csrc/masked_loglik_2pl.cu
 
 
 def loglik_2pl_train_plain(theta, a, b, packed):
@@ -164,3 +180,185 @@ def masked_loglik_2pl_packed_train(theta: torch.Tensor, a: torch.Tensor,
     dtheta is exact for any cotangent; da/db assume uniformity."""
     theta, a, b, packed = _prepare(theta, a, b, packed, k_axis=1)
     return _Train.apply(theta, a, b, packed)
+
+
+# ------------------------------------------- general masked 2PL loglik
+#
+# Internally every array carries a leading sample axis: theta (S, B, K),
+# a (Sa, M, K), b (Sb, M), resp/mask/packed (Sd, B, M), each of Sa, Sb, Sd
+# either S or 1 (shared over the samples).
+
+
+def masked_loglik_2pl_plain(theta, a, b, resp, mask):
+    """Plain version of the forward kernel -> ll (S, B): dense logits and
+    the closed form m * (r*l - softplus(l)), softplus in its stable form."""
+    with torch.no_grad():
+        logits = theta @ a.transpose(-1, -2) - b[:, None, :]
+        sp = torch.log1p(torch.exp(-logits.abs()))
+        return (mask * ((resp * logits - logits.clamp(min=0.0)) - sp)).sum(-1)
+
+
+def masked_loglik_2pl_vjp_plain(g, theta, a, b, resp, mask):
+    """Plain version of the backward kernel: the VJP of
+    masked_loglik_2pl_plain for the cotangent g (S, B) -> (dtheta (S, B, K),
+    da (Sa, M, K), db (Sb, M)); a shared a or b sums over the samples."""
+    with torch.no_grad():
+        logits = theta @ a.transpose(-1, -2) - b[:, None, :]
+        dl = g[..., None] * (mask * (resp - torch.sigmoid(logits)))
+        da = dl.transpose(-1, -2) @ theta
+        db = -dl.sum(-2)
+        if a.shape[0] < theta.shape[0]:
+            da = da.sum(0, keepdim=True)
+        if b.shape[0] < theta.shape[0]:
+            db = db.sum(0, keepdim=True)
+        return dl @ a, da, db
+
+
+def _sample_stride(x, s: int) -> int:
+    """Elements between two samples of x, 0 when x is shared over them."""
+    return 0 if x.shape[0] == 1 and s > 1 else x[0].numel()
+
+
+def _data_args(resp, mask, packed):
+    """(resp, mask, packed) pointers for the kernel's cell reader, its
+    sample stride and the reader's name."""
+    if packed is not None:
+        return None, None, packed.data_ptr(), packed, "int8"
+    return resp.data_ptr(), mask.data_ptr(), None, resp, "dense"
+
+
+def masked_loglik_2pl_fwd_cuda(theta, a, b, resp, mask, packed):
+    """Launch the forward kernel: ll (S, B). Pass (resp, mask) with packed
+    None for the dense reader, or packed with resp and mask None."""
+    s, bsz, k = theta.shape
+    m = a.shape[1]
+    ll = torch.empty((s, bsz), dtype=torch.float32, device=theta.device)
+    rp, mp, pp, data, reader = _data_args(resp, mask, packed)
+    MASKED_FWD(theta.data_ptr(), a.data_ptr(), _sample_stride(a, s),
+               b.data_ptr(), _sample_stride(b, s), rp, mp, pp,
+               _sample_stride(data, s), ll.data_ptr(), s, bsz, m, k,
+               torch.cuda.current_stream(theta.device).cuda_stream,
+               variant=reader)
+    return ll
+
+
+def masked_loglik_2pl_bwd_cuda(g, theta, a, b, resp, mask, packed):
+    """Launch the backward kernels for the cotangent g (S, B):
+    (dtheta (S, B, K), da (Sa, M, K), db (Sb, M))."""
+    s, bsz, k = theta.shape
+    m = a.shape[1]
+    dev = theta.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    nblk = -(-bsz // MASKED_BWD_STUDENTS)
+    dtheta = torch.empty((s, bsz, k), **f32)
+    part_da = torch.empty((s * nblk, m, k), **f32)
+    part_db = torch.empty((s * nblk, m), **f32)
+    da = torch.empty(a.shape, **f32)
+    db = torch.empty(b.shape, **f32)
+    rp, mp, pp, data, reader = _data_args(resp, mask, packed)
+    MASKED_BWD(g.data_ptr(), theta.data_ptr(), a.data_ptr(),
+               _sample_stride(a, s), b.data_ptr(), _sample_stride(b, s),
+               rp, mp, pp, _sample_stride(data, s), dtheta.data_ptr(),
+               part_da.data_ptr(), part_db.data_ptr(), da.data_ptr(),
+               db.data_ptr(), s, bsz, m, k, nblk,
+               torch.cuda.current_stream(dev).cuda_stream, variant=reader)
+    return dtheta, da, db
+
+
+class _Masked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, theta, a, b, resp, mask, packed):
+        ctx.save_for_backward(theta, a, b, resp, mask, packed)
+        if theta.is_cuda:
+            return masked_loglik_2pl_fwd_cuda(theta, a, b, resp, mask, packed)
+        if packed is not None:
+            mask, resp = decode_packed(packed)
+        return masked_loglik_2pl_plain(theta, a, b, resp, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        theta, a, b, resp, mask, packed = ctx.saved_tensors
+        if theta.is_cuda:
+            grads = masked_loglik_2pl_bwd_cuda(g.contiguous(), theta, a, b,
+                                               resp, mask, packed)
+        else:
+            if packed is not None:
+                mask, resp = decode_packed(packed)
+            grads = masked_loglik_2pl_vjp_plain(g, theta, a, b, resp, mask)
+        return (*grads, None, None, None)
+
+
+def _lift(x, ndim: int, name: str):
+    """x with a leading sample axis of 1 added when it has ndim - 1 dims."""
+    if x.ndim == ndim - 1:
+        return x.unsqueeze(0)
+    if x.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim - 1} or {ndim} dims, got "
+                         f"shape {tuple(x.shape)}")
+    return x
+
+
+def _masked_call(theta, a, b, resp, mask, packed):
+    """Validate, cast to f32, give every array a sample axis, run _Masked
+    and drop the axis again when theta had none."""
+    data = [x for x in (resp, mask, packed) if x is not None]
+    devices = {t.device for t in (theta, a, b, *data)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    batched = theta.ndim == 3
+    theta = _lift(theta.float(), 3, "theta")
+    a, b = _lift(a.float(), 3, "a"), _lift(b.float(), 2, "b")
+    if packed is None:
+        resp, mask = _lift(resp.float(), 3, "resp"), _lift(mask.float(), 3,
+                                                            "mask")
+        data = [resp, mask]
+    else:
+        data = [_lift(packed, 3, "packed")]
+    s, bsz, k = theta.shape
+    m = a.shape[1]
+    ok = (a.shape[1:] == (m, k) and b.shape[1:] == (m,)
+          and all(x.shape[1:] == (bsz, m) for x in data)
+          and all(x.shape[0] in (1, s) for x in (a, b, *data)))
+    if not ok:
+        raise ValueError(
+            f"shapes theta {tuple(theta.shape)}, a {tuple(a.shape)}, b "
+            f"{tuple(b.shape)}, data {[tuple(x.shape) for x in data]} do not "
+            "match (leading sample axes must equal theta's or be absent)")
+    if dev.type == "cuda":
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"the CUDA loglik kernels take 1 <= K <= "
+                             f"{MAX_K}, got K={k}")
+        theta, a, b = theta.contiguous(), a.contiguous(), b.contiguous()
+        data = [x.contiguous() for x in data]
+    if packed is None:
+        ll = _Masked.apply(theta, a, b, data[0], data[1], None)
+    else:
+        ll = _Masked.apply(theta, a, b, None, None, data[0])
+    return ll if batched else ll[0]
+
+
+def masked_loglik_2pl(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      resp: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-person masked 2PL Bernoulli log-likelihood.
+
+    theta (B, K), a (M, K), b (M,), resp/mask (B, M) -> (B,); with a leading
+    sample axis theta (S, B, K) -> (S, B), and a (S, M, K), b (S, M),
+    resp/mask (S, B, M) each per-sample or without the axis (shared).
+    Semantics == likelihood.masked_loglik_per_person(links.logits_2pl(...)).
+    Differentiable in theta, a and b, exact for any cotangent. theta, a, b,
+    resp and mask are cast to f32, as the JAX op casts them."""
+    return _masked_call(theta, a, b, resp, mask, None)
+
+
+def masked_loglik_2pl_packed(theta: torch.Tensor, a: torch.Tensor,
+                             b: torch.Tensor, packed: torch.Tensor
+                             ) -> torch.Tensor:
+    """masked_loglik_2pl on the int8 code (packing.pack_responses) instead
+    of (resp, mask): same values and gradients, 1 byte a cell instead of 8."""
+    if packed.dtype != torch.int8:
+        raise ValueError(f"packed must be an int8 tensor, got {packed.dtype}")
+    return _masked_call(theta, a, b, None, None, packed)
