@@ -4,47 +4,59 @@
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   1. device: a CUDA card is required (no CPU fallback);
-  2. build: nvcc compiles every csrc/*.cu of the port, in parallel;
+  2. build: nvcc compiles every csrc/*.cu of the port, in parallel, and the
+     special-function (MUFU) instructions a cell of each loglik kernel are
+     counted in the libraries' SASS (cuobjdump);
   3. kernel checks: each hand-written kernel against its plain PyTorch
      version on the card, with CUDA-event times of the kernel, the plain
      version and, where one PyTorch call computes the same function, that
-     call (timed only, never used by the port): the full-batch kernels at
-     the flagship shape (10,240 students x 1,024 items, K=4, hidden 256),
-     the general masked loglik (both cell readers, a non-uniform cotangent,
-     all-missing rows exactly inert) at the minibatch shape (4,096 x 1,024)
-     as the ELBO steps call it, with the IWAE steps' 5 samples, and on the
-     padded last batch, and all of them at a ragged shape, the masked
-     loglik also with a leading sample axis, at K = 1 and 8, and with M off
-     the vector width;
+     call (timed only, never used by the port), for the 2PL and the 3PL
+     link: the full-batch kernels at the flagship shape (10,240 students x
+     1,024 items, K=4, hidden 256), the general masked loglik (both cell
+     readers, a non-uniform cotangent, all-missing rows exactly inert) at
+     the minibatch shape (4,096 x 1,024) as the ELBO steps call it, with the
+     IWAE steps' 5 samples, and on the padded last batch, and all of them at
+     a ragged shape and at K = 1 and 8 with M off the vector width, the
+     masked loglik also with a leading sample axis and shared items; the 3PL
+     kernels also at the extreme point theta = +-30, g_hat = -25;
   4. small-shape checks of the packed and the decoded-data objectives and
-     every gradient on the card against the CPU path;
-  5. full-batch path: the 2PL flagship (bf16 encoder, conditional
-     posterior, transposed theta) trains >= 30 steps through Trainer.step,
-     launching the full-batch kernels and not the masked loglik; then
+     every gradient on the card against the CPU path, per link;
+  5. full-batch path, per link: the flagship (bf16 encoder, conditional
+     posterior, transposed theta) with the 2PL and then the 3PL link trains
+     40 steps through Trainer.step, launching the first layer and its
+     link's one-pass loglik (once a step) and no other loglik kernel; then
      held-out imputation accuracy and AbilityScorer.score on fresh
      students, and a torch.profiler window: device time by kernel;
-  6. minibatch path: Trainer.fit with batch_size 4,096 (3 steps an epoch,
-     the last padded with 2,048 all-zero rows) trains 4 epochs on decoded
-     data with the ELBO, launching the masked loglik's dense reader and no
-     full-batch kernel, then 3 IWAE steps (S = 5); the fit's host work
-     (batch slicing, copy to the card) timed on its own, step times on
-     device-resident batches and a profiler window;
+  6. minibatch path, per link: Trainer.fit with batch_size 4,096 (3 steps
+     an epoch, the last padded with 2,048 all-zero rows) trains 4 epochs on
+     decoded data with the ELBO, launching its link's masked loglik (dense
+     reader, once a step) and no other loglik kernel, then 3 IWAE steps
+     (S = 5); the fit's host work (batch slicing, copy to the card) timed
+     on its own, step times on device-resident batches and a profiler
+     window;
   7. held-out IWAE-100 log-likelihood of the trained params (iwae_loglik).
 Then the kernels summary line, the card's name and power limit, and the
 final status line {"ok": true, "device": {...}}.
 
-Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
-bf16 on the tensor cores, 67 TFLOP/s f32 outside them.
+Bounds: the largest of three times, each at the H100 SXM's published peak:
+the bytes the function must move over 3.35 TB/s of HBM; its operations
+over 989 TFLOP/s bf16 on the tensor cores (first layer) or 67 TFLOP/s f32
+outside them (loglik); and its special-function results (exp, log, the
+reciprocals: the MUFU instructions counted in the SASS, a cell's times the
+cells plus the per-item staging's once per item) over 16 a clock an SM, at
+this card's SM count and maximum SM clock.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,6 +64,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+MUFU_PER_CLOCK_PER_SM = 16                # compute capability 9.0
 
 B, M, K, H = 10240, 1024, 4, 256          # flagship shape (bench.py)
 BATCH = 4096                              # minibatch (cli.py --batch-size)
@@ -60,9 +73,25 @@ ODD = (777, 301)                          # M off the 4-item vector width
 STEPS = 40                                # full-batch steps
 EPOCHS = 4                                # minibatch epochs (3 steps each)
 IWAE_STEPS, IWAE_S = 3, 5                 # IWAE training steps, samples
-FULL_BATCH_KERNELS = ("first_layer_fwd", "first_layer_bwd",
-                      "loglik_2pl_train")
-MINIBATCH_KERNELS = ("masked_loglik_2pl_fwd", "masked_loglik_2pl_bwd")
+FIRST_LAYER = ("first_layer_fwd", "first_layer_bwd")
+# each link's kernels: the one-pass training loglik (full batch) and the
+# general masked loglik's two directions (minibatch)
+LINK_KERNELS = {
+    link: {"train": f"loglik_{link}_train",
+           "masked": (f"masked_loglik_{link}_fwd",
+                      f"masked_loglik_{link}_bwd")}
+    for link in ("2pl", "3pl")}
+# f32 operations a cell, from the cell math (csrc/irt_links.cuh): the
+# one-pass kernel, the masked forward and the masked backward
+CELL_OPS = {"2pl": (lambda k: 6 * k + 16, lambda k: 2 * k + 9,
+                    lambda k: 6 * k + 10),
+            "3pl": (lambda k: 6 * k + 45, lambda k: 2 * k + 25,
+                    lambda k: 6 * k + 40)}
+# cells one thread covers in one pass of a kernel's unrolled tile loop
+# (students per warp x items per lane, csrc/loglik_train.cu and
+# csrc/masked_loglik.cu)
+CELLS_PER_PASS = {"loglik_train_kernel": 8 * 4, "masked_fwd_kernel": 2 * 4,
+                  "masked_bwd_kernel": 4 * 4}
 
 
 def emit(obj) -> None:
@@ -79,10 +108,22 @@ def max_abs(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max())
 
 
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 class Timer:
     """Median CUDA-event time of fn, with the 50 MB L2 flushed before every
     launch: the step's other work (dense layers, optimizer) passes far more
-    than L2 between two launches of any one kernel."""
+    than L2 between two launches of any one kernel. A ~1 ms spin on the
+    card (torch.cuda._sleep) precedes the start event, so the card is still
+    busy while the host enqueues fn (its allocations and the ctypes call):
+    without it a slow host's enqueue time lands between the two events."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self):
         self.flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
@@ -93,6 +134,7 @@ class Timer:
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -103,13 +145,77 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(nbytes: float, ops: float, peak: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                        else "operations")
+class Roofline:
+    """The least time of a kernel's work on this card: the largest of its
+    bytes over HBM, its operations over their peak, and its special-function
+    results over the SMs' MUFU rate; the MUFU instructions a cell are read
+    from the SASS of the built library (cuobjdump)."""
+
+    def __init__(self):
+        from vibo_tpu_torch.ops import _build
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+        self.mufu_per_s = (MUFU_PER_CLOCK_PER_SM * self.sms
+                           * self.max_sm_mhz * 1e6)
+        self.cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+        self._sass: dict[str, list] = {}
+        self.counts: dict[str, dict] = {}
+
+    def _functions(self, source: str) -> list:
+        """[(mangled name, SASS lines)] of csrc/<source>'s library."""
+        if source not in self._sass:
+            from vibo_tpu_torch.ops import _build
+            text = subprocess.run(
+                [str(self.cuobjdump), "-sass", str(_build.lib_path(source))],
+                capture_output=True, text=True, check=True,
+                timeout=300).stdout
+            self._sass[source] = [
+                (part.split("\n", 1)[0].strip(), part.splitlines())
+                for part in re.split(r"\n\s*Function : ", text)[1:]]
+        return self._sass[source]
+
+    def mufu(self, source: str, kernel: str, link: str, k: int,
+             packed: bool | None = None) -> tuple[int, int]:
+        """(MUFU a cell, MUFU an item) of one instantiation, from its SASS
+        up to its last EXIT (the division's slow-path subroutines after it
+        are left out). The tile loop stages the link's per-item constants
+        before its first barrier: the MUFU lines before the first BAR.SYNC
+        are an item's, those after it the unrolled cells', which must
+        divide evenly by the cells one pass covers."""
+        tag = f"Link{link.upper()}ELi{k}E"
+        if packed is not None:
+            tag += f"Lb{int(packed)}E"
+        found = [lines for name, lines in self._functions(source)
+                 if kernel in name and tag in name]
+        if len(found) != 1:
+            raise AssertionError(
+                f"{len(found)} SASS functions match {kernel} {tag} in "
+                f"{source}: {[n for n, _ in self._functions(source)]}")
+        lines = found[0]
+        exits = [i for i, ln in enumerate(lines) if "EXIT" in ln]
+        body = lines[:exits[-1] if exits else None]
+        bar = next(i for i, ln in enumerate(body) if "BAR.SYNC" in ln)
+        per_item = sum("MUFU." in ln for ln in body[:bar])
+        cells = sum("MUFU." in ln for ln in body[bar:])
+        per_cell, rest = divmod(cells, CELLS_PER_PASS[kernel])
+        if rest:
+            raise AssertionError(
+                f"{kernel} {tag}: {cells} MUFU after the first barrier do "
+                f"not divide over {CELLS_PER_PASS[kernel]} cells a pass")
+        self.counts[f"{kernel}<{tag}>"] = {"per_cell": per_cell,
+                                           "per_item": per_item}
+        return per_cell, per_item
+
+    def bound(self, nbytes: float, ops: float, peak: float,
+              special: float = 0.0):
+        """(ms, limiting resource) of the work."""
+        times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / peak,
+                 "special functions": special / self.mufu_per_s}
+        by = max(times, key=times.get)
+        return times[by] * 1e3, by
 
 
-def check_first_layer(timer, pk, rng_gen, timed: bool) -> dict:
+def check_first_layer(timer, roof, pk, rng_gen, timed: bool) -> dict:
     from vibo_tpu_torch.ops import pallas_encoder as enc
     from vibo_tpu_torch.ops.packing import decode_packed
     bsz, m = pk.shape
@@ -138,90 +244,129 @@ def check_first_layer(timer, pk, rng_gen, timed: bool) -> dict:
                    plain_ms=timer(lambda: enc.first_layer_plain(
                        pk, wr, wm, torch.bfloat16)),
                    library_ms=timer(lambda: torch.matmul(x_cat, w_cat)))
-        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        # no special function in a decode and a product
+        fwd["bound_ms"], fwd["bound_by"] = roof.bound(
             bsz * m + 2 * m * H * 4 + bsz * H * 4, ops, BF16_FLOPS)
         bwd.update(ms=timer(lambda: enc.first_layer_bwd_cuda(pk, dh)),
                    plain_ms=timer(lambda: enc.first_layer_bwd_plain(
                        pk, dh, torch.bfloat16)),
                    library_ms=timer(lambda: torch.matmul(x_cat.T, dh16)))
-        bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+        bwd["bound_ms"], bwd["bound_by"] = roof.bound(
             bsz * m + bsz * H * 4 + 2 * m * H * 4, ops, BF16_FLOPS)
     return {"first_layer_fwd": fwd, "first_layer_bwd": bwd}
 
 
-def check_loglik(timer, pk, rng_gen, timed: bool) -> dict:
+def check_loglik(timer, roof, pk, rng_gen, timed: bool,
+                 link: str = "2pl", k: int = K, theta_t=None, a=None,
+                 b=None, g_hat=None) -> dict:
+    """The one-pass training loglik of `link` in both theta layouts against
+    its plain version; theta_t (k, B), a, b and g_hat default to random
+    draws (the extreme-point check passes its own)."""
     from vibo_tpu_torch.ops import pallas_elbo as el
     bsz, m = pk.shape
-    theta_t = torch.randn((K, bsz), generator=rng_gen, device="cuda")
-    a = 0.5 * torch.randn((m, K), generator=rng_gen, device="cuda")
-    b = torch.randn((m,), generator=rng_gen, device="cuda")
+    if theta_t is None:
+        theta_t = torch.randn((k, bsz), generator=rng_gen, device="cuda")
+        a = 0.5 * torch.randn((m, k), generator=rng_gen, device="cuda")
+        b = torch.randn((m,), generator=rng_gen, device="cuda")
+        if link == "3pl":
+            g_hat = torch.randn((m,), generator=rng_gen,
+                                device="cuda") - 1.5
+    k = theta_t.shape[0]
+    name = LINK_KERNELS[link]["train"]
     out = {}
     for layout in ("kb", "bk"):
         theta = theta_t.T if layout == "kb" else theta_t.T.contiguous()
-        dth = torch.empty((K, bsz), device="cuda").T if layout == "kb" \
-            else torch.empty((bsz, K), device="cuda")
+        dth = torch.empty((k, bsz), device="cuda").T if layout == "kb" \
+            else torch.empty((bsz, k), device="cuda")
 
         def launch():
-            return el.loglik_2pl_train_cuda(theta, a, b, pk, dth,
-                                            per_person=layout == "bk")
-        ll_k, da_k, db_k = launch()
-        ll_p, dth_p, da_p, db_p = el.loglik_2pl_train_plain(theta, a, b, pk)
+            return el.loglik_train_cuda(theta, a, b, g_hat, pk, dth,
+                                        per_person=layout == "bk")
+        ll_k, grads_k = launch()
+        ll_p, dth_p, *grads_p = el.loglik_train_plain(theta, a, b, g_hat, pk)
         if layout == "kb":
             ll_p = ll_p.sum()
         torch.cuda.synchronize()
+        pairs = [(dth, dth_p), *zip(grads_k, grads_p)]
         r = {"ll_rel_err": rel_err(ll_k, ll_p),
-             "grad_rel_err": max(rel_err(dth, dth_p), rel_err(da_k, da_p),
-                                 rel_err(db_k, db_p)),
-             "max_abs_err": max(max_abs(ll_k, ll_p), max_abs(dth, dth_p),
-                                max_abs(da_k, da_p), max_abs(db_k, db_p))}
-        if not (r["ll_rel_err"] <= 1e-5 and r["grad_rel_err"] <= 1e-4):
-            raise AssertionError(f"loglik_2pl_train ({layout}) at "
-                                 f"{tuple(pk.shape)} disagrees with its "
-                                 f"plain version: {r}")
+             "grad_rel_err": max(rel_err(x, y) for x, y in pairs),
+             "max_abs_err": max(max_abs(ll_k, ll_p),
+                                *(max_abs(x, y) for x, y in pairs))}
+        finite = bool(torch.isfinite(ll_k).all()) and all(
+            bool(torch.isfinite(x).all()) for x, _ in pairs)
+        if not (finite and r["ll_rel_err"] <= 1e-5
+                and r["grad_rel_err"] <= 1e-4):
+            raise AssertionError(f"{name} ({layout}) at {tuple(pk.shape)}, "
+                                 f"K={k} disagrees with its plain version "
+                                 f"or is not finite: {r}")
         if timed:
             r["ms"] = timer(launch)
             r["plain_ms"] = timer(
-                lambda: el.loglik_2pl_train_plain(theta, a, b, pk))
+                lambda: el.loglik_train_plain(theta, a, b, g_hat, pk))
             r["library_ms"] = None
-            r["bound_ms"], r["bound_by"] = bound_ms(
-                bsz * m + 2 * bsz * K * 4 + 2 * m * K * 4 + 2 * m * 4 + 4,
-                (6 * K + 16) * bsz * m, F32_FLOPS)
+            items = 1 if g_hat is None else 2       # b[, g_hat] in, out
+            cells = bsz * m
+            per_cell, per_item = roof.mufu("loglik_train.cu",
+                                           "loglik_train_kernel", link, k)
+            r["bound_ms"], r["bound_by"] = roof.bound(
+                cells + 2 * bsz * k * 4 + 2 * m * k * 4 + 2 * items * m * 4
+                + 4, CELL_OPS[link][0](k) * cells, F32_FLOPS,
+                per_cell * cells + per_item * m)
         out[layout] = r
     return out
 
 
-def masked_bound(bsz: int, m: int, k: int, cell_bytes: int, bwd: bool):
-    """Bound of the masked loglik: each cell's data read once (8 bytes
-    dense, 1 int8) plus theta, a, b (and g) read and ll (or dtheta, da, db)
-    written once; 2K+9 f32 operations a cell forward, 6K+10 backward."""
-    small = 4 * (bsz * k + m * k + m)
+def masked_bound(roof, bsz: int, m: int, k: int, s: int, cell_bytes: int,
+                 bwd: bool, link: str):
+    """Bound of one masked loglik call over s samples: each cell's data read
+    once (8 bytes dense, 1 int8) plus theta, the items (and g) read and ll
+    (or dtheta and the item gradients) written once; the cell's f32
+    operations (CELL_OPS); the MUFU results counted in the SASS, a cell's
+    for every cell and an item's once for each of the s samples' items."""
+    items = 1 if link == "2pl" else 2                # b[, g_hat]
+    small = 4 * (bsz * k + m * k + items * m)
     if bwd:
-        small += 4 * (bsz + bsz * k + m * k + m)
+        small += 4 * (bsz + bsz * k + m * k + items * m)
     else:
         small += 4 * bsz
-    ops = ((6 * k + 10) if bwd else (2 * k + 9)) * bsz * m
-    return bound_ms(cell_bytes * bsz * m + small, ops, F32_FLOPS)
+    cells = s * bsz * m
+    ops = CELL_OPS[link][2 if bwd else 1](k) * cells
+    kernel = "masked_bwd_kernel" if bwd else "masked_fwd_kernel"
+    per_cell, per_item = roof.mufu("masked_loglik.cu", kernel, link, k,
+                                   packed=cell_bytes == 1)
+    return roof.bound(cell_bytes * bsz * m + s * small, ops, F32_FLOPS,
+                      per_cell * cells + per_item * s * m)
 
 
-def check_masked(timer, resp, mask, rng_gen, timed: bool,
+def check_masked(timer, roof, resp, mask, rng_gen, timed: bool,
                  samples: int | None = None, shared_items: bool = False,
-                 k: int = K):
-    """The general masked loglik's forward and backward kernels against
-    their plain versions, dense and int8 readers, on (resp, mask) and a
-    non-uniform cotangent, and all-missing rows exactly inert; samples: a
-    leading sample axis of that length (per-sample a and b, or shared over
-    the samples; the data is shared, as on the IWAE path); k: ability
-    dims."""
+                 k: int = K, link: str = "2pl", theta=None, items=None):
+    """The general masked loglik's forward and backward kernels of `link`
+    against their plain versions, dense and int8 readers, on (resp, mask)
+    and a non-uniform cotangent, and all-missing rows exactly inert;
+    samples: a leading sample axis of that length (per-sample items, or
+    shared over the samples; the data is shared, as on the IWAE path); k:
+    ability dims; theta (S, B, K) and items (a, b[, g_hat]) with their
+    sample axis default to random draws."""
     from vibo_tpu_torch.ops import pallas_elbo as el
     from vibo_tpu_torch.ops.packing import decode_packed, pack_responses
     bsz, m = resp.shape
     s = samples or 1
     sa = 1 if shared_items else s
-    theta = torch.randn((s, bsz, k), generator=rng_gen, device="cuda")
-    a = 0.5 * torch.randn((sa, m, k), generator=rng_gen, device="cuda")
-    b = torch.randn((sa, m), generator=rng_gen, device="cuda")
+    if theta is None:
+        theta = torch.randn((s, bsz, k), generator=rng_gen, device="cuda")
+        items = [0.5 * torch.randn((sa, m, k), generator=rng_gen,
+                                   device="cuda"),
+                 torch.randn((sa, m), generator=rng_gen, device="cuda")]
+        if link == "3pl":
+            items.append(torch.randn((sa, m), generator=rng_gen,
+                                     device="cuda") - 1.5)
+    a, b = items[:2]
+    g_hat = items[2] if link == "3pl" else None
+    k = theta.shape[-1]
     g = 2.0 * torch.rand((s, bsz), generator=rng_gen, device="cuda") - 0.5
     pk = pack_responses(resp, mask)
+    name = f"masked_loglik_{link}"
     out = {}
     for reader in ("dense", "int8"):
         data = ((resp[None], mask[None], None) if reader == "dense"
@@ -234,16 +379,16 @@ def check_masked(timer, resp, mask, rng_gen, timed: bool,
             return r_, m_
 
         def fwd():
-            return el.masked_loglik_2pl_fwd_cuda(theta, a, b, *data)
+            return el.masked_fwd_cuda(theta, a, b, g_hat, *data)
 
         def bwd():
-            return el.masked_loglik_2pl_bwd_cuda(g, theta, a, b, *data)
+            return el.masked_bwd_cuda(g, theta, a, b, g_hat, *data)
 
         def fwd_plain():
-            return el.masked_loglik_2pl_plain(theta, a, b, *cells())
+            return el.masked_plain(theta, a, b, g_hat, *cells())
 
         def bwd_plain():
-            return el.masked_loglik_2pl_vjp_plain(g, theta, a, b, *cells())
+            return el.masked_vjp_plain(g, theta, a, b, g_hat, *cells())
         ll_k, grads_k = fwd(), bwd()
         ll_p, grads_p = fwd_plain(), bwd_plain()
         torch.cuda.synchronize()
@@ -252,19 +397,20 @@ def check_masked(timer, resp, mask, rng_gen, timed: bool,
         w = {"rel_err": max(rel_err(x, y) for x, y in zip(grads_k, grads_p)),
              "max_abs_err": max(max_abs(x, y)
                                 for x, y in zip(grads_k, grads_p))}
-        if not (f["rel_err"] <= 1e-5 and w["rel_err"] <= 1e-4):
+        finite = bool(torch.isfinite(ll_k).all()) and all(
+            bool(torch.isfinite(x).all()) for x in grads_k)
+        if not (finite and f["rel_err"] <= 1e-5 and w["rel_err"] <= 1e-4):
             raise AssertionError(
-                f"masked_loglik_2pl ({reader}, S={s}, shared_items="
-                f"{shared_items}) at {(bsz, m)} disagrees with its plain "
-                f"version: fwd {f}, bwd {w}")
+                f"{name} ({reader}, S={s}, shared_items={shared_items}, "
+                f"K={k}) at {(bsz, m)} disagrees with its plain version or "
+                f"is not finite: fwd {f}, bwd {w}")
         # rows with no observed cell (a last minibatch's zero padding) give
         # exactly 0 loglik and 0 dtheta
         empty = mask.sum(-1) == 0
         if not (ll_k[:, empty].eq(0).all()
                 and grads_k[0][:, empty].eq(0).all()):
-            raise AssertionError(f"masked_loglik_2pl ({reader}) at "
-                                 f"{(bsz, m)}: an all-missing row is not "
-                                 f"inert")
+            raise AssertionError(f"{name} ({reader}) at {(bsz, m)}: an "
+                                 f"all-missing row is not inert")
         f["inert_rows"] = int(empty.sum())
         if timed:
             nbytes = 8 if reader == "dense" else 1
@@ -272,13 +418,31 @@ def check_masked(timer, resp, mask, rng_gen, timed: bool,
                                              (w, bwd, bwd_plain, True)):
                 r.update(ms=timer(kernel), plain_ms=timer(plain),
                          library_ms=None)
-                r["bound_ms"], r["bound_by"] = masked_bound(bsz, m, k,
-                                                            nbytes, is_bwd)
+                r["bound_ms"], r["bound_by"] = masked_bound(
+                    roof, bsz, m, k, s, nbytes, is_bwd, link)
         out[reader] = {"fwd": f, "bwd": w}
     return out
 
 
-def objective_matches_cpu(decoded: bool) -> float:
+def check_extreme(timer, roof, rng_gen) -> dict:
+    """The 3PL kernels at the extreme point of tests/test_pallas.py: theta
+    = +30, -30 and 0 (K = 1), a = 1, b = 0, g_hat = -25 on 128 items, every
+    cell observed and right: finite, and equal to the plain versions."""
+    theta = torch.tensor([[30.0, -30.0, 0.0]], device="cuda")    # (K, B)
+    ones = torch.ones((3, 128), device="cuda")
+    a = torch.ones((128, 1), device="cuda")
+    b = torch.zeros((128,), device="cuda")
+    g_hat = torch.full((128,), -25.0, device="cuda")
+    pk = torch.full((3, 128), 2, dtype=torch.int8, device="cuda")
+    return {
+        "loglik_3pl_train": check_loglik(timer, roof, pk, rng_gen, False,
+                                         "3pl", 1, theta, a, b, g_hat),
+        "masked_loglik_3pl": check_masked(
+            timer, roof, ones, ones, rng_gen, False, link="3pl",
+            theta=theta.T[None], items=[a[None], b[None], g_hat[None]])}
+
+
+def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
     """An objective and every gradient at a small shape on the card
     (kernels) against the CPU (plain versions), same params and noise: the
     packed full-batch ELBO (S = 1, transposed theta), or the decoded-data
@@ -296,11 +460,13 @@ def objective_matches_cpu(decoded: bool) -> float:
     resp = (rng.random((n, m)) < 0.5).astype(np.float32)
     mask = (rng.random((n, m)) < 0.9).astype(np.float32)
     mask[7] = 0.0
-    cfg = VIBOConfig(num_items=m, irt_model="2pl", ability_dim=K,
+    cfg = VIBOConfig(num_items=m, irt_model=link, ability_dim=K,
                      hidden_dim=64, use_pallas=True, compute_dtype="bfloat16")
     params_np = params_to_numpy(VIBO(cfg, device="cpu").init_params(7))
     item_eps = {"a": rng.standard_normal((s, m, K)).astype(np.float32),
                 "b": rng.standard_normal((s, m, 1)).astype(np.float32)}
+    if link == "3pl":
+        item_eps["g_hat"] = rng.standard_normal((s, m, 1)).astype(np.float32)
     theta_eps = rng.standard_normal(
         (s, n, K) if decoded else (s, K, n)).astype(np.float32)
     results = []
@@ -324,7 +490,7 @@ def objective_matches_cpu(decoded: bool) -> float:
                        + [p.grad.cpu() for p in tree_leaves(params)])
     worst = max(rel_err(g, c) for g, c in zip(*results))
     if not worst <= 1e-2:
-        raise AssertionError(f"{'decoded' if decoded else 'packed'} "
+        raise AssertionError(f"{link} {'decoded' if decoded else 'packed'} "
                              f"objective on the card disagrees with the CPU "
                              f"path: {worst}")
     return worst
@@ -335,10 +501,11 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in _build.KERNELS.items()}
 
 
-def reader_counts() -> dict:
-    """Launches of the masked loglik's kernels by cell reader."""
+def reader_counts(link: str) -> dict:
+    """Launches of the link's masked loglik kernels by cell reader."""
     from vibo_tpu_torch.ops import _build
-    return {n: dict(_build.KERNELS[n].launches_by) for n in MINIBATCH_KERNELS}
+    return {n: dict(_build.KERNELS[n].launches_by)
+            for n in LINK_KERNELS[link]["masked"]}
 
 
 def check_dense_only(phase: str, readers: dict) -> None:
@@ -347,14 +514,18 @@ def check_dense_only(phase: str, readers: dict) -> None:
                              f"one: {readers}")
 
 
-def check_path(phase: str, launches: dict, ran: tuple, idle: tuple) -> None:
-    """The phase launched every kernel of its path and none of the other's."""
+def check_path(phase: str, launches: dict, ran: tuple,
+               once_each: tuple = (), steps: int = 0) -> None:
+    """The phase launched every kernel of its path, the kernels in
+    once_each exactly `steps` times, and no other kernel."""
     missing = [n for n in ran if launches[n] == 0]
-    stray = [n for n in idle if launches[n] != 0]
-    if missing or stray:
-        raise AssertionError(f"{phase}: kernels of the path not launched "
-                             f"{missing}, kernels of another path launched "
-                             f"{stray}: {launches}")
+    stray = [n for n, c in launches.items() if n not in ran and c != 0]
+    miscounted = [n for n in once_each if launches[n] != steps]
+    if missing or stray or miscounted:
+        raise AssertionError(
+            f"{phase}: kernels of the path not launched {missing}, kernels "
+            f"of another path launched {stray}, not launched once in each "
+            f"of {steps} steps {miscounted}: {launches}")
 
 
 def profile_steps(step, steps: int, med_ms: float, smi: str) -> dict:
@@ -391,17 +562,17 @@ def profile_steps(step, steps: int, med_ms: float, smi: str) -> dict:
                      "calls": c} for t, n, c in rows[:14]], "card": smi}
 
 
-def full_batch_phase(ds, packed, row_valid, smi: str) -> dict:
-    """Phase 5: the packed full-batch flagship, imputation, scoring and a
-    profile window. Returns its launch counts."""
+def full_batch_phase(link: str, ds, packed, row_valid, smi: str) -> dict:
+    """Phase 5 for one link: the packed full-batch flagship, imputation,
+    scoring and a profile window. Returns its launch counts."""
     from vibo_tpu_torch import evaluation
     from vibo_tpu_torch.data import simulate_irt
-    from vibo_tpu_torch.models import VIBO, VIBOConfig
+    from vibo_tpu_torch.models import VIBO
     from vibo_tpu_torch.ops import _build
     from vibo_tpu_torch.serve import AbilityScorer
     from vibo_tpu_torch.train import Trainer, TrainConfig, make_optimizer
 
-    model = VIBO(flagship_config())
+    model = VIBO(flagship_config(link))
     trainer = Trainer(model, TrainConfig(lr=5e-3, max_grad_norm=10.0))
     params = model.init_params(0)
     optimizer = make_optimizer(params, 5e-3)
@@ -416,30 +587,31 @@ def full_batch_phase(ds, packed, row_valid, smi: str) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
-    check_path("full-batch path", launches, FULL_BATCH_KERNELS,
-               MINIBATCH_KERNELS)
+    train = LINK_KERNELS[link]["train"]
+    check_path(f"{link} full-batch path", launches, (*FIRST_LAYER, train),
+               (train,), STEPS)
     elbos = [float(a["elbo"]) for a in auxs]
     if not np.isfinite(elbos).all():
-        raise AssertionError(f"non-finite ELBO in the full-batch path: "
-                             f"{elbos}")
+        raise AssertionError(f"non-finite ELBO in the {link} full-batch "
+                             f"path: {elbos}")
     if not np.mean(elbos[-5:]) > np.mean(elbos[:5]):
-        raise AssertionError(f"ELBO did not rise: {elbos}")
+        raise AssertionError(f"{link} ELBO did not rise: {elbos}")
     med = statistics.median(step_ms[3:])
-    emit({"phase": "train", "steps": STEPS, "step_ms_median": med,
-          "step_ms_first": step_ms[0], "cells_per_s": B * M / (med / 1e3),
-          "elbo_first": elbos[0], "elbo_last": elbos[-1],
-          "launches": launches,
+    emit({"phase": "train", "link": link, "steps": STEPS,
+          "step_ms_median": med, "step_ms_first": step_ms[0],
+          "cells_per_s": B * M / (med / 1e3), "elbo_first": elbos[0],
+          "elbo_last": elbos[-1], "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "card": smi})
 
     t0 = time.perf_counter()
     ev = evaluation.imputation_accuracy(model, params, ds)
     if not (ev["num_heldout"] > 0 and 0.0 <= ev["acc"] <= 1.0):
-        raise AssertionError(f"bad imputation result {ev}")
-    emit({"phase": "imputation", **ev,
+        raise AssertionError(f"bad {link} imputation result {ev}")
+    emit({"phase": "imputation", "link": link, **ev,
           "seconds": time.perf_counter() - t0})
 
-    fresh = simulate_irt("2pl", 256, M, ability_dim=K, seed=1,
+    fresh = simulate_irt(link, 256, M, ability_dim=K, seed=1,
                          missing_rate=0.1)
     t0 = time.perf_counter()
     out = AbilityScorer(model, params).score(fresh.response, fresh.mask)
@@ -447,33 +619,35 @@ def full_batch_phase(ds, packed, row_valid, smi: str) -> dict:
     shapes = {k: list(v.shape) for k, v in out.items()}
     if shapes != {"theta_mu": [256, K], "theta_sigma": [256, K],
                   "prob": [256, M]}:
-        raise AssertionError(f"scorer shapes {shapes}")
+        raise AssertionError(f"{link} scorer shapes {shapes}")
     if not (all(np.isfinite(v).all() for v in out.values())
             and (out["theta_sigma"] > 0).all()
             and ((out["prob"] > 0) & (out["prob"] < 1)).all()):
-        raise AssertionError("scorer output out of range")
-    emit({"phase": "score", "rows": 256, "seconds": score_s,
+        raise AssertionError(f"{link} scorer output out of range")
+    emit({"phase": "score", "link": link, "rows": 256, "seconds": score_s,
           "theta_mu_std": float(out["theta_mu"].std())})
 
-    emit({"phase": "profile", **profile_steps(
+    emit({"phase": "profile", "link": link, **profile_steps(
         lambda: trainer.step(params, optimizer, packed, row_valid, noise),
         10, med, smi)})
     return launches
 
 
-def minibatch_phase(ds, smi: str) -> dict:
-    """Phases 6 and 7: minibatch ELBO training through Trainer.fit, the
-    fit's host work (batch slicing, copy to the card) timed on its own, IWAE
-    steps, step times and a profile window on device-resident batches, and
-    the held-out IWAE-100 bound. Returns the launch counts of the fit and
-    the IWAE steps together, in all and by the masked loglik's reader."""
+def minibatch_phase(link: str, ds, smi: str):
+    """Phases 6 and 7 for one link: minibatch ELBO training through
+    Trainer.fit, the fit's host work (batch slicing, copy to the card)
+    timed on its own, IWAE steps, step times and a profile window on
+    device-resident batches, and the held-out IWAE-100 bound. Returns the
+    launch counts of the fit and the IWAE steps together, in all and by
+    the masked loglik's reader."""
     from vibo_tpu_torch import evaluation
     from vibo_tpu_torch.data import batch_iterator
     from vibo_tpu_torch.models import VIBO
     from vibo_tpu_torch.ops import _build
     from vibo_tpu_torch.train import Trainer, TrainConfig
 
-    model = VIBO(flagship_config())
+    model = VIBO(flagship_config(link))
+    masked = LINK_KERNELS[link]["masked"]
     item_scale = BATCH / B
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -482,20 +656,18 @@ def minibatch_phase(ds, smi: str) -> dict:
                                      batch_size=BATCH, eval_every=EPOCHS,
                                      seed=0)).fit(ds)
     fit_s = time.perf_counter() - t0
-    fit_launches, fit_readers = launch_counts(), reader_counts()
-    check_path("minibatch path", fit_launches, MINIBATCH_KERNELS,
-               FULL_BATCH_KERNELS)
-    check_dense_only("minibatch path", fit_readers)
-    epoch_elbo = [h["elbo"] for h in res["history"] if h["event"] == "train"]
+    fit_launches, fit_readers = launch_counts(), reader_counts(link)
     steps = EPOCHS * -(-B // BATCH)
+    check_path(f"{link} minibatch path", fit_launches, masked, masked, steps)
+    check_dense_only(f"{link} minibatch path", fit_readers)
+    epoch_elbo = [h["elbo"] for h in res["history"] if h["event"] == "train"]
     if not (len(epoch_elbo) == EPOCHS and np.isfinite(epoch_elbo).all()):
-        raise AssertionError(f"minibatch epoch ELBOs {epoch_elbo}")
+        raise AssertionError(f"{link} minibatch epoch ELBOs {epoch_elbo}")
     if not epoch_elbo[-1] > epoch_elbo[0]:
-        raise AssertionError(f"minibatch ELBO did not rise: {epoch_elbo}")
-    if fit_launches["masked_loglik_2pl_fwd"] != steps:
-        raise AssertionError(f"{steps} steps, {fit_launches} launches")
-    emit({"phase": "minibatch_train", "epochs": EPOCHS, "steps": steps,
-          "batch_size": BATCH, "epoch_elbo": epoch_elbo,
+        raise AssertionError(f"{link} minibatch ELBO did not rise: "
+                             f"{epoch_elbo}")
+    emit({"phase": "minibatch_train", "link": link, "epochs": EPOCHS,
+          "steps": steps, "batch_size": BATCH, "epoch_elbo": epoch_elbo,
           "fit_seconds": fit_s, "train_seconds": res["train_seconds"],
           "cells_per_s": res["cells_per_sec"],
           "heldout_acc": res["best"]["heldout_acc"],
@@ -538,14 +710,15 @@ def minibatch_phase(ds, smi: str) -> dict:
     bounds = [float(iwae.minibatch_step(params, optimizer, r, m_,
                                         item_scale, gen)["elbo"])
               for r, m_ in batches[:IWAE_STEPS]]
-    iwae_launches, iwae_readers = launch_counts(), reader_counts()
-    check_path("IWAE steps", iwae_launches, MINIBATCH_KERNELS,
-               FULL_BATCH_KERNELS)
-    check_dense_only("IWAE steps", iwae_readers)
+    iwae_launches, iwae_readers = launch_counts(), reader_counts(link)
+    check_path(f"{link} IWAE steps", iwae_launches, masked, masked,
+               IWAE_STEPS)
+    check_dense_only(f"{link} IWAE steps", iwae_readers)
     if not np.isfinite(bounds).all():
-        raise AssertionError(f"non-finite IWAE training bound {bounds}")
-    emit({"phase": "iwae_train", "steps": IWAE_STEPS, "samples": IWAE_S,
-          "bounds": bounds, "launches": iwae_launches,
+        raise AssertionError(f"non-finite {link} IWAE training bound "
+                             f"{bounds}")
+    emit({"phase": "iwae_train", "link": link, "steps": IWAE_STEPS,
+          "samples": IWAE_S, "bounds": bounds, "launches": iwae_launches,
           "launches_by_reader": iwae_readers})
 
     # step time on device-resident batches (ELBO), 3 epochs' worth
@@ -568,12 +741,12 @@ def minibatch_phase(ds, smi: str) -> dict:
         **{k: v / fit_ms for k, v in parts.items()},
         "rest": 1.0 - sum(parts.values()) / fit_ms}
     # true cells: an epoch of len(batches) steps covers the B * M matrix
-    emit({"phase": "minibatch_step", "step_ms_median": med,
+    emit({"phase": "minibatch_step", "link": link, "step_ms_median": med,
           "step_ms": step_ms,
           "cells_per_s": B * M / (med * len(batches) / 1e3),
           "fit_host": host, "card": smi})
     cycle = itertools.cycle(batches)
-    emit({"phase": "minibatch_profile", **profile_steps(
+    emit({"phase": "minibatch_profile", "link": link, **profile_steps(
         lambda: elbo.minibatch_step(params, optimizer, *next(cycle),
                                     item_scale, gen), 6, med, smi)})
 
@@ -584,20 +757,68 @@ def minibatch_phase(ds, smi: str) -> dict:
     iwae_s = time.perf_counter() - t0
     if not (np.isfinite(ev["loglik_per_cell"]) and ev["loglik_per_cell"] < 0
             and ev["num_cells"] > 0):
-        raise AssertionError(f"bad held-out IWAE-100 {ev}")
-    emit({"phase": "iwae_heldout", **ev, "seconds": iwae_s, "card": smi})
+        raise AssertionError(f"bad {link} held-out IWAE-100 {ev}")
+    emit({"phase": "iwae_heldout", "link": link, **ev, "seconds": iwae_s,
+          "card": smi})
     readers = {n: {v: fit_readers[n].get(v, 0) + iwae_readers[n].get(v, 0)
-                   for v in ("dense", "int8")} for n in MINIBATCH_KERNELS}
+                   for v in ("dense", "int8")} for n in masked}
     return ({n: fit_launches[n] + iwae_launches[n] for n in fit_launches},
             readers)
 
 
-def flagship_config():
+def flagship_config(link: str = "2pl"):
+    """The flagship of bench.py with the given link."""
     from vibo_tpu_torch.models import VIBOConfig
-    return VIBOConfig(num_items=M, irt_model="2pl", ability_dim=K,
+    return VIBOConfig(num_items=M, irt_model=link, ability_dim=K,
                       hidden_dim=H, conditional_posterior=True,
                       condition_on="sample", use_pallas=True,
                       compute_dtype="bfloat16")
+
+
+def link_data(link: str) -> dict:
+    """The link's flagship data (simulate_irt, seed 0, 10 % missing, 10 %
+    held out) on the card as the paths take it: the int8 code of the
+    training cells, and epoch 0's first and last (padded) minibatch."""
+    from vibo_tpu_torch.data import batch_iterator, holdout_split, simulate_irt
+    from vibo_tpu_torch.ops.packing import packed_on_device
+    sim = simulate_irt(link, B, M, ability_dim=K, seed=0, missing_rate=0.1)
+    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    packed, row_valid = packed_on_device(ds.response, ds.train_mask)
+    epoch0 = list(batch_iterator(ds, BATCH, 0, 0))
+    first = tuple(torch.from_numpy(x).cuda() for x in epoch0[0])
+    last = tuple(torch.from_numpy(x).cuda() for x in epoch0[-1])
+    pad_rows = int((last[1].sum(-1) == 0).sum())
+    if pad_rows != len(epoch0) * BATCH - B:
+        raise AssertionError(f"last batch has {pad_rows} empty rows")
+    return {"ds": ds, "packed": packed, "row_valid": row_valid,
+            "first": first, "last": last, "pad_rows": pad_rows}
+
+
+def masked_checks(timer, roof, link: str, data: dict, gen, ragged, odd):
+    """check_masked of one link at every shape the paths give it and at
+    the edges: the minibatch (timed), the IWAE call, the padded batch, a
+    ragged shape with sample axes and shared items, K = 1 and 8 at M off
+    the vector width."""
+    kw = dict(link=link)
+    return {
+        "minibatch": check_masked(timer, roof, *data["first"], gen, True,
+                                  **kw),
+        # the IWAE steps' call: S samples, per-sample items, shared data
+        f"minibatch_S{IWAE_S}": check_masked(timer, roof, *data["first"],
+                                             gen, False, samples=IWAE_S,
+                                             **kw),
+        "minibatch_padded": check_masked(timer, roof, *data["last"], gen,
+                                         False, **kw),
+        "ragged": check_masked(timer, roof, *ragged, gen, False, **kw),
+        "ragged_S2": check_masked(timer, roof, *ragged, gen, False,
+                                  samples=2, **kw),
+        "ragged_S3_shared_items": check_masked(timer, roof, *ragged, gen,
+                                               False, samples=3,
+                                               shared_items=True, **kw),
+        "odd_K1_S2": check_masked(timer, roof, *odd, gen, False, samples=2,
+                                  k=1, **kw),
+        "odd_K8": check_masked(timer, roof, *odd, gen, False, k=8, **kw),
+    }
 
 
 def kernel_entry(name, replaces, source, launches, r, **extra) -> dict:
@@ -613,15 +834,10 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA card; "
                          "torch.cuda.is_available() is False")
     from vibo_tpu_torch._device import resolve_device
-    from vibo_tpu_torch.data import batch_iterator, holdout_split, simulate_irt
     from vibo_tpu_torch.ops import _build
-    from vibo_tpu_torch.ops.packing import packed_on_device
 
     resolve_device(None)           # the card, with TF32 off
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
     card = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": card, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -631,24 +847,17 @@ def main() -> None:
     ptxas = {s: [ln.strip() for ln in open(v["log"]).read().splitlines()
                  if "registers" in ln or "spill" in ln]
              for s, v in built.items()}
+    roof = Roofline()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {s: v["seconds"] for s, v in built.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sms": roof.sms, "max_sm_mhz": roof.max_sm_mhz})
 
     t0 = time.perf_counter()
-    sim = simulate_irt("2pl", B, M, ability_dim=K, seed=0, missing_rate=0.1)
-    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
-    packed, row_valid = packed_on_device(ds.response, ds.train_mask)
-    # epoch 0's first batch, and its last, padded with all-zero rows
-    epoch0 = list(batch_iterator(ds, BATCH, 0, 0))
-    resp_mb, mask_mb = (torch.from_numpy(x).cuda() for x in epoch0[0])
-    resp_pad, mask_pad = (torch.from_numpy(x).cuda() for x in epoch0[-1])
-    pad_rows = int((mask_pad.sum(-1) == 0).sum())
-    if pad_rows != len(epoch0) * BATCH - B:
-        raise AssertionError(f"last batch has {pad_rows} empty rows")
+    data = {link: link_data(link) for link in LINK_KERNELS}
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "shape": [B, M], "observed_train_frac":
-          float(ds.train_mask.mean())})
+          {link: float(d["ds"].train_mask.mean())
+           for link, d in data.items()}})
 
     timer = Timer()
     gen = torch.Generator(device="cuda")
@@ -656,77 +865,94 @@ def main() -> None:
     checks = {}
     ragged_pk = torch.randint(0, 3, RAGGED, generator=gen, device="cuda",
                               dtype=torch.int8)
-    for shape, pk in (("flagship", packed), ("ragged", ragged_pk)):
-        timed = shape == "flagship"
-        fl = check_first_layer(timer, pk, gen, timed)
-        ll = check_loglik(timer, pk, gen, timed)
-        checks[shape] = {**fl, "loglik_2pl_train": ll}
-        emit({"phase": "kernel_check", "shape": shape,
-              "dims": list(pk.shape) + [K, H], "results": checks[shape],
-              "card": smi})
-    ragged_m = (ragged_pk > 0).float()
-    ragged_r = (ragged_pk == 2).float()
     # M = 301: rows off the vector boundary take the scalar reader
     odd_pk = torch.randint(0, 3, ODD, generator=gen, device="cuda",
                            dtype=torch.int8)
-    odd_m, odd_r = (odd_pk > 0).float(), (odd_pk == 2).float()
-    masked = {
-        "minibatch": check_masked(timer, resp_mb, mask_mb, gen, True),
-        # the IWAE steps' call: S samples, per-sample a and b, shared data
-        f"minibatch_S{IWAE_S}": check_masked(timer, resp_mb, mask_mb, gen,
-                                             False, samples=IWAE_S),
-        "minibatch_padded": check_masked(timer, resp_pad, mask_pad, gen,
-                                         False),
-        "ragged": check_masked(timer, ragged_r, ragged_m, gen, False),
-        "ragged_S2": check_masked(timer, ragged_r, ragged_m, gen, False,
-                                  samples=2),
-        "ragged_S3_shared_items": check_masked(timer, ragged_r, ragged_m,
-                                               gen, False, samples=3,
-                                               shared_items=True),
-        "odd_K1_S2": check_masked(timer, odd_r, odd_m, gen, False,
-                                  samples=2, k=1),
-        "odd_K8": check_masked(timer, odd_r, odd_m, gen, False, k=8),
-    }
-    emit({"phase": "kernel_check", "kernel": "masked_loglik_2pl",
-          "dims": {"minibatch": [BATCH, M, K], "padded_rows": pad_rows,
-                   "ragged": list(RAGGED) + [K],
-                   "odd": list(ODD)}, "results": masked, "card": smi})
+    # (shape, int8 code (None: each link's flagship data), K, first layer
+    # checked too); timed at the flagship
+    for shape, pk, k, first in (("flagship", None, K, True),
+                                ("ragged", ragged_pk, K, True),
+                                ("odd_K1", odd_pk, 1, False),
+                                ("odd_K8", odd_pk, 8, False)):
+        timed = shape == "flagship"
+        codes = {link: data[link]["packed"] if pk is None else pk
+                 for link in LINK_KERNELS}
+        res = (check_first_layer(timer, roof, codes["2pl"], gen, timed)
+               if first else {})
+        for link in LINK_KERNELS:
+            res[LINK_KERNELS[link]["train"]] = check_loglik(
+                timer, roof, codes[link], gen, timed, link, k)
+        checks[shape] = res
+        emit({"phase": "kernel_check", "shape": shape,
+              "dims": list(codes["2pl"].shape) + [k, H], "results": res,
+              "card": smi})
+    ragged = ((ragged_pk == 2).float(), (ragged_pk > 0).float())
+    odd = ((odd_pk == 2).float(), (odd_pk > 0).float())
+    masked = {}
+    for link in LINK_KERNELS:
+        masked[link] = masked_checks(timer, roof, link, data[link], gen,
+                                     ragged, odd)
+        emit({"phase": "kernel_check", "kernel": f"masked_loglik_{link}",
+              "dims": {"minibatch": [BATCH, M, K],
+                       "padded_rows": data[link]["pad_rows"],
+                       "ragged": list(RAGGED) + [K], "odd": list(ODD)},
+              "results": masked[link], "card": smi})
+    emit({"phase": "kernel_check", "kernel": "3pl extreme point",
+          "results": check_extreme(timer, roof, gen), "card": smi})
+    emit({"phase": "special_functions", "counts": roof.counts,
+          "mufu_per_s": roof.mufu_per_s})
 
-    emit({"phase": "objective_vs_cpu",
-          "packed_max_rel_err": objective_matches_cpu(decoded=False),
-          "decoded_max_rel_err": objective_matches_cpu(decoded=True)})
+    for link in LINK_KERNELS:
+        emit({"phase": "objective_vs_cpu", "link": link,
+              "packed_max_rel_err": objective_matches_cpu(False, link),
+              "decoded_max_rel_err": objective_matches_cpu(True, link)})
 
-    full = full_batch_phase(ds, packed, row_valid, smi)
-    mini, mini_readers = minibatch_phase(ds, smi)
+    full, mini, mini_readers = {}, {}, {}
+    for link in LINK_KERNELS:
+        d = data[link]
+        full[link] = full_batch_phase(link, d["ds"], d["packed"],
+                                      d["row_valid"], smi)
+        mini[link], mini_readers[link] = minibatch_phase(link, d["ds"], smi)
 
-    fl, ll = checks["flagship"], checks["flagship"]["loglik_2pl_train"]
-    mb = masked["minibatch"]
+    fl = checks["flagship"]
     int8_note = ("int8 reader: on no model path, so checked and timed in "
                  "kernel_check; launches are its count over the minibatch "
                  "fit and the IWAE steps")
     kernels = [
         kernel_entry("first_layer_fwd", "vibo_tpu/ops/pallas_encoder.py:142",
-                     "first_layer.cu", full["first_layer_fwd"],
-                     fl["first_layer_fwd"]),
+                     "first_layer.cu",
+                     full["2pl"]["first_layer_fwd"], fl["first_layer_fwd"],
+                     launches_3pl_path=full["3pl"]["first_layer_fwd"]),
         kernel_entry("first_layer_bwd", "vibo_tpu/ops/pallas_encoder.py:167",
-                     "first_layer.cu", full["first_layer_bwd"],
-                     fl["first_layer_bwd"]),
-        kernel_entry("loglik_2pl_train", "vibo_tpu/ops/pallas_elbo.py:1244 "
-                     "(and :613, the (B, K) layout)", "loglik_2pl.cu",
-                     full["loglik_2pl_train"], ll["kb"],
-                     bk_layout=ll["bk"]),
+                     "first_layer.cu",
+                     full["2pl"]["first_layer_bwd"], fl["first_layer_bwd"],
+                     launches_3pl_path=full["3pl"]["first_layer_bwd"]),
     ]
-    for direction, line, int8_line in (("fwd", 247, 445), ("bwd", 319, 468)):
-        name = f"masked_loglik_2pl_{direction}"
-        int8 = {k: v for k, v in mb["int8"][direction].items()
-                if k != "rel_err"}
+    train_lines = {"2pl": ("1244", "613"), "3pl": ("1374", "741")}
+    masked_lines = {"2pl": {"fwd": (247, 445), "bwd": (319, 468)},
+                    "3pl": {"fwd": (959, 959), "bwd": (985, 985)}}
+    for link in LINK_KERNELS:
+        name = LINK_KERNELS[link]["train"]
+        kb, bk = train_lines[link]
         kernels.append(kernel_entry(
-            name, f"vibo_tpu/ops/pallas_elbo.py:{line} (dense reader; int8 "
-            f"reader :{int8_line})", "masked_loglik_2pl.cu", mini[name],
-            mb["dense"][direction],
-            int8_reader={**int8, "launches": mini_readers[name]["int8"],
-                         "note": int8_note},
-            launches_by_reader=mini_readers[name]))
+            name, f"vibo_tpu/ops/pallas_elbo.py:{kb} (and :{bk}, the (B, K) "
+            "layout)", "loglik_train.cu", full[link][name],
+            fl[name]["kb"], bk_layout=fl[name]["bk"]))
+    for link in LINK_KERNELS:
+        mb = masked[link]["minibatch"]
+        for direction in ("fwd", "bwd"):
+            name = f"masked_loglik_{link}_{direction}"
+            line, int8_line = masked_lines[link][direction]
+            int8 = {k: v for k, v in mb["int8"][direction].items()
+                    if k != "rel_err"}
+            kernels.append(kernel_entry(
+                name, f"vibo_tpu/ops/pallas_elbo.py:{line} (dense reader; "
+                f"int8 reader :{int8_line})", "masked_loglik.cu",
+                mini[link][name], mb["dense"][direction],
+                int8_reader={**int8,
+                             "launches": mini_readers[link][name]["int8"],
+                             "note": int8_note},
+                launches_by_reader=mini_readers[link][name]))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

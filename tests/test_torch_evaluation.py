@@ -27,6 +27,7 @@ N, M, K, H = 30, 14, 2, 12
     ("2pl", 64, 4, "heldout"),
     ("2pl", 16, 12, "heldout"),
     ("1pl", 16, 5, "train"),
+    ("3pl", 16, 4, "heldout"),
 ])
 def test_iwae_loglik_matches_jax(irt_model, block, s, on):
     sim = jsim(irt_model, N, M, ability_dim=K, seed=2, missing_rate=0.2)
@@ -40,8 +41,8 @@ def test_iwae_loglik_matches_jax(irt_model, block, s, on):
     want = jeval.iwae_loglik(jmodel, jparams, key, ds, num_samples=s,
                              block_size=block, on=on)
 
-    shapes = {"b": (M, 1)} if irt_model == "1pl" else {"a": (M, K),
-                                                        "b": (M, 1)}
+    shapes = {"1pl": {"b": (M, 1)}, "2pl": {"a": (M, K), "b": (M, 1)},
+              "3pl": {"a": (M, K), "b": (M, 1), "g_hat": (M, 1)}}[irt_model]
     state = {"key": key, "blocks": []}
 
     def noise(block_index, rows):

@@ -57,7 +57,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_out_of_scope_config_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VIBOConfig(num_items=4, irt_model="3pl")
+        VIBOConfig(num_items=4, irt_model="grm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VIBOConfig(num_items=4, theta_posterior="chol")
     # the deep link's options are not accepted at all until it is ported
@@ -81,22 +81,34 @@ def test_cpu_tensors_take_the_plain_path():
     assert all(k.launches == 0 and k._fn is None
                for k in _build.KERNELS.values())
     assert set(_build.KERNELS) == {"first_layer_fwd", "first_layer_bwd",
-                                   "loglik_2pl_train", "masked_loglik_2pl_fwd",
-                                   "masked_loglik_2pl_bwd"}
+                                   "loglik_2pl_train", "loglik_3pl_train",
+                                   "masked_loglik_2pl_fwd",
+                                   "masked_loglik_2pl_bwd",
+                                   "masked_loglik_3pl_fwd",
+                                   "masked_loglik_3pl_bwd"}
 
 
 def test_cpu_tensors_take_the_plain_path_general_loglik():
-    """The general op, both readers, with a sample axis: plain versions on
-    CPU tensors, no kernel bound or launched."""
+    """The general op, both links and readers, with a sample axis, and the
+    3PL one-pass op: plain versions on CPU tensors, no kernel bound or
+    launched."""
     _build.reset_launches()
     pk = torch.tensor([[0, 1, 2], [2, 2, 0]], dtype=torch.int8)
     m, r = (pk > 0).float(), (pk == 2).float()
     theta = torch.zeros((2, 2, 1), requires_grad=True)
     a, b = torch.ones((3, 1)), torch.zeros((2, 3), requires_grad=True)
+    # a guess logit of -inf-like size: 3PL reduces to 2PL
+    g_hat = torch.full((3,), -60.0, requires_grad=True)
     for ll in (pallas_elbo.masked_loglik_2pl(theta, a, b, r, m),
-               pallas_elbo.masked_loglik_2pl_packed(theta, a, b, pk)):
+               pallas_elbo.masked_loglik_2pl_packed(theta, a, b, pk),
+               pallas_elbo.masked_loglik_3pl(theta, a, b, g_hat, r, m),
+               pallas_elbo.masked_loglik_3pl_packed(theta, a, b, g_hat, pk)):
         (ll * torch.tensor([[1.0, 2.0], [0.5, 0.0]])).sum().backward()
         # two and two observed cells at logit 0: 2 * log(1/2) per person
         assert ll.detach().tolist() == [[pytest.approx(-1.3862944)] * 2] * 2
+    ll = pallas_elbo.masked_loglik_3pl_packed_train_t(theta[0].T, a, b[0],
+                                                      g_hat, pk)
+    ll.backward()
+    assert float(ll.detach()) == pytest.approx(4 * -0.6931471805599453)
     assert all(k.launches == 0 and k.launches_by == {} and k._fn is None
                for k in _build.KERNELS.values())

@@ -83,6 +83,21 @@ def test_distributions_likelihood_objectives_match_jax(data):
            jobj.elbo(jw[0], jw[1], jw[2], 0.25))
 
 
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_3pl_likelihood_matches_jax(data, per_sample):
+    """masked_loglik_per_person with g_hat: shared (M,), or per sample
+    (S, M) beside a leading sample axis of the logits, which JAX vmaps."""
+    (jt, ja, jb, jg, jr, jm), (tt, ta, tb, tg, tr, tm) = _both(
+        data["theta"], data["a"], data["b"], data["g"], data["resp"],
+        data["mask"])
+    tg2 = torch.stack([tg, tg - 2.0]) if per_sample else tg
+    got = lik.masked_loglik_per_person(links.logits_3pl(tt, ta, tb), tr, tm,
+                                       g_hat=tg2)
+    for s, jg_s in enumerate([jg, jg - 2.0] if per_sample else [jg, jg]):
+        _close(got[s], jlik.masked_loglik_per_person(
+            jlinks.logits_3pl(jt[s], ja, jb), jr, jm, g_hat=jg_s))
+
+
 def test_logits_2pl_takes_per_sample_items(data):
     (jt, ja, jb), (tt, ta, tb) = _both(data["theta"], data["a"], data["b"])
     a2, b2 = torch.stack([ta, 2 * ta]), torch.stack([tb, -tb])

@@ -25,7 +25,8 @@ def _close(got, want, tol=1e-5):
         np.abs(got - want).max() / scale)
 
 
-@pytest.mark.parametrize("irt_model,cond", [("2pl", True), ("1pl", False)])
+@pytest.mark.parametrize("irt_model,cond", [("2pl", True), ("1pl", False),
+                                            ("3pl", True)])
 def test_score_and_imputation_match_jax(irt_model, cond):
     sim = jsim(irt_model, 90, 30, ability_dim=2, seed=4, missing_rate=0.1)
     jds = jholdout(sim.response, sim.mask, 0.2, seed=0)

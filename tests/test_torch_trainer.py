@@ -1,7 +1,8 @@
-"""The port's training steps against the JAX ones: five packed full-batch
-steps (clip by global norm + Adam) on the same params and numpy noise track
-`make_optimizer` + `elbo_packed_sums`, and three decoded-data minibatch
-steps on JAX's replayed noise track `make_step`, at f32 within 1e-4
+"""The port's training steps against the JAX ones, for the 2PL and the 3PL
+link: five packed full-batch steps (clip by global norm + Adam) on the same
+params and numpy noise track `make_optimizer` + `elbo_packed_sums`, and
+three decoded-data minibatch steps on JAX's replayed noise track
+`make_step`, at f32 within 1e-4
 (relative to each array's largest magnitude: the frameworks sum in
 different orders). `batch_iterator` gives JAX's batches byte for byte.
 
@@ -38,17 +39,24 @@ def _close(got, want, tol):
         np.abs(got - want).max() / scale)
 
 
-def test_five_steps_track_jax():
+def _item_shapes(irt_model: str) -> dict:
+    """{name: (M, D)} of the link's item parameters."""
+    return ({"a": (M, K), "b": (M, 1)} if irt_model == "2pl"
+            else {"a": (M, K), "b": (M, 1), "g_hat": (M, 1)})
+
+
+@pytest.mark.parametrize("irt_model", ["2pl", "3pl"])
+def test_five_steps_track_jax(irt_model):
     rng = np.random.default_rng(0)
     resp = (rng.random((N, M)) < 0.5).astype(np.float32)
     mask = (rng.random((N, M)) < 0.85).astype(np.float32)
-    kw = dict(num_items=M, irt_model="2pl", ability_dim=K, hidden_dim=H,
+    kw = dict(num_items=M, irt_model=irt_model, ability_dim=K, hidden_dim=H,
               use_pallas=True, compute_dtype="float32")
     # lr large enough that Adam moves every param, max_grad_norm small
     # enough that the clip fires
     lr, max_norm = 2e-2, 5.0
-    noise = [({"a": rng.standard_normal((1, M, K)).astype(np.float32),
-               "b": rng.standard_normal((1, M, 1)).astype(np.float32)},
+    noise = [({n: rng.standard_normal((1,) + shp).astype(np.float32)
+               for n, shp in _item_shapes(irt_model).items()},
               rng.standard_normal((1, K, N)).astype(np.float32))
              for _ in range(STEPS)]
 
@@ -138,9 +146,10 @@ def test_batch_iterator_byte_equal_to_jax():
         assert not got[-1][1][3:].any()          # zero-padded last batch
 
 
-@pytest.mark.parametrize("objective,use_pallas,s", [
-    ("elbo", True, 1), ("iwae", False, 2)])
-def test_minibatch_steps_track_jax(objective, use_pallas, s):
+@pytest.mark.parametrize("objective,use_pallas,s,irt_model", [
+    ("elbo", True, 1, "2pl"), ("iwae", False, 2, "2pl"),
+    ("elbo", True, 1, "3pl"), ("iwae", True, 2, "3pl")])
+def test_minibatch_steps_track_jax(objective, use_pallas, s, irt_model):
     """Three decoded-data minibatch steps (item_scale = batch / N) on JAX's
     own noise, replayed from its step keys, track `Trainer.make_step`."""
     from vibo_tpu.train.trainer import (Trainer as JTrainer,
@@ -151,7 +160,7 @@ def test_minibatch_steps_track_jax(objective, use_pallas, s):
                   (rng.random((N, M)) < 0.85).astype(np.float32), 0.1,
                   seed=2)
     batch = 16
-    kw = dict(num_items=M, irt_model="2pl", ability_dim=K, hidden_dim=H,
+    kw = dict(num_items=M, irt_model=irt_model, ability_dim=K, hidden_dim=H,
               use_pallas=use_pallas, compute_dtype="float32")
     lr, max_norm = 2e-2, 5.0
     tcfg = dict(lr=lr, max_grad_norm=max_norm, num_mc_samples=s,
@@ -166,7 +175,7 @@ def test_minibatch_steps_track_jax(objective, use_pallas, s):
     trainer = Trainer(model, TrainConfig(**tcfg), device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     optimizer = make_optimizer(params, lr)
-    names = {"a": (M, K), "b": (M, 1)}
+    names = _item_shapes(irt_model)
     keys = jax.random.split(jax.random.key(9), 3)
     for key, (resp, mask) in zip(keys, batch_iterator(ds, batch, 0, 0)):
         jparams, opt_state, jaux = jstep(jparams, opt_state, key,

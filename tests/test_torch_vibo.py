@@ -1,6 +1,7 @@
 """The port's packed ELBO against the JAX package: the three terms of
 `elbo_packed_sums` and the gradient of the bound with respect to EVERY
-parameter, on params from the JAX `init_params` and the same numpy noise.
+parameter, on params from the JAX `init_params` and the same numpy noise,
+for the 2PL and the 3PL link (both theta layouts).
 
 Tolerances: 1e-4 relative to each array's largest magnitude at f32 (the two
 frameworks sum in different orders); 2e-2 at bf16, where the two round the
@@ -8,8 +9,8 @@ encoder's operands at the same places but accumulate in different orders,
 so a rounding flip of one bf16 operand moves a value by up to 2^-8.
 
 The decoded-data `elbo` and `iwae` are held the same way, on JAX's own
-noise replayed from its key, for use_pallas on and off, 1PL and 2PL, S = 1
-to 3, item_scale < 1 and an all-missing row.
+noise replayed from its key, for use_pallas on and off, 1PL, 2PL and 3PL,
+S = 1 to 3, item_scale < 1 and an all-missing row.
 """
 
 import jax
@@ -30,6 +31,13 @@ from jax_noise_replay import replay_noise
 N, M, K, H, S = 29, 37, 3, 24, 2
 
 
+def _item_shapes(irt_model: str, m: int, k: int) -> dict:
+    """{name: (M, D)} of the link's item parameters (the head spec)."""
+    spec = {"1pl": {"b": 1}, "2pl": {"a": k, "b": 1},
+            "3pl": {"a": k, "b": 1, "g_hat": 1}}[irt_model]
+    return {n: (m, d) for n, d in spec.items()}
+
+
 def _close(got, want, tol):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     scale = max(np.abs(want).max(), 1e-30)
@@ -37,24 +45,27 @@ def _close(got, want, tol):
         np.abs(got - want).max() / scale)
 
 
-@pytest.mark.parametrize("transposed,dtype,cond,tol", [
-    (True, "float32", "sample", 1e-4),
-    (False, "float32", "sample", 1e-4),
-    (True, "float32", "mean", 1e-4),
-    (True, "bfloat16", "sample", 2e-2),
+@pytest.mark.parametrize("transposed,dtype,cond,tol,irt", [
+    (True, "float32", "sample", 1e-4, "2pl"),
+    (False, "float32", "sample", 1e-4, "2pl"),
+    (True, "float32", "mean", 1e-4, "2pl"),
+    (True, "bfloat16", "sample", 2e-2, "2pl"),
+    (True, "float32", "sample", 1e-4, "3pl"),
+    (False, "float32", "sample", 1e-4, "3pl"),
+    (True, "bfloat16", "sample", 2e-2, "3pl"),
 ])
-def test_elbo_packed_sums_terms_and_grads(transposed, dtype, cond, tol):
+def test_elbo_packed_sums_terms_and_grads(transposed, dtype, cond, tol, irt):
     rng = np.random.default_rng(0)
     resp = (rng.random((N, M)) < 0.55).astype(np.float32)
     mask = (rng.random((N, M)) < 0.8).astype(np.float32)
     mask[3] = 0.0                          # an all-missing row: KL excluded
     packed = jpack(resp, mask)
-    kw = dict(num_items=M, irt_model="2pl", ability_dim=K, hidden_dim=H,
+    kw = dict(num_items=M, irt_model=irt, ability_dim=K, hidden_dim=H,
               condition_on=cond, use_pallas=True, compute_dtype=dtype)
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(1))
-    item_eps = {"a": rng.standard_normal((S, M, K)).astype(np.float32),
-                "b": rng.standard_normal((S, M, 1)).astype(np.float32)}
+    item_eps = {n: rng.standard_normal((S,) + shp).astype(np.float32)
+                for n, shp in _item_shapes(irt, M, K).items()}
     shape = (S, K, N) if transposed else (S, N, K)
     theta_eps = rng.standard_normal(shape).astype(np.float32)
 
@@ -78,7 +89,8 @@ def test_elbo_packed_sums_terms_and_grads(transposed, dtype, cond, tol):
         _close(got.detach(), want, tol)
     jleaves = jax.tree.leaves(jgrads)       # dict keys sorted, as tree_leaves
     leaves = tree_leaves(params)
-    assert len(leaves) == len(jleaves) == 10
+    # 3 encoder layers (w, b) and each item parameter's (mu, logvar)
+    assert len(leaves) == len(jleaves) == 6 + 2 * len(item_eps)
     for p, g in zip(leaves, jleaves):
         assert p.grad.shape == g.shape
         _close(p.grad, g, tol)
@@ -104,8 +116,7 @@ def _decoded_setup(irt_model, use_pallas, dtype, cond, seed=0):
     jparams = jmodel.init_params(jax.random.key(seed + 1))
     model = VIBO(VIBOConfig(**kw), device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
-    names = {n: (DM, d) for n, d in
-             ({"a": DK, "b": 1} if irt_model == "2pl" else {"b": 1}).items()}
+    names = _item_shapes(irt_model, DM, DK)
     return resp, mask, jmodel, jparams, model, params, names
 
 
@@ -125,6 +136,9 @@ DECODED_CASES = [  # use_pallas, irt_model, S, item_scale, dtype, cond, tol
     (True, "1pl", 2, 0.5, "float32", False, 1e-4),
     (False, "1pl", 1, 0.3, "float32", True, 1e-4),
     (True, "2pl", 2, 0.5, "bfloat16", True, 2e-2),
+    (True, "3pl", 2, 0.5, "float32", True, 1e-4),
+    (False, "3pl", 1, 0.3, "float32", True, 1e-4),
+    (True, "3pl", 2, 0.5, "bfloat16", True, 2e-2),
 ]
 
 
@@ -154,6 +168,9 @@ def test_elbo_decoded_terms_and_grads(use_pallas, irt, s, scale, dtype, cond,
     (True, "1pl", 2, 0.25, "float32", False, 1e-4),
     (False, "1pl", 2, 0.7, "float32", True, 1e-4),
     (True, "2pl", 2, 0.5, "bfloat16", True, 2e-2),
+    (True, "3pl", 3, 0.5, "float32", True, 1e-4),
+    (False, "3pl", 2, 0.7, "float32", False, 1e-4),
+    (True, "3pl", 2, 0.5, "bfloat16", True, 2e-2),
 ])
 def test_iwae_decoded_bound_and_grads(use_pallas, irt, s, scale, dtype, cond,
                                       tol):

@@ -4,9 +4,10 @@ Both packages keep the same tree:
 
     {"encoder":   [{"w": (in, out), "b": (out,)}, ...],      x @ w + b
      "item_post": {"a": {"mu": (M, K), "logvar": (M, K)},
-                   "b": {"mu": (M, 1), "logvar": (M, 1)}}}
+                   "b": {"mu": (M, 1), "logvar": (M, 1)},
+                   "g_hat": {"mu": (M, 1), "logvar": (M, 1)}}}   # 3PL only
 
-so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
+(1PL has "b" alone), so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
 either direction unchanged. Leaves are float32 tensors that require grad.
 """
 

@@ -107,15 +107,17 @@ def item_head_spec(irt_model: str, ability_dim: int) -> dict:
         return {"b": 1}
     if irt_model == "2pl":
         return {"a": ability_dim, "b": 1}
+    if irt_model == "3pl":
+        return {"a": ability_dim, "b": 1, "g_hat": 1}
     raise NotImplementedError(
-        f"irt_model {irt_model!r}: the port covers 1pl/2pl (3pl is ROADMAP "
-        "queue A item 9, grm/gpcm item 12, deep item 13)")
+        f"irt_model {irt_model!r}: the port covers 1pl/2pl/3pl (grm/gpcm are "
+        "ROADMAP queue A item 12, deep item 13)")
 
 
 def init_item_posterior(num_items: int, irt_model: str, ability_dim: int,
                         generator: torch.Generator, device) -> dict:
     """Free-form per-item Gaussians {name: {'mu', 'logvar': (M, D)}}: mu
-    ~ 0.1 N(0, 1), logvar -2."""
+    ~ 0.1 N(0, 1), logvar -2 (3PL: a, b and the guess logit g_hat)."""
     return {name: {"mu": 0.1 * torch.randn((num_items, d), generator=generator,
                                            device=device),
                    "logvar": torch.full((num_items, d), -2.0, device=device)}
@@ -128,7 +130,7 @@ def item_feat_dim(num_items: int, irt_model: str, ability_dim: int) -> int:
 
 
 def flatten_item_sample(sample: dict) -> torch.Tensor:
-    """Item-sample dict -> feature vector, keys SORTED (a then b), each
+    """Item-sample dict -> feature vector, keys SORTED (a, b, g_hat), each
     item-major, the JAX package's order."""
     return torch.cat([sample[k].reshape(sample[k].shape[:-2] + (-1,))
                       for k in sorted(sample)], dim=-1)

@@ -1,9 +1,11 @@
 """VIBO: amortized variational inference for IRT (counterpart of
-`vibo_tpu.models.vibo`, the binary 1PL/2PL part with free-form item
+`vibo_tpu.models.vibo`, the binary 1PL/2PL/3PL part with free-form item
 posteriors and the diagonal ability posterior).
 
 Generative model: theta_i ~ N(0, I_K), item d_j ~ N(0, I), r_ij ~
-Bernoulli(sigmoid(a_j . theta_i - b_j)) on observed cells. Posterior:
+Bernoulli(sigmoid(a_j . theta_i - b_j)) on observed cells; under 3PL
+Bernoulli(g_j + (1 - g_j) sigmoid(a_j . theta_i - b_j)), g_j =
+sigmoid(g_hat_j), the guess logit a third item parameter. Posterior:
 q(d) per-item diagonal Gaussians; q(theta_i | d, r_i) an MLP encoder on the
 response row, conditioned on a flattened item draw ("sample") or on the
 item-posterior means ("mean").
@@ -63,9 +65,9 @@ class VIBOConfig:
             raise ValueError(f"unknown theta_posterior "
                              f"{self.theta_posterior!r}")
         gaps = []
-        if self.irt_model not in ("1pl", "2pl"):
-            gaps.append(f"irt_model={self.irt_model!r} (3pl: ROADMAP queue A "
-                        "item 9; grm/gpcm: item 12; deep: item 13)")
+        if self.irt_model not in ("1pl", "2pl", "3pl"):
+            gaps.append(f"irt_model={self.irt_model!r} (grm/gpcm: ROADMAP "
+                        "queue A item 12; deep: item 13)")
         if self.theta_posterior != "diag":
             gaps.append(f"theta_posterior={self.theta_posterior!r} (ROADMAP "
                         "queue A item 14)")
@@ -157,13 +159,16 @@ class VIBO:
         return None if cond is None else networks.flatten_item_sample(cond)
 
     def _link_params(self, item_sample: dict, num_items: int):
-        """Item sample -> (a (..., M, K), b (..., M)); 1PL is 2PL with a
-        unit a of (M, K), shared over any sample axis."""
+        """Item sample -> (a (..., M, K), b (..., M), g_hat (..., M) or
+        None): 1PL is 2PL with a unit a of (M, K), shared over any sample
+        axis; g_hat is the 3PL guess logit, None for the other links."""
         a = item_sample.get("a")
         if a is None:
             a = torch.ones((num_items, self.cfg.ability_dim),
                            device=item_sample["b"].device)
-        return a, item_sample["b"][..., 0]
+        g_hat = item_sample.get("g_hat")
+        return (a, item_sample["b"][..., 0],
+                None if g_hat is None else g_hat[..., 0])
 
     # ---------------------------------------------------- ability encoder
 
@@ -206,17 +211,22 @@ class VIBO:
                           response, mask) -> torch.Tensor:
         """Masked Bernoulli log p(r_i | theta_i, d) summed over items ->
         (..., B). theta and the item draw may carry a leading sample axis.
-        use_pallas runs the general kernel op (1PL as unit discriminations
-        sized from the data); otherwise the links and the likelihood."""
+        use_pallas runs the link's general kernel op (1PL as unit
+        discriminations sized from the data); otherwise the links and the
+        likelihood."""
         del params
-        a, b = self._link_params(item_sample, mask.shape[-1])
+        a, b, g_hat = self._link_params(item_sample, mask.shape[-1])
         if self.cfg.use_pallas:
+            if g_hat is not None:
+                return pallas_elbo.masked_loglik_3pl(theta, a, b, g_hat,
+                                                     response, mask)
             return pallas_elbo.masked_loglik_2pl(theta, a, b, response, mask)
         if self.cfg.irt_model == "1pl":
             logits = links.logits_1pl(theta, b)
         else:
             logits = links.logits_2pl(theta, a, b)
-        return likelihood.masked_loglik_per_person(logits, response, mask)
+        return likelihood.masked_loglik_per_person(logits, response, mask,
+                                                   g_hat=g_hat)
 
     # --------------------------------------------------------- objective
 
@@ -359,14 +369,19 @@ class VIBO:
                 params, packed, self._item_feats(post, item_sample),
                 transposed=transposed)
             theta = dist.reparameterize_eps(theta_eps[s], mu, logvar)
-            a, b = self._link_params(item_sample, m)
+            a, b, g_hat = self._link_params(item_sample, m)
+            items = (a, b) if g_hat is None else (a, b, g_hat)
             if transposed:
-                lls.append(pallas_elbo.masked_loglik_2pl_packed_train_t(
-                    theta, a, b, packed))
+                train_t = (pallas_elbo.masked_loglik_2pl_packed_train_t
+                           if g_hat is None else
+                           pallas_elbo.masked_loglik_3pl_packed_train_t)
+                lls.append(train_t(theta, *items, packed))
                 kl = dist.kl_standard_normal(mu, logvar).sum(0)
             else:
-                lls.append(pallas_elbo.masked_loglik_2pl_packed_train(
-                    theta, a, b, packed).sum())
+                train = (pallas_elbo.masked_loglik_2pl_packed_train
+                         if g_hat is None else
+                         pallas_elbo.masked_loglik_3pl_packed_train)
+                lls.append(train(theta, *items, packed).sum())
                 kl = dist.kl_standard_normal(mu, logvar).sum(-1)
             klts.append((kl * valid).sum())
         return (torch.stack(lls).mean(), torch.stack(klts).mean(),
@@ -380,6 +395,8 @@ class VIBO:
         lp = {"b": item_sample["b"][..., 0]}
         if "a" in item_sample:
             lp["a"] = item_sample["a"]
+        if "g_hat" in item_sample:
+            lp["g_hat"] = item_sample["g_hat"][..., 0]
         return links.response_prob(self.cfg.irt_model, theta, lp)
 
     def impute_prob_with_items(self, params: dict, response, mask,

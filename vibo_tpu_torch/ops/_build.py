@@ -3,8 +3,9 @@
 Each `csrc/*.cu` file has a plain C interface (pointers, sizes, strides and a
 `cudaStream_t`, returning `cudaGetLastError()`), is compiled by `nvcc` for
 `sm_90a` into its own shared library and loaded with `ctypes`. Libraries go to
-`build/vibo_tpu_torch/` beside the package, named by a hash of the source and
-the flags, so a changed source rebuilds and an unchanged one is reused. All
+`build/vibo_tpu_torch/` beside the package, named by a hash of the source, the
+headers it may include (`csrc/*.cuh`) and the flags, so a changed source or
+header rebuilds and an unchanged one is reused. All
 missing libraries are compiled at once, one `nvcc` process per source.
 
 Nothing here runs at import time: the CPU tests import every module without
@@ -42,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def lib_path(source: str) -> Path:
-    """Library path for csrc/<source>, keyed by a hash of source + flags."""
+    """Library path for csrc/<source>, keyed by a hash of the source, the
+    shared headers (csrc/*.cuh) and the flags."""
     src = CSRC_DIR / source
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

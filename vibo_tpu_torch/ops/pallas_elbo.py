@@ -1,4 +1,4 @@
-"""Masked 2PL Bernoulli log-likelihood ops (counterpart of
+"""Masked 2PL and 3PL Bernoulli log-likelihood ops (counterpart of
 `vibo_tpu.ops.pallas_elbo`, same module name), each a
 `torch.autograd.Function` with its Pallas op's custom-VJP contract:
 
@@ -7,17 +7,22 @@
   masked_loglik_2pl_packed_train_t  thetaT (K, B) -> scalar sum_i ll_i
   masked_loglik_2pl_packed_train    theta (B, K)  -> per-person ll (B,)
 
-The first two are the general op: its VJP is exact for any per-person
-cotangent, and a leading sample axis (theta (S, B, K), with a, b and the
-data each per-sample or shared) runs as one launch. On a CUDA tensor they
-run csrc/masked_loglik_2pl.cu, one source templated on the cell reader
-(dense f32 resp/mask, or the int8 code).
+and the same four for 3PL (`masked_loglik_3pl`, `..._3pl_packed`,
+`..._3pl_packed_train_t`, `..._3pl_packed_train`), which take the guess
+logits g_hat (M,) after b: pi = g + (1 - g) sigmoid(l), g = sigmoid(g_hat),
+computed in log space (csrc/irt_links.cuh) and differentiable in g_hat too.
 
-The training ELBO on the code only consumes ll.sum(), so the last two take
-the value and all gradients from ONE pass over the code (one exp and one
-log1p per cell): the kernel emits (ll, dtheta, da, db) and the backward only
-rescales them. On a CUDA tensor both layouts run csrc/loglik_2pl.cu (theta
-addressed through its strides, so no transpose is copied).
+The general ops (the first two of each link): the VJP is exact for any
+per-person cotangent, and a leading sample axis (theta (S, B, K), with a,
+b, g_hat and the data each per-sample or shared) runs as one launch. On a
+CUDA tensor they run csrc/masked_loglik.cu, one source templated on the
+link and on the cell reader (dense f32 resp/mask, or the int8 code).
+
+The training ELBO on the code only consumes ll.sum(), so the train ops take
+the value and all gradients from ONE pass over the code: the kernel emits
+(ll, dtheta, da, db[, dg_hat]) and the backward only rescales them. On a
+CUDA tensor both layouts run csrc/loglik_train.cu (theta addressed through
+its strides, so no transpose is copied).
 
 On a CPU tensor each op runs the plain PyTorch version beside its kernel.
 Nothing else falls back.
@@ -36,22 +41,74 @@ from vibo_tpu_torch.ops.packing import decode_packed
 L = ctypes.c_longlong
 
 TRAIN = _build.register(_build.Kernel(
-    "loglik_2pl_train", "loglik_2pl.cu", "loglik_2pl_train",
+    "loglik_2pl_train", "loglik_train.cu", "loglik_2pl_train",
     [P, L, L, P, P, P, P, L, L, P, P, P, P, P, P, P, I, I, I, I, P]))
+TRAIN_3PL = _build.register(_build.Kernel(
+    "loglik_3pl_train", "loglik_train.cu", "loglik_3pl_train",
+    [P, L, L, P, P, P, P, P, L, L, P, P, P, P, P, P, P, P, P, I, I, I, I, P]))
 MASKED_FWD = _build.register(_build.Kernel(
-    "masked_loglik_2pl_fwd", "masked_loglik_2pl.cu", "masked_loglik_2pl_fwd",
+    "masked_loglik_2pl_fwd", "masked_loglik.cu", "masked_loglik_2pl_fwd",
     [P, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
 MASKED_BWD = _build.register(_build.Kernel(
-    "masked_loglik_2pl_bwd", "masked_loglik_2pl.cu", "masked_loglik_2pl_bwd",
+    "masked_loglik_2pl_bwd", "masked_loglik.cu", "masked_loglik_2pl_bwd",
     [P, P, P, L, P, L, P, P, P, L, P, P, P, P, P, I, I, I, I, I, P]))
+MASKED_FWD_3PL = _build.register(_build.Kernel(
+    "masked_loglik_3pl_fwd", "masked_loglik.cu", "masked_loglik_3pl_fwd",
+    [P, P, L, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
+MASKED_BWD_3PL = _build.register(_build.Kernel(
+    "masked_loglik_3pl_bwd", "masked_loglik.cu", "masked_loglik_3pl_bwd",
+    [P, P, P, L, P, L, P, L, P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I,
+     P]))
 MAX_K = 8                   # the kernels are instantiated for K = 1..8
-STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_2pl.cu: scratch rows
-MASKED_BWD_STUDENTS = 32    # BWD_TBS in csrc/masked_loglik_2pl.cu
+STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_train.cu: scratch rows
+MASKED_BWD_STUDENTS = 32    # BWD_TBS in csrc/masked_loglik.cu
+
+
+# ----------------------------------------------------- 3PL cell math
+
+
+def _cells_3pl(logits, g_hat, resp, mask, grads: bool):
+    """The 3PL cell of csrc/irt_links.cuh on dense logits (..., B, M), with
+    g_hat (..., M): ll, and with grads also (dll/dl, dll/dg_hat), per cell.
+    log g, log(1-g) and g are computed once per item, the branch ratios
+    from t = exp(-|log g - log_s|) as 1/(1+t) (the larger) and t/(1+t)."""
+    gh = g_hat[..., None, :]
+    e_g = torch.exp(-gh.abs())
+    lp_g = torch.log1p(e_g)
+    log_g = -(lp_g + (-gh).clamp(min=0.0))
+    log_1mg = -(lp_g + gh.clamp(min=0.0))
+    e = torch.exp(-logits.abs())
+    lp = torch.log1p(e)
+    log_s = log_1mg - (lp - logits.clamp(max=0.0))
+    log_1m_pi = log_1mg - (lp + logits.clamp(min=0.0))
+    g_larger = log_g >= log_s
+    hi = torch.where(g_larger, log_g, log_s)
+    lo = torch.where(g_larger, log_s, log_g)
+    t = torch.exp(lo - hi)
+    ll = mask * (resp * (hi + torch.log1p(t)) + (1.0 - resp) * log_1m_pi)
+    if not grads:
+        return ll
+    inv_g = 1.0 / (1.0 + e_g)
+    g = torch.where(gh >= 0, inv_g, e_g * inv_g)
+    inv = 1.0 / (1.0 + e)
+    sg = torch.where(logits >= 0, inv, e * inv)          # sigmoid(l)
+    om = torch.where(logits >= 0, e * inv, inv)          # 1 - sigmoid(l)
+    big = 1.0 / (1.0 + t)
+    small = t * big
+    ratio_g = torch.where(g_larger, big, small)
+    ratio_s = torch.where(g_larger, small, big)
+    dl = mask * (resp * ratio_s * om - (1.0 - resp) * sg)
+    dg = mask * (resp * ratio_g * (1.0 - g) * om - (1.0 - resp) * g)
+    return ll, dl, dg
+
+
+# ------------------------------------------- one-pass training loglik
 
 
 def loglik_2pl_train_plain(theta, a, b, packed):
-    """Plain version of the kernel: theta (B, K) -> (ll (B,), dtheta (B, K),
-    da (M, K), db (M,)), dense logits and closed-form gradients of sum(ll)."""
+    """Plain version of the 2PL kernel: theta (B, K) -> (ll (B,), dtheta
+    (B, K), da (M, K), db (M,)), dense logits and closed-form gradients of
+    sum(ll)."""
     with torch.no_grad():
         m, r = decode_packed(packed)
         logits = theta @ a.T - b
@@ -65,10 +122,29 @@ def loglik_2pl_train_plain(theta, a, b, packed):
         return ll, dl @ a, dl.T @ theta, -dl.sum(0)
 
 
-def loglik_2pl_train_cuda(theta, a, b, packed, dtheta, per_person: bool):
-    """Launch csrc/loglik_2pl.cu on theta (B, K) of any strides, writing
-    dtheta (a (B, K) view of a preallocated buffer) through its strides.
-    Returns (ll, da, db): ll is (B,) if per_person else a scalar."""
+def loglik_3pl_train_plain(theta, a, b, g_hat, packed):
+    """Plain version of the 3PL kernel: theta (B, K) -> (ll (B,), dtheta
+    (B, K), da (M, K), db (M,), dg_hat (M,)), gradients of sum(ll)."""
+    with torch.no_grad():
+        m, r = decode_packed(packed)
+        ll, dl, dg = _cells_3pl(theta @ a.T - b, g_hat, r, m, grads=True)
+        return ll.sum(-1), dl @ a, dl.T @ theta, -dl.sum(0), dg.sum(0)
+
+
+def loglik_train_plain(theta, a, b, g_hat, packed):
+    """The plain version of the link's kernel (g_hat None: 2PL) -> (ll,
+    dtheta, *item gradients)."""
+    if g_hat is None:
+        return loglik_2pl_train_plain(theta, a, b, packed)
+    return loglik_3pl_train_plain(theta, a, b, g_hat, packed)
+
+
+def loglik_train_cuda(theta, a, b, g_hat, packed, dtheta, per_person: bool):
+    """Launch csrc/loglik_train.cu (g_hat None: the 2PL kernel, else the
+    3PL one) on theta (B, K) of any strides, writing dtheta (a (B, K) view
+    of a preallocated buffer) through its strides. Returns (ll, item
+    gradients): ll is (B,) if per_person else a scalar; the gradients are
+    (da, db) or (da, db, dg_hat)."""
     bsz, k = theta.shape
     m = a.shape[0]
     dev = theta.device
@@ -81,81 +157,111 @@ def loglik_2pl_train_cuda(theta, a, b, packed, dtheta, per_person: bool):
     da = torch.empty((m, k), **f32)
     db = torch.empty((m,), **f32)
     ll = torch.empty((1,), **f32)
-    TRAIN(theta.data_ptr(), theta.stride(0), theta.stride(1), a.data_ptr(),
-          b.data_ptr(), packed.data_ptr(), dtheta.data_ptr(),
-          dtheta.stride(0), dtheta.stride(1),
-          None if ll_person is None else ll_person.data_ptr(),
-          part_da.data_ptr(), part_db.data_ptr(), part_ll.data_ptr(),
-          da.data_ptr(), db.data_ptr(), ll.data_ptr(), bsz, m, k, nblk,
-          torch.cuda.current_stream(dev).cuda_stream)
-    return (ll_person if per_person else ll[0]), da, db
+    head = (theta.data_ptr(), theta.stride(0), theta.stride(1), a.data_ptr(),
+            b.data_ptr())
+    mid = (packed.data_ptr(), dtheta.data_ptr(), dtheta.stride(0),
+           dtheta.stride(1),
+           None if ll_person is None else ll_person.data_ptr(),
+           part_da.data_ptr(), part_db.data_ptr())
+    tail = (bsz, m, k, nblk, torch.cuda.current_stream(dev).cuda_stream)
+    if g_hat is None:
+        TRAIN(*head, *mid, part_ll.data_ptr(), da.data_ptr(), db.data_ptr(),
+              ll.data_ptr(), *tail)
+        grads = (da, db)
+    else:
+        part_dg = torch.empty((nblk, m), **f32)
+        dg = torch.empty((m,), **f32)
+        TRAIN_3PL(*head, g_hat.data_ptr(), *mid, part_dg.data_ptr(),
+                  part_ll.data_ptr(), da.data_ptr(), db.data_ptr(),
+                  dg.data_ptr(), ll.data_ptr(), *tail)
+        grads = (da, db, dg)
+    return (ll_person if per_person else ll[0]), grads
+
+
+def _no_g_hat_grad(grads: tuple) -> tuple:
+    """The backward's item gradients in input order: (da, db, dg_hat), with
+    None for g_hat under 2PL."""
+    return grads if len(grads) == 3 else (*grads, None)
 
 
 class _TrainT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, thetaT, a, b, packed):
+    def forward(ctx, thetaT, a, b, g_hat, packed):
         if thetaT.is_cuda:
             dthT = torch.empty(thetaT.shape, dtype=torch.float32,
                                device=thetaT.device)
-            ll, da, db = loglik_2pl_train_cuda(thetaT.T, a, b, packed,
-                                               dthT.T, per_person=False)
+            ll, grads = loglik_train_cuda(thetaT.T, a, b, g_hat, packed,
+                                          dthT.T, per_person=False)
         else:
-            ll, dth, da, db = loglik_2pl_train_plain(thetaT.T, a, b, packed)
+            ll, dth, *grads = loglik_train_plain(thetaT.T, a, b, g_hat,
+                                                 packed)
             ll, dthT = ll.sum(), dth.T
-        ctx.save_for_backward(dthT, da, db)
+        ctx.save_for_backward(dthT, *grads)
         return ll
 
     @staticmethod
     def backward(ctx, g):
-        dthT, da, db = ctx.saved_tensors
-        return g * dthT, g * da, g * db, None
+        dthT, *grads = ctx.saved_tensors
+        return (g * dthT, *_no_g_hat_grad(tuple(g * x for x in grads)),
+                None)
 
 
 class _Train(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, theta, a, b, packed):
+    def forward(ctx, theta, a, b, g_hat, packed):
         if theta.is_cuda:
             dth = torch.empty(theta.shape, dtype=torch.float32,
                               device=theta.device)
-            ll, da, db = loglik_2pl_train_cuda(theta, a, b, packed, dth,
-                                               per_person=True)
+            ll, grads = loglik_train_cuda(theta, a, b, g_hat, packed, dth,
+                                          per_person=True)
         else:
-            ll, dth, da, db = loglik_2pl_train_plain(theta, a, b, packed)
-        ctx.save_for_backward(dth, da, db)
+            ll, dth, *grads = loglik_train_plain(theta, a, b, g_hat, packed)
+        ctx.save_for_backward(dth, *grads)
         return ll
 
     @staticmethod
     def backward(ctx, g):
-        dth, da, db = ctx.saved_tensors
+        dth, *grads = ctx.saved_tensors
         g0 = g.reshape(-1)[0]  # uniform-cotangent contract (module doc)
-        return g[:, None] * dth, g0 * da, g0 * db, None
+        return (g[:, None] * dth, *_no_g_hat_grad(tuple(g0 * x
+                                                        for x in grads)),
+                None)
 
 
-def _prepare(theta, a, b, packed, k_axis: int):
-    """Validate and cast: f32 theta/a/b, int8 code, one device, K bound."""
+def _prepare(theta, a, b, g_hat, packed, k_axis: int):
+    """Validate and cast: f32 theta/a/b/g_hat, int8 code, one device, K
+    bound."""
     if packed.dtype != torch.int8 or packed.ndim != 2:
         raise ValueError(f"packed must be a (B, M) int8 tensor, got "
                          f"{packed.dtype} {tuple(packed.shape)}")
-    devices = {t.device for t in (theta, a, b, packed)}
+    items = (a, b) if g_hat is None else (a, b, g_hat)
+    devices = {t.device for t in (theta, *items, packed)}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on different devices: "
                          f"{sorted(map(str, devices))}")
     bsz, m = packed.shape
     k = theta.shape[k_axis]
     if (theta.ndim != 2 or theta.shape[1 - k_axis] != bsz
-            or a.shape != (m, k) or b.shape != (m,)):
-        raise ValueError(f"shapes theta {tuple(theta.shape)}, a "
-                         f"{tuple(a.shape)}, b {tuple(b.shape)} do not match "
-                         f"packed {tuple(packed.shape)}")
-    theta, a, b = theta.float(), a.float(), b.float()
+            or a.shape != (m, k) or b.shape != (m,)
+            or (g_hat is not None and g_hat.shape != (m,))):
+        raise ValueError(
+            f"shapes theta {tuple(theta.shape)}, a {tuple(a.shape)}, b "
+            f"{tuple(b.shape)}"
+            + ("" if g_hat is None else f", g_hat {tuple(g_hat.shape)}")
+            + f" do not match packed {tuple(packed.shape)}")
+    theta = theta.float()
+    items = [x.float() for x in items]
     if packed.is_cuda:
         if not 1 <= k <= MAX_K:
             raise ValueError(f"the CUDA loglik kernel takes 1 <= K <= "
                              f"{MAX_K}, got K={k}")
-        a, b, packed = a.contiguous(), b.contiguous(), packed.contiguous()
+        items = [x.contiguous() for x in items]
+        packed = packed.contiguous()
     elif packed.device.type != "cpu":
         raise ValueError(f"no kernel for device {packed.device}")
-    return theta, a, b, packed
+    if g_hat is None:
+        items.append(None)
+    return theta, *items, packed
 
 
 def masked_loglik_2pl_packed_train_t(thetaT: torch.Tensor, a: torch.Tensor,
@@ -164,8 +270,7 @@ def masked_loglik_2pl_packed_train_t(thetaT: torch.Tensor, a: torch.Tensor,
     """Transposed-theta one-pass 2PL training loglik: thetaT (K, B) ->
     SCALAR sum_i ll_i. The scalar output makes the uniform-cotangent contract
     exact by construction: the backward scales (dthetaT, da, db) by g."""
-    thetaT, a, b, packed = _prepare(thetaT, a, b, packed, k_axis=0)
-    return _TrainT.apply(thetaT, a, b, packed)
+    return _TrainT.apply(*_prepare(thetaT, a, b, None, packed, k_axis=0))
 
 
 def masked_loglik_2pl_packed_train(theta: torch.Tensor, a: torch.Tensor,
@@ -178,40 +283,95 @@ def masked_loglik_2pl_packed_train(theta: torch.Tensor, a: torch.Tensor,
     use this where every person's loglik gets the same weight (e.g. followed
     by .sum() into a scalar loss, as in elbo_packed_sums).
     dtheta is exact for any cotangent; da/db assume uniformity."""
-    theta, a, b, packed = _prepare(theta, a, b, packed, k_axis=1)
-    return _Train.apply(theta, a, b, packed)
+    return _Train.apply(*_prepare(theta, a, b, None, packed, k_axis=1))
 
 
-# ------------------------------------------- general masked 2PL loglik
+def masked_loglik_3pl_packed_train_t(thetaT: torch.Tensor, a: torch.Tensor,
+                                     b: torch.Tensor, g_hat: torch.Tensor,
+                                     packed: torch.Tensor) -> torch.Tensor:
+    """Transposed-theta one-pass 3PL training loglik: thetaT (K, B) ->
+    SCALAR sum_i ll_i (see masked_loglik_2pl_packed_train_t); the backward
+    scales (dthetaT, da, db, dg_hat) by g."""
+    return _TrainT.apply(*_prepare(thetaT, a, b, g_hat, packed, k_axis=0))
+
+
+def masked_loglik_3pl_packed_train(theta: torch.Tensor, a: torch.Tensor,
+                                   b: torch.Tensor, g_hat: torch.Tensor,
+                                   packed: torch.Tensor) -> torch.Tensor:
+    """One-pass 3PL training variant -> (B,), under the uniform-cotangent
+    contract of masked_loglik_2pl_packed_train: dtheta is exact for any
+    cotangent; da, db and dg_hat assume uniformity."""
+    return _Train.apply(*_prepare(theta, a, b, g_hat, packed, k_axis=1))
+
+
+# ----------------------------------------- general masked 2PL/3PL loglik
 #
 # Internally every array carries a leading sample axis: theta (S, B, K),
-# a (Sa, M, K), b (Sb, M), resp/mask/packed (Sd, B, M), each of Sa, Sb, Sd
-# either S or 1 (shared over the samples).
+# a (Sa, M, K), b (Sb, M), g_hat (Sg, M), resp/mask/packed (Sd, B, M), each
+# of Sa, Sb, Sg, Sd either S or 1 (shared over the samples).
 
 
 def masked_loglik_2pl_plain(theta, a, b, resp, mask):
-    """Plain version of the forward kernel -> ll (S, B): dense logits and
-    the closed form m * (r*l - softplus(l)), softplus in its stable form."""
+    """Plain version of the 2PL forward kernel -> ll (S, B): dense logits
+    and the closed form m * (r*l - softplus(l)), softplus in its stable
+    form."""
     with torch.no_grad():
         logits = theta @ a.transpose(-1, -2) - b[:, None, :]
         sp = torch.log1p(torch.exp(-logits.abs()))
         return (mask * ((resp * logits - logits.clamp(min=0.0)) - sp)).sum(-1)
 
 
+def _sum_shared(grad, x, s: int):
+    """A gradient of x summed over the samples when x is shared over them."""
+    return grad.sum(0, keepdim=True) if x.shape[0] < s else grad
+
+
 def masked_loglik_2pl_vjp_plain(g, theta, a, b, resp, mask):
-    """Plain version of the backward kernel: the VJP of
+    """Plain version of the 2PL backward kernel: the VJP of
     masked_loglik_2pl_plain for the cotangent g (S, B) -> (dtheta (S, B, K),
     da (Sa, M, K), db (Sb, M)); a shared a or b sums over the samples."""
     with torch.no_grad():
         logits = theta @ a.transpose(-1, -2) - b[:, None, :]
         dl = g[..., None] * (mask * (resp - torch.sigmoid(logits)))
-        da = dl.transpose(-1, -2) @ theta
-        db = -dl.sum(-2)
-        if a.shape[0] < theta.shape[0]:
-            da = da.sum(0, keepdim=True)
-        if b.shape[0] < theta.shape[0]:
-            db = db.sum(0, keepdim=True)
-        return dl @ a, da, db
+        s = theta.shape[0]
+        return (dl @ a, _sum_shared(dl.transpose(-1, -2) @ theta, a, s),
+                _sum_shared(-dl.sum(-2), b, s))
+
+
+def masked_loglik_3pl_plain(theta, a, b, g_hat, resp, mask):
+    """Plain version of the 3PL forward kernel -> ll (S, B): dense logits
+    and the log-space closed forms of csrc/irt_links.cuh."""
+    with torch.no_grad():
+        logits = theta @ a.transpose(-1, -2) - b[:, None, :]
+        return _cells_3pl(logits, g_hat, resp, mask, grads=False).sum(-1)
+
+
+def masked_loglik_3pl_vjp_plain(g, theta, a, b, g_hat, resp, mask):
+    """Plain version of the 3PL backward kernel: the VJP of
+    masked_loglik_3pl_plain for the cotangent g (S, B) -> (dtheta, da, db,
+    dg_hat (Sg, M)); a shared a, b or g_hat sums over the samples."""
+    with torch.no_grad():
+        logits = theta @ a.transpose(-1, -2) - b[:, None, :]
+        _, dl, dgc = _cells_3pl(logits, g_hat, resp, mask, grads=True)
+        dl = g[..., None] * dl
+        s = theta.shape[0]
+        return (dl @ a, _sum_shared(dl.transpose(-1, -2) @ theta, a, s),
+                _sum_shared(-dl.sum(-2), b, s),
+                _sum_shared((g[..., None] * dgc).sum(-2), g_hat, s))
+
+
+def masked_plain(theta, a, b, g_hat, resp, mask):
+    """The link's plain forward (g_hat None: 2PL)."""
+    if g_hat is None:
+        return masked_loglik_2pl_plain(theta, a, b, resp, mask)
+    return masked_loglik_3pl_plain(theta, a, b, g_hat, resp, mask)
+
+
+def masked_vjp_plain(g, theta, a, b, g_hat, resp, mask):
+    """The link's plain VJP (g_hat None: 2PL) -> (dtheta, da, db[, dg])."""
+    if g_hat is None:
+        return masked_loglik_2pl_vjp_plain(g, theta, a, b, resp, mask)
+    return masked_loglik_3pl_vjp_plain(g, theta, a, b, g_hat, resp, mask)
 
 
 def _sample_stride(x, s: int) -> int:
@@ -227,24 +387,35 @@ def _data_args(resp, mask, packed):
     return resp.data_ptr(), mask.data_ptr(), None, resp, "dense"
 
 
-def masked_loglik_2pl_fwd_cuda(theta, a, b, resp, mask, packed):
-    """Launch the forward kernel: ll (S, B). Pass (resp, mask) with packed
-    None for the dense reader, or packed with resp and mask None."""
+def _item_args(a, b, g_hat, s: int) -> tuple:
+    """(a, a_ss, b, b_ss[, g_hat, g_ss]): item pointers and sample strides,
+    g_hat's only for 3PL."""
+    out = (a.data_ptr(), _sample_stride(a, s), b.data_ptr(),
+           _sample_stride(b, s))
+    if g_hat is None:
+        return out
+    return out + (g_hat.data_ptr(), _sample_stride(g_hat, s))
+
+
+def masked_fwd_cuda(theta, a, b, g_hat, resp, mask, packed):
+    """Launch the link's forward kernel (g_hat None: 2PL): ll (S, B). Pass
+    (resp, mask) with packed None for the dense reader, or packed with resp
+    and mask None."""
     s, bsz, k = theta.shape
     m = a.shape[1]
     ll = torch.empty((s, bsz), dtype=torch.float32, device=theta.device)
     rp, mp, pp, data, reader = _data_args(resp, mask, packed)
-    MASKED_FWD(theta.data_ptr(), a.data_ptr(), _sample_stride(a, s),
-               b.data_ptr(), _sample_stride(b, s), rp, mp, pp,
-               _sample_stride(data, s), ll.data_ptr(), s, bsz, m, k,
-               torch.cuda.current_stream(theta.device).cuda_stream,
-               variant=reader)
+    kernel = MASKED_FWD if g_hat is None else MASKED_FWD_3PL
+    kernel(theta.data_ptr(), *_item_args(a, b, g_hat, s), rp, mp, pp,
+           _sample_stride(data, s), ll.data_ptr(), s, bsz, m, k,
+           torch.cuda.current_stream(theta.device).cuda_stream,
+           variant=reader)
     return ll
 
 
-def masked_loglik_2pl_bwd_cuda(g, theta, a, b, resp, mask, packed):
-    """Launch the backward kernels for the cotangent g (S, B):
-    (dtheta (S, B, K), da (Sa, M, K), db (Sb, M))."""
+def masked_bwd_cuda(g, theta, a, b, g_hat, resp, mask, packed):
+    """Launch the link's backward kernels for the cotangent g (S, B):
+    (dtheta (S, B, K), da (Sa, M, K), db (Sb, M)[, dg_hat (Sg, M)])."""
     s, bsz, k = theta.shape
     m = a.shape[1]
     dev = theta.device
@@ -256,36 +427,42 @@ def masked_loglik_2pl_bwd_cuda(g, theta, a, b, resp, mask, packed):
     da = torch.empty(a.shape, **f32)
     db = torch.empty(b.shape, **f32)
     rp, mp, pp, data, reader = _data_args(resp, mask, packed)
-    MASKED_BWD(g.data_ptr(), theta.data_ptr(), a.data_ptr(),
-               _sample_stride(a, s), b.data_ptr(), _sample_stride(b, s),
-               rp, mp, pp, _sample_stride(data, s), dtheta.data_ptr(),
-               part_da.data_ptr(), part_db.data_ptr(), da.data_ptr(),
-               db.data_ptr(), s, bsz, m, k, nblk,
-               torch.cuda.current_stream(dev).cuda_stream, variant=reader)
-    return dtheta, da, db
+    head = (g.data_ptr(), theta.data_ptr(), *_item_args(a, b, g_hat, s), rp,
+            mp, pp, _sample_stride(data, s), dtheta.data_ptr(),
+            part_da.data_ptr(), part_db.data_ptr())
+    tail = (s, bsz, m, k, nblk, torch.cuda.current_stream(dev).cuda_stream)
+    if g_hat is None:
+        MASKED_BWD(*head, da.data_ptr(), db.data_ptr(), *tail,
+                   variant=reader)
+        return dtheta, da, db
+    part_dg = torch.empty((s * nblk, m), **f32)
+    dg = torch.empty(g_hat.shape, **f32)
+    MASKED_BWD_3PL(*head, part_dg.data_ptr(), da.data_ptr(), db.data_ptr(),
+                   dg.data_ptr(), *tail, variant=reader)
+    return dtheta, da, db, dg
 
 
 class _Masked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, theta, a, b, resp, mask, packed):
-        ctx.save_for_backward(theta, a, b, resp, mask, packed)
+    def forward(ctx, theta, a, b, g_hat, resp, mask, packed):
+        ctx.save_for_backward(theta, a, b, g_hat, resp, mask, packed)
         if theta.is_cuda:
-            return masked_loglik_2pl_fwd_cuda(theta, a, b, resp, mask, packed)
+            return masked_fwd_cuda(theta, a, b, g_hat, resp, mask, packed)
         if packed is not None:
             mask, resp = decode_packed(packed)
-        return masked_loglik_2pl_plain(theta, a, b, resp, mask)
+        return masked_plain(theta, a, b, g_hat, resp, mask)
 
     @staticmethod
     def backward(ctx, g):
-        theta, a, b, resp, mask, packed = ctx.saved_tensors
+        theta, a, b, g_hat, resp, mask, packed = ctx.saved_tensors
         if theta.is_cuda:
-            grads = masked_loglik_2pl_bwd_cuda(g.contiguous(), theta, a, b,
-                                               resp, mask, packed)
+            grads = masked_bwd_cuda(g.contiguous(), theta, a, b, g_hat, resp,
+                                    mask, packed)
         else:
             if packed is not None:
                 mask, resp = decode_packed(packed)
-            grads = masked_loglik_2pl_vjp_plain(g, theta, a, b, resp, mask)
-        return (*grads, None, None, None)
+            grads = masked_vjp_plain(g, theta, a, b, g_hat, resp, mask)
+        return (grads[0], *_no_g_hat_grad(grads[1:]), None, None, None)
 
 
 def _lift(x, ndim: int, name: str):
@@ -298,11 +475,12 @@ def _lift(x, ndim: int, name: str):
     return x
 
 
-def _masked_call(theta, a, b, resp, mask, packed):
+def _masked_call(theta, a, b, g_hat, resp, mask, packed):
     """Validate, cast to f32, give every array a sample axis, run _Masked
-    and drop the axis again when theta had none."""
+    and drop the axis again when theta had none. g_hat None: 2PL."""
     data = [x for x in (resp, mask, packed) if x is not None]
-    devices = {t.device for t in (theta, a, b, *data)}
+    items = [x for x in (a, b, g_hat) if x is not None]
+    devices = {t.device for t in (theta, *items, *data)}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on different devices: "
                          f"{sorted(map(str, devices))}")
@@ -312,6 +490,10 @@ def _masked_call(theta, a, b, resp, mask, packed):
     batched = theta.ndim == 3
     theta = _lift(theta.float(), 3, "theta")
     a, b = _lift(a.float(), 3, "a"), _lift(b.float(), 2, "b")
+    items = [a, b]
+    if g_hat is not None:
+        g_hat = _lift(g_hat.float(), 2, "g_hat")
+        items.append(g_hat)
     if packed is None:
         resp, mask = _lift(resp.float(), 3, "resp"), _lift(mask.float(), 3,
                                                             "mask")
@@ -320,25 +502,36 @@ def _masked_call(theta, a, b, resp, mask, packed):
         data = [_lift(packed, 3, "packed")]
     s, bsz, k = theta.shape
     m = a.shape[1]
-    ok = (a.shape[1:] == (m, k) and b.shape[1:] == (m,)
+    ok = (a.shape[1:] == (m, k)
+          and all(x.shape[1:] == (m,) for x in items[1:])
           and all(x.shape[1:] == (bsz, m) for x in data)
-          and all(x.shape[0] in (1, s) for x in (a, b, *data)))
+          and all(x.shape[0] in (1, s) for x in (*items, *data)))
     if not ok:
         raise ValueError(
-            f"shapes theta {tuple(theta.shape)}, a {tuple(a.shape)}, b "
-            f"{tuple(b.shape)}, data {[tuple(x.shape) for x in data]} do not "
-            "match (leading sample axes must equal theta's or be absent)")
+            f"shapes theta {tuple(theta.shape)}, items "
+            f"{[tuple(x.shape) for x in items]}, data "
+            f"{[tuple(x.shape) for x in data]} do not match (leading sample "
+            "axes must equal theta's or be absent)")
     if dev.type == "cuda":
         if not 1 <= k <= MAX_K:
             raise ValueError(f"the CUDA loglik kernels take 1 <= K <= "
                              f"{MAX_K}, got K={k}")
-        theta, a, b = theta.contiguous(), a.contiguous(), b.contiguous()
+        theta = theta.contiguous()
+        items = [x.contiguous() for x in items]
         data = [x.contiguous() for x in data]
+    a, b = items[:2]
+    g_hat = items[2] if g_hat is not None else None
     if packed is None:
-        ll = _Masked.apply(theta, a, b, data[0], data[1], None)
+        ll = _Masked.apply(theta, a, b, g_hat, data[0], data[1], None)
     else:
-        ll = _Masked.apply(theta, a, b, None, None, data[0])
+        ll = _Masked.apply(theta, a, b, g_hat, None, None, data[0])
     return ll if batched else ll[0]
+
+
+def _check_code(packed):
+    if packed.dtype != torch.int8:
+        raise ValueError(f"packed must be an int8 tensor, got {packed.dtype}")
+    return packed
 
 
 def masked_loglik_2pl(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -351,7 +544,7 @@ def masked_loglik_2pl(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     Semantics == likelihood.masked_loglik_per_person(links.logits_2pl(...)).
     Differentiable in theta, a and b, exact for any cotangent. theta, a, b,
     resp and mask are cast to f32, as the JAX op casts them."""
-    return _masked_call(theta, a, b, resp, mask, None)
+    return _masked_call(theta, a, b, None, resp, mask, None)
 
 
 def masked_loglik_2pl_packed(theta: torch.Tensor, a: torch.Tensor,
@@ -359,6 +552,23 @@ def masked_loglik_2pl_packed(theta: torch.Tensor, a: torch.Tensor,
                              ) -> torch.Tensor:
     """masked_loglik_2pl on the int8 code (packing.pack_responses) instead
     of (resp, mask): same values and gradients, 1 byte a cell instead of 8."""
-    if packed.dtype != torch.int8:
-        raise ValueError(f"packed must be an int8 tensor, got {packed.dtype}")
-    return _masked_call(theta, a, b, None, None, packed)
+    return _masked_call(theta, a, b, None, None, None, _check_code(packed))
+
+
+def masked_loglik_3pl(theta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      g_hat: torch.Tensor, resp: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Per-person masked 3PL Bernoulli log-likelihood -> (B,), or (S, B)
+    with a leading sample axis (g_hat (M,) or (S, M), like b).
+
+    Semantics == likelihood.masked_loglik_per_person(links.logits_3pl(...),
+    g_hat=g_hat). Differentiable in theta, a, b and g_hat, exact for any
+    cotangent; all inputs are cast to f32, as the JAX op casts them."""
+    return _masked_call(theta, a, b, g_hat, resp, mask, None)
+
+
+def masked_loglik_3pl_packed(theta: torch.Tensor, a: torch.Tensor,
+                             b: torch.Tensor, g_hat: torch.Tensor,
+                             packed: torch.Tensor) -> torch.Tensor:
+    """masked_loglik_3pl on the int8 code instead of (resp, mask)."""
+    return _masked_call(theta, a, b, g_hat, None, None, _check_code(packed))
