@@ -18,22 +18,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      IWAE steps' 5 samples, and on the padded last batch, and all of them at
      a ragged shape and at K = 1 and 8 with M off the vector width, the
      masked loglik also with a leading sample axis and shared items; the 3PL
-     kernels also at the extreme point theta = +-30, g_hat = -25;
+     kernels also at the extreme point theta = +-30, g_hat = -25; the GRM
+     and the GPCM one-pass kernels (C = 5) at the flagship on each family's
+     own data, at the ragged shape, at K = 1 and 8 with M off the vector
+     width, at C = 3, 16, 17 and 32, through their autograd op with a
+     non-uniform cotangent and with a sample axis of 3 (per-sample and
+     shared items), and at the extreme points (|theta . a| beyond the
+     clamp, a collapsing category, every cell in the first and in the last
+     category); the first layer once more on the GRM flagship's graded
+     code;
   4. small-shape checks of the packed and the decoded-data objectives and
      every gradient on the card against the CPU path, per link;
   5. full-batch path, per link: the flagship (bf16 encoder, conditional
-     posterior, transposed theta) with the 2PL and then the 3PL link trains
-     40 steps through Trainer.step, launching the first layer and its
-     link's one-pass loglik (once a step) and no other loglik kernel; then
-     held-out imputation accuracy and AbilityScorer.score on fresh
-     students, and a torch.profiler window: device time by kernel;
+     posterior) with the 2PL, the 3PL (theta transposed), the GRM and the
+     GPCM (C = 5, theta (B, K)) link trains 40 steps through Trainer.step,
+     launching the first layer and its link's one-pass loglik (once a
+     step) and no other loglik kernel; then held-out imputation accuracy
+     and AbilityScorer.score on fresh students (grm/gpcm: (B, M, C)
+     category probabilities), and a torch.profiler window: device time by
+     kernel;
   6. minibatch path, per link: Trainer.fit with batch_size 4,096 (3 steps
      an epoch, the last padded with 2,048 all-zero rows) trains 4 epochs on
      decoded data with the ELBO, launching its link's masked loglik (dense
-     reader, once a step) and no other loglik kernel, then 3 IWAE steps
-     (S = 5); the fit's host work (batch slicing, copy to the card) timed
-     on its own, step times on device-resident batches and a profiler
-     window;
+     reader, once a step; grm/gpcm: no loglik kernel, as in JAX) and no
+     other loglik kernel, then 3 IWAE steps (S = 5); the fit's host work
+     (batch slicing, copy to the card) timed on its own, step times on
+     device-resident batches and a profiler window;
   7. held-out IWAE-100 log-likelihood of the trained params (iwae_loglik).
 Then the kernels summary line, the card's name and power limit, and the
 final status line {"ok": true, "device": {...}}.
@@ -44,7 +54,9 @@ over 989 TFLOP/s bf16 on the tensor cores (first layer) or 67 TFLOP/s f32
 outside them (loglik); and its special-function results (exp, log, the
 reciprocals: the MUFU instructions counted in the SASS, a cell's times the
 cells plus the per-item staging's once per item) over 16 a clock an SM, at
-this card's SM count and maximum SM clock.
+this card's SM count and maximum SM clock. A GPCM cell runs its
+exponentials in a loop over the C categories, so its MUFU.EX2 lines count C
+times a cell; a GRM item stages its table in C + 1 steps.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ F32_FLOPS = 67e12
 MUFU_PER_CLOCK_PER_SM = 16                # compute capability 9.0
 
 B, M, K, H = 10240, 1024, 4, 256          # flagship shape (bench.py)
+C = 5                                     # categories (bench.py grm/gpcm)
 BATCH = 4096                              # minibatch (cli.py --batch-size)
 RAGGED = (1000, 300)                      # students, items: edge masking
 ODD = (777, 301)                          # M off the 4-item vector width
@@ -74,24 +87,47 @@ STEPS = 40                                # full-batch steps
 EPOCHS = 4                                # minibatch epochs (3 steps each)
 IWAE_STEPS, IWAE_S = 3, 5                 # IWAE training steps, samples
 FIRST_LAYER = ("first_layer_fwd", "first_layer_bwd")
+FAMILIES = ("grm", "gpcm")                # the polytomous links
 # each link's kernels: the one-pass training loglik (full batch) and the
-# general masked loglik's two directions (minibatch)
+# general masked loglik's two directions (minibatch; the polytomous
+# families have none, as in JAX)
 LINK_KERNELS = {
     link: {"train": f"loglik_{link}_train",
-           "masked": (f"masked_loglik_{link}_fwd",
-                      f"masked_loglik_{link}_bwd")}
-    for link in ("2pl", "3pl")}
-# f32 operations a cell, from the cell math (csrc/irt_links.cuh): the
-# one-pass kernel, the masked forward and the masked backward
-CELL_OPS = {"2pl": (lambda k: 6 * k + 16, lambda k: 2 * k + 9,
+           "masked": () if link in FAMILIES else (
+               f"masked_loglik_{link}_fwd", f"masked_loglik_{link}_bwd")}
+    for link in ("2pl", "3pl", *FAMILIES)}
+# f32 operations a cell, from the cell math (csrc/irt_links.cuh,
+# csrc/loglik_categorical.cu), of K and C: the one-pass kernel, the masked
+# forward and the masked backward
+CELL_OPS = {"2pl": (lambda k, c: 6 * k + 16, lambda k: 2 * k + 9,
                     lambda k: 6 * k + 10),
-            "3pl": (lambda k: 6 * k + 45, lambda k: 2 * k + 25,
-                    lambda k: 6 * k + 40)}
+            "3pl": (lambda k, c: 6 * k + 45, lambda k: 2 * k + 25,
+                    lambda k: 6 * k + 40),
+            "grm": (lambda k, c: 6 * k + 50,),
+            "gpcm": (lambda k, c: 6 * k + 16 * c + 16,)}
 # cells one thread covers in one pass of a kernel's unrolled tile loop
-# (students per warp x items per lane, csrc/loglik_train.cu and
+# (students per warp x items per lane, csrc/loglik_tile.cuh and
 # csrc/masked_loglik.cu)
-CELLS_PER_PASS = {"loglik_train_kernel": 8 * 4, "masked_fwd_kernel": 2 * 4,
-                  "masked_bwd_kernel": 4 * 4}
+CELLS_PER_PASS = {"loglik_train_kernel": 8 * 4,
+                  "loglik_categorical_kernel": 8 * 4,
+                  "masked_fwd_kernel": 2 * 4, "masked_bwd_kernel": 4 * 4}
+
+
+def ptxas_lines(log: str) -> list:
+    """ptxas's register and spill lines of a build log, each after the
+    kernel it describes (kernel<link, K> for the templated loglik
+    kernels)."""
+    out = []
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for", 1)[1].strip()
+            m = re.search(r"([a-z][a-z_]*_kernel)I(?:N4vibo\d+)?(\w+?)ELi(\d+)E",
+                          name)
+            out.append(f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m
+                       else name[-60:])
+        elif "registers" in ln or "spill" in ln:
+            out.append(ln.strip())
+    return out
 
 
 def emit(obj) -> None:
@@ -175,13 +211,16 @@ class Roofline:
         return self._sass[source]
 
     def mufu(self, source: str, kernel: str, link: str, k: int,
-             packed: bool | None = None) -> tuple[int, int]:
+             packed: bool | None = None, loop_op: str | None = None,
+             trips: int = 1, item_steps: int = 1) -> tuple[int, int]:
         """(MUFU a cell, MUFU an item) of one instantiation, from its SASS
         up to its last EXIT (the division's slow-path subroutines after it
         are left out). The tile loop stages the link's per-item constants
         before its first barrier: the MUFU lines before the first BAR.SYNC
-        are an item's, those after it the unrolled cells', which must
-        divide evenly by the cells one pass covers."""
+        are a staging step's (item_steps of them an item), those after it
+        the unrolled cells', which must divide evenly by the cells one pass
+        covers; lines of the op loop_op (e.g. "EX2") after it sit in a loop
+        a cell runs `trips` times."""
         tag = f"Link{link.upper()}ELi{k}E"
         if packed is not None:
             tag += f"Lb{int(packed)}E"
@@ -195,15 +234,21 @@ class Roofline:
         exits = [i for i, ln in enumerate(lines) if "EXIT" in ln]
         body = lines[:exits[-1] if exits else None]
         bar = next(i for i, ln in enumerate(body) if "BAR.SYNC" in ln)
-        per_item = sum("MUFU." in ln for ln in body[:bar])
-        cells = sum("MUFU." in ln for ln in body[bar:])
-        per_cell, rest = divmod(cells, CELLS_PER_PASS[kernel])
-        if rest:
-            raise AssertionError(
-                f"{kernel} {tag}: {cells} MUFU after the first barrier do "
-                f"not divide over {CELLS_PER_PASS[kernel]} cells a pass")
-        self.counts[f"{kernel}<{tag}>"] = {"per_cell": per_cell,
-                                           "per_item": per_item}
+        per_item = sum("MUFU." in ln for ln in body[:bar]) * item_steps
+        looped = (sum(f"MUFU.{loop_op}" in ln for ln in body[bar:])
+                  if loop_op else 0)
+        per_cell = 0
+        for count, times in ((sum("MUFU." in ln for ln in body[bar:])
+                              - looped, 1), (looped, trips)):
+            n, rest = divmod(count, CELLS_PER_PASS[kernel])
+            if rest:
+                raise AssertionError(
+                    f"{kernel} {tag}: {count} MUFU after the first barrier "
+                    f"do not divide over {CELLS_PER_PASS[kernel]} cells a "
+                    "pass")
+            per_cell += n * times
+        key = f"{kernel}<{tag}>" + (f" C={trips}" if loop_op else "")
+        self.counts[key] = {"per_cell": per_cell, "per_item": per_item}
         return per_cell, per_item
 
     def bound(self, nbytes: float, ops: float, peak: float,
@@ -310,7 +355,7 @@ def check_loglik(timer, roof, pk, rng_gen, timed: bool,
                                            "loglik_train_kernel", link, k)
             r["bound_ms"], r["bound_by"] = roof.bound(
                 cells + 2 * bsz * k * 4 + 2 * m * k * 4 + 2 * items * m * 4
-                + 4, CELL_OPS[link][0](k) * cells, F32_FLOPS,
+                + 4, CELL_OPS[link][0](k, 2) * cells, F32_FLOPS,
                 per_cell * cells + per_item * m)
         out[layout] = r
     return out
@@ -442,13 +487,167 @@ def check_extreme(timer, roof, rng_gen) -> dict:
             theta=theta.T[None], items=[a[None], b[None], g_hat[None]])}
 
 
+def family_ops(fam: str):
+    """(module, plain version) of a polytomous family's one-pass op."""
+    from vibo_tpu_torch.ops import pallas_gpcm, pallas_grm
+    mod = pallas_grm if fam == "grm" else pallas_gpcm
+    return mod, getattr(mod, f"loglik_{fam}_train_plain")
+
+
+def random_items(fam: str, m: int, k: int, c: int, rng_gen, lead=()):
+    """a (lead + (M, K)) and the family's table (lead + (M, C-1)) from
+    random unconstrained coordinates."""
+    from vibo_tpu_torch.ops import links
+    a = 0.5 * torch.randn(lead + (m, k), generator=rng_gen, device="cuda")
+    b_free = torch.randn(lead + (m, c - 1), generator=rng_gen, device="cuda")
+    return a, links.categorical_table(fam, b_free).contiguous()
+
+
+def graded_code(shape, c: int, rng_gen):
+    """A random int8 code of C categories: 0 (missing) .. C."""
+    return torch.randint(0, c + 1, shape, generator=rng_gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def check_categorical(timer, roof, fam: str, pk, c: int, rng_gen,
+                      timed: bool = False, k: int = K, inputs=None) -> dict:
+    """A polytomous family's one-pass kernel (csrc/loglik_categorical.cu)
+    against its plain version on the code pk of C categories: ll, dtheta,
+    da and dkappa; inputs (theta (B, K), a, kappa) default to random
+    draws."""
+    from vibo_tpu_torch.ops.pallas_grm import train_cuda
+    mod, plain = family_ops(fam)
+    bsz, m = pk.shape
+    if inputs is None:
+        theta = torch.randn((bsz, k), generator=rng_gen, device="cuda")
+        inputs = (theta, *random_items(fam, m, k, c, rng_gen))
+    theta, a, kap = inputs
+    k = theta.shape[1]
+
+    def launch():
+        return train_cuda(mod.TRAIN, theta, a, kap, pk)
+    got, ref = launch(), plain(theta, a, kap, pk)
+    torch.cuda.synchronize()
+    r = {"ll_rel_err": rel_err(got[0], ref[0]),
+         "grad_rel_err": max(rel_err(x, y) for x, y in zip(got[1:], ref[1:])),
+         "max_abs_err": max(max_abs(x, y) for x, y in zip(got, ref))}
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    if not (finite and r["ll_rel_err"] <= 1e-5 and r["grad_rel_err"] <= 1e-4):
+        raise AssertionError(f"loglik_{fam}_train at {tuple(pk.shape)}, K={k}"
+                             f", C={c} disagrees with its plain version or "
+                             f"is not finite: {r}")
+    if timed:
+        r["ms"] = timer(launch)
+        r["plain_ms"] = timer(lambda: plain(theta, a, kap, pk))
+        r["library_ms"] = None
+        cells = bsz * m
+        per_cell, per_item = roof.mufu(
+            "loglik_categorical.cu", "loglik_categorical_kernel", fam, k,
+            loop_op="EX2" if fam == "gpcm" else None, trips=c,
+            item_steps=c + 1 if fam == "grm" else c)
+        # the code, theta, a and kappa read once; ll, dtheta, da, dkappa
+        # written once
+        r["bound_ms"], r["bound_by"] = roof.bound(
+            cells + 4 * (2 * bsz * k + bsz + 2 * m * k + 2 * m * (c - 1)),
+            CELL_OPS[fam][0](k, c) * cells, F32_FLOPS,
+            per_cell * cells + per_item * m)
+    return r
+
+
+def check_categorical_op(fam: str, pk, c: int, rng_gen,
+                         samples: int | None = None,
+                         shared_items: bool = False) -> dict:
+    """The family's autograd op on the card against its plain version:
+    without a sample axis under a non-uniform cotangent (ll and dtheta,
+    which the contract keeps exact); with `samples` samples (per-sample or
+    shared a and kappa, the code shared) under a uniform one, every
+    gradient."""
+    mod, plain = family_ops(fam)
+    op = getattr(mod, f"masked_loglik_{fam}_packed_train")
+    bsz, m = pk.shape
+    s = samples or 1
+    lead = () if samples is None or shared_items else (s,)
+    theta = torch.randn(((s,) if samples else ()) + (bsz, K),
+                        generator=rng_gen, device="cuda").requires_grad_()
+    a, kap = (x.requires_grad_() for x in random_items(fam, m, K, c, rng_gen,
+                                                       lead))
+    g = (2.0 * torch.rand(theta.shape[:-1], generator=rng_gen, device="cuda")
+         - 0.5 if samples is None else torch.ones(theta.shape[:-1],
+                                                  device="cuda"))
+    ll = op(theta, a, kap, pk)
+    (ll * g).sum().backward()
+    per = [plain(theta[i] if samples else theta,
+                 a[i] if lead else a, kap[i] if lead else kap, pk)
+           for i in range(s)]
+    want_ll = torch.stack([x[0] for x in per]) if samples else per[0][0]
+    want_dth = (torch.stack([x[1] for x in per]) if samples
+                else g[:, None] * per[0][1])
+    pairs = [(theta.grad, want_dth)]
+    if samples:
+        for i, x in ((2, a), (3, kap)):
+            part = torch.stack([q[i] for q in per])
+            pairs.append((x.grad, part if lead else part.sum(0)))
+    torch.cuda.synchronize()
+    r = {"ll_rel_err": rel_err(ll.detach(), want_ll),
+         "grad_rel_err": max(rel_err(x, y) for x, y in pairs)}
+    if not (r["ll_rel_err"] <= 1e-5 and r["grad_rel_err"] <= 1e-4):
+        raise AssertionError(f"masked_loglik_{fam}_packed_train (S={samples}"
+                             f", shared_items={shared_items}) disagrees "
+                             f"with its plain version: {r}")
+    return r
+
+
+def check_categorical_extremes(fam: str, rng_gen) -> dict:
+    """The family's kernel at the extreme points, C = 5, 128 items, K = 1:
+    theta . a = +-40, +-31 (beyond the +-30 clamp) and 0; a collapsing
+    category (kappa_2 = kappa_3 on every item: the GRM gap clamp); every
+    cell in category 0, and every cell in category C - 1. Each finite and
+    equal to the plain version."""
+    theta = torch.tensor([[40.0], [-40.0], [31.0], [-31.0], [0.0]],
+                         device="cuda")
+    a = torch.ones((128, 1), device="cuda")
+    kap = torch.sort(torch.randn((128, C - 1), generator=rng_gen,
+                                 device="cuda"), dim=-1).values
+    kap[:, 2] = kap[:, 1]
+    codes = {"mixed": graded_code((5, 128), C, rng_gen),
+             "first_category": torch.ones((5, 128), dtype=torch.int8,
+                                          device="cuda"),
+             "last_category": torch.full((5, 128), C, dtype=torch.int8,
+                                         device="cuda")}
+    return {name: check_categorical(None, None, fam, pk, C, rng_gen,
+                                    inputs=(theta, a, kap.contiguous()))
+            for name, pk in codes.items()}
+
+
+def categorical_checks(timer, roof, fam: str, data: dict, rng_gen,
+                       ragged, odd) -> dict:
+    """Every check of one polytomous family's kernel (phase 3)."""
+    out = {"flagship": check_categorical(timer, roof, fam, data["packed"], C,
+                                         rng_gen, timed=True),
+           "ragged": check_categorical(timer, roof, fam, ragged, C, rng_gen),
+           "odd_K1": check_categorical(timer, roof, fam, odd, C, rng_gen,
+                                       k=1),
+           "odd_K8": check_categorical(timer, roof, fam, odd, C, rng_gen,
+                                       k=8)}
+    for c in (3, 16, 17, 32):
+        out[f"ragged_C{c}"] = check_categorical(
+            timer, roof, fam, graded_code(RAGGED, c, rng_gen), c, rng_gen)
+    out["cotangent"] = check_categorical_op(fam, ragged, C, rng_gen)
+    out["S3_per_sample"] = check_categorical_op(fam, ragged, C, rng_gen, 3)
+    out["S3_shared_items"] = check_categorical_op(fam, ragged, C, rng_gen, 3,
+                                                  shared_items=True)
+    out["extremes"] = check_categorical_extremes(fam, rng_gen)
+    return out
+
+
 def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
     """An objective and every gradient at a small shape on the card
     (kernels) against the CPU (plain versions), same params and noise: the
     packed full-batch ELBO (S = 1, transposed theta), or the decoded-data
     minibatch ELBO (S = 2, item_scale 0.4, an all-missing row). bf16
     encoder, so 1e-2 of each array's largest magnitude (a bf16 rounding of
-    an encoder operand may flip between the two)."""
+    an encoder operand may flip between the two). grm/gpcm: C = 5,
+    theta (B, K)."""
     from vibo_tpu_torch.convert import (params_from_jax, params_to_numpy,
                                         tree_leaves)
     from vibo_tpu_torch.models import VIBO, VIBOConfig
@@ -456,19 +655,24 @@ def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
     from vibo_tpu_torch.ops.packing import packed_on_device
     n, m = 300, 200
     s = 2 if decoded else 1
+    cats = C if link in FAMILIES else 2
     rng = np.random.default_rng(3)
-    resp = (rng.random((n, m)) < 0.5).astype(np.float32)
+    resp = rng.integers(0, cats, (n, m)).astype(np.float32)
     mask = (rng.random((n, m)) < 0.9).astype(np.float32)
     mask[7] = 0.0
     cfg = VIBOConfig(num_items=m, irt_model=link, ability_dim=K,
-                     hidden_dim=64, use_pallas=True, compute_dtype="bfloat16")
-    params_np = params_to_numpy(VIBO(cfg, device="cpu").init_params(7))
+                     hidden_dim=64, use_pallas=True, compute_dtype="bfloat16",
+                     num_categories=cats)
+    model_cpu = VIBO(cfg, device="cpu")
+    params_np = params_to_numpy(model_cpu.init_params(7))
+    transposed = model_cpu.wants_transposed_theta()
     item_eps = {"a": rng.standard_normal((s, m, K)).astype(np.float32),
-                "b": rng.standard_normal((s, m, 1)).astype(np.float32)}
+                "b": rng.standard_normal((s, m, cats - 1)).astype(np.float32)}
     if link == "3pl":
         item_eps["g_hat"] = rng.standard_normal((s, m, 1)).astype(np.float32)
     theta_eps = rng.standard_normal(
-        (s, n, K) if decoded else (s, K, n)).astype(np.float32)
+        (s, K, n) if transposed and not decoded
+        else (s, n, K)).astype(np.float32)
     results = []
     for dev in ("cuda", "cpu"):
         model = VIBO(cfg, device=dev)
@@ -483,7 +687,7 @@ def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
         else:
             packed, rv = packed_on_device(resp, mask, dev)
             terms = model.elbo_packed_sums(params, packed, ie, te, rv,
-                                           transposed=True)
+                                           transposed=transposed)
             bound = objectives.elbo(*terms)
         bound.backward()
         results.append([t.detach().cpu() for t in terms]
@@ -612,17 +816,21 @@ def full_batch_phase(link: str, ds, packed, row_valid, smi: str) -> dict:
           "seconds": time.perf_counter() - t0})
 
     fresh = simulate_irt(link, 256, M, ability_dim=K, seed=1,
-                         missing_rate=0.1)
+                         missing_rate=0.1, num_categories=C)
     t0 = time.perf_counter()
     out = AbilityScorer(model, params).score(fresh.response, fresh.mask)
     score_s = time.perf_counter() - t0
     shapes = {k: list(v.shape) for k, v in out.items()}
+    polytomous = link in FAMILIES
     if shapes != {"theta_mu": [256, K], "theta_sigma": [256, K],
-                  "prob": [256, M]}:
+                  "prob": [256, M] + ([C] if polytomous else [])}:
         raise AssertionError(f"{link} scorer shapes {shapes}")
+    prob = out["prob"]
+    in_range = (((prob >= 0) & (prob <= 1)).all() and np.abs(
+        prob.astype(np.float64).sum(-1) - 1.0).max() <= 1e-5
+        if polytomous else ((prob > 0) & (prob < 1)).all())
     if not (all(np.isfinite(v).all() for v in out.values())
-            and (out["theta_sigma"] > 0).all()
-            and ((out["prob"] > 0) & (out["prob"] < 1)).all()):
+            and (out["theta_sigma"] > 0).all() and in_range):
         raise AssertionError(f"{link} scorer output out of range")
     emit({"phase": "score", "link": link, "rows": 256, "seconds": score_s,
           "theta_mu_std": float(out["theta_mu"].std())})
@@ -767,22 +975,28 @@ def minibatch_phase(link: str, ds, smi: str):
 
 
 def flagship_config(link: str = "2pl"):
-    """The flagship of bench.py with the given link."""
+    """The flagship of bench.py with the given link (grm/gpcm: its default
+    C = 5)."""
     from vibo_tpu_torch.models import VIBOConfig
     return VIBOConfig(num_items=M, irt_model=link, ability_dim=K,
                       hidden_dim=H, conditional_posterior=True,
                       condition_on="sample", use_pallas=True,
-                      compute_dtype="bfloat16")
+                      compute_dtype="bfloat16",
+                      num_categories=C if link in FAMILIES else 2)
 
 
 def link_data(link: str) -> dict:
     """The link's flagship data (simulate_irt, seed 0, 10 % missing, 10 %
-    held out) on the card as the paths take it: the int8 code of the
-    training cells, and epoch 0's first and last (padded) minibatch."""
+    held out; grm/gpcm C = 5) on the card as the paths take it: the int8
+    code of the training cells, and epoch 0's first and last (padded)
+    minibatch."""
     from vibo_tpu_torch.data import batch_iterator, holdout_split, simulate_irt
     from vibo_tpu_torch.ops.packing import packed_on_device
-    sim = simulate_irt(link, B, M, ability_dim=K, seed=0, missing_rate=0.1)
-    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    cats = C if link in FAMILIES else 2
+    sim = simulate_irt(link, B, M, ability_dim=K, seed=0, missing_rate=0.1,
+                       num_categories=cats)
+    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0,
+                       num_categories=cats)
     packed, row_valid = packed_on_device(ds.response, ds.train_mask)
     epoch0 = list(batch_iterator(ds, BATCH, 0, 0))
     first = tuple(torch.from_numpy(x).cuda() for x in epoch0[0])
@@ -844,9 +1058,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     built = _build.build()
-    ptxas = {s: [ln.strip() for ln in open(v["log"]).read().splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for s, v in built.items()}
+    ptxas = {s: ptxas_lines(open(v["log"]).read()) for s, v in built.items()}
     roof = Roofline()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {s: v["seconds"] for s, v in built.items()},
@@ -870,16 +1082,17 @@ def main() -> None:
                            dtype=torch.int8)
     # (shape, int8 code (None: each link's flagship data), K, first layer
     # checked too); timed at the flagship
+    binary = [link for link in LINK_KERNELS if link not in FAMILIES]
     for shape, pk, k, first in (("flagship", None, K, True),
                                 ("ragged", ragged_pk, K, True),
                                 ("odd_K1", odd_pk, 1, False),
                                 ("odd_K8", odd_pk, 8, False)):
         timed = shape == "flagship"
         codes = {link: data[link]["packed"] if pk is None else pk
-                 for link in LINK_KERNELS}
+                 for link in binary}
         res = (check_first_layer(timer, roof, codes["2pl"], gen, timed)
                if first else {})
-        for link in LINK_KERNELS:
+        for link in binary:
             res[LINK_KERNELS[link]["train"]] = check_loglik(
                 timer, roof, codes[link], gen, timed, link, k)
         checks[shape] = res
@@ -888,8 +1101,22 @@ def main() -> None:
               "card": smi})
     ragged = ((ragged_pk == 2).float(), (ragged_pk > 0).float())
     odd = ((odd_pk == 2).float(), (odd_pk > 0).float())
+    emit({"phase": "kernel_check", "kernel": "first_layer on the graded "
+          f"code (grm flagship, codes 0..{C})",
+          "results": check_first_layer(timer, roof, data["grm"]["packed"],
+                                       gen, False), "card": smi})
+    ragged_graded, odd_graded = (graded_code(shape, C, gen)
+                                 for shape in (RAGGED, ODD))
+    categorical = {}
+    for fam in FAMILIES:
+        categorical[fam] = categorical_checks(timer, roof, fam, data[fam],
+                                              gen, ragged_graded, odd_graded)
+        emit({"phase": "kernel_check", "kernel": f"loglik_{fam}_train",
+              "dims": {"flagship": [B, M, K, C], "ragged": list(RAGGED),
+                       "odd": list(ODD)},
+              "results": categorical[fam], "card": smi})
     masked = {}
-    for link in LINK_KERNELS:
+    for link in binary:
         masked[link] = masked_checks(timer, roof, link, data[link], gen,
                                      ragged, odd)
         emit({"phase": "kernel_check", "kernel": f"masked_loglik_{link}",
@@ -922,23 +1149,33 @@ def main() -> None:
         kernel_entry("first_layer_fwd", "vibo_tpu/ops/pallas_encoder.py:142",
                      "first_layer.cu",
                      full["2pl"]["first_layer_fwd"], fl["first_layer_fwd"],
-                     launches_3pl_path=full["3pl"]["first_layer_fwd"]),
+                     launches_by_path={link: full[link]["first_layer_fwd"]
+                                       for link in full}),
         kernel_entry("first_layer_bwd", "vibo_tpu/ops/pallas_encoder.py:167",
                      "first_layer.cu",
                      full["2pl"]["first_layer_bwd"], fl["first_layer_bwd"],
-                     launches_3pl_path=full["3pl"]["first_layer_bwd"]),
+                     launches_by_path={link: full[link]["first_layer_bwd"]
+                                       for link in full}),
     ]
     train_lines = {"2pl": ("1244", "613"), "3pl": ("1374", "741")}
     masked_lines = {"2pl": {"fwd": (247, 445), "bwd": (319, 468)},
                     "3pl": {"fwd": (959, 959), "bwd": (985, 985)}}
-    for link in LINK_KERNELS:
+    for link in binary:
         name = LINK_KERNELS[link]["train"]
         kb, bk = train_lines[link]
         kernels.append(kernel_entry(
             name, f"vibo_tpu/ops/pallas_elbo.py:{kb} (and :{bk}, the (B, K) "
             "layout)", "loglik_train.cu", full[link][name],
             fl[name]["kb"], bk_layout=fl[name]["bk"]))
-    for link in LINK_KERNELS:
+    for fam, line in (("grm", 198), ("gpcm", 148)):
+        name = LINK_KERNELS[fam]["train"]
+        kernels.append(kernel_entry(
+            name, f"vibo_tpu/ops/pallas_{fam}.py:{line}",
+            "loglik_categorical.cu", full[fam][name],
+            categorical[fam]["flagship"],
+            library_note="no single PyTorch call gives the graded or "
+            "partial-credit loglik and its gradients from the code"))
+    for link in binary:
         mb = masked[link]["minibatch"]
         for direction in ("fwd", "bwd"):
             name = f"masked_loglik_{link}_{direction}"

@@ -1,6 +1,7 @@
 """The port's IWAE test log-likelihood against the JAX package's:
 `evaluation.iwae_loglik` on the same (converted) params and on JAX's own
-noise, replayed from the keys it splits per person block. One case fits in
+noise, replayed from the keys it splits per person block (GRM and GPCM at
+C = 5 too). One case fits in
 one block (N <= block_size); the others cut N into zero-padded blocks, so
 the padded rows and the per-block item_scale are exercised. f32 encoder;
 the bound within 1e-5 relative (f32 sums in different orders), the cell
@@ -28,13 +29,17 @@ N, M, K, H = 30, 14, 2, 12
     ("2pl", 16, 12, "heldout"),
     ("1pl", 16, 5, "train"),
     ("3pl", 16, 4, "heldout"),
+    ("grm", 16, 4, "heldout"),
+    ("gpcm", 64, 5, "train"),
 ])
 def test_iwae_loglik_matches_jax(irt_model, block, s, on):
-    sim = jsim(irt_model, N, M, ability_dim=K, seed=2, missing_rate=0.2)
-    ds = jholdout(sim.response, sim.mask, 0.25, seed=1)
+    c = 5 if irt_model in ("grm", "gpcm") else 2
+    sim = jsim(irt_model, N, M, ability_dim=K, seed=2, missing_rate=0.2,
+               num_categories=c)
+    ds = jholdout(sim.response, sim.mask, 0.25, seed=1, num_categories=c)
     ds.train_mask[4] = 0.0        # a person with nothing to condition on
     kw = dict(num_items=M, irt_model=irt_model, ability_dim=K,
-              hidden_dim=H, use_pallas=True)
+              hidden_dim=H, use_pallas=True, num_categories=c)
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(3))
     key = jax.random.key(11)
@@ -42,7 +47,9 @@ def test_iwae_loglik_matches_jax(irt_model, block, s, on):
                              block_size=block, on=on)
 
     shapes = {"1pl": {"b": (M, 1)}, "2pl": {"a": (M, K), "b": (M, 1)},
-              "3pl": {"a": (M, K), "b": (M, 1), "g_hat": (M, 1)}}[irt_model]
+              "3pl": {"a": (M, K), "b": (M, 1), "g_hat": (M, 1)},
+              "grm": {"a": (M, K), "b": (M, c - 1)},
+              "gpcm": {"a": (M, K), "b": (M, c - 1)}}[irt_model]
     state = {"key": key, "blocks": []}
 
     def noise(block_index, rows):

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from vibo_tpu_torch.models import VIBO, VIBOConfig
-from vibo_tpu_torch.ops import _build, pallas_elbo, pallas_encoder
+from vibo_tpu_torch.ops import (_build, pallas_elbo, pallas_encoder,
+                                pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.serve import AbilityScorer
 from vibo_tpu_torch.train import Trainer, TrainConfig
 
@@ -57,7 +58,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_out_of_scope_config_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VIBOConfig(num_items=4, irt_model="grm")
+        VIBOConfig(num_items=4, irt_model="deep")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VIBOConfig(num_items=4, theta_posterior="chol")
     # the deep link's options are not accepted at all until it is ported
@@ -82,6 +83,7 @@ def test_cpu_tensors_take_the_plain_path():
                for k in _build.KERNELS.values())
     assert set(_build.KERNELS) == {"first_layer_fwd", "first_layer_bwd",
                                    "loglik_2pl_train", "loglik_3pl_train",
+                                   "loglik_grm_train", "loglik_gpcm_train",
                                    "masked_loglik_2pl_fwd",
                                    "masked_loglik_2pl_bwd",
                                    "masked_loglik_3pl_fwd",
@@ -110,5 +112,16 @@ def test_cpu_tensors_take_the_plain_path_general_loglik():
                                                       g_hat, pk)
     ll.backward()
     assert float(ll.detach()) == pytest.approx(4 * -0.6931471805599453)
+    # the polytomous one-pass ops, C = 3: base 0, GPCM steps 0 (every
+    # category 1/3), GRM thresholds 0 and 50 (categories 0 and 1 at 1/2
+    # each, the codes 1 and 2)
+    for op, kap in ((pallas_gpcm.masked_loglik_gpcm_packed_train,
+                     torch.zeros((3, 2))),
+                    (pallas_grm.masked_loglik_grm_packed_train,
+                     torch.tensor([[0.0, 50.0]] * 3))):
+        ll = op(theta, a, kap.requires_grad_(), pk)
+        ll.sum().backward()
+        assert ll.shape == (2, 2) and torch.isfinite(kap.grad).all()
+    assert float(ll[0, 0]) == pytest.approx(2 * -0.6931471805599453)
     assert all(k.launches == 0 and k.launches_by == {} and k._fn is None
                for k in _build.KERNELS.values())

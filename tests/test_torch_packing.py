@@ -61,4 +61,4 @@ def test_simulate_and_holdout_byte_equal(irt_model):
 
 def test_simulate_out_of_scope_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate_irt("grm", 4, 3)
+        simulate_irt("nonlinear", 4, 3)

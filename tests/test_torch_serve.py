@@ -26,12 +26,17 @@ def _close(got, want, tol=1e-5):
 
 
 @pytest.mark.parametrize("irt_model,cond", [("2pl", True), ("1pl", False),
-                                            ("3pl", True)])
+                                            ("3pl", True), ("grm", True),
+                                            ("gpcm", False)])
 def test_score_and_imputation_match_jax(irt_model, cond):
-    sim = jsim(irt_model, 90, 30, ability_dim=2, seed=4, missing_rate=0.1)
-    jds = jholdout(sim.response, sim.mask, 0.2, seed=0)
+    """grm/gpcm (C = 5): prob is (B, M, C), accuracy the exact category
+    match, the base rate over the C categories."""
+    c = 5 if irt_model in ("grm", "gpcm") else 2
+    sim = jsim(irt_model, 90, 30, ability_dim=2, seed=4, missing_rate=0.1,
+               num_categories=c)
+    jds = jholdout(sim.response, sim.mask, 0.2, seed=0, num_categories=c)
     kw = dict(num_items=30, irt_model=irt_model, ability_dim=2,
-              hidden_dim=16, conditional_posterior=cond)
+              hidden_dim=16, conditional_posterior=cond, num_categories=c)
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(5))
     model = VIBO(VIBOConfig(**kw), device="cpu")
@@ -45,6 +50,7 @@ def test_score_and_imputation_match_jax(irt_model, cond):
     for key in ("theta_mu", "theta_sigma", "prob"):
         assert got[key].shape == want[key].shape
         _close(got[key], want[key])
+    assert got["prob"].shape == (37, 30) + ((c,) if c > 2 else ())
 
     jacc = jeval.imputation_accuracy(jmodel, jparams, jds)
     acc = evaluation.imputation_accuracy(model, params, jds, block_size=32)

@@ -1,5 +1,5 @@
 """The port's training steps against the JAX ones, for the 2PL and the 3PL
-link: five packed full-batch steps (clip by global norm + Adam) on the same
+link and the GRM and GPCM families (C = 5): five packed full-batch steps (clip by global norm + Adam) on the same
 params and numpy noise track `make_optimizer` + `elbo_packed_sums`, and
 three decoded-data minibatch steps on JAX's replayed noise track
 `make_step`, at f32 within 1e-4
@@ -30,6 +30,7 @@ from vibo_tpu_torch.train.trainer import clip_by_global_norm_
 from jax_noise_replay import replay_noise
 
 N, M, K, H, STEPS = 40, 24, 2, 16, 5
+C = 5                                      # grm/gpcm categories
 
 
 def _close(got, want, tol):
@@ -39,29 +40,49 @@ def _close(got, want, tol):
         np.abs(got - want).max() / scale)
 
 
+POLYTOMOUS = ("grm", "gpcm")
+
+
 def _item_shapes(irt_model: str) -> dict:
     """{name: (M, D)} of the link's item parameters."""
+    if irt_model in POLYTOMOUS:
+        return {"a": (M, K), "b": (M, C - 1)}
     return ({"a": (M, K), "b": (M, 1)} if irt_model == "2pl"
             else {"a": (M, K), "b": (M, 1), "g_hat": (M, 1)})
 
 
-@pytest.mark.parametrize("irt_model", ["2pl", "3pl"])
+def _data(rng, irt_model: str, n: int):
+    """(responses, mask): binary, or categories 0..C-1 for grm/gpcm."""
+    resp = (rng.integers(0, C, (n, M)).astype(np.float32)
+            if irt_model in POLYTOMOUS
+            else (rng.random((n, M)) < 0.5).astype(np.float32))
+    return resp, (rng.random((n, M)) < 0.85).astype(np.float32)
+
+
+def _config(irt_model: str, **kw) -> dict:
+    return dict(num_items=M, irt_model=irt_model, ability_dim=K,
+                hidden_dim=H, compute_dtype="float32",
+                num_categories=C if irt_model in POLYTOMOUS else 2, **kw)
+
+
+@pytest.mark.parametrize("irt_model", ["2pl", "3pl", "grm", "gpcm"])
 def test_five_steps_track_jax(irt_model):
     rng = np.random.default_rng(0)
-    resp = (rng.random((N, M)) < 0.5).astype(np.float32)
-    mask = (rng.random((N, M)) < 0.85).astype(np.float32)
-    kw = dict(num_items=M, irt_model=irt_model, ability_dim=K, hidden_dim=H,
-              use_pallas=True, compute_dtype="float32")
+    resp, mask = _data(rng, irt_model, N)
+    kw = _config(irt_model, use_pallas=True)
     # lr large enough that Adam moves every param, max_grad_norm small
     # enough that the clip fires
     lr, max_norm = 2e-2, 5.0
+    # grm/gpcm run theta as (B, K), the binary links transposed
+    transposed = irt_model not in POLYTOMOUS
     noise = [({n: rng.standard_normal((1,) + shp).astype(np.float32)
                for n, shp in _item_shapes(irt_model).items()},
-              rng.standard_normal((1, K, N)).astype(np.float32))
+              rng.standard_normal((1, K, N) if transposed else (1, N, K)
+                                  ).astype(np.float32))
              for _ in range(STEPS)]
 
     jmodel = JVIBO(JConfig(**kw))
-    assert jmodel.wants_transposed_theta()
+    assert jmodel.wants_transposed_theta() == transposed
     jparams = jmodel.init_params(jax.random.key(2))
     tx = jmake_optimizer(lr, max_norm)
     opt_state = tx.init(jparams)
@@ -72,7 +93,8 @@ def test_five_steps_track_jax(irt_model):
     def jstep(p, s, ie, te):
         def loss(p):
             ll, klt, kli = jmodel.elbo_packed_sums(p, packed_j, ie, te,
-                                                   row_valid, transposed=True)
+                                                   row_valid,
+                                                   transposed=transposed)
             return -jobj.elbo(ll, klt, kli)
         val, g = jax.value_and_grad(loss)(p)
         upd, s = tx.update(g, s, p)
@@ -148,7 +170,9 @@ def test_batch_iterator_byte_equal_to_jax():
 
 @pytest.mark.parametrize("objective,use_pallas,s,irt_model", [
     ("elbo", True, 1, "2pl"), ("iwae", False, 2, "2pl"),
-    ("elbo", True, 1, "3pl"), ("iwae", True, 2, "3pl")])
+    ("elbo", True, 1, "3pl"), ("iwae", True, 2, "3pl"),
+    ("elbo", True, 1, "grm"), ("iwae", True, 2, "grm"),
+    ("elbo", True, 1, "gpcm"), ("iwae", True, 3, "gpcm")])
 def test_minibatch_steps_track_jax(objective, use_pallas, s, irt_model):
     """Three decoded-data minibatch steps (item_scale = batch / N) on JAX's
     own noise, replayed from its step keys, track `Trainer.make_step`."""
@@ -156,12 +180,10 @@ def test_minibatch_steps_track_jax(objective, use_pallas, s, irt_model):
                                         TrainConfig as JTrainConfig)
     from vibo_tpu_torch.data import batch_iterator
     rng = np.random.default_rng(4)
-    ds = jholdout((rng.random((N, M)) < 0.5).astype(np.float32),
-                  (rng.random((N, M)) < 0.85).astype(np.float32), 0.1,
-                  seed=2)
+    ds = jholdout(*_data(rng, irt_model, N), 0.1, seed=2,
+                  num_categories=C if irt_model in POLYTOMOUS else 2)
     batch = 16
-    kw = dict(num_items=M, irt_model=irt_model, ability_dim=K, hidden_dim=H,
-              use_pallas=use_pallas, compute_dtype="float32")
+    kw = _config(irt_model, use_pallas=use_pallas)
     lr, max_norm = 2e-2, 5.0
     tcfg = dict(lr=lr, max_grad_norm=max_norm, num_mc_samples=s,
                 objective=objective, batch_size=batch)
@@ -241,5 +263,18 @@ def test_fit_runs_both_paths_and_checks_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, TrainConfig(epochs=1, objective="iwae"),
                 device="cpu").fit(ds)
+    # the polytomous families on both paths (graded data, C = 4)
+    gds = jholdout(rng.integers(0, 4, (30, 12)).astype(np.float32),
+                   (rng.random((30, 12)) < 0.9).astype(np.float32), 0.2,
+                   seed=0, num_categories=4)
+    for irt in ("grm", "gpcm"):
+        gmodel = VIBO(VIBOConfig(num_items=12, hidden_dim=8, irt_model=irt,
+                                 num_categories=4, use_pallas=True),
+                      device="cpu")
+        for extra in ({}, {"batch_size": 8}):
+            res = Trainer(gmodel, TrainConfig(epochs=2, eval_every=2,
+                                              **extra), device="cpu").fit(gds)
+            assert np.isfinite(res["final_elbo"])
+            assert 0.0 <= res["best"]["heldout_acc"] <= 1.0
     with pytest.raises(ValueError, match="objective"):
         Trainer(model, TrainConfig(objective="mle"), device="cpu")

@@ -1,7 +1,8 @@
 """The port's packed ELBO against the JAX package: the three terms of
 `elbo_packed_sums` and the gradient of the bound with respect to EVERY
 parameter, on params from the JAX `init_params` and the same numpy noise,
-for the 2PL and the 3PL link (both theta layouts).
+for the 2PL and the 3PL link (both theta layouts) and the GRM and GPCM
+families (C = 5, theta (B, K), their one-pass ops).
 
 Tolerances: 1e-4 relative to each array's largest magnitude at f32 (the two
 frameworks sum in different orders); 2e-2 at bf16, where the two round the
@@ -9,8 +10,8 @@ encoder's operands at the same places but accumulate in different orders,
 so a rounding flip of one bf16 operand moves a value by up to 2^-8.
 
 The decoded-data `elbo` and `iwae` are held the same way, on JAX's own
-noise replayed from its key, for use_pallas on and off, 1PL, 2PL and 3PL,
-S = 1 to 3, item_scale < 1 and an all-missing row.
+noise replayed from its key, for use_pallas on and off, 1PL, 2PL, 3PL, GRM
+and GPCM, S = 1 to 3, item_scale < 1 and an all-missing row.
 """
 
 import jax
@@ -29,13 +30,27 @@ from vibo_tpu_torch.ops import objectives
 from jax_noise_replay import replay_noise
 
 N, M, K, H, S = 29, 37, 3, 24, 2
+C = 5                                      # grm/gpcm categories
+
+
+def _categories(irt_model: str) -> int:
+    return C if irt_model in ("grm", "gpcm") else 2
 
 
 def _item_shapes(irt_model: str, m: int, k: int) -> dict:
     """{name: (M, D)} of the link's item parameters (the head spec)."""
     spec = {"1pl": {"b": 1}, "2pl": {"a": k, "b": 1},
-            "3pl": {"a": k, "b": 1, "g_hat": 1}}[irt_model]
+            "3pl": {"a": k, "b": 1, "g_hat": 1},
+            "grm": {"a": k, "b": C - 1},
+            "gpcm": {"a": k, "b": C - 1}}[irt_model]
     return {n: (m, d) for n, d in spec.items()}
+
+
+def _responses(rng, irt_model: str, shape):
+    """Binary responses, or categories 0..C-1 for grm/gpcm."""
+    if irt_model in ("grm", "gpcm"):
+        return rng.integers(0, C, shape).astype(np.float32)
+    return (rng.random(shape) < 0.55).astype(np.float32)
 
 
 def _close(got, want, tol):
@@ -53,15 +68,21 @@ def _close(got, want, tol):
     (True, "float32", "sample", 1e-4, "3pl"),
     (False, "float32", "sample", 1e-4, "3pl"),
     (True, "bfloat16", "sample", 2e-2, "3pl"),
+    (False, "float32", "sample", 1e-4, "grm"),
+    (False, "float32", "mean", 1e-4, "grm"),
+    (False, "bfloat16", "sample", 2e-2, "grm"),
+    (False, "float32", "sample", 1e-4, "gpcm"),
+    (False, "bfloat16", "sample", 2e-2, "gpcm"),
 ])
 def test_elbo_packed_sums_terms_and_grads(transposed, dtype, cond, tol, irt):
     rng = np.random.default_rng(0)
-    resp = (rng.random((N, M)) < 0.55).astype(np.float32)
+    resp = _responses(rng, irt, (N, M))
     mask = (rng.random((N, M)) < 0.8).astype(np.float32)
     mask[3] = 0.0                          # an all-missing row: KL excluded
     packed = jpack(resp, mask)
     kw = dict(num_items=M, irt_model=irt, ability_dim=K, hidden_dim=H,
-              condition_on=cond, use_pallas=True, compute_dtype=dtype)
+              condition_on=cond, use_pallas=True, compute_dtype=dtype,
+              num_categories=_categories(irt))
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(1))
     item_eps = {n: rng.standard_normal((S,) + shp).astype(np.float32)
@@ -106,12 +127,13 @@ DN, DM, DK, DH = 13, 21, 2, 16
 
 def _decoded_setup(irt_model, use_pallas, dtype, cond, seed=0):
     rng = np.random.default_rng(seed)
-    resp = (rng.random((DN, DM)) < 0.55).astype(np.float32)
+    resp = _responses(rng, irt_model, (DN, DM))
     mask = (rng.random((DN, DM)) < 0.8).astype(np.float32)
     mask[3] = 0.0                          # an all-missing row: inert
     kw = dict(num_items=DM, irt_model=irt_model, ability_dim=DK,
               hidden_dim=DH, conditional_posterior=cond,
-              use_pallas=use_pallas, compute_dtype=dtype)
+              use_pallas=use_pallas, compute_dtype=dtype,
+              num_categories=_categories(irt_model))
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(seed + 1))
     model = VIBO(VIBOConfig(**kw), device="cpu")
@@ -139,6 +161,11 @@ DECODED_CASES = [  # use_pallas, irt_model, S, item_scale, dtype, cond, tol
     (True, "3pl", 2, 0.5, "float32", True, 1e-4),
     (False, "3pl", 1, 0.3, "float32", True, 1e-4),
     (True, "3pl", 2, 0.5, "bfloat16", True, 2e-2),
+    (True, "grm", 2, 0.5, "float32", True, 1e-4),
+    (False, "grm", 1, 0.3, "float32", False, 1e-4),
+    (True, "grm", 2, 0.5, "bfloat16", True, 2e-2),
+    (True, "gpcm", 2, 0.5, "float32", True, 1e-4),
+    (True, "gpcm", 2, 0.5, "bfloat16", True, 2e-2),
 ]
 
 
@@ -171,6 +198,9 @@ def test_elbo_decoded_terms_and_grads(use_pallas, irt, s, scale, dtype, cond,
     (True, "3pl", 3, 0.5, "float32", True, 1e-4),
     (False, "3pl", 2, 0.7, "float32", False, 1e-4),
     (True, "3pl", 2, 0.5, "bfloat16", True, 2e-2),
+    (True, "grm", 3, 0.5, "float32", True, 1e-4),
+    (True, "gpcm", 2, 0.7, "float32", False, 1e-4),
+    (True, "gpcm", 2, 0.5, "bfloat16", True, 2e-2),
 ])
 def test_iwae_decoded_bound_and_grads(use_pallas, irt, s, scale, dtype, cond,
                                       tol):
@@ -245,3 +275,40 @@ def test_generator_wrappers_draw_sample_noise(objective):
         got = model.iwae(params, resp, mask, 2, 0.5, gens[0])
         want = model.iwae_eps(params, resp, mask, item_eps, theta_eps, 0.5)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("irt", ["grm", "gpcm"])
+def test_polytomous_config_layout_and_scoring_paths(irt):
+    """grm/gpcm: C in [3, 32], theta (B, K) on the packed path (the JAX
+    wants_transposed_theta), no transposed ELBO, no binary response_prob;
+    category_logprobs and the argmax imputation against JAX's."""
+    with pytest.raises(ValueError, match="num_categories"):
+        VIBOConfig(num_items=4, irt_model=irt, num_categories=2)
+    with pytest.raises(ValueError, match="num_categories"):
+        VIBOConfig(num_items=4, irt_model=irt, num_categories=33)
+    with pytest.raises(ValueError, match="polytomous"):
+        VIBOConfig(num_items=4, irt_model="2pl", num_categories=5)
+    resp, mask, jmodel, jparams, model, params, names = _decoded_setup(
+        irt, True, "float32", True)
+    assert not model.wants_transposed_theta()
+    assert not jmodel.wants_transposed_theta()
+    means = model.item_posterior_mean(params)
+    jmeans = {k: jnp.asarray(v.detach().numpy()) for k, v in means.items()}
+    theta = np.random.default_rng(4).standard_normal((DN, DK)).astype(
+        np.float32)
+    got = model.category_logprobs(params, torch.from_numpy(theta), means)
+    want = jmodel.category_logprobs(jparams, jnp.asarray(theta), jmeans)
+    _close(got.detach(), want, 1e-5)
+    pred = model.impute_category_with_items(
+        params, torch.from_numpy(resp), torch.from_numpy(mask), means)
+    jpred = jmodel.impute_category_with_items(
+        jparams, jnp.asarray(resp), jnp.asarray(mask), jmeans)
+    assert pred.shape == (DN, DM)
+    # a near-tie between two categories could flip one cell
+    assert (pred.numpy() == np.asarray(jpred)).mean() > 0.99
+    with pytest.raises(ValueError, match="polytomous"):
+        model.response_prob(params, torch.from_numpy(theta), means)
+    packed = torch.from_numpy(jpack(resp, mask))
+    eps = model.sample_noise(DN, 1)
+    with pytest.raises(ValueError, match="transposed"):
+        model.elbo_packed_sums(params, packed, *eps, transposed=True)

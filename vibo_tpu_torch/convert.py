@@ -7,7 +7,8 @@ Both packages keep the same tree:
                    "b": {"mu": (M, 1), "logvar": (M, 1)},
                    "g_hat": {"mu": (M, 1), "logvar": (M, 1)}}}   # 3PL only
 
-(1PL has "b" alone), so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
+(1PL has "b" alone; GRM and GPCM have "a" and a "b" of (M, C-1), the C-1
+unconstrained category coordinates), so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
 either direction unchanged. Leaves are float32 tensors that require grad.
 """
 

@@ -25,16 +25,16 @@
 // 16 a clock: chip_smoke.py counts them in this library's SASS and takes the
 // largest of the three times.
 //
-// The simple design: a block owns 64 students and loops over all items in
-// tiles of 128, with the tile's a (128 x K) and the link's per-item
-// constants (b; for 3PL also log g, log(1-g) and g, computed once per item
-// here and not once per cell) staged in shared memory. A warp takes 8
-// students, a lane 4 consecutive items, so a warp reads 128 contiguous bytes
-// of each student's row. The block's theta is staged in shared memory once
-// (3PL at K = 8 fills the 48 KB of static shared memory exactly: the warps'
-// ll sums reuse red_s after the tile loop). dtheta (and the per-person ll)
-// accumulate per student in registers across all item tiles and are summed
-// over the lanes by warp shuffles once at the end: no atomics. The per-item
+// The simple design: the tile mapping of loglik_tile.cuh (a block owns 64
+// students and loops over all items in tiles of 128, a warp takes 8
+// students, a lane 4 consecutive items), with the tile's a (128 x K) and the
+// link's per-item constants (b; for 3PL also log g, log(1-g) and g, computed
+// once per item here and not once per cell) staged in shared memory. The
+// block's theta is staged in shared memory once (3PL at K = 8 fills the 48
+// KB of static shared memory exactly: the warps' ll sums reuse red_s after
+// the tile loop). dtheta (and the per-person ll) accumulate per student in
+// registers across all item tiles and are summed over the lanes by warp
+// shuffles once at the end: no atomics. The per-item
 // da/db(/dg) of a tile are summed over the block's 8 warps in shared memory
 // and written as the block's partial to scratch, with the block's sum of ll;
 // a second kernel sums the partials over blocks in a fixed order, so every
@@ -44,18 +44,18 @@
 #include <stdint.h>
 
 #include "irt_links.cuh"
+#include "loglik_tile.cuh"
 
 namespace {
 
+using vibo::IPT;
 using vibo::Link2PL;
 using vibo::Link3PL;
-
-constexpr int TBS = 64;                 // students per block
-constexpr int TMI = 128;                // items per tile
-constexpr int NWARP = 8;
-constexpr int THREADS = NWARP * 32;
-constexpr int SPT = TBS / NWARP;        // students per warp (and per thread)
-constexpr int IPT = TMI / 32;           // consecutive items per lane
+using vibo::NWARP;
+using vibo::SPT;
+using vibo::TBS;
+using vibo::THREADS;
+using vibo::TMI;
 
 template <class Link, int K>
 __global__ void __launch_bounds__(THREADS)
@@ -80,10 +80,7 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
   const int s0 = blockIdx.x * TBS;
   const bool vec = (M % 4 == 0) && (reinterpret_cast<uintptr_t>(pk) % 4 == 0);
 
-  for (int i = tid; i < TBS * K; i += THREADS) {
-    int s = i / K, k = i % K, gs = s0 + s;
-    th_s[s][k] = gs < B ? theta[gs * th_sb + k * th_sk] : 0.f;
-  }
+  vibo::stage_theta<K>(&th_s[0][0], theta, th_sb, th_sk, s0, B);
 
   float dth[SPT][K];
   float llp[SPT];
@@ -129,16 +126,7 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
     for (int q = 0; q < SPT; ++q) {
       const int s = warp * SPT + q, gs = s0 + s;
       int8_t code[IPT];
-      const int gj = m0 + j0;
-      const int8_t* row = pk + static_cast<size_t>(gs) * M + gj;
-      if (gs < B && vec && gj + IPT <= M) {
-        char4 v = *reinterpret_cast<const char4*>(row);
-        code[0] = v.x; code[1] = v.y; code[2] = v.z; code[3] = v.w;
-      } else {
-#pragma unroll
-        for (int p = 0; p < IPT; ++p)
-          code[p] = (gs < B && gj + p < M) ? row[p] : int8_t(0);
-      }
+      vibo::load_codes(pk, gs, m0 + j0, B, M, vec, code);
       float th[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) th[k] = th_s[s][k];
@@ -187,25 +175,8 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
     __syncthreads();  // a_s, p_s and red_s are rewritten by the next tile
   }
 
-  float ll_warp = 0.f;
-#pragma unroll
-  for (int q = 0; q < SPT; ++q) {
-    const int gs = s0 + warp * SPT + q;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float v = dth[q][k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && gs < B) dtheta[gs * dt_sb + k * dt_sk] = v;
-    }
-    float v = llp[q];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && gs < B && ll_person != nullptr) ll_person[gs] = v;
-    ll_warp += v;
-  }
+  const float ll_warp = vibo::write_dtheta_ll<K>(
+      dth, llp, s0 + warp * SPT, B, dtheta, dt_sb, dt_sk, ll_person);
   // red_s is free: the tile loop's last barrier follows its last read
   float* ll_s = &red_s[0][0][0];
   if (lane == 0) ll_s[warp] = ll_warp;

@@ -17,7 +17,8 @@ import numpy as np
 class Dataset:
     """Dense response data with train/held-out masks.
 
-    response:     (N, M) float32 {0, 1}; zero where unobserved.
+    response:     (N, M) float32 {0, 1} (grm/gpcm: categories
+                  {0..num_categories-1}); zero where unobserved.
     train_mask:   (N, M) float32; observed cells used for training.
     heldout_mask: (N, M) float32; observed cells hidden for imputation eval,
                   disjoint from train_mask.

@@ -5,7 +5,8 @@ and `iwae_loglik`).
 Protocol (arXiv:2002.00276 sections 6.3-6.4): encode each person's
 train-visible responses; push the posterior-mean ability and the
 item-posterior means through the link and predict p > 0.5 on the hidden
-cells; bound log p(r) of the hidden cells with IWAE-S.
+cells (grm/gpcm: the most probable category); bound log p(r) of the hidden
+cells with IWAE-S.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from vibo_tpu_torch.data.masking import Dataset
 from vibo_tpu_torch.models.vibo import VIBO
 from vibo_tpu_torch.ops import objectives
+from vibo_tpu_torch.ops.links import CATEGORICAL_MODELS
 
 
 def _rows_f32(x: np.ndarray, s: int, e: int, rows: int, dev) -> torch.Tensor:
@@ -31,14 +33,17 @@ def _rows_f32(x: np.ndarray, s: int, e: int, rows: int, dev) -> torch.Tensor:
 def imputation_accuracy(model: VIBO, params, ds: Dataset,
                         block_size: int = 16384,
                         item_mean: dict | None = None) -> dict:
-    """{"acc", "base_rate" (majority-class accuracy), "num_heldout"} over
-    ds.heldout_mask, in person blocks of block_size on the model's device.
-    item_mean: optional precomputed item means (default: the posterior's)."""
+    """{"acc", "base_rate" (majority-class accuracy over the model's
+    categories), "num_heldout"} over ds.heldout_mask, in person blocks of
+    block_size on the model's device; grm/gpcm accuracy is the exact
+    category match. item_mean: optional precomputed item means (default:
+    the posterior's)."""
     if item_mean is None:
         item_mean = model.item_posterior_mean(params)
     dev = model.device
+    cats = model.cfg.num_categories
     correct, total = 0.0, 0.0
-    counts = np.zeros(2)
+    counts = np.zeros(cats)
     for s in range(0, ds.response.shape[0], block_size):
         e = min(s + block_size, ds.response.shape[0])
         resp, tmask, hmask = (torch.from_numpy(np.ascontiguousarray(x[s:e],
@@ -46,11 +51,16 @@ def imputation_accuracy(model: VIBO, params, ds: Dataset,
                                                ).to(dev)
                               for x in (ds.response, ds.train_mask,
                                         ds.heldout_mask))
-        prob = model.impute_prob_with_items(params, resp, tmask, item_mean)
-        pred = (prob > 0.5).float()
+        if model.cfg.irt_model in CATEGORICAL_MODELS:
+            pred = model.impute_category_with_items(params, resp, tmask,
+                                                    item_mean).float()
+        else:
+            prob = model.impute_prob_with_items(params, resp, tmask,
+                                                item_mean)
+            pred = (prob > 0.5).float()
         correct += float((hmask * (pred == resp)).sum())
         total += float(hmask.sum())
-        counts += [float((hmask * (resp == c)).sum()) for c in (0, 1)]
+        counts += [float((hmask * (resp == c)).sum()) for c in range(cats)]
     return {"acc": correct / max(total, 1.0),
             "base_rate": float(counts.max()) / max(total, 1.0),
             "num_heldout": int(total)}

@@ -101,32 +101,41 @@ def apply_ability_encoder_packed(params, packed, item_feats=None,
 # ------------------------------------------------------ item posteriors
 
 
-def item_head_spec(irt_model: str, ability_dim: int) -> dict:
-    """Ordered {param_name: dim} for one item's parameters (binary links)."""
+def item_head_spec(irt_model: str, ability_dim: int,
+                   num_categories: int = 2) -> dict:
+    """Ordered {param_name: dim} for one item's parameters; grm/gpcm: "b"
+    holds the C-1 unconstrained category coordinates."""
     if irt_model == "1pl":
         return {"b": 1}
     if irt_model == "2pl":
         return {"a": ability_dim, "b": 1}
     if irt_model == "3pl":
         return {"a": ability_dim, "b": 1, "g_hat": 1}
+    if irt_model in ("grm", "gpcm"):
+        return {"a": ability_dim, "b": num_categories - 1}
     raise NotImplementedError(
-        f"irt_model {irt_model!r}: the port covers 1pl/2pl/3pl (grm/gpcm are "
-        "ROADMAP queue A item 12, deep item 13)")
+        f"irt_model {irt_model!r}: the port covers 1pl/2pl/3pl/grm/gpcm "
+        "(deep is ROADMAP queue A item 13)")
 
 
 def init_item_posterior(num_items: int, irt_model: str, ability_dim: int,
-                        generator: torch.Generator, device) -> dict:
+                        generator: torch.Generator, device,
+                        num_categories: int = 2) -> dict:
     """Free-form per-item Gaussians {name: {'mu', 'logvar': (M, D)}}: mu
-    ~ 0.1 N(0, 1), logvar -2 (3PL: a, b and the guess logit g_hat)."""
+    ~ 0.1 N(0, 1), logvar -2 (3PL: a, b and the guess logit g_hat;
+    grm/gpcm: a and the (M, C-1) b)."""
+    spec = item_head_spec(irt_model, ability_dim, num_categories)
     return {name: {"mu": 0.1 * torch.randn((num_items, d), generator=generator,
                                            device=device),
                    "logvar": torch.full((num_items, d), -2.0, device=device)}
-            for name, d in item_head_spec(irt_model, ability_dim).items()}
+            for name, d in spec.items()}
 
 
-def item_feat_dim(num_items: int, irt_model: str, ability_dim: int) -> int:
+def item_feat_dim(num_items: int, irt_model: str, ability_dim: int,
+                  num_categories: int = 2) -> int:
     """Flattened width of one item-parameter sample (encoder conditioning)."""
-    return num_items * sum(item_head_spec(irt_model, ability_dim).values())
+    return num_items * sum(item_head_spec(irt_model, ability_dim,
+                                          num_categories).values())
 
 
 def flatten_item_sample(sample: dict) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """VIBO: amortized variational inference for IRT (counterpart of
-`vibo_tpu.models.vibo`, the binary 1PL/2PL/3PL part with free-form item
-posteriors and the diagonal ability posterior).
+`vibo_tpu.models.vibo`: the binary 1PL/2PL/3PL links and the polytomous
+GRM/GPCM families, with free-form item posteriors and the diagonal ability
+posterior).
 
 Generative model: theta_i ~ N(0, I_K), item d_j ~ N(0, I), r_ij ~
 Bernoulli(sigmoid(a_j . theta_i - b_j)) on observed cells; under 3PL
 Bernoulli(g_j + (1 - g_j) sigmoid(a_j . theta_i - b_j)), g_j =
-sigmoid(g_hat_j), the guess logit a third item parameter. Posterior:
+sigmoid(g_hat_j), the guess logit a third item parameter; under grm/gpcm
+r_ij is one of C ordered categories, with b_j the C-1 unconstrained
+coordinates of the family's table (`links.categorical_table`). Posterior:
 q(d) per-item diagonal Gaussians; q(theta_i | d, r_i) an MLP encoder on the
 response row, conditioned on a flattened item draw ("sample") or on the
 item-posterior means ("mean").
@@ -32,8 +35,14 @@ from vibo_tpu_torch._device import resolve_device
 from vibo_tpu_torch.convert import tree_leaves
 from vibo_tpu_torch.models import networks
 from vibo_tpu_torch.ops import distributions as dist
-from vibo_tpu_torch.ops import likelihood, links, objectives, pallas_elbo
+from vibo_tpu_torch.ops import (likelihood, links, objectives, pallas_elbo,
+                                pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.ops.packing import decode_packed, packed_row_valid
+
+# the one-pass training loglik on theta (B, K) by link (1pl/2pl: the 2PL op)
+_PACKED_TRAIN = {"3pl": pallas_elbo.masked_loglik_3pl_packed_train,
+                 "grm": pallas_grm.masked_loglik_grm_packed_train,
+                 "gpcm": pallas_gpcm.masked_loglik_gpcm_packed_train}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +73,20 @@ class VIBOConfig:
                                         "laplace-w"):
             raise ValueError(f"unknown theta_posterior "
                              f"{self.theta_posterior!r}")
+        if self.irt_model in links.CATEGORICAL_MODELS:
+            if not 3 <= self.num_categories <= 32:
+                raise ValueError(
+                    f"{self.irt_model} needs num_categories in [3, 32] "
+                    f"(2 categories IS the 2pl model), "
+                    f"got {self.num_categories}")
+        elif self.num_categories != 2:
+            raise ValueError(
+                f"num_categories={self.num_categories} only applies to the "
+                f"polytomous families {links.CATEGORICAL_MODELS} (binary "
+                f"links are 2-category)")
         gaps = []
-        if self.irt_model not in ("1pl", "2pl", "3pl"):
-            gaps.append(f"irt_model={self.irt_model!r} (grm/gpcm: ROADMAP "
-                        "queue A item 12; deep: item 13)")
+        if self.irt_model == "deep":
+            gaps.append("irt_model='deep' (ROADMAP queue A item 13)")
         if self.theta_posterior != "diag":
             gaps.append(f"theta_posterior={self.theta_posterior!r} (ROADMAP "
                         "queue A item 14)")
@@ -75,8 +94,6 @@ class VIBOConfig:
             gaps.append("condition_on='stats' (ROADMAP queue A item 14)")
         if self.item_encoder:
             gaps.append("item_encoder=True (ROADMAP queue A item 14)")
-        if self.num_categories != 2:
-            gaps.append("num_categories != 2 (ROADMAP queue A item 12)")
         if gaps:
             raise NotImplementedError("not ported yet: " + "; ".join(gaps))
 
@@ -88,11 +105,12 @@ class VIBO:
     def __init__(self, cfg: VIBOConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._head_spec = networks.item_head_spec(cfg.irt_model,
-                                                  cfg.ability_dim)
+        self._categorical = cfg.irt_model in links.CATEGORICAL_MODELS
+        self._head_spec = networks.item_head_spec(
+            cfg.irt_model, cfg.ability_dim, cfg.num_categories)
         self._item_feat_dim = (
             networks.item_feat_dim(cfg.num_items, cfg.irt_model,
-                                   cfg.ability_dim)
+                                   cfg.ability_dim, cfg.num_categories)
             if cfg.conditional_posterior else 0)
 
     # ------------------------------------------------------------- params
@@ -107,7 +125,7 @@ class VIBO:
         params = {
             "item_post": networks.init_item_posterior(
                 cfg.num_items, cfg.irt_model, cfg.ability_dim, g,
-                self.device),
+                self.device, cfg.num_categories),
             "encoder": networks.init_mlp(dims, g, self.device),
         }
         for leaf in tree_leaves(params):
@@ -161,13 +179,15 @@ class VIBO:
     def _link_params(self, item_sample: dict, num_items: int):
         """Item sample -> (a (..., M, K), b (..., M), g_hat (..., M) or
         None): 1PL is 2PL with a unit a of (M, K), shared over any sample
-        axis; g_hat is the 3PL guess logit, None for the other links."""
+        axis; g_hat is the 3PL guess logit, None for the other links;
+        grm/gpcm keep their (..., M, C-1) b whole."""
         a = item_sample.get("a")
         if a is None:
             a = torch.ones((num_items, self.cfg.ability_dim),
                            device=item_sample["b"].device)
         g_hat = item_sample.get("g_hat")
-        return (a, item_sample["b"][..., 0],
+        b = item_sample["b"]
+        return (a, b if self._categorical else b[..., 0],
                 None if g_hat is None else g_hat[..., 0])
 
     # ---------------------------------------------------- ability encoder
@@ -201,21 +221,28 @@ class VIBO:
 
     def wants_transposed_theta(self) -> bool:
         """True when the packed train path runs theta as (K, B): the fused
-        kernels are on and the family is diagonal (always, in the port's
-        scope)."""
-        return self.cfg.use_pallas
+        kernels are on and the link is binary (the posterior is diagonal
+        always, in the port's scope); grm/gpcm run theta as (B, K), as in
+        JAX."""
+        return self.cfg.use_pallas and not self._categorical
 
     # ------------------------------------------------------------ decoder
 
     def loglik_per_person(self, params: dict, theta, item_sample: dict,
                           response, mask) -> torch.Tensor:
-        """Masked Bernoulli log p(r_i | theta_i, d) summed over items ->
-        (..., B). theta and the item draw may carry a leading sample axis.
-        use_pallas runs the link's general kernel op (1PL as unit
-        discriminations sized from the data); otherwise the links and the
-        likelihood."""
+        """Masked log p(r_i | theta_i, d) summed over items -> (..., B).
+        theta and the item draw may carry a leading sample axis. grm/gpcm
+        run the plain categorical likelihood (the JAX package has no
+        polytomous masked kernel); for the binary links use_pallas runs the
+        link's general kernel op (1PL as unit discriminations sized from the
+        data), otherwise the links and the likelihood."""
         del params
         a, b, g_hat = self._link_params(item_sample, mask.shape[-1])
+        if self._categorical:
+            return likelihood.categorical_loglik_per_person(
+                self.cfg.irt_model, links.grm_base(theta, a),
+                links.categorical_table(self.cfg.irt_model, b), response,
+                mask)
         if self.cfg.use_pallas:
             if g_hat is not None:
                 return pallas_elbo.masked_loglik_3pl(theta, a, b, g_hat,
@@ -345,10 +372,14 @@ class VIBO:
         and elbo_sums runs on (response, mask). row_weight ((B,), 0/1)
         masks the theta-KL of rows with no observed cell; None derives it
         from the code. transposed: theta in (K, B), theta_eps from
-        sample_noise(..., transposed=True), fused kernels only. Same math
-        either way."""
+        sample_noise(..., transposed=True), fused kernels of the binary
+        links only (grm/gpcm run their one-pass op on theta (B, K), the
+        table reparameterized outside it). Same math either way."""
         valid = (packed_row_valid(packed) if row_weight is None
                  else row_weight)
+        if transposed and self._categorical:
+            raise ValueError(f"{self.cfg.irt_model} runs theta as (B, K): "
+                             "transposed=True is for the binary links")
         if not self.cfg.use_pallas:
             if transposed:
                 raise ValueError("transposed=True requires the fused kernels "
@@ -370,7 +401,10 @@ class VIBO:
                 transposed=transposed)
             theta = dist.reparameterize_eps(theta_eps[s], mu, logvar)
             a, b, g_hat = self._link_params(item_sample, m)
-            items = (a, b) if g_hat is None else (a, b, g_hat)
+            if self._categorical:
+                items = (a, links.categorical_table(self.cfg.irt_model, b))
+            else:
+                items = (a, b) if g_hat is None else (a, b, g_hat)
             if transposed:
                 train_t = (pallas_elbo.masked_loglik_2pl_packed_train_t
                            if g_hat is None else
@@ -378,9 +412,9 @@ class VIBO:
                 lls.append(train_t(theta, *items, packed))
                 kl = dist.kl_standard_normal(mu, logvar).sum(0)
             else:
-                train = (pallas_elbo.masked_loglik_2pl_packed_train
-                         if g_hat is None else
-                         pallas_elbo.masked_loglik_3pl_packed_train)
+                train = _PACKED_TRAIN.get(
+                    self.cfg.irt_model,
+                    pallas_elbo.masked_loglik_2pl_packed_train)
                 lls.append(train(theta, *items, packed).sum())
                 kl = dist.kl_standard_normal(mu, logvar).sum(-1)
             klts.append((kl * valid).sum())
@@ -390,8 +424,12 @@ class VIBO:
     # ------------------------------------------------- scoring / imputation
 
     def response_prob(self, params: dict, theta, item_sample: dict):
-        """p(r_ij = 1) matrix (B, M)."""
+        """p(r_ij = 1) matrix (B, M) of a binary link."""
         del params
+        if self._categorical:
+            raise ValueError(f"{self.cfg.irt_model} responses are "
+                             "polytomous: use category_logprobs / "
+                             "impute_category_with_items")
         lp = {"b": item_sample["b"][..., 0]}
         if "a" in item_sample:
             lp["a"] = item_sample["a"]
@@ -404,3 +442,23 @@ class VIBO:
         """Posterior-mean ability through the link at the item means (B, M)."""
         mu, _, _ = self.encode(params, response, mask, item_mean)
         return self.response_prob(params, mu, item_mean)
+
+    def category_logprobs(self, params: dict, theta, item_sample: dict):
+        """grm/gpcm all-category log-probabilities -> (..., B, M, C), the
+        evaluation path (the training path never forms the category
+        axis)."""
+        del params
+        if not self._categorical:
+            raise ValueError("category_logprobs is the grm/gpcm evaluation "
+                             "path")
+        a, b, _ = self._link_params(item_sample, item_sample["b"].shape[-2])
+        return likelihood.categorical_logprob_all(
+            self.cfg.irt_model, links.grm_base(theta, a),
+            links.categorical_table(self.cfg.irt_model, b))
+
+    def impute_category_with_items(self, params: dict, response, mask,
+                                   item_mean: dict):
+        """grm/gpcm imputation: the most probable category per cell (B, M)
+        under the posterior-mean ability and the item means."""
+        mu, _, _ = self.encode(params, response, mask, item_mean)
+        return self.category_logprobs(params, mu, item_mean).argmax(-1)

@@ -1,4 +1,6 @@
-"""The int8 response code: 0 = missing, 1 = observed wrong, 2 = observed right.
+"""The int8 response code: 0 = missing, 1 + category otherwise (binary links:
+1 = observed wrong, 2 = observed right; grm/gpcm: 1..C for categories
+0..C-1).
 
 One byte per cell instead of two f32 matrices (response and mask): the
 training step's only response-sized read. Counterpart of
@@ -41,7 +43,8 @@ def packed_on_device(response: np.ndarray, mask: np.ndarray, device=None):
 
 
 def decode_packed(packed: torch.Tensor, dtype=torch.float32):
-    """int8 code -> (mask, resp) in `dtype` (0/1 values, exact in bf16)."""
+    """int8 code -> (mask, resp) in `dtype` (mask 0/1, resp the category:
+    small integers, exact in bf16)."""
     pk = packed.to(dtype)
     return pk.clamp(max=1.0), (pk - 1.0).clamp(min=0.0)
 

@@ -5,7 +5,8 @@
     out = scorer.score(responses, masks)     # (B, M) float arrays
     out["theta_mu"]          # (B, K) posterior ability means
     out["theta_sigma"]       # (B, K) posterior std devs
-    out["prob"]              # (B, M) predicted correctness probabilities
+    out["prob"]              # (B, M) predicted correctness probabilities;
+                             # grm/gpcm: (B, M, C) category probabilities
 
 Loading a trained checkpoint (`from_checkpoint`) comes with the port's
 checkpoint module (ROADMAP queue A item 5).
@@ -20,6 +21,7 @@ from vibo_tpu_torch._device import resolve_device
 from vibo_tpu_torch.convert import tree_map
 from vibo_tpu_torch.models.vibo import VIBO
 from vibo_tpu_torch.ops import distributions as dist
+from vibo_tpu_torch.ops.links import CATEGORICAL_MODELS
 
 
 class AbilityScorer:
@@ -59,7 +61,11 @@ class AbilityScorer:
                      else self.model.item_posterior_mean(self.params))
         mu, logvar, off = self.model.encode(self.params, resp_t, mask_t,
                                             item_mean)
-        prob = self.model.response_prob(self.params, mu, item_mean)
+        if self.model.cfg.irt_model in CATEGORICAL_MODELS:
+            prob = torch.exp(self.model.category_logprobs(self.params, mu,
+                                                          item_mean))
+        else:
+            prob = self.model.response_prob(self.params, mu, item_mean)
         sigma = dist.tril_marginal_sigma(logvar, off)
         return {"theta_mu": mu.cpu().numpy()[:b],
                 "theta_sigma": sigma.cpu().numpy()[:b],
