@@ -26,9 +26,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      shared items), and at the extreme points (|theta . a| beyond the
      clamp, a collapsing category, every cell in the first and in the last
      category); the first layer once more on the GRM flagship's graded
-     code;
+     code; the deep-link kernel (csrc/deep_link.cu) at paper config 5
+     (5,520 x 680, K = 2, link width 128, on its own code), at 10,240 x
+     1,024 with K = 4, at 777 x 301 with K = 1 and 8, at width 256, through
+     its autograd op (a non-uniform cotangent, a sample axis of 3 with per-
+     sample and shared d) against the CPU, and at the extreme points
+     (|logit| > 30, rows with no observed cell, every cell right or wrong);
   4. small-shape checks of the packed and the decoded-data objectives and
-     every gradient on the card against the CPU path, per link;
+     every gradient on the card against the CPU path, per link (deep: the
+     one-pass op on the packed path);
   5. full-batch path, per link: the flagship (bf16 encoder, conditional
      posterior) with the 2PL, the 3PL (theta transposed), the GRM and the
      GPCM (C = 5, theta (B, K)) link trains 40 steps through Trainer.step,
@@ -45,8 +51,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      (batch slicing, copy to the card) timed on its own, step times on
      device-resident batches and a profiler window;
   7. held-out IWAE-100 log-likelihood of the trained params (iwae_loglik).
-Then the kernels summary line, the card's name and power limit, and the
-final status line {"ok": true, "device": {...}}.
+Then config 5 (the deep link on the WordBank surrogate, the nonlinear
+family): 40 full-batch steps with the one-pass deep kernel (launching the
+first layer and deep_link_train once a step, nothing else), imputation and
+scoring of 256 new students; 10 steps of JAX's default (the decoded code
+and the plain link: the first layer only) with both step medians; 4
+minibatch epochs at 4,096 (2 steps, the second padded with 2,672 empty
+rows) and 3 IWAE steps (S = 5) on the plain link (no kernel at all), the
+held-out IWAE-100 with its peak memory; profiles of the three. Then the
+kernels summary line, the card's name and power limit, and the final
+status line {"ok": true, "device": {...}}.
 
 Bounds: the largest of three times, each at the H100 SXM's published peak:
 the bytes the function must move over 3.35 TB/s of HBM; its operations
@@ -56,7 +70,10 @@ reciprocals: the MUFU instructions counted in the SASS, a cell's times the
 cells plus the per-item staging's once per item) over 16 a clock an SM, at
 this card's SM count and maximum SM clock. A GPCM cell runs its
 exponentials in a loop over the C categories, so its MUFU.EX2 lines count C
-times a cell; a GRM item stages its table in C + 1 steps.
+times a cell; a GRM item stages its table in C + 1 steps. The deep kernel's
+operations are the larger of its three products on the bf16 tensor cores
+(6 H^2 a pair at 989 TFLOP/s) and its f32 work outside them
+(DEEP_PAIR_OPS a pair at 67 TFLOP/s); its MUFU lines run once a pair.
 """
 
 from __future__ import annotations
@@ -68,6 +85,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -105,6 +123,16 @@ CELL_OPS = {"2pl": (lambda k, c: 6 * k + 16, lambda k: 2 * k + 9,
                     lambda k: 6 * k + 40),
             "grm": (lambda k, c: 6 * k + 50,),
             "gpcm": (lambda k, c: 6 * k + 16 * c + 16,)}
+# paper config 5 (`train wordbank --irt-model deep --ability-dim 2`): the
+# WordBank surrogate's 5,520 students x 680 items, K = 2, item latent 16,
+# link width 128 (vibo_tpu/cli.py, vibo_tpu/data/loaders.py)
+DEEP_B, DEEP_M, DEEP_K, DEEP_D, DEEP_H = 5520, 680, 2, 16, 128
+DEEP_STEPS, DEEP_DEFAULT_STEPS = 40, 10   # fused, JAX-default full batch
+# f32 operations a pair of the deep kernel outside the tensor cores, from
+# csrc/deep_link.cu: per hidden column 2 (h1) + 4 (logit) + 7 (dpre2, db2,
+# dwo) + 4 (mask, s_theta, s_d); per pair ~20 (the logit's reduction, ll,
+# dlogit, dbo)
+DEEP_PAIR_OPS = lambda h: 17 * h + 20   # noqa: E731
 # cells one thread covers in one pass of a kernel's unrolled tile loop
 # (students per warp x items per lane, csrc/loglik_tile.cuh and
 # csrc/masked_loglik.cu)
@@ -123,7 +151,9 @@ def ptxas_lines(log: str) -> list:
             name = ln.split("Function properties for", 1)[1].strip()
             m = re.search(r"([a-z][a-z_]*_kernel)I(?:N4vibo\d+)?(\w+?)ELi(\d+)E",
                           name)
+            deep = re.search(r"(deep_link_kernel)ILi(\d+)E", name)
             out.append(f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m
+                       else f"{deep.group(1)}<H={deep.group(2)}>" if deep
                        else name[-60:])
         elif "registers" in ln or "spill" in ln:
             out.append(ln.strip())
@@ -251,12 +281,38 @@ class Roofline:
         self.counts[key] = {"per_cell": per_cell, "per_item": per_item}
         return per_cell, per_item
 
+    def mufu_lines(self, source: str, kernel: str) -> int:
+        """MUFU instructions of the one function of csrc/<source>'s SASS
+        whose name holds `kernel`, up to its last EXIT (the division's
+        slow-path subroutines after it are left out)."""
+        found = [lines for name, lines in self._functions(source)
+                 if kernel in name]
+        if len(found) != 1:
+            raise AssertionError(f"{len(found)} SASS functions match {kernel}"
+                                 f" in {source}")
+        exits = [i for i, ln in enumerate(found[0]) if "EXIT" in ln]
+        n = sum("MUFU." in ln for ln in found[0][:exits[-1] if exits
+                                                 else None])
+        self.counts[kernel] = {"per_pair": n}
+        return n
+
     def bound(self, nbytes: float, ops: float, peak: float,
-              special: float = 0.0):
-        """(ms, limiting resource) of the work."""
-        times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / peak,
-                 "special functions": special / self.mufu_per_s}
+              special: float = 0.0, f32_ops: float = 0.0,
+              terms: bool = False):
+        """(ms, limiting resource) of the work: its operations are ops at
+        `peak` or f32_ops outside the tensor cores, whichever takes longer;
+        terms=True adds each term's ms."""
+        t = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "tensor_or_main_operations": ops / peak,
+             "f32_operations": f32_ops / F32_FLOPS,
+             "special functions": special / self.mufu_per_s}
+        times = {"bytes": t["bytes"],
+                 "operations": max(t["tensor_or_main_operations"],
+                                   t["f32_operations"]),
+                 "special functions": t["special functions"]}
         by = max(times, key=times.get)
+        if terms:
+            return times[by] * 1e3, by, {k: v * 1e3 for k, v in t.items()}
         return times[by] * 1e3, by
 
 
@@ -647,7 +703,9 @@ def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
     minibatch ELBO (S = 2, item_scale 0.4, an all-missing row). bf16
     encoder, so 1e-2 of each array's largest magnitude (a bf16 rounding of
     an encoder operand may flip between the two). grm/gpcm: C = 5,
-    theta (B, K)."""
+    theta (B, K); deep: item latent 16, link width 128, the one-pass op on
+    the packed path and the plain link in blocks of 256 items on the
+    decoded one."""
     from vibo_tpu_torch.convert import (params_from_jax, params_to_numpy,
                                         tree_leaves)
     from vibo_tpu_torch.models import VIBO, VIBOConfig
@@ -660,14 +718,19 @@ def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
     resp = rng.integers(0, cats, (n, m)).astype(np.float32)
     mask = (rng.random((n, m)) < 0.9).astype(np.float32)
     mask[7] = 0.0
+    deep = (dict(item_latent_dim=DEEP_D, deep_hidden_dim=DEEP_H,
+                 deep_fused_kernel=True) if link == "deep" else {})
     cfg = VIBOConfig(num_items=m, irt_model=link, ability_dim=K,
                      hidden_dim=64, use_pallas=True, compute_dtype="bfloat16",
-                     num_categories=cats)
+                     num_categories=cats, **deep)
     model_cpu = VIBO(cfg, device="cpu")
     params_np = params_to_numpy(model_cpu.init_params(7))
     transposed = model_cpu.wants_transposed_theta()
-    item_eps = {"a": rng.standard_normal((s, m, K)).astype(np.float32),
-                "b": rng.standard_normal((s, m, cats - 1)).astype(np.float32)}
+    item_eps = ({"d": rng.standard_normal((s, m, DEEP_D)).astype(np.float32)}
+                if link == "deep" else
+                {"a": rng.standard_normal((s, m, K)).astype(np.float32),
+                 "b": rng.standard_normal((s, m, cats - 1)
+                                          ).astype(np.float32)})
     if link == "3pl":
         item_eps["g_hat"] = rng.standard_normal((s, m, 1)).astype(np.float32)
     theta_eps = rng.standard_normal(
@@ -705,11 +768,10 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in _build.KERNELS.items()}
 
 
-def reader_counts(link: str) -> dict:
-    """Launches of the link's masked loglik kernels by cell reader."""
+def reader_counts(masked: tuple) -> dict:
+    """Launches of the masked loglik kernels `masked` by cell reader."""
     from vibo_tpu_torch.ops import _build
-    return {n: dict(_build.KERNELS[n].launches_by)
-            for n in LINK_KERNELS[link]["masked"]}
+    return {n: dict(_build.KERNELS[n].launches_by) for n in masked}
 
 
 def check_dense_only(phase: str, readers: dict) -> None:
@@ -766,17 +828,22 @@ def profile_steps(step, steps: int, med_ms: float, smi: str) -> dict:
                      "calls": c} for t, n, c in rows[:14]], "card": smi}
 
 
-def full_batch_phase(link: str, ds, packed, row_valid, smi: str) -> dict:
-    """Phase 5 for one link: the packed full-batch flagship, imputation,
-    scoring and a profile window. Returns its launch counts."""
+def full_batch_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
+                     once_each: tuple, steps: int = STEPS, fresh=None,
+                     must_rise: bool = True) -> dict:
+    """Phase 5 for one model: `steps` packed full-batch steps, launching the
+    kernels `ran` (those in once_each once a step) and no other; then, when
+    `fresh` (new students' SyntheticIRT) is given, held-out imputation and
+    scoring; a profile window. Returns its launch counts and step median."""
     from vibo_tpu_torch import evaluation
-    from vibo_tpu_torch.data import simulate_irt
     from vibo_tpu_torch.models import VIBO
     from vibo_tpu_torch.ops import _build
     from vibo_tpu_torch.serve import AbilityScorer
     from vibo_tpu_torch.train import Trainer, TrainConfig, make_optimizer
 
-    model = VIBO(flagship_config(link))
+    ds, packed, row_valid = data["ds"], data["packed"], data["row_valid"]
+    n, m = packed.shape
+    model = VIBO(cfg)
     trainer = Trainer(model, TrainConfig(lr=5e-3, max_grad_norm=10.0))
     params = model.init_params(0)
     optimizer = make_optimizer(params, 5e-3)
@@ -785,78 +852,87 @@ def full_batch_phase(link: str, ds, packed, row_valid, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     step_ms, auxs = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         auxs.append(trainer.step(params, optimizer, packed, row_valid, noise))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
-    train = LINK_KERNELS[link]["train"]
-    check_path(f"{link} full-batch path", launches, (*FIRST_LAYER, train),
-               (train,), STEPS)
+    check_path(f"{tag} full-batch path", launches, ran, once_each, steps)
     elbos = [float(a["elbo"]) for a in auxs]
     if not np.isfinite(elbos).all():
-        raise AssertionError(f"non-finite ELBO in the {link} full-batch "
+        raise AssertionError(f"non-finite ELBO in the {tag} full-batch "
                              f"path: {elbos}")
-    if not np.mean(elbos[-5:]) > np.mean(elbos[:5]):
-        raise AssertionError(f"{link} ELBO did not rise: {elbos}")
+    if must_rise and not np.mean(elbos[-5:]) > np.mean(elbos[:5]):
+        raise AssertionError(f"{tag} ELBO did not rise: {elbos}")
     med = statistics.median(step_ms[3:])
-    emit({"phase": "train", "link": link, "steps": STEPS,
+    emit({"phase": "train", "link": tag, "steps": steps,
           "step_ms_median": med, "step_ms_first": step_ms[0],
-          "cells_per_s": B * M / (med / 1e3), "elbo_first": elbos[0],
-          "elbo_last": elbos[-1], "launches": launches,
+          "cells_per_s": n * m / (med / 1e3), "elbo_first": elbos[0],
+          "elbo_last": elbos[-1], "elbos": elbos, "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "card": smi})
 
-    t0 = time.perf_counter()
-    ev = evaluation.imputation_accuracy(model, params, ds)
-    if not (ev["num_heldout"] > 0 and 0.0 <= ev["acc"] <= 1.0):
-        raise AssertionError(f"bad {link} imputation result {ev}")
-    emit({"phase": "imputation", "link": link, **ev,
-          "seconds": time.perf_counter() - t0})
+    if fresh is not None:
+        t0 = time.perf_counter()
+        ev = evaluation.imputation_accuracy(model, params, ds)
+        if not (ev["num_heldout"] > 0 and 0.0 <= ev["acc"] <= 1.0):
+            raise AssertionError(f"bad {tag} imputation result {ev}")
+        emit({"phase": "imputation", "link": tag, **ev,
+              "seconds": time.perf_counter() - t0})
 
-    fresh = simulate_irt(link, 256, M, ability_dim=K, seed=1,
-                         missing_rate=0.1, num_categories=C)
-    t0 = time.perf_counter()
-    out = AbilityScorer(model, params).score(fresh.response, fresh.mask)
-    score_s = time.perf_counter() - t0
-    shapes = {k: list(v.shape) for k, v in out.items()}
-    polytomous = link in FAMILIES
-    if shapes != {"theta_mu": [256, K], "theta_sigma": [256, K],
-                  "prob": [256, M] + ([C] if polytomous else [])}:
-        raise AssertionError(f"{link} scorer shapes {shapes}")
-    prob = out["prob"]
-    in_range = (((prob >= 0) & (prob <= 1)).all() and np.abs(
-        prob.astype(np.float64).sum(-1) - 1.0).max() <= 1e-5
-        if polytomous else ((prob > 0) & (prob < 1)).all())
-    if not (all(np.isfinite(v).all() for v in out.values())
-            and (out["theta_sigma"] > 0).all() and in_range):
-        raise AssertionError(f"{link} scorer output out of range")
-    emit({"phase": "score", "link": link, "rows": 256, "seconds": score_s,
-          "theta_mu_std": float(out["theta_mu"].std())})
+        rows = fresh.response.shape[0]
+        t0 = time.perf_counter()
+        out = AbilityScorer(model, params).score(fresh.response, fresh.mask)
+        score_s = time.perf_counter() - t0
+        shapes = {k: list(v.shape) for k, v in out.items()}
+        polytomous = cfg.irt_model in FAMILIES
+        k = cfg.ability_dim
+        want = {"theta_mu": [rows, k], "theta_sigma": [rows, k],
+                "prob": [rows, m] + ([cfg.num_categories] if polytomous
+                                     else [])}
+        if shapes != want:
+            raise AssertionError(f"{tag} scorer shapes {shapes}")
+        prob = out["prob"]
+        # the deep link's sigmoid may round to 0 or 1 in f32
+        in_range = (((prob >= 0) & (prob <= 1)).all() and np.abs(
+            prob.astype(np.float64).sum(-1) - 1.0).max() <= 1e-5
+            if polytomous else ((prob >= 0) & (prob <= 1)).all()
+            if cfg.irt_model == "deep" else ((prob > 0) & (prob < 1)).all())
+        if not (all(np.isfinite(v).all() for v in out.values())
+                and (out["theta_sigma"] > 0).all() and in_range):
+            raise AssertionError(f"{tag} scorer output out of range")
+        emit({"phase": "score", "link": tag, "rows": rows,
+              "prob_shape": shapes["prob"], "seconds": score_s,
+              "theta_mu_std": float(out["theta_mu"].std())})
 
-    emit({"phase": "profile", "link": link, **profile_steps(
+    emit({"phase": "profile", "link": tag, **profile_steps(
         lambda: trainer.step(params, optimizer, packed, row_valid, noise),
         10, med, smi)})
-    return launches
+    return {"launches": launches, "step_ms_median": med}
 
 
-def minibatch_phase(link: str, ds, smi: str):
-    """Phases 6 and 7 for one link: minibatch ELBO training through
-    Trainer.fit, the fit's host work (batch slicing, copy to the card)
-    timed on its own, IWAE steps, step times and a profile window on
-    device-resident batches, and the held-out IWAE-100 bound. Returns the
-    launch counts of the fit and the IWAE steps together, in all and by
-    the masked loglik's reader."""
+def minibatch_phase(link: str, ds, smi: str, cfg=None, masked=None,
+                    must_rise: bool = True):
+    """Phases 6 and 7 for one model (default: the link's flagship, its
+    masked loglik kernels): minibatch ELBO training through Trainer.fit
+    (its last epoch's ELBO over the first one's unless must_rise is off),
+    the fit's host work (batch slicing, copy to the card) timed on its own,
+    IWAE steps, step times and a profile window on device-resident
+    batches, and the held-out IWAE-100 bound. Returns the launch counts of
+    the fit and the IWAE steps together, in all and by the masked loglik's
+    reader."""
     from vibo_tpu_torch import evaluation
     from vibo_tpu_torch.data import batch_iterator
     from vibo_tpu_torch.models import VIBO
     from vibo_tpu_torch.ops import _build
     from vibo_tpu_torch.train import Trainer, TrainConfig
 
-    model = VIBO(flagship_config(link))
-    masked = LINK_KERNELS[link]["masked"]
-    item_scale = BATCH / B
+    model = VIBO(flagship_config(link) if cfg is None else cfg)
+    if masked is None:
+        masked = LINK_KERNELS[link]["masked"]
+    n, m = ds.shape
+    item_scale = BATCH / n
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -864,14 +940,14 @@ def minibatch_phase(link: str, ds, smi: str):
                                      batch_size=BATCH, eval_every=EPOCHS,
                                      seed=0)).fit(ds)
     fit_s = time.perf_counter() - t0
-    fit_launches, fit_readers = launch_counts(), reader_counts(link)
-    steps = EPOCHS * -(-B // BATCH)
+    fit_launches, fit_readers = launch_counts(), reader_counts(masked)
+    steps = EPOCHS * -(-n // BATCH)
     check_path(f"{link} minibatch path", fit_launches, masked, masked, steps)
     check_dense_only(f"{link} minibatch path", fit_readers)
     epoch_elbo = [h["elbo"] for h in res["history"] if h["event"] == "train"]
     if not (len(epoch_elbo) == EPOCHS and np.isfinite(epoch_elbo).all()):
         raise AssertionError(f"{link} minibatch epoch ELBOs {epoch_elbo}")
-    if not epoch_elbo[-1] > epoch_elbo[0]:
+    if must_rise and not epoch_elbo[-1] > epoch_elbo[0]:
         raise AssertionError(f"{link} minibatch ELBO did not rise: "
                              f"{epoch_elbo}")
     emit({"phase": "minibatch_train", "link": link, "epochs": EPOCHS,
@@ -917,8 +993,9 @@ def minibatch_phase(link: str, ds, smi: str):
     _build.reset_launches()
     bounds = [float(iwae.minibatch_step(params, optimizer, r, m_,
                                         item_scale, gen)["elbo"])
-              for r, m_ in batches[:IWAE_STEPS]]
-    iwae_launches, iwae_readers = launch_counts(), reader_counts(link)
+              for r, m_ in itertools.islice(itertools.cycle(batches),
+                                            IWAE_STEPS)]
+    iwae_launches, iwae_readers = launch_counts(), reader_counts(masked)
     check_path(f"{link} IWAE steps", iwae_launches, masked, masked,
                IWAE_STEPS)
     check_dense_only(f"{link} IWAE steps", iwae_readers)
@@ -948,16 +1025,17 @@ def minibatch_phase(link: str, ds, smi: str):
     host["share_of_fit_step"] = {
         **{k: v / fit_ms for k, v in parts.items()},
         "rest": 1.0 - sum(parts.values()) / fit_ms}
-    # true cells: an epoch of len(batches) steps covers the B * M matrix
+    # true cells: an epoch of len(batches) steps covers the N * M matrix
     emit({"phase": "minibatch_step", "link": link, "step_ms_median": med,
           "step_ms": step_ms,
-          "cells_per_s": B * M / (med * len(batches) / 1e3),
+          "cells_per_s": n * m / (med * len(batches) / 1e3),
           "fit_host": host, "card": smi})
     cycle = itertools.cycle(batches)
     emit({"phase": "minibatch_profile", "link": link, **profile_steps(
         lambda: elbo.minibatch_step(params, optimizer, *next(cycle),
                                     item_scale, gen), 6, med, smi)})
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev = evaluation.iwae_loglik(model, params, ds, num_samples=100,
                                 on="heldout", generator=gen)
@@ -967,6 +1045,7 @@ def minibatch_phase(link: str, ds, smi: str):
             and ev["num_cells"] > 0):
         raise AssertionError(f"bad {link} held-out IWAE-100 {ev}")
     emit({"phase": "iwae_heldout", "link": link, **ev, "seconds": iwae_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "card": smi})
     readers = {n: {v: fit_readers[n].get(v, 0) + iwae_readers[n].get(v, 0)
                    for v in ("dense", "int8")} for n in masked}
@@ -1035,6 +1114,270 @@ def masked_checks(timer, roof, link: str, data: dict, gen, ragged, odd):
     }
 
 
+# ------------------------------------------------------------- deep link
+
+
+def deep_link_params(k: int, h: int, gen, scale: float = 1.0) -> dict:
+    """A random deep link (JAX's init_deep_link's scales, biases drawn too)
+    on the card; scale multiplies the output layer (the extreme point)."""
+    def uni(shape, fan):
+        bound = (6.0 / fan) ** 0.5
+        return (2.0 * torch.rand(shape, generator=gen, device="cuda")
+                - 1.0) * bound
+    return {"w_theta": uni((k, h), k + DEEP_D + h),
+            "w_item": uni((DEEP_D, h), k + DEEP_D + h),
+            "b1": 0.1 * torch.randn((h,), generator=gen, device="cuda"),
+            "layer2": {"w": uni((h, h), 2 * h),
+                       "b": 0.1 * torch.randn((h,), generator=gen,
+                                              device="cuda")},
+            "out": {"w": scale * uni((h, 1), h + 1),
+                    "b": 0.1 * torch.randn((1,), generator=gen,
+                                           device="cuda")}}
+
+
+def deep_args(link: dict, theta, d, pk):
+    """The kernel's inputs: t1, t2 (f32, as the op computes them), W2, b2,
+    wo (H,), bo (1,), the code."""
+    return (theta @ link["w_theta"] + link["b1"], d @ link["w_item"],
+            link["layer2"]["w"], link["layer2"]["b"],
+            link["out"]["w"].reshape(-1), link["out"]["b"], pk)
+
+
+def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
+               timed: bool = False, link=None, theta=None, d=None) -> dict:
+    """The deep-link kernel (csrc/deep_link.cu) against its plain version on
+    the code pk: ll, s_theta, s_d, dW2, db2, dwo and dbo. Both round the
+    same operands to bf16 and sum in different orders (the tensor cores
+    against cuBLAS's f32 product), so ll, dwo and dbo must agree to 1e-5,
+    1e-4 and 1e-4 of their largest magnitude. The others also carry relu
+    flips: a pre2 within that summation noise of 0 takes the other branch in
+    one version, which moves its pair's dpre2_n by dlogit wo_n (|dlogit| <
+    1): db2_n by at most max|wo|, dW2's column n by max|h1| max|wo|, and its
+    student's s_theta row and its item's s_d row by max|wo| max|W2| (one
+    `flip` each). Flips grow with the pairs and H (14 s_theta rows of 5,520
+    at H = 256 in one run). So dW2 and db2 must agree to 1e-4 plus 4 flips;
+    all but 1 % of the rows of s_theta and s_d (at least 2) to 1e-4, and
+    every row to 4 flips. Rows with no observed cell must give exactly 0."""
+    from vibo_tpu_torch.ops import pallas_deep as pd
+    bsz, m = pk.shape
+    if link is None:
+        link = deep_link_params(k, h, gen)
+    if theta is None:
+        theta = torch.randn((bsz, k), generator=gen, device="cuda")
+        d = torch.randn((m, DEEP_D), generator=gen, device="cuda")
+    args = deep_args(link, theta, d, pk)
+    got = pd.train_cuda(*args)
+    ref = pd.fused_deep_plain(*args)
+    torch.cuda.synchronize()
+    names = ("ll", "s_theta", "s_d", "dW2", "db2", "dwo", "dbo")
+    by_output = {n: rel_err(x, y) for n, x, y in zip(names, got, ref)}
+    wo_max = float(link["out"]["w"].abs().max())
+    flip = {"s_theta": wo_max * float(link["layer2"]["w"].abs().max()),
+            "dW2": wo_max * float(args[0].abs().max() + args[1].abs().max()),
+            "db2": wo_max}
+    flip["s_d"] = flip["s_theta"]
+    flips = {}
+    for i, n in ((1, "s_theta"), (2, "s_d")):
+        row_err = (got[i] - ref[i]).abs().amax(1)
+        far = row_err > 1e-4 * ref[i].abs().max()
+        flips[n] = {"rows": int(far.sum()),
+                    "allowed": max(2, int(0.01 * len(far))),
+                    "max_err_in_flips": float(row_err.max()) / flip[n]}
+    for i, n in ((3, "dW2"), (4, "db2")):
+        excess = max_abs(got[i], ref[i]) - 1e-4 * float(ref[i].abs().max())
+        flips[n] = {"excess_over_1e-4_in_flips": max(excess, 0.0) / flip[n]}
+    r = {"ll_rel_err": by_output["ll"],
+         "grad_rel_err": max(by_output[n] for n in names[3:]),
+         "max_abs_err": max(max_abs(x, y) for x, y in zip(got, ref)),
+         "rel_err_by_output": by_output, "relu_flips": flips}
+    empty = (pk == 0).all(-1)
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    inert = bool(got[0][empty].eq(0).all() and got[1][empty].eq(0).all())
+    flips_ok = (all(flips[n]["rows"] <= flips[n]["allowed"]
+                    and flips[n]["max_err_in_flips"] <= 4.0
+                    for n in ("s_theta", "s_d"))
+                and all(flips[n]["excess_over_1e-4_in_flips"] <= 4.0
+                        for n in ("dW2", "db2")))
+    if not (finite and inert and flips_ok and by_output["ll"] <= 1e-5
+            and by_output["dwo"] <= 1e-4 and by_output["dbo"] <= 1e-4):
+        raise AssertionError(f"deep_link_train at {tuple(pk.shape)}, K={k}, "
+                             f"H={h} disagrees with its plain version, is not "
+                             f"finite or an all-missing row is not inert: {r}")
+    r["inert_rows"] = int(empty.sum())
+    if timed:
+        r["ms"] = timer(lambda: pd.train_cuda(*args))
+        r["plain_ms"] = timer(lambda: pd.fused_deep_plain(*args))
+        r["library_ms"] = None
+        pairs = bsz * m
+        mufu = roof.mufu_lines("deep_link.cu", f"deep_link_kernelILi{h}E")
+        # inputs t1, t2, W2, b2, wo, bo and the code read once; ll, s_theta,
+        # s_d, dW2, db2, dwo, dbo written once
+        small = bsz * h + m * h + h * h + 2 * h + 1
+        r["bound_ms"], r["bound_by"], r["bound_terms_ms"] = roof.bound(
+            pairs + 4 * small + 4 * (small + bsz), 6 * h * h * pairs,
+            BF16_FLOPS, mufu * pairs, f32_ops=DEEP_PAIR_OPS(h) * pairs,
+            terms=True)
+        r["mufu_per_pair"] = mufu
+    return r
+
+
+def check_deep_op(pk, gen, samples: int | None = None,
+                  shared_d: bool = False) -> dict:
+    """The deep autograd op on the card against the kernel's own outputs
+    put through the op's contract: without a sample axis under a
+    non-uniform cotangent g, dtheta = (g s_theta) W_theta^T, dW_theta =
+    theta^T (g s_theta) and db1 = sum g s_theta, each person's own g; dd =
+    g0 s_d W_item^T, dW_item = g0 d^T s_d, and dW2, db2, dwo, dbo times g0,
+    g0 the first entry of g; with `samples` samples (d per sample or
+    shared, the code shared) under a uniform one, each sample's terms
+    summed where the parameter is shared. Same arithmetic on both sides:
+    1e-5 of each array's largest magnitude."""
+    from vibo_tpu_torch.convert import tree_leaves, tree_map
+    from vibo_tpu_torch.ops import pallas_deep as pd
+    bsz, m = pk.shape
+    lead = (samples,) if samples else ()
+    per_d = samples is not None and not shared_d
+    link = tree_map(lambda t: t.requires_grad_(),
+                    deep_link_params(DEEP_K, DEEP_H, gen))
+    theta = torch.randn(lead + (bsz, DEEP_K), generator=gen,
+                        device="cuda").requires_grad_()
+    d = torch.randn(((samples,) if per_d else ()) + (m, DEEP_D),
+                    generator=gen, device="cuda").requires_grad_()
+    g = (2.0 * torch.rand(lead + (bsz,), generator=gen, device="cuda") - 0.5
+         if samples is None else torch.ones(lead + (bsz,), device="cuda"))
+    ll = pd.masked_loglik_deep_packed_train(theta, d, link, pk)
+    (ll * g).sum().backward()
+    with torch.no_grad():
+        lk = tree_map(lambda t: t.detach(), link)
+        want = {"ll": [], "theta": [], "d": [],
+                "link": tree_map(torch.zeros_like, lk)}
+        for s in range(samples or 1):
+            th = theta[s] if samples else theta
+            ds = d[s] if per_d else d
+            gs = g[s] if samples else g
+            out = pd.train_cuda(*deep_args(lk, th.detach(), ds.detach(), pk))
+            sth, sd, dw2, db2, dwo, dbo = out[1:]
+            gsth, g0 = gs[:, None] * sth, gs[0]
+            want["ll"].append(out[0])
+            want["theta"].append(gsth @ lk["w_theta"].T)
+            want["d"].append(g0 * (sd @ lk["w_item"].T))
+            for (key, sub), v in ((("w_theta", None), th.detach().T @ gsth),
+                                  (("w_item", None), g0 * (ds.detach().T @ sd)),
+                                  (("b1", None), gsth.sum(0)),
+                                  (("layer2", "w"), g0 * dw2),
+                                  (("layer2", "b"), g0 * db2),
+                                  (("out", "w"), g0 * dwo[:, None]),
+                                  (("out", "b"), g0 * dbo)):
+                node = want["link"][key]
+                if sub is None:
+                    want["link"][key] = node + v
+                else:
+                    node[sub] = node[sub] + v
+        stack = (lambda x: torch.stack(x)) if samples else (lambda x: x[0])
+        want_d = (torch.stack(want["d"]) if per_d
+                  else sum(want["d"]))
+        pairs = [(ll.detach(), stack(want["ll"])),
+                 (theta.grad, stack(want["theta"])), (d.grad, want_d)]
+        pairs += list(zip([p.grad for p in tree_leaves(link)],
+                          tree_leaves(want["link"])))
+    torch.cuda.synchronize()
+    r = {"ll_rel_err": rel_err(*pairs[0]),
+         "grad_rel_err": max(rel_err(x, y) for x, y in pairs[1:])}
+    if not (r["ll_rel_err"] <= 1e-5 and r["grad_rel_err"] <= 1e-5):
+        raise AssertionError(f"masked_loglik_deep_packed_train (S={samples}, "
+                             f"shared_d={shared_d}) does not give the "
+                             f"kernel's outputs through its contract: {r}")
+    return r
+
+
+def deep_extremes(gen) -> dict:
+    """The kernel at the extreme points, 96 students x 200 items, K = 2:
+    |logit| > 30 (the output layer scaled by 400), a mixed code with rows
+    that have no observed cell (ll exactly 0), every cell right, every
+    cell wrong. Each finite and equal to the plain version."""
+    from vibo_tpu_torch.models import networks
+    link = deep_link_params(DEEP_K, DEEP_H, gen, scale=400.0)
+    mixed = torch.randint(0, 3, (96, 200), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    mixed[[5, 64, 95]] = 0
+    codes = {"mixed_empty_rows": mixed,
+             "all_right": torch.full((96, 200), 2, dtype=torch.int8,
+                                     device="cuda"),
+             "all_wrong": torch.ones((96, 200), dtype=torch.int8,
+                                     device="cuda")}
+    out = {}
+    for name, pk in codes.items():
+        theta = 3.0 * torch.randn((96, DEEP_K), generator=gen, device="cuda")
+        d = torch.randn((200, DEEP_D), generator=gen, device="cuda")
+        out[name] = check_deep(None, None, pk, gen, link=link, theta=theta,
+                               d=d)
+        logit = networks.apply_deep_link(link, theta, d).abs().max()
+        if not float(logit) > 30.0:
+            raise AssertionError(f"the extreme point reaches |logit| "
+                                 f"{float(logit)} only")
+        out[name]["logit_abs_max"] = float(logit)
+    return out
+
+
+def deep_kernel_checks(timer, roof, data: dict, gen) -> dict:
+    """Every check of the deep-link kernel (phase 3): config 5 on its own
+    code (timed), the 10,240 x 1,024 table shape at K = 4 (timed), the
+    ragged 777 x 301 at K = 1 and 8, H = 256 (timed), the autograd op with
+    a non-uniform cotangent and with a sample axis of 3 (per-sample and
+    shared d), and the extreme points."""
+    big = torch.randint(0, 3, (B, M), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    odd = torch.randint(0, 3, ODD, generator=gen, device="cuda",
+                        dtype=torch.int8)
+    return {
+        "config5": check_deep(timer, roof, data["packed"], gen, timed=True),
+        "table_shape_K4": check_deep(timer, roof, big, gen, k=K, timed=True),
+        "odd_K1": check_deep(timer, roof, odd, gen, k=1),
+        "odd_K8": check_deep(timer, roof, odd, gen, k=8),
+        "config5_H256": check_deep(timer, roof, data["packed"], gen, h=256,
+                                   timed=True),
+        "odd_H256": check_deep(timer, roof, odd, gen, h=256),
+        "cotangent": check_deep_op(odd, gen),
+        "S3_per_sample": check_deep_op(odd, gen, 3),
+        "S3_shared_d": check_deep_op(odd, gen, 3, shared_d=True),
+        "extremes": deep_extremes(gen),
+    }
+
+
+def deep_config(fused: bool = True):
+    """Paper config 5 (`train wordbank --irt-model deep --ability-dim 2`)
+    with the CLI's widths: encoder hidden 256, item latent 16, link width
+    128; bf16 encoder, the fused pipeline; the one-pass op when fused, else
+    JAX's default (decoded code, the plain link in blocks of 256 items)."""
+    from vibo_tpu_torch.models import VIBOConfig
+    return VIBOConfig(num_items=DEEP_M, irt_model="deep", ability_dim=DEEP_K,
+                      hidden_dim=H, item_latent_dim=DEEP_D,
+                      deep_hidden_dim=DEEP_H, conditional_posterior=True,
+                      condition_on="sample", use_pallas=True,
+                      compute_dtype="bfloat16", deep_fused_kernel=fused)
+
+
+def deep_data() -> dict:
+    """Config 5's data: the WordBank surrogate of the JAX loaders
+    (simulate_irt("nonlinear", 5,520, 680, K = 2, seed 0 + crc32("wordbank")
+    % 9973 = 6628, every cell observed), 10 % held out, on the card as the
+    paths take it: the int8 code of the training cells, and epoch 0's first
+    and last (padded) minibatch."""
+    from vibo_tpu_torch.data import batch_iterator, holdout_split, simulate_irt
+    from vibo_tpu_torch.ops.packing import packed_on_device
+    seed = zlib.crc32(b"wordbank") % 9973
+    sim = simulate_irt("nonlinear", DEEP_B, DEEP_M, ability_dim=DEEP_K,
+                       seed=seed, missing_rate=0.0)
+    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    packed, row_valid = packed_on_device(ds.response, ds.train_mask)
+    epoch0 = list(batch_iterator(ds, BATCH, 0, 0))
+    pad_rows = len(epoch0) * BATCH - DEEP_B
+    if int((epoch0[-1][1].sum(-1) == 0).sum()) != pad_rows:
+        raise AssertionError("the deep last batch's padding is not empty")
+    return {"ds": ds, "packed": packed, "row_valid": row_valid, "seed": seed,
+            "pad_rows": pad_rows, "steps_per_epoch": len(epoch0)}
+
+
 def kernel_entry(name, replaces, source, launches, r, **extra) -> dict:
     """One entry of the kernels line; r holds the kernel check's numbers."""
     return {"name": name, "route": "cuda",
@@ -1048,6 +1391,7 @@ def main() -> None:
         raise SystemExit("chip_smoke.py needs a CUDA card; "
                          "torch.cuda.is_available() is False")
     from vibo_tpu_torch._device import resolve_device
+    from vibo_tpu_torch.data import simulate_irt
     from vibo_tpu_torch.ops import _build
 
     resolve_device(None)           # the card, with TF32 off
@@ -1066,10 +1410,16 @@ def main() -> None:
 
     t0 = time.perf_counter()
     data = {link: link_data(link) for link in LINK_KERNELS}
+    deep = deep_data()
     emit({"phase": "data", "seconds": time.perf_counter() - t0,
           "shape": [B, M], "observed_train_frac":
           {link: float(d["ds"].train_mask.mean())
-           for link, d in data.items()}})
+           for link, d in data.items()},
+          "deep_config5": {"shape": [DEEP_B, DEEP_M], "seed": deep["seed"],
+                           "observed_train_frac":
+                           float(deep["ds"].train_mask.mean()),
+                           "right_frac": float(deep["ds"].response.mean()),
+                           "padded_rows_last_batch": deep["pad_rows"]}})
 
     timer = Timer()
     gen = torch.Generator(device="cuda")
@@ -1126,10 +1476,16 @@ def main() -> None:
               "results": masked[link], "card": smi})
     emit({"phase": "kernel_check", "kernel": "3pl extreme point",
           "results": check_extreme(timer, roof, gen), "card": smi})
+    deep_checks = deep_kernel_checks(timer, roof, deep, gen)
+    emit({"phase": "kernel_check", "kernel": "deep_link_train",
+          "dims": {"config5": [DEEP_B, DEEP_M, DEEP_K, DEEP_H],
+                   "table_shape": [B, M, K, DEEP_H], "odd": list(ODD),
+                   "H256": [DEEP_B, DEEP_M, DEEP_K, 256]},
+          "results": deep_checks, "card": smi})
     emit({"phase": "special_functions", "counts": roof.counts,
           "mufu_per_s": roof.mufu_per_s})
 
-    for link in LINK_KERNELS:
+    for link in (*LINK_KERNELS, "deep"):
         emit({"phase": "objective_vs_cpu", "link": link,
               "packed_max_rel_err": objective_matches_cpu(False, link),
               "decoded_max_rel_err": objective_matches_cpu(True, link)})
@@ -1137,9 +1493,34 @@ def main() -> None:
     full, mini, mini_readers = {}, {}, {}
     for link in LINK_KERNELS:
         d = data[link]
-        full[link] = full_batch_phase(link, d["ds"], d["packed"],
-                                      d["row_valid"], smi)
+        train = LINK_KERNELS[link]["train"]
+        full[link] = full_batch_phase(
+            link, flagship_config(link), d, smi, (*FIRST_LAYER, train),
+            (train,), fresh=simulate_irt(link, 256, M, ability_dim=K, seed=1,
+                                         missing_rate=0.1, num_categories=C))
         mini[link], mini_readers[link] = minibatch_phase(link, d["ds"], smi)
+    # config 5: the one-pass deep kernel, then JAX's default (the decoded
+    # code and the plain link: no loglik kernel), then minibatches (the
+    # plain link, as in JAX: no kernel at all)
+    deep_path = (*FIRST_LAYER, "deep_link_train")
+    full["deep"] = full_batch_phase(
+        "deep", deep_config(True), deep, smi, deep_path, deep_path,
+        DEEP_STEPS, fresh=simulate_irt("nonlinear", 256, DEEP_M,
+                                       ability_dim=DEEP_K, seed=1))
+    deep_default = full_batch_phase(
+        "deep_default", deep_config(False), deep, smi, FIRST_LAYER,
+        FIRST_LAYER, DEEP_DEFAULT_STEPS, must_rise=False)
+    emit({"phase": "deep_full_batch_paths", "card": smi,
+          "fused_step_ms_median": full["deep"]["step_ms_median"],
+          "default_step_ms_median": deep_default["step_ms_median"],
+          "default_over_fused": deep_default["step_ms_median"]
+          / full["deep"]["step_ms_median"]})
+    # its ELBO falls over the first steps at lr 5e-3 and climbs back (the
+    # full-batch trajectories; the JAX package does the same): 8 steps do
+    # not get back to the first epoch's
+    minibatch_phase("deep", deep["ds"], smi, deep_config(True), (),
+                    must_rise=False)
+    full = {k: v["launches"] for k, v in full.items()}
 
     fl = checks["flagship"]
     int8_note = ("int8 reader: on no model path, so checked and timed in "
@@ -1190,6 +1571,15 @@ def main() -> None:
                              "launches": mini_readers[link][name]["int8"],
                              "note": int8_note},
                 launches_by_reader=mini_readers[link][name]))
+    dc = deep_checks["config5"]
+    kernels.append(kernel_entry(
+        "deep_link_train", "vibo_tpu/ops/pallas_deep.py:154 (_fused_deep_fwd;"
+        " kernel _fused_deep_kernel :75)", "deep_link.cu",
+        full["deep"]["deep_link_train"], dc,
+        table_shape=deep_checks["table_shape_K4"],
+        h256=deep_checks["config5_H256"],
+        library_note="no single PyTorch call gives the deep link's loglik "
+        "and its gradients"))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

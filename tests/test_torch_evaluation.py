@@ -1,7 +1,7 @@
 """The port's IWAE test log-likelihood against the JAX package's:
 `evaluation.iwae_loglik` on the same (converted) params and on JAX's own
 noise, replayed from the keys it splits per person block (GRM and GPCM at
-C = 5 too). One case fits in
+C = 5 too, and the deep link, its samples in chunks of 2). One case fits in
 one block (N <= block_size); the others cut N into zero-padded blocks, so
 the padded rows and the per-block item_scale are exercised. f32 encoder;
 the bound within 1e-5 relative (f32 sums in different orders), the cell
@@ -22,6 +22,7 @@ from vibo_tpu_torch.models import VIBO, VIBOConfig
 from jax_noise_replay import replay_noise
 
 N, M, K, H = 30, 14, 2, 12
+DL = 3                                     # deep: item latent dim
 
 
 @pytest.mark.parametrize("irt_model,block,s,on", [
@@ -31,15 +32,18 @@ N, M, K, H = 30, 14, 2, 12
     ("3pl", 16, 4, "heldout"),
     ("grm", 16, 4, "heldout"),
     ("gpcm", 64, 5, "train"),
+    ("deep", 16, 4, "heldout"),
 ])
-def test_iwae_loglik_matches_jax(irt_model, block, s, on):
+def test_iwae_loglik_matches_jax(irt_model, block, s, on, monkeypatch):
     c = 5 if irt_model in ("grm", "gpcm") else 2
-    sim = jsim(irt_model, N, M, ability_dim=K, seed=2, missing_rate=0.2,
-               num_categories=c)
+    sim = jsim("nonlinear" if irt_model == "deep" else irt_model, N, M,
+               ability_dim=K, seed=2, missing_rate=0.2, num_categories=c)
     ds = jholdout(sim.response, sim.mask, 0.25, seed=1, num_categories=c)
     ds.train_mask[4] = 0.0        # a person with nothing to condition on
     kw = dict(num_items=M, irt_model=irt_model, ability_dim=K,
               hidden_dim=H, use_pallas=True, num_categories=c)
+    if irt_model == "deep":
+        kw.update(item_latent_dim=DL, deep_hidden_dim=32, deep_item_chunk=8)
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(3))
     key = jax.random.key(11)
@@ -49,7 +53,8 @@ def test_iwae_loglik_matches_jax(irt_model, block, s, on):
     shapes = {"1pl": {"b": (M, 1)}, "2pl": {"a": (M, K), "b": (M, 1)},
               "3pl": {"a": (M, K), "b": (M, 1), "g_hat": (M, 1)},
               "grm": {"a": (M, K), "b": (M, c - 1)},
-              "gpcm": {"a": (M, K), "b": (M, c - 1)}}[irt_model]
+              "gpcm": {"a": (M, K), "b": (M, c - 1)},
+              "deep": {"d": (M, DL)}}[irt_model]
     state = {"key": key, "blocks": []}
 
     def noise(block_index, rows):
@@ -59,6 +64,10 @@ def test_iwae_loglik_matches_jax(irt_model, block, s, on):
 
     model = VIBO(VIBOConfig(**kw), device="cpu")
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    if irt_model == "deep":
+        # a chunk of 2 samples: the deep link's activation budget at work
+        monkeypatch.setattr(evaluation, "_DEEP_CHUNK_BYTES",
+                            2 * 4 * block * 8 * 32)
     got = evaluation.iwae_loglik(model, params, ds, num_samples=s,
                                  block_size=block, on=on, noise=noise)
     n_blocks = -(-N // block)

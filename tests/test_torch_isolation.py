@@ -12,8 +12,8 @@ import pytest
 import torch
 
 from vibo_tpu_torch.models import VIBO, VIBOConfig
-from vibo_tpu_torch.ops import (_build, pallas_elbo, pallas_encoder,
-                                pallas_gpcm, pallas_grm)
+from vibo_tpu_torch.ops import (_build, pallas_deep, pallas_elbo,
+                                pallas_encoder, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.serve import AbilityScorer
 from vibo_tpu_torch.train import Trainer, TrainConfig
 
@@ -57,13 +57,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_out_of_scope_config_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VIBOConfig(num_items=4, irt_model="deep")
+    # the deep link is in scope: JAX's defaults, theta (B, K), and the
+    # one-pass op only with deep_fused_kernel at a width it supports
+    cfg = VIBOConfig(num_items=4, irt_model="deep", deep_fused_kernel=True,
+                     use_pallas=True)
+    assert (cfg.item_latent_dim, cfg.deep_hidden_dim,
+            cfg.deep_item_chunk) == (16, 128, 256)
+    model = VIBO(cfg, device="cpu")
+    params = model.init_params(0)
+    assert not model.wants_transposed_theta()
+    assert model._use_packed_kernel(params)
+    assert not VIBO(VIBOConfig(num_items=4, irt_model="deep",
+                               use_pallas=True), device="cpu"
+                    )._use_packed_kernel(params)
+    narrow = VIBO(VIBOConfig(num_items=4, irt_model="deep", use_pallas=True,
+                             deep_fused_kernel=True, deep_hidden_dim=96),
+                  device="cpu")
+    assert not narrow._use_packed_kernel(narrow.init_params(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VIBOConfig(num_items=4, theta_posterior="chol")
-    # the deep link's options are not accepted at all until it is ported
+    # a field the JAX config does not have is refused
     with pytest.raises(TypeError):
-        VIBOConfig(num_items=4, deep_fused_kernel=True)
+        VIBOConfig(num_items=4, deep_kernel=True)
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -79,9 +94,23 @@ def test_cpu_tensors_take_the_plain_path():
     # 1 wrong + 3 right observed cells at logit 0: 4 * log(1/2)
     assert float(ll.detach()) == pytest.approx(4 * -0.6931471805599453)
     assert h.detach().tolist() == [[3.0, 3.0], [4.0, 4.0]]
+    # the deep one-pass op: a zero link scores every observed cell at
+    # logit 0 (4 cells, 4 log(1/2)), and its gradients reach the link
+    link = {"w_theta": torch.zeros((1, 128), requires_grad=True),
+            "w_item": torch.zeros((2, 128)), "b1": torch.zeros(128),
+            "layer2": {"w": torch.zeros((128, 128)), "b": torch.zeros(128)},
+            "out": {"w": torch.zeros((128, 1)),
+                    "b": torch.zeros(1, requires_grad=True)}}
+    ll = pallas_deep.masked_loglik_deep_packed_train(
+        torch.zeros((2, 1)), torch.zeros((3, 2)), link, pk)
+    ll.sum().backward()
+    assert float(ll.sum().detach()) == pytest.approx(4 * -0.6931471805599453)
+    # sum of m (r - 1/2): 3 right, 1 wrong
+    assert float(link["out"]["b"].grad) == pytest.approx(1.0)
     assert all(k.launches == 0 and k._fn is None
                for k in _build.KERNELS.values())
     assert set(_build.KERNELS) == {"first_layer_fwd", "first_layer_bwd",
+                                   "deep_link_train",
                                    "loglik_2pl_train", "loglik_3pl_train",
                                    "loglik_grm_train", "loglik_gpcm_train",
                                    "masked_loglik_2pl_fwd",

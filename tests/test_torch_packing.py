@@ -41,7 +41,7 @@ def test_pack_decode_row_valid_match_jax():
     assert np.array_equal(rv2.numpy(), rv)
 
 
-@pytest.mark.parametrize("irt_model", ["1pl", "2pl", "3pl"])
+@pytest.mark.parametrize("irt_model", ["1pl", "2pl", "3pl", "nonlinear"])
 def test_simulate_and_holdout_byte_equal(irt_model):
     kw = dict(ability_dim=3, seed=7, missing_rate=0.2)
     want = jsim(irt_model, 60, 25, **kw)
@@ -60,5 +60,5 @@ def test_simulate_and_holdout_byte_equal(irt_model):
 
 
 def test_simulate_out_of_scope_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate_irt("nonlinear", 4, 3)
+    with pytest.raises(ValueError, match="supports"):
+        simulate_irt("quadratic", 4, 3)

@@ -27,16 +27,19 @@ def _close(got, want, tol=1e-5):
 
 @pytest.mark.parametrize("irt_model,cond", [("2pl", True), ("1pl", False),
                                             ("3pl", True), ("grm", True),
-                                            ("gpcm", False)])
+                                            ("gpcm", False), ("deep", True)])
 def test_score_and_imputation_match_jax(irt_model, cond):
     """grm/gpcm (C = 5): prob is (B, M, C), accuracy the exact category
-    match, the base rate over the C categories."""
+    match, the base rate over the C categories; deep: prob through the link
+    MLP (item blocks of 8), on the nonlinear family's data."""
     c = 5 if irt_model in ("grm", "gpcm") else 2
-    sim = jsim(irt_model, 90, 30, ability_dim=2, seed=4, missing_rate=0.1,
-               num_categories=c)
+    sim = jsim("nonlinear" if irt_model == "deep" else irt_model, 90, 30,
+               ability_dim=2, seed=4, missing_rate=0.1, num_categories=c)
     jds = jholdout(sim.response, sim.mask, 0.2, seed=0, num_categories=c)
     kw = dict(num_items=30, irt_model=irt_model, ability_dim=2,
               hidden_dim=16, conditional_posterior=cond, num_categories=c)
+    if irt_model == "deep":
+        kw.update(item_latent_dim=3, deep_hidden_dim=32, deep_item_chunk=8)
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(5))
     model = VIBO(VIBOConfig(**kw), device="cpu")

@@ -1,17 +1,23 @@
 """The port's packed ELBO against the JAX package: the three terms of
 `elbo_packed_sums` and the gradient of the bound with respect to EVERY
 parameter, on params from the JAX `init_params` and the same numpy noise,
-for the 2PL and the 3PL link (both theta layouts) and the GRM and GPCM
-families (C = 5, theta (B, K), their one-pass ops).
+for the 2PL and the 3PL link (both theta layouts), the GRM and GPCM
+families (C = 5, theta (B, K), their one-pass ops) and the deep link
+(theta (B, K); the one-pass op with deep_fused_kernel, else the decoded
+plain link in item blocks, JAX's default).
 
 Tolerances: 1e-4 relative to each array's largest magnitude at f32 (the two
 frameworks sum in different orders); 2e-2 at bf16, where the two round the
 encoder's operands at the same places but accumulate in different orders,
 so a rounding flip of one bf16 operand moves a value by up to 2^-8.
 
+The deep link's one-pass op rounds its products' operands to bf16 at any
+compute dtype, on both sides; 1e-3 there, as an operand may round the other
+way in one framework (tests/test_torch_deep.py).
+
 The decoded-data `elbo` and `iwae` are held the same way, on JAX's own
-noise replayed from its key, for use_pallas on and off, 1PL, 2PL, 3PL, GRM
-and GPCM, S = 1 to 3, item_scale < 1 and an all-missing row.
+noise replayed from its key, for use_pallas on and off, 1PL, 2PL, 3PL, GRM,
+GPCM and deep, S = 1 to 3, item_scale < 1 and an all-missing row.
 """
 
 import jax
@@ -31,6 +37,13 @@ from jax_noise_replay import replay_noise
 
 N, M, K, H, S = 29, 37, 3, 24, 2
 C = 5                                      # grm/gpcm categories
+DL = 4                                     # deep: item latent dim
+# deep: the op's width (a multiple of 128), item blocks of 16 (ragged M)
+DEEP = dict(item_latent_dim=DL, deep_hidden_dim=128, deep_item_chunk=16)
+
+
+def _deep_kw(irt_model: str) -> dict:
+    return DEEP if irt_model == "deep" else {}
 
 
 def _categories(irt_model: str) -> int:
@@ -42,7 +55,8 @@ def _item_shapes(irt_model: str, m: int, k: int) -> dict:
     spec = {"1pl": {"b": 1}, "2pl": {"a": k, "b": 1},
             "3pl": {"a": k, "b": 1, "g_hat": 1},
             "grm": {"a": k, "b": C - 1},
-            "gpcm": {"a": k, "b": C - 1}}[irt_model]
+            "gpcm": {"a": k, "b": C - 1},
+            "deep": {"d": DL}}[irt_model]
     return {n: (m, d) for n, d in spec.items()}
 
 
@@ -75,14 +89,35 @@ def _close(got, want, tol):
     (False, "bfloat16", "sample", 2e-2, "gpcm"),
 ])
 def test_elbo_packed_sums_terms_and_grads(transposed, dtype, cond, tol, irt):
+    _packed_case(dict(irt_model=irt, condition_on=cond, compute_dtype=dtype,
+                      num_categories=_categories(irt)), transposed, tol)
+
+
+@pytest.mark.parametrize("fused,dtype,cond,tol", [
+    (True, "float32", "sample", 1e-3),
+    (True, "bfloat16", "mean", 2e-2),
+    (False, "float32", "sample", 1e-4),
+    (False, "bfloat16", "sample", 2e-2),
+])
+def test_deep_elbo_packed_sums_terms_and_grads(fused, dtype, cond, tol):
+    """deep under use_pallas: the fused first layer always; the loglik the
+    one-pass op (deep_fused_kernel) or the decoded plain link."""
+    _packed_case(dict(irt_model="deep", condition_on=cond,
+                      compute_dtype=dtype, deep_fused_kernel=fused, **DEEP),
+                 False, tol)
+
+
+def _packed_case(cfg: dict, transposed: bool, tol: float):
+    """elbo_packed_sums' terms and every gradient, JAX and the port, on
+    the same params and numpy noise under the config cfg."""
+    irt = cfg["irt_model"]
     rng = np.random.default_rng(0)
     resp = _responses(rng, irt, (N, M))
     mask = (rng.random((N, M)) < 0.8).astype(np.float32)
     mask[3] = 0.0                          # an all-missing row: KL excluded
     packed = jpack(resp, mask)
-    kw = dict(num_items=M, irt_model=irt, ability_dim=K, hidden_dim=H,
-              condition_on=cond, use_pallas=True, compute_dtype=dtype,
-              num_categories=_categories(irt))
+    kw = dict(num_items=M, ability_dim=K, hidden_dim=H, use_pallas=True,
+              **cfg)
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(1))
     item_eps = {n: rng.standard_normal((S,) + shp).astype(np.float32)
@@ -110,8 +145,10 @@ def test_elbo_packed_sums_terms_and_grads(transposed, dtype, cond, tol, irt):
         _close(got.detach(), want, tol)
     jleaves = jax.tree.leaves(jgrads)       # dict keys sorted, as tree_leaves
     leaves = tree_leaves(params)
-    # 3 encoder layers (w, b) and each item parameter's (mu, logvar)
-    assert len(leaves) == len(jleaves) == 6 + 2 * len(item_eps)
+    # 3 encoder layers (w, b), each item parameter's (mu, logvar), and the
+    # deep link's 7 leaves
+    assert len(leaves) == len(jleaves) == (
+        6 + 2 * len(item_eps) + (7 if irt == "deep" else 0))
     for p, g in zip(leaves, jleaves):
         assert p.grad.shape == g.shape
         _close(p.grad, g, tol)
@@ -133,7 +170,7 @@ def _decoded_setup(irt_model, use_pallas, dtype, cond, seed=0):
     kw = dict(num_items=DM, irt_model=irt_model, ability_dim=DK,
               hidden_dim=DH, conditional_posterior=cond,
               use_pallas=use_pallas, compute_dtype=dtype,
-              num_categories=_categories(irt_model))
+              num_categories=_categories(irt_model), **_deep_kw(irt_model))
     jmodel = JVIBO(JConfig(**kw))
     jparams = jmodel.init_params(jax.random.key(seed + 1))
     model = VIBO(VIBOConfig(**kw), device="cpu")
@@ -166,6 +203,9 @@ DECODED_CASES = [  # use_pallas, irt_model, S, item_scale, dtype, cond, tol
     (True, "grm", 2, 0.5, "bfloat16", True, 2e-2),
     (True, "gpcm", 2, 0.5, "float32", True, 1e-4),
     (True, "gpcm", 2, 0.5, "bfloat16", True, 2e-2),
+    (True, "deep", 2, 0.5, "float32", True, 1e-4),
+    (False, "deep", 1, 0.3, "float32", False, 1e-4),
+    (True, "deep", 2, 0.5, "bfloat16", True, 2e-2),
 ]
 
 
@@ -201,6 +241,8 @@ def test_elbo_decoded_terms_and_grads(use_pallas, irt, s, scale, dtype, cond,
     (True, "grm", 3, 0.5, "float32", True, 1e-4),
     (True, "gpcm", 2, 0.7, "float32", False, 1e-4),
     (True, "gpcm", 2, 0.5, "bfloat16", True, 2e-2),
+    (True, "deep", 3, 0.5, "float32", True, 1e-4),
+    (True, "deep", 2, 0.5, "bfloat16", False, 2e-2),
 ])
 def test_iwae_decoded_bound_and_grads(use_pallas, irt, s, scale, dtype, cond,
                                       tol):

@@ -8,7 +8,14 @@ Both packages keep the same tree:
                    "g_hat": {"mu": (M, 1), "logvar": (M, 1)}}}   # 3PL only
 
 (1PL has "b" alone; GRM and GPCM have "a" and a "b" of (M, C-1), the C-1
-unconstrained category coordinates), so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
+unconstrained category coordinates; the deep link has "d" (M, D) alone and
+adds the link's own tree
+
+     "deep_link": {"w_theta": (K, H), "w_item": (D, H), "b1": (H,),
+                   "layer2": {"w": (H, H), "b": (H,)},
+                   "out": {"w": (H, 1), "b": (1,)}}),
+
+so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
 either direction unchanged. Leaves are float32 tensors that require grad.
 """
 

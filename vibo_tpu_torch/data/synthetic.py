@@ -3,10 +3,12 @@
 A numpy copy of `vibo_tpu.data.synthetic.simulate_irt` for the binary links
 (1pl/2pl/3pl): theta ~ N(0, I_K), difficulties ~ N(0, 1), discriminations
 ~ N(0, 1)/sqrt(K) (ones for 1pl), guess logits ~ N(-1.5, 1) (3pl), responses
-Bernoulli(link), optional missing-at-random mask; and of `simulate_grm` /
-`simulate_gpcm` for the polytomous families (categories 0..C-1). The same
-seed draws the same stream in the same order, so the arrays are
-byte-identical to the JAX package's.
+Bernoulli(link), optional missing-at-random mask; of its "nonlinear" family
+(a fixed random tanh-MLP link over (theta, item embedding) pairs, the data
+the deep link is built for); and of `simulate_grm` / `simulate_gpcm` for the
+polytomous families (categories 0..C-1). The same seed draws the same
+stream in the same order, so the arrays are byte-identical to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ class SyntheticIRT:
                                 # {0..C-1}); 0 where unobserved
     mask: np.ndarray            # (N, M) float32, 1 = observed
     theta: np.ndarray           # (N, K) true abilities
-    a: np.ndarray               # (M, K) true discriminations (ones for 1pl)
+    a: np.ndarray               # (M, K) true discriminations (ones for 1pl;
+                                # the item embeddings for "nonlinear")
     b: np.ndarray               # (M,) true difficulties (grm: (M, C-1)
                                 # ordered thresholds; gpcm: (M, C-1) steps)
     g_hat: np.ndarray | None    # (M,) true guess logits (3pl only)
@@ -36,6 +39,26 @@ class SyntheticIRT:
 
 def _sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
+
+
+def _nonlinear_logits(rng, theta, d, b):
+    """The "nonlinear" family's logits (N, M): a fixed random tanh-MLP over
+    [theta_i; d_j] (hidden 32, weights drawn from rng) plus a squared
+    theta . d interaction, standardized to sd 1.6, minus b, clipped to
+    +-10. A bilinear 2PL cannot fit these curves; the deep link can."""
+    k, kd = theta.shape[1], d.shape[1]
+    hidden = 32
+    w1 = rng.standard_normal((k + kd, hidden)) / np.sqrt(k + kd)
+    c1 = rng.standard_normal(hidden) * 0.3
+    w2 = rng.standard_normal(hidden) / np.sqrt(hidden)
+    t_proj = theta @ w1[:k]                                   # (N, H)
+    d_proj = d @ w1[k:] + c1                                  # (M, H)
+    h = np.tanh(t_proj[:, None, :] + d_proj[None, :, :])      # (N, M, H)
+    mlp = h @ w2
+    inter = np.square(theta @ d.T) / np.sqrt(max(k, kd))
+    raw = 2.2 * mlp + 0.8 * inter
+    raw = (raw - raw.mean()) / (raw.std() + 1e-8) * 1.6
+    return np.clip(raw - b[None, :], -10.0, 10.0)
 
 
 def _missing_mask(rng, num_persons: int, num_items: int,
@@ -119,18 +142,18 @@ def simulate_irt(irt_model: str, num_persons: int, num_items: int,
                  ability_dim: int = 1, seed: int = 0,
                  missing_rate: float = 0.0,
                  num_categories: int = 5) -> SyntheticIRT:
-    """Dense responses under a 1pl/2pl/3pl model (see module doc), or
-    ordinal ones under grm/gpcm (num_categories applies only there)."""
+    """Dense responses under a 1pl/2pl/3pl or the nonlinear model (see
+    module doc), or ordinal ones under grm/gpcm (num_categories applies
+    only there)."""
     if irt_model == "grm":
         return simulate_grm(num_persons, num_items, ability_dim,
                             num_categories, seed, missing_rate)
     if irt_model == "gpcm":
         return simulate_gpcm(num_persons, num_items, ability_dim,
                              num_categories, seed, missing_rate)
-    if irt_model not in ("1pl", "2pl", "3pl"):
-        raise NotImplementedError(
-            f"simulate_irt in vibo_tpu_torch covers 1pl/2pl/3pl/grm/gpcm, "
-            f"got {irt_model!r} (nonlinear: ROADMAP queue A item 7)")
+    if irt_model not in ("1pl", "2pl", "3pl", "nonlinear"):
+        raise ValueError(f"simulate_irt supports 1pl/2pl/3pl/nonlinear/grm/"
+                         f"gpcm, got {irt_model!r}")
     rng = np.random.default_rng(seed)
     k = ability_dim
     theta = rng.standard_normal((num_persons, k)).astype(np.float32)
@@ -138,6 +161,9 @@ def simulate_irt(irt_model: str, num_persons: int, num_items: int,
     if irt_model == "1pl":
         a = np.ones((num_items, k), dtype=np.float32)
         logits = theta.sum(-1, keepdims=True) - b[None, :]
+    elif irt_model == "nonlinear":
+        a = (rng.standard_normal((num_items, k)) / np.sqrt(k)).astype(np.float32)
+        logits = _nonlinear_logits(rng, theta, a, 0.7 * b).astype(np.float32)
     else:
         a = (rng.standard_normal((num_items, k)) / np.sqrt(k)).astype(np.float32)
         logits = theta @ a.T - b[None, :]

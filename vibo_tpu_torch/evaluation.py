@@ -21,6 +21,8 @@ from vibo_tpu_torch.models.vibo import VIBO
 from vibo_tpu_torch.ops import objectives
 from vibo_tpu_torch.ops.links import CATEGORICAL_MODELS
 
+_DEEP_CHUNK_BYTES = 2 << 30   # one deep-link activation of an IWAE chunk
+
 
 def _rows_f32(x: np.ndarray, s: int, e: int, rows: int, dev) -> torch.Tensor:
     """x[s:e] as f32 on dev, zero-padded to `rows` rows."""
@@ -89,7 +91,10 @@ def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
     bound counts the shared item terms with item_scale = real rows / N, so
     they sum to exactly one count over the dataset. The model runs with
     use_pallas=False, as the JAX evaluator does; samples run in chunks of
-    at most 10 to bound the (chunk, B, M) logits.
+    at most 10 to bound the (chunk, B, M) logits, and for the deep link of
+    as many as keep one (chunk, B, deep_item_chunk, H) f32 activation of the
+    plain link within _DEEP_CHUNK_BYTES (the bound's value does not depend
+    on the chunking).
 
     Noise: noise(block_index, rows) -> (item_eps {name: (S, M, D)},
     theta_eps (S, rows, K)) when given (the tests replay the JAX keys
@@ -102,7 +107,12 @@ def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
     dev = model.device
     n = ds.response.shape[0]
     rows = n if n <= block_size else block_size
-    chunk = max(d for d in range(1, min(num_samples, 10) + 1)
+    cap = 10
+    if model.cfg.irt_model == "deep":
+        items = min(model.cfg.deep_item_chunk or ds.shape[1], ds.shape[1])
+        cap = max(1, min(cap, _DEEP_CHUNK_BYTES // (
+            4 * rows * items * model.cfg.deep_hidden_dim)))
+    chunk = max(d for d in range(1, min(num_samples, cap) + 1)
                 if num_samples % d == 0)
     emask_host = ds.train_mask if on == "train" else ds.heldout_mask
     post = full_item_dist(model, params)

@@ -1,5 +1,5 @@
-"""Ability encoder and item posteriors (counterpart of
-`vibo_tpu.models.networks`, the parts the 2PL flagship runs).
+"""Ability encoder, item posteriors and the deep link (counterpart of
+`vibo_tpu.models.networks`, the parts the port's models run).
 
 Parameters are plain trees of tensors in the JAX layout (`w` is (in, out),
 `x @ w + b`), so `convert.params_from_jax` carries them over unchanged.
@@ -9,6 +9,10 @@ accumulates AND returns f32 (`preferred_element_type=f32`). `cast_through`
 reproduces that exactly: bf16 operands carried as f32, whose products are
 exact in f32, multiplied in f32 (TF32 is off, `_device.resolve_device`).
 The head layer runs in f32, as in JAX.
+
+The deep link's item blocks run under `torch.utils.checkpoint` (the
+counterpart of `jax.checkpoint`): their (B, chunk, H) activations are
+recomputed in the backward pass instead of kept.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vibo_tpu_torch._device import as_dtype, cast_through
 from vibo_tpu_torch.ops import pallas_encoder
@@ -102,9 +108,10 @@ def apply_ability_encoder_packed(params, packed, item_feats=None,
 
 
 def item_head_spec(irt_model: str, ability_dim: int,
-                   num_categories: int = 2) -> dict:
+                   item_latent_dim: int = 0, num_categories: int = 2) -> dict:
     """Ordered {param_name: dim} for one item's parameters; grm/gpcm: "b"
-    holds the C-1 unconstrained category coordinates."""
+    holds the C-1 unconstrained category coordinates; deep: "d", the item's
+    latent vector of item_latent_dim."""
     if irt_model == "1pl":
         return {"b": 1}
     if irt_model == "2pl":
@@ -113,18 +120,20 @@ def item_head_spec(irt_model: str, ability_dim: int,
         return {"a": ability_dim, "b": 1, "g_hat": 1}
     if irt_model in ("grm", "gpcm"):
         return {"a": ability_dim, "b": num_categories - 1}
-    raise NotImplementedError(
-        f"irt_model {irt_model!r}: the port covers 1pl/2pl/3pl/grm/gpcm "
-        "(deep is ROADMAP queue A item 13)")
+    if irt_model == "deep":
+        return {"d": item_latent_dim}
+    raise ValueError(irt_model)
 
 
 def init_item_posterior(num_items: int, irt_model: str, ability_dim: int,
                         generator: torch.Generator, device,
+                        item_latent_dim: int = 0,
                         num_categories: int = 2) -> dict:
     """Free-form per-item Gaussians {name: {'mu', 'logvar': (M, D)}}: mu
     ~ 0.1 N(0, 1), logvar -2 (3PL: a, b and the guess logit g_hat;
-    grm/gpcm: a and the (M, C-1) b)."""
-    spec = item_head_spec(irt_model, ability_dim, num_categories)
+    grm/gpcm: a and the (M, C-1) b; deep: d)."""
+    spec = item_head_spec(irt_model, ability_dim, item_latent_dim,
+                          num_categories)
     return {name: {"mu": 0.1 * torch.randn((num_items, d), generator=generator,
                                            device=device),
                    "logvar": torch.full((num_items, d), -2.0, device=device)}
@@ -132,9 +141,10 @@ def init_item_posterior(num_items: int, irt_model: str, ability_dim: int,
 
 
 def item_feat_dim(num_items: int, irt_model: str, ability_dim: int,
-                  num_categories: int = 2) -> int:
+                  item_latent_dim: int = 0, num_categories: int = 2) -> int:
     """Flattened width of one item-parameter sample (encoder conditioning)."""
     return num_items * sum(item_head_spec(irt_model, ability_dim,
+                                          item_latent_dim,
                                           num_categories).values())
 
 
@@ -143,3 +153,53 @@ def flatten_item_sample(sample: dict) -> torch.Tensor:
     item-major, the JAX package's order."""
     return torch.cat([sample[k].reshape(sample[k].shape[:-2] + (-1,))
                       for k in sorted(sample)], dim=-1)
+
+
+# ------------------------------------------------------------ deep link
+
+
+def init_deep_link(ability_dim: int, item_latent_dim: int, hidden_dim: int,
+                   generator: torch.Generator, device) -> dict:
+    """p(r_ij | theta_i, d_j) = Bernoulli(sigmoid(MLP([theta_i, d_j]))), the
+    first layer stored split (w_theta (K, H), w_item (D, H), b1) so a pair's
+    pre-activation is a broadcast add of two small products; then layer2
+    (H, H) and out (H, 1), Glorot-uniform with zero biases."""
+    scale = math.sqrt(6.0 / (ability_dim + item_latent_dim + hidden_dim))
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, device=device)
+        return (2.0 * u - 1.0) * scale
+
+    return {"w_theta": uniform((ability_dim, hidden_dim)),
+            "w_item": uniform((item_latent_dim, hidden_dim)),
+            "b1": torch.zeros((hidden_dim,), device=device),
+            "layer2": init_linear(hidden_dim, hidden_dim, generator, device),
+            "out": init_linear(hidden_dim, 1, generator, device)}
+
+
+def apply_deep_link(params, theta, d, item_chunk: int = 0,
+                    compute_dtype="float32"):
+    """theta (..., B, K), d (..., M, D) -> logits (..., B, M).
+
+    item_chunk > 0 (and M > item_chunk) runs the items in blocks of
+    item_chunk, d zero-padded to a multiple of it, each block under
+    torch.utils.checkpoint: peak memory O(B * chunk * H) instead of
+    O(B * M * H), the activations recomputed in the backward pass. The
+    products round their operands to compute_dtype and accumulate and
+    return f32 (`cast_through`)."""
+    m = d.shape[-2]
+    if item_chunk and m > item_chunk:
+        d_p = F.pad(d, (0, 0, 0, (-m) % item_chunk))
+
+        def block(dc):
+            return apply_deep_link(params, theta, dc,
+                                   compute_dtype=compute_dtype)
+        logits = [checkpoint(block, dc, use_reentrant=False)
+                  for dc in d_p.split(item_chunk, dim=-2)]
+        return torch.cat(logits, -1)[..., :m]
+    cd = as_dtype(compute_dtype)
+    ht = _mm(theta, params["w_theta"], cd)                    # (..., B, H)
+    hd = _mm(d, params["w_item"], cd)                         # (..., M, H)
+    h = torch.relu(ht[..., :, None, :] + hd[..., None, :, :] + params["b1"])
+    h = torch.relu(_mm(h, params["layer2"]["w"], cd) + params["layer2"]["b"])
+    return (_mm(h, params["out"]["w"], cd) + params["out"]["b"])[..., 0]

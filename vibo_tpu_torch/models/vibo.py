@@ -1,14 +1,16 @@
 """VIBO: amortized variational inference for IRT (counterpart of
-`vibo_tpu.models.vibo`: the binary 1PL/2PL/3PL links and the polytomous
-GRM/GPCM families, with free-form item posteriors and the diagonal ability
-posterior).
+`vibo_tpu.models.vibo`: the binary 1PL/2PL/3PL links, the polytomous
+GRM/GPCM families and the deep nonlinear link, with free-form item
+posteriors and the diagonal ability posterior).
 
 Generative model: theta_i ~ N(0, I_K), item d_j ~ N(0, I), r_ij ~
 Bernoulli(sigmoid(a_j . theta_i - b_j)) on observed cells; under 3PL
 Bernoulli(g_j + (1 - g_j) sigmoid(a_j . theta_i - b_j)), g_j =
 sigmoid(g_hat_j), the guess logit a third item parameter; under grm/gpcm
 r_ij is one of C ordered categories, with b_j the C-1 unconstrained
-coordinates of the family's table (`links.categorical_table`). Posterior:
+coordinates of the family's table (`links.categorical_table`); under deep
+Bernoulli(sigmoid(MLP(theta_i, d_j))) with d_j an item latent vector and
+the MLP's weights (`networks.apply_deep_link`) point-estimated. Posterior:
 q(d) per-item diagonal Gaussians; q(theta_i | d, r_i) an MLP encoder on the
 response row, conditioned on a flattened item draw ("sample") or on the
 item-posterior means ("mean").
@@ -35,8 +37,8 @@ from vibo_tpu_torch._device import resolve_device
 from vibo_tpu_torch.convert import tree_leaves
 from vibo_tpu_torch.models import networks
 from vibo_tpu_torch.ops import distributions as dist
-from vibo_tpu_torch.ops import (likelihood, links, objectives, pallas_elbo,
-                                pallas_gpcm, pallas_grm)
+from vibo_tpu_torch.ops import (likelihood, links, objectives, pallas_deep,
+                                pallas_elbo, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.ops.packing import decode_packed, packed_row_valid
 
 # the one-pass training loglik on theta (B, K) by link (1pl/2pl: the 2PL op)
@@ -48,8 +50,8 @@ _PACKED_TRAIN = {"3pl": pallas_elbo.masked_loglik_3pl_packed_train,
 @dataclasses.dataclass(frozen=True)
 class VIBOConfig:
     """The JAX config's fields that the port reads; values outside the
-    port's scope raise. The deep link's and the item encoder's own fields
-    come with the ROADMAP items that port them."""
+    port's scope raise. The item encoder's own fields come with the ROADMAP
+    item that ports it."""
     num_items: int
     irt_model: str = "2pl"
     num_categories: int = 2
@@ -61,6 +63,11 @@ class VIBOConfig:
     item_encoder: bool = False
     use_pallas: bool = False
     compute_dtype: str = "float32"
+    item_latent_dim: int = 16          # deep: item latent d_j's dimension
+    deep_hidden_dim: int = 128         # deep: the link MLP's width H
+    deep_fused_kernel: bool = False    # deep: the one-pass op under use_pallas
+    deep_item_chunk: int = 256         # deep: items a checkpointed block of
+                                       # the plain link (0 = all at once)
 
     def __post_init__(self):
         if self.irt_model not in links.IRT_MODELS:
@@ -85,8 +92,6 @@ class VIBOConfig:
                 f"polytomous families {links.CATEGORICAL_MODELS} (binary "
                 f"links are 2-category)")
         gaps = []
-        if self.irt_model == "deep":
-            gaps.append("irt_model='deep' (ROADMAP queue A item 13)")
         if self.theta_posterior != "diag":
             gaps.append(f"theta_posterior={self.theta_posterior!r} (ROADMAP "
                         "queue A item 14)")
@@ -106,11 +111,14 @@ class VIBO:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._categorical = cfg.irt_model in links.CATEGORICAL_MODELS
+        self._deep = cfg.irt_model == "deep"
         self._head_spec = networks.item_head_spec(
-            cfg.irt_model, cfg.ability_dim, cfg.num_categories)
+            cfg.irt_model, cfg.ability_dim, cfg.item_latent_dim,
+            cfg.num_categories)
         self._item_feat_dim = (
             networks.item_feat_dim(cfg.num_items, cfg.irt_model,
-                                   cfg.ability_dim, cfg.num_categories)
+                                   cfg.ability_dim, cfg.item_latent_dim,
+                                   cfg.num_categories)
             if cfg.conditional_posterior else 0)
 
     # ------------------------------------------------------------- params
@@ -125,9 +133,13 @@ class VIBO:
         params = {
             "item_post": networks.init_item_posterior(
                 cfg.num_items, cfg.irt_model, cfg.ability_dim, g,
-                self.device, cfg.num_categories),
+                self.device, cfg.item_latent_dim, cfg.num_categories),
             "encoder": networks.init_mlp(dims, g, self.device),
         }
+        if self._deep:
+            params["deep_link"] = networks.init_deep_link(
+                cfg.ability_dim, cfg.item_latent_dim, cfg.deep_hidden_dim, g,
+                self.device)
         for leaf in tree_leaves(params):
             leaf.requires_grad_(True)
         return params
@@ -221,12 +233,34 @@ class VIBO:
 
     def wants_transposed_theta(self) -> bool:
         """True when the packed train path runs theta as (K, B): the fused
-        kernels are on and the link is binary (the posterior is diagonal
-        always, in the port's scope); grm/gpcm run theta as (B, K), as in
-        JAX."""
-        return self.cfg.use_pallas and not self._categorical
+        kernels are on and the link is 1pl/2pl/3pl (the posterior is
+        diagonal always, in the port's scope); grm/gpcm and deep run theta
+        as (B, K), as in JAX."""
+        return (self.cfg.use_pallas
+                and self.cfg.irt_model in ("1pl", "2pl", "3pl"))
+
+    def _use_packed_kernel(self, params: dict) -> bool:
+        """Whether the packed path's loglik runs the link's one-pass op:
+        under use_pallas, always for the linear and polytomous links; for
+        deep only when deep_fused_kernel is set and the op supports the
+        link's width (else the code is decoded and the plain link runs,
+        JAX's default)."""
+        if not self.cfg.use_pallas:
+            return False
+        if self._deep:
+            return (self.cfg.deep_fused_kernel
+                    and pallas_deep.supports(params["deep_link"]))
+        return True
 
     # ------------------------------------------------------------ decoder
+
+    def _deep_logits(self, params: dict, theta, item_sample: dict):
+        """The deep link's logits (..., B, M), the plain link in checkpointed
+        blocks of deep_item_chunk items."""
+        return networks.apply_deep_link(
+            params["deep_link"], theta, item_sample["d"],
+            item_chunk=self.cfg.deep_item_chunk,
+            compute_dtype=self.cfg.compute_dtype)
 
     def loglik_per_person(self, params: dict, theta, item_sample: dict,
                           response, mask) -> torch.Tensor:
@@ -235,7 +269,11 @@ class VIBO:
         run the plain categorical likelihood (the JAX package has no
         polytomous masked kernel); for the binary links use_pallas runs the
         link's general kernel op (1PL as unit discriminations sized from the
-        data), otherwise the links and the likelihood."""
+        data), otherwise the links and the likelihood; deep runs the plain
+        link in checkpointed item blocks (deep_item_chunk), as in JAX."""
+        if self._deep:
+            return likelihood.masked_loglik_per_person(
+                self._deep_logits(params, theta, item_sample), response, mask)
         del params
         a, b, g_hat = self._link_params(item_sample, mask.shape[-1])
         if self._categorical:
@@ -366,20 +404,23 @@ class VIBO:
         """(loglik_sum, kl_theta_sum, kl_items) from the int8 code and
         exogenous noise, the first two averaged over the sample axis.
 
-        With use_pallas the encoder's first layer and the loglik run the
-        fused kernels (the one-pass loglik's uniform-cotangent contract
-        holds: it is summed into the loss); without it the code is decoded
-        and elbo_sums runs on (response, mask). row_weight ((B,), 0/1)
-        masks the theta-KL of rows with no observed cell; None derives it
-        from the code. transposed: theta in (K, B), theta_eps from
-        sample_noise(..., transposed=True), fused kernels of the binary
+        With use_pallas the encoder's first layer runs the fused kernel, and
+        the loglik the link's one-pass op where _use_packed_kernel holds
+        (its uniform-cotangent contract holds: it is summed into the loss);
+        otherwise (deep without deep_fused_kernel) the code is decoded for
+        the plain link. Without use_pallas the code is decoded and
+        elbo_sums runs on (response, mask). row_weight ((B,), 0/1) masks
+        the theta-KL of rows with no observed cell; None derives it from
+        the code. transposed: theta in (K, B), theta_eps from
+        sample_noise(..., transposed=True), fused kernels of the 1pl/2pl/3pl
         links only (grm/gpcm run their one-pass op on theta (B, K), the
-        table reparameterized outside it). Same math either way."""
+        table reparameterized outside it; deep its op or the plain link on
+        theta (B, K)). Same math either way."""
         valid = (packed_row_valid(packed) if row_weight is None
                  else row_weight)
-        if transposed and self._categorical:
+        if transposed and (self._categorical or self._deep):
             raise ValueError(f"{self.cfg.irt_model} runs theta as (B, K): "
-                             "transposed=True is for the binary links")
+                             "transposed=True is for the 1pl/2pl/3pl links")
         if not self.cfg.use_pallas:
             if transposed:
                 raise ValueError("transposed=True requires the fused kernels "
@@ -389,6 +430,9 @@ class VIBO:
                                   theta_eps, valid)
         post = self.item_dist(params)
         m = packed.shape[-1]
+        fused = self._use_packed_kernel(params)
+        if not fused:                      # deep on the plain link
+            mask, response = decode_packed(packed)
         lls, klts = [], []
         for s in range(theta_eps.shape[0]):
             item_sample = {
@@ -400,6 +444,15 @@ class VIBO:
                 params, packed, self._item_feats(post, item_sample),
                 transposed=transposed)
             theta = dist.reparameterize_eps(theta_eps[s], mu, logvar)
+            kl = dist.kl_standard_normal(mu, logvar).sum(0 if transposed
+                                                         else -1)
+            klts.append((kl * valid).sum())
+            if self._deep:
+                lls.append((pallas_deep.masked_loglik_deep_packed_train(
+                    theta, item_sample["d"], params["deep_link"], packed)
+                    if fused else self.loglik_per_person(
+                        params, theta, item_sample, response, mask)).sum())
+                continue
             a, b, g_hat = self._link_params(item_sample, m)
             if self._categorical:
                 items = (a, links.categorical_table(self.cfg.irt_model, b))
@@ -410,26 +463,26 @@ class VIBO:
                            if g_hat is None else
                            pallas_elbo.masked_loglik_3pl_packed_train_t)
                 lls.append(train_t(theta, *items, packed))
-                kl = dist.kl_standard_normal(mu, logvar).sum(0)
             else:
                 train = _PACKED_TRAIN.get(
                     self.cfg.irt_model,
                     pallas_elbo.masked_loglik_2pl_packed_train)
                 lls.append(train(theta, *items, packed).sum())
-                kl = dist.kl_standard_normal(mu, logvar).sum(-1)
-            klts.append((kl * valid).sum())
         return (torch.stack(lls).mean(), torch.stack(klts).mean(),
                 self.item_kl_from(post))
 
     # ------------------------------------------------- scoring / imputation
 
     def response_prob(self, params: dict, theta, item_sample: dict):
-        """p(r_ij = 1) matrix (B, M) of a binary link."""
-        del params
+        """p(r_ij = 1) matrix (B, M) of a binary link (deep: the sigmoid of
+        the plain link's logits)."""
         if self._categorical:
             raise ValueError(f"{self.cfg.irt_model} responses are "
                              "polytomous: use category_logprobs / "
                              "impute_category_with_items")
+        if self._deep:
+            return torch.sigmoid(self._deep_logits(params, theta,
+                                                   item_sample))
         lp = {"b": item_sample["b"][..., 0]}
         if "a" in item_sample:
             lp["a"] = item_sample["a"]

@@ -90,6 +90,30 @@ def build(sources=None) -> dict:
     return out
 
 
+def bind(source: str, symbol: str, argtypes: list):
+    """(function, library): the C function `symbol` of csrc/<source>'s
+    library (built first if missing) returning a cudaError_t as int, and the
+    library, whose vibo_error_string names such a code."""
+    lib_file = lib_path(source)
+    if not lib_file.exists():
+        build([source])
+    lib = ctypes.CDLL(str(lib_file))
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = lib.vibo_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, lib
+
+
+def check(rc: int, lib, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.vibo_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: {msg} (cudaError {rc})")
+
+
 class Kernel:
     """One C entry point of a csrc/ library with a launch counter.
 
@@ -108,25 +132,13 @@ class Kernel:
 
     def _bind(self):
         if self._fn is None:
-            lib_file = lib_path(self.source)
-            if not lib_file.exists():
-                build([self.source])
-            self._lib = ctypes.CDLL(str(lib_file))
-            fn = getattr(self._lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = self._lib.vibo_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn = fn
+            self._fn, self._lib = bind(self.source, self.symbol,
+                                       self.argtypes)
         return self._fn
 
     def __call__(self, *args, variant: str | None = None) -> None:
         rc = self._bind()(*args)
-        if rc != 0:
-            msg = self._lib.vibo_error_string(rc).decode()
-            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
-                               f"{msg} (cudaError {rc})")
+        check(rc, self._lib, f"CUDA kernel {self.name} launch")
         self.launches += 1
         if variant is not None:
             self.launches_by[variant] = self.launches_by.get(variant, 0) + 1

@@ -5,7 +5,8 @@
     out = scorer.score(responses, masks)     # (B, M) float arrays
     out["theta_mu"]          # (B, K) posterior ability means
     out["theta_sigma"]       # (B, K) posterior std devs
-    out["prob"]              # (B, M) predicted correctness probabilities;
+    out["prob"]              # (B, M) predicted correctness probabilities
+                             # (deep: through the link MLP);
                              # grm/gpcm: (B, M, C) category probabilities
 
 Loading a trained checkpoint (`from_checkpoint`) comes with the port's
