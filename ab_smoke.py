@@ -11,7 +11,8 @@ both sides alike. Each run builds its kernels in its own tree. A run's
 whole output goes to chiprun_out/ab/<n>_<side>.log. Then one JSON line per
 run: its exit code and seconds, each kernel's time from its kernels line
 (with the (B, K) layout and the int8 reader where it has them; the deep
-link's kernel also at the 10,240 x 1,024 shape and at width 256), and the
+link's kernel also at the 10,240 x 1,024 shape and at widths 256 and
+384), and the
 step median, device busy time and idle share of each training phase, by
 link; and last {"ok": ...}, true when all four runs exited 0.
 """
@@ -45,7 +46,7 @@ def summarize(stdout: str) -> dict:
             kernels[e["name"]] = e.get("ms")
             for extra, tag in (("bk_layout", "bk"), ("int8_reader", "int8"),
                                ("table_shape", "10240x1024"),
-                               ("h256", "H256")):
+                               ("h256", "H256"), ("h384_wide", "H384")):
                 if extra in e:
                     kernels[f"{e['name']} {tag}"] = e[extra].get("ms")
         phase = obj.get("phase")

@@ -25,13 +25,18 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      non-uniform cotangent and with a sample axis of 3 (per-sample and
      shared items), and at the extreme points (|theta . a| beyond the
      clamp, a collapsing category, every cell in the first and in the last
-     category); the first layer once more on the GRM flagship's graded
-     code; the deep-link kernel (csrc/deep_link.cu) at paper config 5
+     category); the first layer's two kernels in both modes (bf16, and f32
+     against exact f32 products) at the flagship (timed beside the matmul of
+     the decoded code), at H = 512, at config 5's 5,520 x 680, at the
+     ragged and the odd shape at H = 256 and 20, and on the GRM flagship's
+     graded code, meeting all three code readers; every loglik kernel at K
+     = 9, 12 and 16 (the wide variant) on the ragged shape; the deep-link kernel (csrc/deep_link.cu) at paper config 5
      (5,520 x 680, K = 2, link width 128, on its own code), at 10,240 x
      1,024 with K = 4, at 777 x 301 with K = 1 and 8, at width 256, through
      its autograd op (a non-uniform cotangent, a sample axis of 3 with per-
-     sample and shared d) against the CPU, and at the extreme points
-     (|logit| > 30, rows with no observed cell, every cell right or wrong);
+     sample and shared d) against the CPU, at the extreme points
+     (|logit| > 30, rows with no observed cell, every cell right or wrong),
+     and at widths 384 and 512 (the kernel's wide variant) on config 5;
   4. small-shape checks of the packed and the decoded-data objectives and
      every gradient on the card against the CPU path, per link (deep: the
      one-pass op on the packed path);
@@ -42,7 +47,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      step) and no other loglik kernel; then held-out imputation accuracy
      and AbilityScorer.score on fresh students (grm/gpcm: (B, M, C)
      category probabilities), and a torch.profiler window: device time by
-     kernel;
+     kernel; then the 2PL flagship at compute_dtype float32 (JAX's CLI
+     configuration), 10 steps launching the f32 first layer and the 2PL
+     one-pass loglik once a step;
   6. minibatch path, per link: Trainer.fit with batch_size 4,096 (3 steps
      an epoch, the last padded with 2,048 all-zero rows) trains 4 epochs on
      decoded data with the ELBO, launching its link's masked loglik (dense
@@ -58,7 +65,8 @@ scoring of 256 new students; 10 steps of JAX's default (the decoded code
 and the plain link: the first layer only) with both step medians; 4
 minibatch epochs at 4,096 (2 steps, the second padded with 2,672 empty
 rows) and 3 IWAE steps (S = 5) on the plain link (no kernel at all), the
-held-out IWAE-100 with its peak memory; profiles of the three. Then the
+held-out IWAE-100 with its peak memory; profiles of the three; 5 fused
+steps at link width 384 (the deep kernel's wide variant). Then the
 kernels summary line, the card's name and power limit, and the final
 status line {"ok": true, "device": {...}}.
 
@@ -105,6 +113,10 @@ STEPS = 40                                # full-batch steps
 EPOCHS = 4                                # minibatch epochs (3 steps each)
 IWAE_STEPS, IWAE_S = 3, 5                 # IWAE training steps, samples
 FIRST_LAYER = ("first_layer_fwd", "first_layer_bwd")
+FIRST_LAYER_F32 = ("first_layer_fwd_f32", "first_layer_bwd_f32")
+F32_STEPS = 10                            # full-batch steps at f32 (JAX's CLI)
+WIDE_K = (9, 12, 16)                      # K past the instantiated 1..8
+WIDE_H = (384, 512)                       # deep widths of the wide variant
 FAMILIES = ("grm", "gpcm")                # the polytomous links
 # each link's kernels: the one-pass training loglik (full batch) and the
 # general masked loglik's two directions (minibatch; the polytomous
@@ -144,7 +156,8 @@ CELLS_PER_PASS = {"loglik_train_kernel": 8 * 4,
 def ptxas_lines(log: str) -> list:
     """ptxas's register and spill lines of a build log, each after the
     kernel it describes (kernel<link, K> for the templated loglik
-    kernels)."""
+    kernels, deep_link_kernel<H=...>, kernel<N> for one integer parameter:
+    the first layer's bf16 parts, the wide deep kernel's students)."""
     out = []
     for ln in log.splitlines():
         if "Function properties for" in ln:
@@ -152,8 +165,10 @@ def ptxas_lines(log: str) -> list:
             m = re.search(r"([a-z][a-z_]*_kernel)I(?:N4vibo\d+)?(\w+?)ELi(\d+)E",
                           name)
             deep = re.search(r"(deep_link_kernel)ILi(\d+)E", name)
+            one = re.search(r"([a-z][a-z_]*_kernel)ILi(\d+)E", name)
             out.append(f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m
                        else f"{deep.group(1)}<H={deep.group(2)}>" if deep
+                       else f"{one.group(1)}<{one.group(2)}>" if one
                        else name[-60:])
         elif "registers" in ln or "spill" in ln:
             out.append(ln.strip())
@@ -254,6 +269,7 @@ class Roofline:
         tag = f"Link{link.upper()}ELi{k}E"
         if packed is not None:
             tag += f"Lb{int(packed)}E"
+        tag += "Lb0E"          # the fixed-K instantiation, not the wide one
         found = [lines for name, lines in self._functions(source)
                  if kernel in name and tag in name]
         if len(found) != 1:
@@ -316,45 +332,87 @@ class Roofline:
         return times[by] * 1e3, by
 
 
-def check_first_layer(timer, roof, pk, rng_gen, timed: bool) -> dict:
+def check_first_layer(timer, roof, pk, rng_gen, timed: bool, h: int = H,
+                      cd=torch.bfloat16) -> dict:
+    """The first layer's forward and backward kernels in the compute dtype's
+    mode against the plain version at that dtype on the code pk: bf16
+    (operands rounded to bf16, f32 sums; 1e-4 of the largest magnitude) or
+    f32 (exact products from three bf16 parts against f32 products, TF32
+    off; 1e-5: only the summation order differs, and the tensor cores do
+    not round their f32 sums to nearest). Timed: beside the plain version
+    and the one PyTorch call computing the same function (the matmul of the
+    decoded code at that dtype)."""
     from vibo_tpu_torch.ops import pallas_encoder as enc
     from vibo_tpu_torch.ops.packing import decode_packed
     bsz, m = pk.shape
-    wr = 0.05 * torch.randn((m, H), generator=rng_gen, device="cuda")
-    wm = 0.05 * torch.randn((m, H), generator=rng_gen, device="cuda")
-    dh = torch.randn((bsz, H), generator=rng_gen, device="cuda")
-    h_k = enc.first_layer_fwd_cuda(pk, wr, wm)
-    h_p = enc.first_layer_plain(pk, wr, wm, torch.bfloat16)
-    dwr_k, dwm_k = enc.first_layer_bwd_cuda(pk, dh)
-    dwr_p, dwm_p = enc.first_layer_bwd_plain(pk, dh, torch.bfloat16)
+    f32 = cd == torch.float32
+    tag, tol, parts = ("_f32", 1e-5, 3) if f32 else ("", 1e-4, 1)
+    wr = 0.05 * torch.randn((m, h), generator=rng_gen, device="cuda")
+    wm = 0.05 * torch.randn((m, h), generator=rng_gen, device="cuda")
+    dh = torch.randn((bsz, h), generator=rng_gen, device="cuda")
+    h_k = enc.first_layer_fwd_cuda(pk, wr, wm, cd)
+    h_p = enc.first_layer_plain(pk, wr, wm, cd)
+    dwr_k, dwm_k = enc.first_layer_bwd_cuda(pk, dh, cd)
+    dwr_p, dwm_p = enc.first_layer_bwd_plain(pk, dh, cd)
     torch.cuda.synchronize()
     fwd = {"rel_err": rel_err(h_k, h_p), "max_abs_err": max_abs(h_k, h_p)}
     bwd = {"rel_err": max(rel_err(dwr_k, dwr_p), rel_err(dwm_k, dwm_p)),
            "max_abs_err": max(max_abs(dwr_k, dwr_p), max_abs(dwm_k, dwm_p))}
-    for name, r in (("first_layer_fwd", fwd), ("first_layer_bwd", bwd)):
-        if not r["rel_err"] <= 1e-4:
-            raise AssertionError(f"{name} at {tuple(pk.shape)} disagrees "
-                                 f"with its plain version: {r}")
+    fwd["reader"] = bwd["reader"] = enc.code_reader(pk)
+    for name, r in ((f"first_layer_fwd{tag}", fwd),
+                    (f"first_layer_bwd{tag}", bwd)):
+        if not r["rel_err"] <= tol:
+            raise AssertionError(f"{name} at {tuple(pk.shape)}, H={h} "
+                                 f"disagrees with its plain version: {r}")
     if timed:
-        m_, rm_ = (x.to(torch.bfloat16) for x in decode_packed(pk))
+        lib = torch.float32 if f32 else torch.bfloat16
+        m_, rm_ = (x.to(lib) for x in decode_packed(pk))
         x_cat = torch.cat([rm_, m_], dim=1)                 # (B, 2M)
-        w_cat = torch.cat([wr, wm]).to(torch.bfloat16)      # (2M, H)
-        dh16 = dh.to(torch.bfloat16)
-        ops = 4 * bsz * m * H
-        fwd.update(ms=timer(lambda: enc.first_layer_fwd_cuda(pk, wr, wm)),
+        w_cat = torch.cat([wr, wm]).to(lib)                 # (2M, H)
+        dh_l = dh.to(lib)
+        # the least exact work: 4 B M H on the bf16 tensor cores a part
+        ops = parts * 4 * bsz * m * h
+        fwd.update(ms=timer(lambda: enc.first_layer_fwd_cuda(pk, wr, wm, cd)),
                    plain_ms=timer(lambda: enc.first_layer_plain(
-                       pk, wr, wm, torch.bfloat16)),
+                       pk, wr, wm, cd)),
                    library_ms=timer(lambda: torch.matmul(x_cat, w_cat)))
         # no special function in a decode and a product
         fwd["bound_ms"], fwd["bound_by"] = roof.bound(
-            bsz * m + 2 * m * H * 4 + bsz * H * 4, ops, BF16_FLOPS)
-        bwd.update(ms=timer(lambda: enc.first_layer_bwd_cuda(pk, dh)),
+            bsz * m + 2 * m * h * 4 + bsz * h * 4, ops, BF16_FLOPS)
+        bwd.update(ms=timer(lambda: enc.first_layer_bwd_cuda(pk, dh, cd)),
                    plain_ms=timer(lambda: enc.first_layer_bwd_plain(
-                       pk, dh, torch.bfloat16)),
-                   library_ms=timer(lambda: torch.matmul(x_cat.T, dh16)))
+                       pk, dh, cd)),
+                   library_ms=timer(lambda: torch.matmul(x_cat.T, dh_l)))
         bwd["bound_ms"], bwd["bound_by"] = roof.bound(
-            bsz * m + bsz * H * 4 + 2 * m * H * 4, ops, BF16_FLOPS)
-    return {"first_layer_fwd": fwd, "first_layer_bwd": bwd}
+            bsz * m + bsz * h * 4 + 2 * m * h * 4, ops, BF16_FLOPS)
+    return {f"first_layer_fwd{tag}": fwd, f"first_layer_bwd{tag}": bwd}
+
+
+def first_layer_checks(timer, roof, data: dict, deep: dict, ragged_pk,
+                       odd_pk, gen) -> dict:
+    """check_first_layer in both modes at every listed shape: the flagship
+    (timed), H = 512, config 5's 5,520 x 680, the ragged and the odd shape
+    at H = 256 and at a width off the 8-column step (20), and the GRM
+    flagship's graded code. The three code readers are all met: cp16 (M =
+    1,024), cp4 (M = 680, 300), bytes (M = 301)."""
+    shapes = (("flagship", data["2pl"]["packed"], H, True),
+              ("H512", data["2pl"]["packed"], 512, False),
+              ("config5", deep["packed"], H, False),
+              ("ragged", ragged_pk, H, False),
+              ("ragged_H20", ragged_pk, 20, False),
+              ("odd", odd_pk, H, False),
+              ("odd_H20", odd_pk, 20, False),
+              ("grm_graded", data["grm"]["packed"], H, False))
+    out = {}
+    for shape, pk, h, timed in shapes:
+        out[shape] = {}
+        for cd in (torch.bfloat16, torch.float32):
+            out[shape].update(check_first_layer(timer, roof, pk, gen, timed,
+                                                h, cd))
+    readers = {r["reader"] for v in out.values() for r in v.values()}
+    if readers != {"cp16", "cp4", "bytes"}:
+        raise AssertionError(f"first-layer checks met the readers {readers}")
+    return out
 
 
 def check_loglik(timer, roof, pk, rng_gen, timed: bool,
@@ -1053,14 +1111,14 @@ def minibatch_phase(link: str, ds, smi: str, cfg=None, masked=None,
             readers)
 
 
-def flagship_config(link: str = "2pl"):
+def flagship_config(link: str = "2pl", compute_dtype: str = "bfloat16"):
     """The flagship of bench.py with the given link (grm/gpcm: its default
-    C = 5)."""
+    C = 5); compute_dtype float32 is JAX's CLI configuration."""
     from vibo_tpu_torch.models import VIBOConfig
     return VIBOConfig(num_items=M, irt_model=link, ability_dim=K,
                       hidden_dim=H, conditional_posterior=True,
                       condition_on="sample", use_pallas=True,
-                      compute_dtype="bfloat16",
+                      compute_dtype=compute_dtype,
                       num_categories=C if link in FAMILIES else 2)
 
 
@@ -1112,6 +1170,28 @@ def masked_checks(timer, roof, link: str, data: dict, gen, ragged, odd):
                                   k=1, **kw),
         "odd_K8": check_masked(timer, roof, *odd, gen, False, k=8, **kw),
     }
+
+
+def wide_k_checks(timer, roof, gen, ragged_pk, ragged, ragged_graded):
+    """Every loglik kernel at K beyond its instantiated 1..8 (the wide
+    variant: a pass a chunk of 8 ability dims) against its plain version on
+    the ragged shape: the one-pass 2PL and 3PL kernels in both theta
+    layouts, the masked 2PL and 3PL kernels with both readers (with a
+    sample axis of 2 at K = 12), and the GRM and GPCM kernels (C = 5)."""
+    out = {}
+    for k in WIDE_K:
+        r = {}
+        for link in ("2pl", "3pl"):
+            r[LINK_KERNELS[link]["train"]] = check_loglik(
+                timer, roof, ragged_pk, gen, False, link, k)
+            r[f"masked_loglik_{link}"] = check_masked(
+                timer, roof, *ragged, gen, False, k=k, link=link,
+                samples=2 if k == 12 else None)
+        for fam in FAMILIES:
+            r[LINK_KERNELS[fam]["train"]] = check_categorical(
+                timer, roof, fam, ragged_graded, C, gen, k=k)
+        out[f"K{k}"] = r
+    return out
 
 
 # ------------------------------------------------------------- deep link
@@ -1209,7 +1289,11 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
         r["plain_ms"] = timer(lambda: pd.fused_deep_plain(*args))
         r["library_ms"] = None
         pairs = bsz * m
-        mufu = roof.mufu_lines("deep_link.cu", f"deep_link_kernelILi{h}E")
+        # H = 128, 256: their own instantiations; other widths the wide
+        # variant (32 students a block up to H = 832)
+        mufu = roof.mufu_lines("deep_link.cu", f"deep_link_kernelILi{h}E"
+                               if h in (128, 256) else
+                               "deep_link_wide_kernelILi32E")
         # inputs t1, t2, W2, b2, wo, bo and the code read once; ll, s_theta,
         # s_d, dW2, db2, dwo, dbo written once
         small = bsz * h + m * h + h * h + 2 * h + 1
@@ -1337,6 +1421,11 @@ def deep_kernel_checks(timer, roof, data: dict, gen) -> dict:
         "config5_H256": check_deep(timer, roof, data["packed"], gen, h=256,
                                    timed=True),
         "odd_H256": check_deep(timer, roof, odd, gen, h=256),
+        # the wide variant (W2 outgrows a block's shared memory)
+        "config5_H384": check_deep(timer, roof, data["packed"], gen, h=384,
+                                   timed=True),
+        "config5_H512": check_deep(timer, roof, data["packed"], gen, h=512),
+        "odd_H384_K8": check_deep(timer, roof, odd, gen, k=8, h=384),
         "cotangent": check_deep_op(odd, gen),
         "S3_per_sample": check_deep_op(odd, gen, 3),
         "S3_shared_d": check_deep_op(odd, gen, 3, shared_d=True),
@@ -1344,15 +1433,16 @@ def deep_kernel_checks(timer, roof, data: dict, gen) -> dict:
     }
 
 
-def deep_config(fused: bool = True):
+def deep_config(fused: bool = True, width: int = DEEP_H):
     """Paper config 5 (`train wordbank --irt-model deep --ability-dim 2`)
     with the CLI's widths: encoder hidden 256, item latent 16, link width
-    128; bf16 encoder, the fused pipeline; the one-pass op when fused, else
-    JAX's default (decoded code, the plain link in blocks of 256 items)."""
+    128 (or `width`); bf16 encoder, the fused pipeline; the one-pass op when
+    fused, else JAX's default (decoded code, the plain link in blocks of 256
+    items)."""
     from vibo_tpu_torch.models import VIBOConfig
     return VIBOConfig(num_items=DEEP_M, irt_model="deep", ability_dim=DEEP_K,
                       hidden_dim=H, item_latent_dim=DEEP_D,
-                      deep_hidden_dim=DEEP_H, conditional_posterior=True,
+                      deep_hidden_dim=width, conditional_posterior=True,
                       condition_on="sample", use_pallas=True,
                       compute_dtype="bfloat16", deep_fused_kernel=fused)
 
@@ -1430,18 +1520,22 @@ def main() -> None:
     # M = 301: rows off the vector boundary take the scalar reader
     odd_pk = torch.randint(0, 3, ODD, generator=gen, device="cuda",
                            dtype=torch.int8)
-    # (shape, int8 code (None: each link's flagship data), K, first layer
-    # checked too); timed at the flagship
+    first_layer = first_layer_checks(timer, roof, data, deep, ragged_pk,
+                                     odd_pk, gen)
+    emit({"phase": "kernel_check", "kernel": "first_layer (bf16 and f32)",
+          "dims": {"flagship": [B, M, H], "H512": [B, M, 512],
+                   "config5": [DEEP_B, DEEP_M, H], "ragged": list(RAGGED),
+                   "odd": list(ODD), "H20": 20},
+          "results": first_layer, "card": smi})
+    # (shape, int8 code (None: each link's flagship data), K); timed at the
+    # flagship
     binary = [link for link in LINK_KERNELS if link not in FAMILIES]
-    for shape, pk, k, first in (("flagship", None, K, True),
-                                ("ragged", ragged_pk, K, True),
-                                ("odd_K1", odd_pk, 1, False),
-                                ("odd_K8", odd_pk, 8, False)):
+    for shape, pk, k in (("flagship", None, K), ("ragged", ragged_pk, K),
+                         ("odd_K1", odd_pk, 1), ("odd_K8", odd_pk, 8)):
         timed = shape == "flagship"
         codes = {link: data[link]["packed"] if pk is None else pk
                  for link in binary}
-        res = (check_first_layer(timer, roof, codes["2pl"], gen, timed)
-               if first else {})
+        res = {}
         for link in binary:
             res[LINK_KERNELS[link]["train"]] = check_loglik(
                 timer, roof, codes[link], gen, timed, link, k)
@@ -1451,10 +1545,6 @@ def main() -> None:
               "card": smi})
     ragged = ((ragged_pk == 2).float(), (ragged_pk > 0).float())
     odd = ((odd_pk == 2).float(), (odd_pk > 0).float())
-    emit({"phase": "kernel_check", "kernel": "first_layer on the graded "
-          f"code (grm flagship, codes 0..{C})",
-          "results": check_first_layer(timer, roof, data["grm"]["packed"],
-                                       gen, False), "card": smi})
     ragged_graded, odd_graded = (graded_code(shape, C, gen)
                                  for shape in (RAGGED, ODD))
     categorical = {}
@@ -1476,6 +1566,10 @@ def main() -> None:
               "results": masked[link], "card": smi})
     emit({"phase": "kernel_check", "kernel": "3pl extreme point",
           "results": check_extreme(timer, roof, gen), "card": smi})
+    emit({"phase": "kernel_check", "kernel": "every loglik kernel at K > 8",
+          "dims": {"ragged": list(RAGGED), "K": list(WIDE_K)},
+          "results": wide_k_checks(timer, roof, gen, ragged_pk, ragged,
+                                   ragged_graded), "card": smi})
     deep_checks = deep_kernel_checks(timer, roof, deep, gen)
     emit({"phase": "kernel_check", "kernel": "deep_link_train",
           "dims": {"config5": [DEEP_B, DEEP_M, DEEP_K, DEEP_H],
@@ -1499,6 +1593,12 @@ def main() -> None:
             (train,), fresh=simulate_irt(link, 256, M, ability_dim=K, seed=1,
                                          missing_rate=0.1, num_categories=C))
         mini[link], mini_readers[link] = minibatch_phase(link, d["ds"], smi)
+    # JAX's CLI configuration: use_pallas at compute_dtype float32, so the
+    # f32 first layer and the 2PL one-pass loglik once a step
+    f32_path = (*FIRST_LAYER_F32, LINK_KERNELS["2pl"]["train"])
+    full["2pl_f32"] = full_batch_phase(
+        "2pl_f32", flagship_config("2pl", "float32"), data["2pl"], smi,
+        f32_path, f32_path, F32_STEPS)
     # config 5: the one-pass deep kernel, then JAX's default (the decoded
     # code and the plain link: no loglik kernel), then minibatches (the
     # plain link, as in JAX: no kernel at all)
@@ -1510,6 +1610,10 @@ def main() -> None:
     deep_default = full_batch_phase(
         "deep_default", deep_config(False), deep, smi, FIRST_LAYER,
         FIRST_LAYER, DEEP_DEFAULT_STEPS, must_rise=False)
+    # a width of the deep kernel's wide variant, a few fused steps
+    full["deep_H384"] = full_batch_phase(
+        "deep_H384", deep_config(True, WIDE_H[0]), deep, smi, deep_path,
+        deep_path, 5, must_rise=False)
     emit({"phase": "deep_full_batch_paths", "card": smi,
           "fused_step_ms_median": full["deep"]["step_ms_median"],
           "default_step_ms_median": deep_default["step_ms_median"],
@@ -1523,21 +1627,20 @@ def main() -> None:
     full = {k: v["launches"] for k, v in full.items()}
 
     fl = checks["flagship"]
+    fl1 = first_layer["flagship"]
     int8_note = ("int8 reader: on no model path, so checked and timed in "
                  "kernel_check; launches are its count over the minibatch "
                  "fit and the IWAE steps")
-    kernels = [
-        kernel_entry("first_layer_fwd", "vibo_tpu/ops/pallas_encoder.py:142",
-                     "first_layer.cu",
-                     full["2pl"]["first_layer_fwd"], fl["first_layer_fwd"],
-                     launches_by_path={link: full[link]["first_layer_fwd"]
-                                       for link in full}),
-        kernel_entry("first_layer_bwd", "vibo_tpu/ops/pallas_encoder.py:167",
-                     "first_layer.cu",
-                     full["2pl"]["first_layer_bwd"], fl["first_layer_bwd"],
-                     launches_by_path={link: full[link]["first_layer_bwd"]
-                                       for link in full}),
-    ]
+    kernels = []
+    for name, line in (("first_layer_fwd", 142), ("first_layer_bwd", 167)):
+        for mode in ("", "_f32"):
+            kernels.append(kernel_entry(
+                name + mode, f"vibo_tpu/ops/pallas_encoder.py:{line}",
+                "first_layer.cu",
+                full["2pl_f32" if mode else "2pl"][name + mode],
+                fl1[name + mode],
+                launches_by_path={path: full[path][name + mode]
+                                  for path in full}))
     train_lines = {"2pl": ("1244", "613"), "3pl": ("1374", "741")}
     masked_lines = {"2pl": {"fwd": (247, 445), "bwd": (319, 468)},
                     "3pl": {"fwd": (959, 959), "bwd": (985, 985)}}
@@ -1578,6 +1681,7 @@ def main() -> None:
         full["deep"]["deep_link_train"], dc,
         table_shape=deep_checks["table_shape_K4"],
         h256=deep_checks["config5_H256"],
+        h384_wide=deep_checks["config5_H384"],
         library_note="no single PyTorch call gives the deep link's loglik "
         "and its gradients"))
     emit({"kernels": kernels})

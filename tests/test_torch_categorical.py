@@ -128,6 +128,7 @@ def _value_and_grads(fam, theta, a, b_free, packed, through_table=True):
     ("grm", (45, 130, 4, 5)), ("grm", (9, 20, 1, 3)),
     ("gpcm", (45, 130, 4, 5)), ("gpcm", (9, 20, 1, 3)),
     ("gpcm", (12, 40, 2, 17)),     # JAX: its XLA twin above 16 categories
+    ("grm", (23, 70, 12, 5)), ("gpcm", (23, 70, 12, 5)),   # K > 8
 ])
 def test_train_op_value_and_grads(fam, shape):
     theta, a, b_free, _, _, packed = _inputs(*shape)

@@ -96,11 +96,11 @@ def test_apply_deep_link_matches_jax(dtype, chunk, lead, tol):
         _close(p.grad, g, tol)
 
 
-def _op_case(f32_dots, b=B, m=M, lead=(), shared_d=False, seed=2):
+def _op_case(f32_dots, b=B, m=M, lead=(), shared_d=False, seed=2, h=H):
     """The op and its gradients under one cotangent, JAX (interpret mode)
     and the port, on the same numpy inputs. Returns [(got, want)]."""
     rng = np.random.default_rng(seed)
-    link = _link(seed)
+    link = _link(seed, h)
     theta, d, resp, mask = _data(rng, b, m, lead)
     if shared_d:
         d = d[0]
@@ -148,6 +148,14 @@ def test_op_matches_pallas_under_a_cotangent(f32_dots, tol):
 def test_op_sample_axis_and_ragged_shape(lead, shared_d, b, m):
     for got, want in _op_case(False, b, m, lead, shared_d, seed=3):
         _close(got, want, 1e-3)
+
+
+@pytest.mark.parametrize("f32_dots,tol", [(False, 1e-3), (True, 1e-5)])
+def test_op_matches_pallas_at_width_384(f32_dots, tol):
+    """A width the CUDA kernel takes through its wide variant (W2 outgrows
+    a block's shared memory): the op's contract does not depend on H."""
+    for got, want in _op_case(f32_dots, 24, 70, seed=5, h=384):
+        _close(got, want, tol)
 
 
 def test_pooled_gradients_follow_the_first_cotangent():

@@ -110,6 +110,8 @@ def test_cpu_tensors_take_the_plain_path():
     assert all(k.launches == 0 and k._fn is None
                for k in _build.KERNELS.values())
     assert set(_build.KERNELS) == {"first_layer_fwd", "first_layer_bwd",
+                                   "first_layer_fwd_f32",
+                                   "first_layer_bwd_f32",
                                    "deep_link_train",
                                    "loglik_2pl_train", "loglik_3pl_train",
                                    "loglik_grm_train", "loglik_gpcm_train",

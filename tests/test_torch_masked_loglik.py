@@ -73,7 +73,8 @@ def _port_vjp(fn, g, *args):
 
 @pytest.mark.parametrize("link", ["2pl", "3pl"])
 @pytest.mark.parametrize("reader", ["dense", "int8"])
-@pytest.mark.parametrize("shape", [(45, 130, 4), (9, 20, 1)])
+@pytest.mark.parametrize("shape", [(45, 130, 4), (9, 20, 1),
+                                   (23, 70, 12)])   # K > 8: the wide kernels
 def test_value_and_vjp_any_cotangent(link, reader, shape):
     resp, mask, g, theta, items = _inputs(*shape, link=link)
     jfn, tfn = _fns(link, reader, resp, mask)

@@ -62,7 +62,8 @@ def _value_and_grads(link, layout, th_in, items, packed):
 # the (B, K) layout is summed: the uniform cotangent its contract allows
 @pytest.mark.parametrize("link", ["2pl", "3pl"])
 @pytest.mark.parametrize("layout", ["kb", "bk"])
-@pytest.mark.parametrize("shape", [(45, 130, 4), (9, 20, 1)])
+@pytest.mark.parametrize("shape", [(45, 130, 4), (9, 20, 1),
+                                   (23, 70, 12)])   # K > 8: the wide kernels
 def test_fused_loglik_value_and_grads(link, layout, shape):
     b, m, k = shape
     packed, theta, a, bb, gh = _inputs(b, m, k)

@@ -47,6 +47,20 @@
 // second kernel adds in block order: no atomics, deterministic. Plain WMMA
 // from shared memory, one item at a time: wgmma, TMA and software pipelining
 // are later work.
+//
+// Every other width (H % 16 == 0; the op admits H % 128 == 0, as JAX's
+// does) takes the wide variant, deep_link_wide_kernel: at H = 384, W2 alone
+// (384 x 392 bf16, 301 KB) outgrows a block's 227 KB of shared memory. A
+// prologue kernel rounds W2 to bf16 once a call into the scratch, where it
+// stays L2-resident (0.3 MB at H = 384, 0.5 MB at 512), and both products
+// that read W2 load their B fragments straight from there. H is a run-time
+// value: a block of 512 threads owns P = 32 students (16 where 32 do not fit
+// the shared memory, H > 832), the products' tiles go round-robin over the
+// warps, the row pass takes a warp a pair and the column passes a thread a
+// column (db2, dwo in shared memory); s_theta and dW2 are added into the
+// block's own partials in device memory every item. The rounding points and
+// the per-item fresh dW2 fragment are those of the fixed widths. Its time is
+// that of a repair (PERF.md), not a design for speed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,7 +78,9 @@ constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 16;        // items whose codes are staged at once
 constexpr int MAX_SPLITS = 8;    // item splits of the grid, at most
 
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
+__host__ __device__ constexpr size_t align128(size_t n) {
+  return (n + 127) / 128 * 128;
+}
 
 template <int H>
 struct Cfg {
@@ -420,6 +436,259 @@ deep_link_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
   }
 }
 
+// ---- the wide variant (any H % 16 == 0 other than 128 and 256) ----------
+
+// Dynamic shared memory of deep_link_wide_kernel, each region 128-byte
+// aligned; ld, ldf: the bf16 and f32 row strides.
+struct WideLayout {
+  int ld, ldf;
+  size_t h1, dp, st, b2, wo, db2, dwo, dl, ll, dbo, code, bytes;
+  __host__ __device__ WideLayout(int P, int H) : ld(H + 8), ldf(H + 4) {
+    size_t o = 0;
+    h1 = o; o += align128(sizeof(__nv_bfloat16) * P * ld);
+    dp = o; o += align128(sizeof(__nv_bfloat16) * P * ld);
+    st = o; o += align128(sizeof(float) * P * ldf);
+    b2 = o; o += align128(sizeof(float) * H);
+    wo = o; o += align128(sizeof(float) * H);
+    db2 = o; o += align128(sizeof(float) * H);
+    dwo = o; o += align128(sizeof(float) * H);
+    dl = o; o += align128(sizeof(float) * P);
+    ll = o; o += align128(sizeof(float) * P);
+    dbo = o; o += align128(sizeof(float) * P);
+    code = o; o += align128(P * CHUNK);
+    bytes = o;
+  }
+};
+
+// The students a block of the wide variant owns at width H: 32 where they
+// fit the shared memory, else 16; 0 when not even 16 do.
+inline int wide_rows(int H) {
+  if (WideLayout(32, H).bytes <= 232448) return 32;
+  if (WideLayout(16, H).bytes <= 232448) return 16;
+  return 0;
+}
+
+// Where the bf16 copy of W2 sits in the scratch (floats), 32-byte aligned.
+inline long long wide_w2_offset(long long floats) {
+  return (floats + 31) / 32 * 32;
+}
+
+__global__ void round_bf16_kernel(const float* __restrict__ x,
+                                  __nv_bfloat16* __restrict__ y, size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x)
+    y[i] = __float2bfloat16(x[i]);
+}
+
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+deep_link_wide_kernel(const float* __restrict__ t1,
+                      const float* __restrict__ t2,
+                      const __nv_bfloat16* __restrict__ w2h,
+                      const float* __restrict__ b2,
+                      const float* __restrict__ wo,
+                      const float* __restrict__ bo,
+                      const int8_t* __restrict__ pk,
+                      float* __restrict__ scratch, int B, int M, int H,
+                      int items_per_split) {
+  const WideLayout L(P, H);
+  const int LD = L.ld, LDF = L.ldf, TC = H / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* h1_s = reinterpret_cast<__nv_bfloat16*>(smem + L.h1);
+  __nv_bfloat16* dp_s = reinterpret_cast<__nv_bfloat16*>(smem + L.dp);
+  float* st_s = reinterpret_cast<float*>(smem + L.st);
+  float* b2_s = reinterpret_cast<float*>(smem + L.b2);
+  float* wo_s = reinterpret_cast<float*>(smem + L.wo);
+  float* db2_s = reinterpret_cast<float*>(smem + L.db2);
+  float* dwo_s = reinterpret_cast<float*>(smem + L.dwo);
+  float* dl_s = reinterpret_cast<float*>(smem + L.dl);
+  float* ll_s = reinterpret_cast<float*>(smem + L.ll);
+  float* dbo_s = reinterpret_cast<float*>(smem + L.dbo);
+  int8_t* code_s = reinterpret_cast<int8_t*>(smem + L.code);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int tiles = gridDim.x, splits = gridDim.y;
+  const int blk = tile * splits + split;
+  const int b0 = tile * P;
+  const int j0 = split * items_per_split;
+  const int j1 = min(M, j0 + items_per_split);
+  Parts parts(scratch, B, M, H, tiles, splits);
+  float* dw2_blk = parts.dw2 + static_cast<size_t>(blk) * H * H;
+  float* sth = parts.sth + static_cast<size_t>(split) * B * H;
+  const float bov = bo[0];
+
+  for (int c = tid; c < H; c += THREADS) {
+    b2_s[c] = b2[c];
+    wo_s[c] = wo[c];
+    db2_s[c] = 0.f;
+    dwo_s[c] = 0.f;
+  }
+  for (int r = tid; r < P; r += THREADS) {
+    ll_s[r] = 0.f;
+    dbo_s[r] = 0.f;
+  }
+  // the block's own partials, added into every item below
+  for (size_t i = tid; i < static_cast<size_t>(H) * H; i += THREADS)
+    dw2_blk[i] = 0.f;
+  for (int c = tid; c < H; c += THREADS)
+    for (int r = 0; r < P && b0 + r < B; ++r)
+      sth[static_cast<size_t>(b0 + r) * H + c] = 0.f;
+  __syncthreads();
+
+  for (int j = j0; j < j1; ++j) {
+    const int jj = (j - j0) % CHUNK;
+    if (jj == 0) {
+      for (int i = tid; i < P * CHUNK; i += THREADS) {
+        const int row = b0 + i / CHUNK, item = j + i % CHUNK;
+        code_s[i] = (row < B && item < j1)
+                        ? pk[static_cast<size_t>(row) * M + item] : int8_t(0);
+      }
+    }
+    const float* t2j = t2 + static_cast<size_t>(j) * H;
+
+    // 1. bf16(h1) of the item's P pairs
+    for (int i = tid; i < P * H; i += THREADS) {
+      const int r = i / H, c = i % H, row = b0 + r;
+      const float t1v = row < B ? t1[static_cast<size_t>(row) * H + c] : 0.f;
+      h1_s[r * LD + c] = __float2bfloat16(fmaxf(t1v + t2j[c], 0.f));
+    }
+    __syncthreads();
+
+    // 2. h1 W2 -> staging, W2's fragments from the bf16 copy in L2. Each
+    // k step's product starts from a zero fragment and is added with f32
+    // adds: a chain of H / 16 steps through the tensor cores' truncating
+    // accumulation puts pre2 further from the plain version's, and each
+    // pre2 within that distance of 0 is a relu flip (a chained product
+    // flipped more of config 5's s_theta rows at H = 512 than the 1 % its
+    // check allows, on an H100)
+    for (int t = warp; t < (P / 16) * TC; t += WARPS) {
+      const int tr = t / TC, tc = t % TC;
+      FragC acc, part;
+      wmma::fill_fragment(acc, 0.f);
+      for (int k0 = 0; k0 < H; k0 += 16) {
+        FragA a;
+        FragB b;
+        wmma::load_matrix_sync(a, h1_s + tr * 16 * LD + k0, LD);
+        wmma::load_matrix_sync(b, w2h + static_cast<size_t>(k0) * H + tc * 16,
+                               H);
+        wmma::fill_fragment(part, 0.f);
+        wmma::mma_sync(part, a, b, part);
+#pragma unroll
+        for (int e = 0; e < part.num_elements; ++e) acc.x[e] += part.x[e];
+      }
+      wmma::store_matrix_sync(st_s + tr * 16 * LDF + tc * 16, acc, LDF,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // 3. row pass, a warp a pair: logit, ll and dlogit
+    for (int r = warp; r < P; r += WARPS) {
+      const float* row = st_s + r * LDF;
+      float acc = 0.f;
+      for (int c = lane; c < H; c += 32)
+        acc = fmaf(fmaxf(row[c] + b2_s[c], 0.f), wo_s[c], acc);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane == 0) {
+        const float logit = acc + bov;
+        const float cf = static_cast<float>(code_s[r * CHUNK + jj]);
+        const float m = fminf(cf, 1.f), rr = fmaxf(cf - 1.f, 0.f);
+        const float e = expf(-fabsf(logit));
+        const float sp = log1pf(e) + fmaxf(logit, 0.f);   // softplus(logit)
+        ll_s[r] += -m * (rr > 0.5f ? sp - logit : sp);
+        const float inv = 1.f / (1.f + e);
+        const float sg = logit >= 0.f ? inv : 1.f - inv;  // sigmoid(logit)
+        const float dl = m * (rr - sg);
+        dbo_s[r] += dl;
+        dl_s[r] = dl;
+      }
+    }
+    __syncthreads();
+
+    // 4. column pass, a thread a column: dpre2 (bf16 to shared), db2, dwo
+    for (int c = tid; c < H; c += THREADS) {
+      float db = 0.f, dw = 0.f;
+      for (int r = 0; r < P; ++r) {
+        const float pre2 = st_s[r * LDF + c] + b2_s[c];
+        const float dl = dl_s[r];
+        dw = fmaf(fmaxf(pre2, 0.f), dl, dw);
+        const float dp = pre2 > 0.f ? dl * wo_s[c] : 0.f;
+        db += dp;
+        dp_s[r * LD + c] = __float2bfloat16(dp);
+      }
+      db2_s[c] += db;
+      dwo_s[c] += dw;
+    }
+    __syncthreads();
+
+    // 5. the block's dW2 partial += h1^T dpre2 (the item's product from a
+    // fresh fragment, added with f32 adds), then dh1 = dpre2 W2^T -> staging
+    for (int t = warp; t < TC * TC; t += WARPS) {
+      const int tr = t / TC, tc = t % TC;
+      FragC part, acc;
+      wmma::fill_fragment(part, 0.f);
+#pragma unroll
+      for (int p0 = 0; p0 < P; p0 += 16) {
+        FragAT a;
+        FragB b;
+        wmma::load_matrix_sync(a, h1_s + p0 * LD + tr * 16, LD);
+        wmma::load_matrix_sync(b, dp_s + p0 * LD + tc * 16, LD);
+        wmma::mma_sync(part, a, b, part);
+      }
+      float* dst = dw2_blk + static_cast<size_t>(tr * 16) * H + tc * 16;
+      wmma::load_matrix_sync(acc, dst, H, wmma::mem_row_major);
+#pragma unroll
+      for (int e = 0; e < part.num_elements; ++e) part.x[e] += acc.x[e];
+      wmma::store_matrix_sync(dst, part, H, wmma::mem_row_major);
+    }
+    for (int t = warp; t < (P / 16) * TC; t += WARPS) {
+      const int tr = t / TC, tc = t % TC;
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int k0 = 0; k0 < H; k0 += 16) {
+        FragA a;
+        FragBT b;   // W2^T as a column-major operand: (n, k) at W2[k][n]
+        wmma::load_matrix_sync(a, dp_s + tr * 16 * LD + k0, LD);
+        wmma::load_matrix_sync(
+            b, w2h + static_cast<size_t>(tc * 16) * H + k0, H);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(st_s + tr * 16 * LDF + tc * 16, acc, LDF,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // 6. column pass: dpre1 = [h1 > 0] dh1 into s_theta and the item's s_d
+    for (int c = tid; c < H; c += THREADS) {
+      float colsum = 0.f;
+      for (int r = 0; r < P; ++r) {
+        const int row = b0 + r;
+        const float t1v =
+            row < B ? t1[static_cast<size_t>(row) * H + c] : 0.f;
+        const float dp1 = t1v + t2j[c] > 0.f ? st_s[r * LDF + c] : 0.f;
+        if (row < B) sth[static_cast<size_t>(row) * H + c] += dp1;
+        colsum += dp1;
+      }
+      parts.sd[(static_cast<size_t>(tile) * M + j) * H + c] = colsum;
+    }
+  }
+  __syncthreads();
+
+  for (int r = tid; r < P; r += THREADS)
+    if (b0 + r < B) parts.ll[static_cast<size_t>(split) * B + b0 + r] = ll_s[r];
+  for (int c = tid; c < H; c += THREADS) {
+    parts.db2[static_cast<size_t>(blk) * H + c] = db2_s[c];
+    parts.dwo[static_cast<size_t>(blk) * H + c] = dwo_s[c];
+  }
+  if (tid == 0) {
+    float sdbo = 0.f;
+    for (int r = 0; r < P; ++r) sdbo += dbo_s[r];
+    parts.dbo[blk] = sdbo;
+  }
+}
+
 // out = [ll (B) | s_theta (B, H) | s_d (M, H) | dW2 (H, H) | db2 (H) |
 // dwo (H) | dbo (1)], each the sum of its partials in block order.
 __global__ void deep_link_reduce_kernel(const float* __restrict__ scratch,
@@ -454,24 +723,25 @@ __global__ void deep_link_reduce_kernel(const float* __restrict__ scratch,
   }
 }
 
-template <int H>
-int plan(int B, int M, int* splits, long long* scratch_floats) {
-  using C = Cfg<H>;
+// The item splits of a grid of `kernel` (P students a block, `smem` bytes
+// of dynamic shared memory) whose blocks fill the resident slots best (the
+// fewest among equals): every block does the same work. Every split gets
+// at least one item.
+template <class Kern>
+int fill_splits(Kern kernel, size_t smem, int P, int B, int M, int* splits) {
   cudaError_t err = cudaFuncSetAttribute(
-      deep_link_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(C::SMEM));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, occ = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, deep_link_kernel<H>, THREADS, C::SMEM)) != cudaSuccess)
+           &occ, kernel, THREADS, smem)) != cudaSuccess)
     return static_cast<int>(err);
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // the item splits whose blocks fill the resident slots best (the fewest
-  // among equals): every block does the same work
-  const long long tiles = std::max(1, (B + C::P - 1) / C::P);
+  const long long tiles = std::max(1, (B + P - 1) / P);
   const long long slots = static_cast<long long>(sms) * occ;
   int best = 1;
   double best_fill = 0.0;
@@ -484,11 +754,76 @@ int plan(int B, int M, int* splits, long long* scratch_floats) {
       best_fill = fill;
     }
   }
-  // every split gets at least one item
   const int per = (std::max(M, 1) + best - 1) / best;
   *splits = (std::max(M, 1) + per - 1) / per;
+  return 0;
+}
+
+template <int H>
+int plan(int B, int M, int* splits, long long* scratch_floats) {
+  using C = Cfg<H>;
+  const int rc = fill_splits(deep_link_kernel<H>, C::SMEM, C::P, B, M, splits);
+  if (rc != 0) return rc;
+  const long long tiles = std::max(1, (B + C::P - 1) / C::P);
   *scratch_floats = Parts::floats(B, M, H, tiles, *splits);
   return 0;
+}
+
+// The wide variant: its partials, then the bf16 copy of W2.
+template <int P>
+int plan_wide(int B, int M, int H, int* splits, long long* scratch_floats) {
+  const int rc = fill_splits(deep_link_wide_kernel<P>,
+                             WideLayout(P, H).bytes, P, B, M, splits);
+  if (rc != 0) return rc;
+  const long long tiles = std::max(1, (B + P - 1) / P);
+  *scratch_floats =
+      wide_w2_offset(Parts::floats(B, M, H, tiles, *splits)) +
+      (static_cast<long long>(H) * H + 1) / 2;
+  return 0;
+}
+
+// The ordered sums of the partials into out (deep_link_reduce_kernel).
+cudaError_t reduce(const float* scratch, float* out, int B, int M, int H,
+                   int tiles, int splits, cudaStream_t stream) {
+  const size_t total = static_cast<size_t>(B) * (H + 1) +
+                       static_cast<size_t>(M) * H +
+                       static_cast<size_t>(H) * (H + 2) + 1;
+  const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 4096));
+  deep_link_reduce_kernel<<<blocks, 256, 0, stream>>>(scratch, out, B, M, H,
+                                                      tiles, splits);
+  return cudaGetLastError();
+}
+
+template <int P>
+int launch_wide(const void* t1, const void* t2, const void* w2,
+                const void* b2, const void* wo, const void* bo,
+                const void* pk, void* out, void* scratch, int B, int M, int H,
+                int splits, cudaStream_t stream) {
+  const int tiles = std::max(1, (B + P - 1) / P);
+  const int per = (std::max(M, 1) + splits - 1) / splits;
+  if (splits < 1 || (splits - 1) * per >= std::max(M, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = WideLayout(P, H).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      deep_link_wide_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* sc = static_cast<float*>(scratch);
+  __nv_bfloat16* w2h = reinterpret_cast<__nv_bfloat16*>(
+      sc + wide_w2_offset(Parts::floats(B, M, H, tiles, splits)));
+  const size_t hh = static_cast<size_t>(H) * H;
+  round_bf16_kernel<<<static_cast<int>(std::min<size_t>((hh + 255) / 256,
+                                                        1024)),
+                      256, 0, stream>>>(static_cast<const float*>(w2), w2h,
+                                        hh);
+  deep_link_wide_kernel<P><<<dim3(tiles, splits), THREADS, smem, stream>>>(
+      static_cast<const float*>(t1), static_cast<const float*>(t2), w2h,
+      static_cast<const float*>(b2), static_cast<const float*>(wo),
+      static_cast<const float*>(bo), static_cast<const int8_t*>(pk), sc, B, M,
+      H, per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      reduce(sc, static_cast<float*>(out), B, M, H, tiles, splits, stream));
 }
 
 template <int H>
@@ -510,14 +845,9 @@ int launch(const void* t1, const void* t2, const void* w2, const void* b2,
       static_cast<const float*>(wo), static_cast<const float*>(bo),
       static_cast<const int8_t*>(pk), static_cast<float*>(scratch), B, M, per);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(B) * (H + 1) +
-                       static_cast<size_t>(M) * H +
-                       static_cast<size_t>(H) * (H + 2) + 1;
-  const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 4096));
-  deep_link_reduce_kernel<<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(scratch), static_cast<float*>(out), B, M, H,
-      tiles, splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(reduce(static_cast<const float*>(scratch),
+                                 static_cast<float*>(out), B, M, H, tiles,
+                                 splits, stream));
 }
 
 }  // namespace
@@ -529,12 +859,19 @@ const char* vibo_error_string(int err) {
 }
 
 // The item splits of the grid for (B, M, H) on the current device, and the
-// scratch deep_link_train needs (floats). H is 128 or 256.
+// scratch deep_link_train needs (floats). H is 128, 256 (their own
+// instantiations) or any other multiple of 16 up to what the wide
+// variant's shared memory takes (1,600).
 int deep_link_plan(int B, int M, int H, int* splits,
                    long long* scratch_floats) {
-  if (B < 0 || M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 0 || M < 0 || H < 16 || H % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (H == 128) return plan<128>(B, M, splits, scratch_floats);
   if (H == 256) return plan<256>(B, M, splits, scratch_floats);
+  switch (wide_rows(H)) {
+    case 32: return plan_wide<32>(B, M, H, splits, scratch_floats);
+    case 16: return plan_wide<16>(B, M, H, splits, scratch_floats);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -546,12 +883,21 @@ int deep_link_train(const void* t1, const void* t2, const void* w2,
                     const void* b2, const void* wo, const void* bo,
                     const void* pk, void* out, void* scratch, int B, int M,
                     int H, int splits, void* stream) {
-  if (B < 0 || M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 0 || M < 0 || H < 16 || H % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H == 128)
     return launch<128>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M, splits, s);
   if (H == 256)
     return launch<256>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M, splits, s);
+  switch (wide_rows(H)) {
+    case 32:
+      return launch_wide<32>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
+                             H, splits, s);
+    case 16:
+      return launch_wide<16>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
+                             H, splits, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -54,6 +54,8 @@
 // partials in block order: no float atomics, deterministic. The category
 // count C (3..32) is a run-time value, so the shared memory is dynamic and
 // sized by C (up to ~212 KB at K = 8, C = 32, opted in above 48 KB).
+// K = 1..8 are instantiated; any K > 8 runs the wide variant, a pass a
+// chunk of 8 ability dims (loglik_tile.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,7 +200,9 @@ using vibo::TBS;
 using vibo::THREADS;
 using vibo::TMI;
 
-template <class Link, int K>
+// WIDE: K = KC, one pass over the dims [k0, k0 + KC) of kt (loglik_tile.cuh);
+// part keeps its (nblk, kt + C - 1, M) layout.
+template <class Link, int K, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 loglik_categorical_kernel(const float* __restrict__ theta, long long th_sb,
                           long long th_sk, const float* __restrict__ a,
@@ -206,9 +210,13 @@ loglik_categorical_kernel(const float* __restrict__ theta, long long th_sb,
                           const int8_t* __restrict__ pk,
                           float* __restrict__ dtheta, long long dt_sb,
                           long long dt_sk, float* __restrict__ ll_person,
-                          float* __restrict__ part, int B, int M, int C) {
+                          float* __restrict__ part, int B, int M, int C,
+                          int kt_arg, int k0_arg) {
   extern __shared__ float smem[];
+  const int kt = WIDE ? kt_arg : K, k0 = WIDE ? k0_arg : 0;
+  const bool first = k0 == 0;  // writes ll and dkappa
   const int NC = K + C - 1;  // reduced columns: da (K), dkappa (C - 1)
+  const int NP = kt + C - 1;  // the partial's columns
   float* th_s = smem;                                  // TBS x K
   float* a_s = th_s + TBS * K;                         // TMI x K
   float* tab_s = a_s + TMI * K;                        // table rows x TMI
@@ -218,7 +226,7 @@ loglik_categorical_kernel(const float* __restrict__ theta, long long th_sb,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int s0 = blockIdx.x * TBS;
   const bool vec = (M % 4 == 0) && (reinterpret_cast<uintptr_t>(pk) % 4 == 0);
-  vibo::stage_theta<K>(th_s, theta, th_sb, th_sk, s0, B);
+  vibo::stage_theta<K>(th_s, theta, th_sb, th_sk, s0, B, k0, kt);
 
   float dth[SPT][K];
   float llp[SPT];
@@ -235,7 +243,8 @@ loglik_categorical_kernel(const float* __restrict__ theta, long long th_sb,
   for (int m0 = 0; m0 < M; m0 += TMI) {
     for (int i = tid; i < TMI * K; i += THREADS) {
       const int j = i / K, k = i % K, gj = m0 + j;
-      a_s[i] = gj < M ? a[static_cast<size_t>(gj) * K + k] : 0.f;
+      a_s[i] = gj < M && k0 + k < kt
+                   ? a[static_cast<size_t>(gj) * kt + k0 + k] : 0.f;
     }
 #pragma unroll 1
     for (int i = tid; i < Link::stage_steps(C) * TMI; i += THREADS) {
@@ -267,8 +276,15 @@ loglik_categorical_kernel(const float* __restrict__ theta, long long th_sb,
 #pragma unroll
       for (int p = 0; p < IPT; ++p) {
         float dot = 0.f;
+        if constexpr (WIDE) {
+          const int gs = s0 + s, gj = m0 + j0 + p;
+          if (gs < B && gj < M)
+            dot = vibo::wide_dot(theta + gs * th_sb, th_sk,
+                                 a + static_cast<size_t>(gj) * kt, kt);
+        } else {
 #pragma unroll
-        for (int k = 0; k < K; ++k) dot = fmaf(th[k], aj[p][k], dot);
+          for (int k = 0; k < K; ++k) dot = fmaf(th[k], aj[p][k], dot);
+        }
         const float c = static_cast<float>(code[p]);
         const float mk = fminf(c, 1.f);
         const int r = min(max(static_cast<int>(code[p]) - 1, 0), C - 1);
@@ -299,13 +315,15 @@ loglik_categorical_kernel(const float* __restrict__ theta, long long th_sb,
       float sum = 0.f;
 #pragma unroll
       for (int w = 0; w < NWARP; ++w) sum += red_s[(w * NC + col) * RS + sl];
-      part[(blk * NC + col) * M + gj] = sum;
+      // da column k0 + col of kt, or dkappa column kt + col - K (first pass)
+      const int pc = col < K ? k0 + col : kt + col - K;
+      if (col < K ? pc < kt : first) part[(blk * NP + pc) * M + gj] = sum;
     }
     __syncthreads();  // a_s, tab_s and red_s are rewritten by the next tile
   }
 
   vibo::write_dtheta_ll<K>(dth, llp, s0 + warp * SPT, B, dtheta, dt_sb,
-                           dt_sk, ll_person);
+                           dt_sk, first ? ll_person : nullptr, k0, kt);
 }
 
 // out[i] = sum over the nblk blocks of part[k * n + i], in block order.
@@ -319,14 +337,14 @@ __global__ void column_sum_kernel(const float* __restrict__ part,
   out[i] = sum;
 }
 
-template <class Link, int K>
+template <class Link, int K, bool WIDE = false>
 cudaError_t launch(const float* theta, long long th_sb, long long th_sk,
                    const float* a, const float* kap, const int8_t* pk,
                    float* dtheta, long long dt_sb, long long dt_sk,
                    float* ll_person, float* part, int nblk, int B, int M,
-                   int C, cudaStream_t stream) {
+                   int C, cudaStream_t stream, int kt = K, int k0 = 0) {
   const size_t smem = vibo::smem_bytes<Link>(K, C);
-  auto kernel = loglik_categorical_kernel<Link, K>;
+  auto kernel = loglik_categorical_kernel<Link, K, WIDE>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -335,7 +353,7 @@ cudaError_t launch(const float* theta, long long th_sb, long long th_sk,
   }
   kernel<<<nblk, THREADS, smem, stream>>>(theta, th_sb, th_sk, a, kap, pk,
                                           dtheta, dt_sb, dt_sk, ll_person,
-                                          part, B, M, C);
+                                          part, B, M, C, kt, k0);
   return cudaGetLastError();
 }
 
@@ -366,8 +384,12 @@ int entry(const void* theta, long long th_sb, long long th_sk, const void* a,
       VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
       VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
 #undef VIBO_CASE
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
+      default:  // K > 8: one wide pass a chunk of KC dims
+        err = K < 1 ? cudaErrorInvalidValue : cudaSuccess;
+        for (int k0 = 0; k0 < K && err == cudaSuccess; k0 += vibo::KC)
+          err = launch<Link, vibo::KC, true>(t, th_sb, th_sk, av, kv, p, dt,
+                                             dt_sb, dt_sk, lp, pt, nblk, B, M,
+                                             C, stream, K, k0);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -395,7 +417,7 @@ const char* vibo_error_string(int err) {
 // contiguous; ll_person (B,); scratch part (nblk, K + C - 1, M) with nblk =
 // ceil(B / 64), which the caller passes so a mismatch is refused instead of
 // overrunning the scratch; output grads (K + C - 1, M) = [da^T | dkappa^T].
-// 3 <= C <= 32, 1 <= K <= 8.
+// 3 <= C <= 32, K >= 1 (K > 8 in passes of 8 dims).
 int loglik_grm_train(const void* theta, long long th_sb, long long th_sk,
                      const void* a, const void* kappa, const void* pk,
                      void* dtheta, long long dt_sb, long long dt_sk,

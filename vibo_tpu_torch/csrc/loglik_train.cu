@@ -39,6 +39,8 @@
 // and written as the block's partial to scratch, with the block's sum of ll;
 // a second kernel sums the partials over blocks in a fixed order, so every
 // output is deterministic.
+// K = 1..8 are instantiated; any K > 8 runs the wide variant, a pass a
+// chunk of 8 ability dims (loglik_tile.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,7 +59,8 @@ using vibo::TBS;
 using vibo::THREADS;
 using vibo::TMI;
 
-template <class Link, int K>
+// WIDE: K = KC, one pass over the dims [k0, k0 + KC) of kt (loglik_tile.cuh).
+template <class Link, int K, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
                     long long th_sk, const float* __restrict__ a,
@@ -68,8 +71,10 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
                     long long dt_sk, float* __restrict__ ll_person,
                     float* __restrict__ part_da, float* __restrict__ part_db,
                     float* __restrict__ part_dg, float* __restrict__ part_ll,
-                    int B, int M) {
+                    int B, int M, int kt_arg, int k0_arg) {
   constexpr int NP = Link::NP;
+  const int kt = WIDE ? kt_arg : K, k0 = WIDE ? k0_arg : 0;
+  const bool first = k0 == 0;  // writes ll, db and dg
   constexpr int NC = K + 1 + Link::NX;  // reduced columns: da, db[, dg]
   __shared__ float th_s[TBS][K];
   __shared__ float a_s[TMI][K];
@@ -80,7 +85,7 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
   const int s0 = blockIdx.x * TBS;
   const bool vec = (M % 4 == 0) && (reinterpret_cast<uintptr_t>(pk) % 4 == 0);
 
-  vibo::stage_theta<K>(&th_s[0][0], theta, th_sb, th_sk, s0, B);
+  vibo::stage_theta<K>(&th_s[0][0], theta, th_sb, th_sk, s0, B, k0, kt);
 
   float dth[SPT][K];
   float llp[SPT];
@@ -95,7 +100,8 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
   for (int m0 = 0; m0 < M; m0 += TMI) {
     for (int i = tid; i < TMI * K; i += THREADS) {
       int j = i / K, k = i % K, gj = m0 + j;
-      a_s[j][k] = gj < M ? a[static_cast<size_t>(gj) * K + k] : 0.f;
+      a_s[j][k] = gj < M && k0 + k < kt
+                      ? a[static_cast<size_t>(gj) * kt + k0 + k] : 0.f;
     }
     for (int j = tid; j < TMI; j += THREADS) {
       const int gj = m0 + j;
@@ -133,8 +139,15 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
 #pragma unroll
       for (int p = 0; p < IPT; ++p) {
         float dot = 0.f;
+        if constexpr (WIDE) {
+          const int gj = m0 + j0 + p;
+          if (gs < B && gj < M)
+            dot = vibo::wide_dot(theta + gs * th_sb, th_sk,
+                                 a + static_cast<size_t>(gj) * kt, kt);
+        } else {
 #pragma unroll
-        for (int k = 0; k < K; ++k) dot = fmaf(th[k], aj[p][k], dot);
+          for (int k = 0; k < K; ++k) dot = fmaf(th[k], aj[p][k], dot);
+        }
         const float l = dot - pj[p][0];
         const float c = static_cast<float>(code[p]);
         const float mk = fminf(c, 1.f), r = fmaxf(c - 1.f, 0.f);
@@ -165,18 +178,23 @@ loglik_train_kernel(const float* __restrict__ theta, long long th_sb,
       float sum = 0.f;
 #pragma unroll
       for (int w = 0; w < NWARP; ++w) sum += red_s[w][j][c];
-      if (c < K)
-        part_da[(blk * M + gj) * K + c] = sum;
-      else if (c == K)
+      if (c < K) {
+        if (k0 + c < kt) part_da[(blk * M + gj) * kt + k0 + c] = sum;
+      } else if (!first) {
+        continue;
+      } else if (c == K) {
         part_db[blk * M + gj] = sum;
-      else
+      } else {
         part_dg[blk * M + gj] = sum;
+      }
     }
     __syncthreads();  // a_s, p_s and red_s are rewritten by the next tile
   }
 
   const float ll_warp = vibo::write_dtheta_ll<K>(
-      dth, llp, s0 + warp * SPT, B, dtheta, dt_sb, dt_sk, ll_person);
+      dth, llp, s0 + warp * SPT, B, dtheta, dt_sb, dt_sk,
+      first ? ll_person : nullptr, k0, kt);
+  if (!first) return;  // the whole block leaves: no barrier follows
   // red_s is free: the tile loop's last barrier follows its last read
   float* ll_s = &red_s[0][0][0];
   if (lane == 0) ll_s[warp] = ll_warp;
@@ -220,16 +238,17 @@ __global__ void loglik_train_reduce_kernel(const float* __restrict__ part_da,
   }
 }
 
-template <class Link, int K>
+template <class Link, int K, bool WIDE = false>
 cudaError_t launch_train(const float* theta, long long th_sb, long long th_sk,
                          const float* a, const float* b, const float* gh,
                          const int8_t* pk, float* dtheta, long long dt_sb,
                          long long dt_sk, float* ll_person, float* part_da,
                          float* part_db, float* part_dg, float* part_ll,
-                         int nblk, int B, int M, cudaStream_t stream) {
-  loglik_train_kernel<Link, K><<<nblk, THREADS, 0, stream>>>(
+                         int nblk, int B, int M, cudaStream_t stream,
+                         int kt = K, int k0 = 0) {
+  loglik_train_kernel<Link, K, WIDE><<<nblk, THREADS, 0, stream>>>(
       theta, th_sb, th_sk, a, b, gh, pk, dtheta, dt_sb, dt_sk, ll_person,
-      part_da, part_db, part_dg, part_ll, B, M);
+      part_da, part_db, part_dg, part_ll, B, M, kt, k0);
   return cudaGetLastError();
 }
 
@@ -267,8 +286,12 @@ int train_entry(const void* theta, long long th_sb, long long th_sk,
       VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
       VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
 #undef VIBO_CASE
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
+      default:  // K > 8: one wide pass a chunk of KC dims
+        err = K < 1 ? cudaErrorInvalidValue : cudaSuccess;
+        for (int k0 = 0; k0 < K && err == cudaSuccess; k0 += vibo::KC)
+          err = launch_train<Link, vibo::KC, true>(
+              t, th_sb, th_sk, av, bv, gv, p, dt, dt_sb, dt_sk, lp, pa, pb, pg,
+              pl, nblk, B, M, stream, K, k0);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -16,7 +16,9 @@
 //        reader: the same, plus dg_hat
 // One source serves all: the kernels are templated on the link, on the cell
 // reader (dense: m = mask, r = resp; int8 code c: m = min(c, 1),
-// r = max(c - 1, 0)) and on K = 1..8. Per cell:
+// r = max(c - 1, 0)) and on K = 1..8, with a wide variant for any K > 8
+// (loglik_tile.cuh: the forward in one pass, the backward a pass a chunk
+// of 8 dims). Per cell:
 //   l = theta_i . a_j - b_j,  ll_i += the link's cell value
 //   dl = g_i * dll/dl,  dtheta_i += dl a_j,  da_j += dl theta_i,  db_j -= dl
 //   [3PL: dg_j += g_i * dll/dg_hat]
@@ -55,6 +57,7 @@
 #include <stdint.h>
 
 #include "irt_links.cuh"
+#include "loglik_tile.cuh"  // KC, wide_dot: the K > 8 variant
 
 namespace {
 
@@ -128,16 +131,19 @@ __device__ __forceinline__ bool rows_aligned(const float* resp,
          reinterpret_cast<uintptr_t>(mask) % 16 == 0;
 }
 
-// Stages the tile's a (TMI x K) and the link's per-item constants.
+// Stages the tile's a (TMI x K; the wide variant the dims k0 .. k0 + K - 1
+// of kt, zero past kt) and the link's per-item constants.
 template <class Link, int K>
 __device__ __forceinline__ void stage_items(const float* __restrict__ a,
                                             const float* __restrict__ b,
                                             const float* __restrict__ gh,
                                             int m0, int M, float (*a_s)[K],
-                                            float (*p_s)[TMI]) {
+                                            float (*p_s)[TMI], int k0 = 0,
+                                            int kt = K) {
   for (int i = threadIdx.x; i < TMI * K; i += THREADS) {
     const int j = i / K, k = i % K, gj = m0 + j;
-    a_s[j][k] = gj < M ? a[static_cast<size_t>(gj) * K + k] : 0.f;
+    a_s[j][k] = gj < M && k0 + k < kt
+                    ? a[static_cast<size_t>(gj) * kt + k0 + k] : 0.f;
   }
   for (int j = threadIdx.x; j < TMI; j += THREADS) {
     const int gj = m0 + j;
@@ -150,7 +156,8 @@ __device__ __forceinline__ void stage_items(const float* __restrict__ a,
   }
 }
 
-template <class Link, int K, bool PACKED>
+// WIDE: K = KC, the logit over all kt dims by wide_dot (one pass).
+template <class Link, int K, bool PACKED, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
                   long long a_ss, const float* __restrict__ b, long long b_ss,
@@ -158,12 +165,13 @@ masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
                   const float* __restrict__ resp,
                   const float* __restrict__ mask,
                   const int8_t* __restrict__ pk, long long d_ss,
-                  float* __restrict__ ll, int B, int M) {
+                  float* __restrict__ ll, int B, int M, int kt_arg) {
   constexpr int NP = Link::NP;
+  const int kt = WIDE ? kt_arg : K;
   __shared__ float a_s[TMI][K];
   __shared__ float p_s[NP][TMI];
   const size_t s = blockIdx.y;
-  theta += s * B * K;
+  theta += s * B * kt;
   a += s * a_ss;
   b += s * b_ss;
   if constexpr (Link::NX > 0) gh += s * g_ss;
@@ -184,12 +192,13 @@ masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
     acc[q] = 0.f;
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      th[q][k] = s0 + q < B ? theta[static_cast<size_t>(s0 + q) * K + k] : 0.f;
+      th[q][k] = s0 + q < B && k < kt
+                     ? theta[static_cast<size_t>(s0 + q) * kt + k] : 0.f;
   }
 
   const int j0 = lane * IPT;
   for (int m0 = 0; m0 < M; m0 += TMI) {
-    stage_items<Link, K>(a, b, gh, m0, M, a_s, p_s);
+    stage_items<Link, K>(a, b, gh, m0, M, a_s, p_s, 0, kt);
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < FWD_SPW; ++q) {
@@ -203,8 +212,16 @@ masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
 #pragma unroll
         for (int x = 0; x < NP; ++x) pp[x] = p_s[x][j0 + p];
         float dot = 0.f;
+        if constexpr (WIDE) {
+          const int gj = m0 + j0 + p;
+          if (gs < B && gj < M)
+            dot = vibo::wide_dot(theta + static_cast<size_t>(gs) * kt, 1,
+                                 a + static_cast<size_t>(gj) * kt, kt);
+        } else {
 #pragma unroll
-        for (int k = 0; k < K; ++k) dot = fmaf(th[q][k], a_s[j0 + p][k], dot);
+          for (int k = 0; k < K; ++k)
+            dot = fmaf(th[q][k], a_s[j0 + p][k], dot);
+        }
         acc[q] += Link::value(dot - pp[0], pp, mk[p], r[p]);
       }
     }
@@ -221,7 +238,8 @@ masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
   }
 }
 
-template <class Link, int K, bool PACKED>
+// WIDE: K = KC, one pass over the dims [k0, k0 + KC) of kt (loglik_tile.cuh).
+template <class Link, int K, bool PACKED, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
                   const float* __restrict__ a, long long a_ss,
@@ -232,16 +250,18 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
                   const int8_t* __restrict__ pk, long long d_ss,
                   float* __restrict__ dtheta, float* __restrict__ part_da,
                   float* __restrict__ part_db, float* __restrict__ part_dg,
-                  int B, int M) {
+                  int B, int M, int kt_arg, int k0_arg) {
   constexpr int NP = Link::NP;
   constexpr int NC = K + 1 + Link::NX;  // reduced columns: da, db[, dg]
+  const int kt = WIDE ? kt_arg : K, k0 = WIDE ? k0_arg : 0;
+  const bool first = k0 == 0;  // writes db and dg
   __shared__ float a_s[TMI][K];
   __shared__ float p_s[NP][TMI];
   __shared__ float red_s[NWARP][TMI][NC];
   const size_t s = blockIdx.y;
   g += s * B;
-  theta += s * B * K;
-  dtheta += s * B * K;
+  theta += s * B * kt;
+  dtheta += s * B * kt;
   a += s * a_ss;
   b += s * b_ss;
   if constexpr (PACKED) {
@@ -251,7 +271,7 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
     mask += s * d_ss;
   }
   const size_t blk = s * gridDim.x + blockIdx.x;   // partial's index
-  part_da += blk * M * K;
+  part_da += blk * M * kt;
   part_db += blk * M;
   if constexpr (Link::NX > 0) {
     gh += s * g_ss;
@@ -268,14 +288,15 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
     gi[q] = ok ? g[s0 + q] : 0.f;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      th[q][k] = ok ? theta[static_cast<size_t>(s0 + q) * K + k] : 0.f;
+      th[q][k] = ok && k0 + k < kt
+                     ? theta[static_cast<size_t>(s0 + q) * kt + k0 + k] : 0.f;
       dth[q][k] = 0.f;
     }
   }
 
   const int j0 = lane * IPT;
   for (int m0 = 0; m0 < M; m0 += TMI) {
-    stage_items<Link, K>(a, b, gh, m0, M, a_s, p_s);
+    stage_items<Link, K>(a, b, gh, m0, M, a_s, p_s, k0, kt);
     __syncthreads();
     float aj[IPT][K], pj[IPT][NP], da[IPT][K], db[IPT], dx[IPT];
 #pragma unroll
@@ -299,8 +320,15 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
 #pragma unroll
       for (int p = 0; p < IPT; ++p) {
         float dot = 0.f;
+        if constexpr (WIDE) {
+          const int gj = m0 + j0 + p;
+          if (gs < B && gj < M)
+            dot = vibo::wide_dot(theta + static_cast<size_t>(gs) * kt, 1,
+                                 a + static_cast<size_t>(gj) * kt, kt);
+        } else {
 #pragma unroll
-        for (int k = 0; k < K; ++k) dot = fmaf(th[q][k], aj[p][k], dot);
+          for (int k = 0; k < K; ++k) dot = fmaf(th[q][k], aj[p][k], dot);
+        }
         float dxc;
         const float dl =
             gi[q] * Link::grad(dot - pj[p][0], pj[p], mk[p], r[p], dxc);
@@ -327,12 +355,15 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
       float sum = 0.f;
 #pragma unroll
       for (int w = 0; w < NWARP; ++w) sum += red_s[w][j][c];
-      if (c < K)
-        part_da[static_cast<size_t>(gj) * K + c] = sum;
-      else if (c == K)
+      if (c < K) {
+        if (k0 + c < kt) part_da[static_cast<size_t>(gj) * kt + k0 + c] = sum;
+      } else if (!first) {
+        continue;
+      } else if (c == K) {
         part_db[gj] = sum;
-      else
+      } else {
         part_dg[gj] = sum;
+      }
     }
     __syncthreads();  // a_s, p_s and red_s are rewritten by the next tile
   }
@@ -345,8 +376,8 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && s0 + q < B)
-        dtheta[static_cast<size_t>(s0 + q) * K + k] = v;
+      if (lane == 0 && s0 + q < B && k0 + k < kt)
+        dtheta[static_cast<size_t>(s0 + q) * kt + k0 + k] = v;
     }
   }
 }
@@ -395,44 +426,46 @@ __global__ void masked_reduce_kernel(const float* __restrict__ part_da,
   *out = sum;
 }
 
-template <class Link, int K>
+template <class Link, int K, bool WIDE = false>
 cudaError_t launch_fwd(const float* theta, const float* a, long long a_ss,
                        const float* b, long long b_ss, const float* gh,
                        long long g_ss, const float* resp, const float* mask,
                        const int8_t* pk, long long d_ss, float* ll, int S,
-                       int B, int M, cudaStream_t stream) {
+                       int B, int M, cudaStream_t stream, int kt = K) {
   const dim3 grid((B + FWD_TBS - 1) / FWD_TBS, S);
   if (pk != nullptr)
-    masked_fwd_kernel<Link, K, true><<<grid, THREADS, 0, stream>>>(
-        theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, ll, B, M);
+    masked_fwd_kernel<Link, K, true, WIDE><<<grid, THREADS, 0, stream>>>(
+        theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, ll, B, M,
+        kt);
   else
-    masked_fwd_kernel<Link, K, false><<<grid, THREADS, 0, stream>>>(
-        theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, ll, B, M);
+    masked_fwd_kernel<Link, K, false, WIDE><<<grid, THREADS, 0, stream>>>(
+        theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, ll, B, M,
+        kt);
   return cudaGetLastError();
 }
 
-template <class Link, int K>
+template <class Link, int K, bool WIDE = false>
 cudaError_t launch_bwd(const float* g, const float* theta, const float* a,
                        long long a_ss, const float* b, long long b_ss,
                        const float* gh, long long g_ss, const float* resp,
                        const float* mask, const int8_t* pk, long long d_ss,
                        float* dtheta, float* part_da, float* part_db,
                        float* part_dg, int S, int B, int M, int nblk,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, int kt = K, int k0 = 0) {
   const dim3 grid(nblk, S);
   if (pk != nullptr)
-    masked_bwd_kernel<Link, K, true><<<grid, THREADS, 0, stream>>>(
+    masked_bwd_kernel<Link, K, true, WIDE><<<grid, THREADS, 0, stream>>>(
         g, theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, dtheta,
-        part_da, part_db, part_dg, B, M);
+        part_da, part_db, part_dg, B, M, kt, k0);
   else
-    masked_bwd_kernel<Link, K, false><<<grid, THREADS, 0, stream>>>(
+    masked_bwd_kernel<Link, K, false, WIDE><<<grid, THREADS, 0, stream>>>(
         g, theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, dtheta,
-        part_da, part_db, part_dg, B, M);
+        part_da, part_db, part_dg, B, M, kt, k0);
   return cudaGetLastError();
 }
 
 bool bad_sizes(int S, int B, int M, int K) {
-  return S < 1 || S > 65535 || B < 0 || M < 0 || K < 1 || K > 8;
+  return S < 1 || S > 65535 || B < 0 || M < 0 || K < 1;
 }
 
 // The forward entry points' common body; gh is null for 2PL.
@@ -463,6 +496,10 @@ int fwd_entry(const void* theta, const void* a, long long a_ss,
     VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
     VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
 #undef VIBO_CASE
+    default:  // K > 8: the wide variant, one pass
+      err = launch_fwd<Link, vibo::KC, true>(t, av, a_ss, bv, b_ss, gv, g_ss,
+                                             rv, mv, p, d_ss, out, S, B, M,
+                                             stream, K);
   }
   return static_cast<int>(err);
 }
@@ -504,6 +541,13 @@ int bwd_entry(const void* g, const void* theta, const void* a, long long a_ss,
       VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
       VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
 #undef VIBO_CASE
+      default:  // K > 8: one wide pass a chunk of KC dims
+        err = cudaSuccess;
+        for (int k0 = 0; k0 < K && err == cudaSuccess; k0 += vibo::KC)
+          err = launch_bwd<Link, vibo::KC, true>(gv, t, av, a_ss, bv, b_ss, hv,
+                                                 g_ss, rv, mv, p, d_ss, dt, pa,
+                                                 pb, pg, S, B, M, nblk, stream,
+                                                 K, k0);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }

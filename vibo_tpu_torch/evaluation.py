@@ -71,7 +71,8 @@ def imputation_accuracy(model: VIBO, params, ds: Dataset,
 def full_item_dist(model: VIBO, params) -> dict:
     """The item posterior every evaluation shares. Free-form (the port's
     scope) it does not depend on the data; the amortized item encoder that
-    pools the dataset's columns is ROADMAP queue A item 14."""
+    pools the dataset's columns comes with ROADMAP's "Posterior and
+    conditioning families"."""
     return model.item_dist(params)
 
 

@@ -93,14 +93,15 @@ class VIBOConfig:
                 f"links are 2-category)")
         gaps = []
         if self.theta_posterior != "diag":
-            gaps.append(f"theta_posterior={self.theta_posterior!r} (ROADMAP "
-                        "queue A item 14)")
+            gaps.append(f"theta_posterior={self.theta_posterior!r}")
         if self.conditional_posterior and self.condition_on == "stats":
-            gaps.append("condition_on='stats' (ROADMAP queue A item 14)")
+            gaps.append("condition_on='stats'")
         if self.item_encoder:
-            gaps.append("item_encoder=True (ROADMAP queue A item 14)")
+            gaps.append("item_encoder=True")
         if gaps:
-            raise NotImplementedError("not ported yet: " + "; ".join(gaps))
+            raise NotImplementedError(
+                "not ported yet (ROADMAP's 'Posterior and conditioning "
+                "families'): " + "; ".join(gaps))
 
 
 class VIBO:

@@ -30,8 +30,10 @@ def standard_normal_log_prob(z):
 
 def tril_marginal_sigma(logvar, off=None):
     """Per-dimension marginal posterior sds; the diagonal family only
-    (full-covariance posteriors: ROADMAP queue A item 14)."""
+    (full-covariance posteriors: ROADMAP's "Posterior and conditioning
+    families")."""
     if off is not None and off.shape[-1]:
         raise NotImplementedError(
-            "full-covariance (chol) posteriors are ROADMAP queue A item 14")
+            "full-covariance (chol) posteriors come with ROADMAP's "
+            "'Posterior and conditioning families'")
     return torch.sqrt(torch.exp(logvar))

@@ -22,8 +22,9 @@ The pairwise products round their operands to bf16 and accumulate in f32
 the relu masks use the f32 pre-activations. f32_dots=True keeps them in
 f32 (the Pallas op's mode for HMC).
 
-On a CUDA tensor the op runs csrc/deep_link.cu (`deep_link_train`, H of 128
-or 256, bf16 products); on a CPU tensor the plain PyTorch version
+On a CUDA tensor the op runs csrc/deep_link.cu (`deep_link_train`, bf16
+products; H = 128 and 256 have their own instantiations, every other width
+the kernel's wide variant, with W2 read from L2); on a CPU tensor the plain PyTorch version
 `fused_deep_plain`, which repeats the kernel's arithmetic over item blocks
 without ever holding a (B, M, H) tensor. Nothing else falls back.
 """
@@ -45,7 +46,6 @@ TRAIN = _build.register(_build.Kernel(
     [P, P, P, P, P, P, P, P, P, I, I, I, I, P]))
 _PLAN_ARGTYPES = [I, I, I, ctypes.POINTER(ctypes.c_int),
                   ctypes.POINTER(ctypes.c_longlong)]
-CUDA_HIDDEN = (128, 256)    # the widths the kernel is instantiated for
 _PLAIN_BLOCK = 1 << 26      # (B, item block, H) elements of a plain block
 
 
@@ -117,9 +117,6 @@ def train_cuda(t1, t2, w2, b2, wo, bo, packed):
     -> the seven outputs of fused_deep_plain, views of one buffer."""
     bsz, h = t1.shape
     m = t2.shape[0]
-    if h not in CUDA_HIDDEN:
-        raise ValueError(f"the CUDA deep-link kernel takes a hidden width in "
-                         f"{CUDA_HIDDEN}, got {h}")
     dev = t1.device
     splits, floats = _plan(bsz, m, h, dev.index
                            if dev.index is not None
@@ -148,8 +145,8 @@ class _Train(torch.autograd.Function):
             if f32_dots:
                 raise NotImplementedError(
                     "the CUDA deep-link kernel runs its products in bf16; "
-                    "f32_dots (the deep HMC potential's mode) is ROADMAP "
-                    "queue A item 11")
+                    "f32_dots (the deep HMC potential's mode) comes with "
+                    "ROADMAP's 'Baselines'")
             ll, sth, sd, *wgrads = train_cuda(*args)
         else:
             ll, sth, sd, *wgrads = fused_deep_plain(*args, f32_dots=f32_dots)

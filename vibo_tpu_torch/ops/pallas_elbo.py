@@ -59,7 +59,6 @@ MASKED_BWD_3PL = _build.register(_build.Kernel(
     "masked_loglik_3pl_bwd", "masked_loglik.cu", "masked_loglik_3pl_bwd",
     [P, P, P, L, P, L, P, L, P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I,
      P]))
-MAX_K = 8                   # the kernels are instantiated for K = 1..8
 STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_train.cu: scratch rows
 MASKED_BWD_STUDENTS = 32    # BWD_TBS in csrc/masked_loglik.cu
 
@@ -252,9 +251,6 @@ def _prepare(theta, a, b, g_hat, packed, k_axis: int):
     theta = theta.float()
     items = [x.float() for x in items]
     if packed.is_cuda:
-        if not 1 <= k <= MAX_K:
-            raise ValueError(f"the CUDA loglik kernel takes 1 <= K <= "
-                             f"{MAX_K}, got K={k}")
         items = [x.contiguous() for x in items]
         packed = packed.contiguous()
     elif packed.device.type != "cpu":
@@ -513,9 +509,6 @@ def _masked_call(theta, a, b, g_hat, resp, mask, packed):
             f"{[tuple(x.shape) for x in data]} do not match (leading sample "
             "axes must equal theta's or be absent)")
     if dev.type == "cuda":
-        if not 1 <= k <= MAX_K:
-            raise ValueError(f"the CUDA loglik kernels take 1 <= K <= "
-                             f"{MAX_K}, got K={k}")
         theta = theta.contiguous()
         items = [x.contiguous() for x in items]
         data = [x.contiguous() for x in data]

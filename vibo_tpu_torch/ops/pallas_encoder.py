@@ -10,8 +10,10 @@ computes both views' products without materializing the decoded matrices:
 
 Operands are rounded to the compute dtype (bf16 on the flagship) and
 accumulated in f32, dh included, as in the Pallas kernel. On a CUDA tensor
-the hand-written kernels of csrc/first_layer.cu run (bf16 only); on a CPU
-tensor the plain PyTorch versions below run. Nothing else falls back.
+the hand-written kernels of csrc/first_layer.cu run: bf16 operands, or at
+compute_dtype float32 exact f32 products (each f32 operand split into three
+bf16 parts, `split_bf16x3`); on a CPU tensor the plain PyTorch versions
+below run. Nothing else falls back.
 """
 
 from __future__ import annotations
@@ -24,17 +26,27 @@ from vibo_tpu_torch.ops._build import I, P
 from vibo_tpu_torch.ops.packing import decode_packed, packed_row_valid
 
 __all__ = ["packed_first_layer", "first_layer_plain", "first_layer_bwd_plain",
-           "packed_row_valid", "FWD", "BWD"]
+           "split_bf16x3", "bwd_plan", "packed_row_valid", "FWD", "BWD",
+           "FWD_F32", "BWD_F32"]
 
 FWD = _build.register(_build.Kernel(
     "first_layer_fwd", "first_layer.cu", "first_layer_fwd",
-    [P, P, P, P, I, I, I, P]))
+    [P, P, P, P, P, I, I, I, I, P]))
 BWD = _build.register(_build.Kernel(
     "first_layer_bwd", "first_layer.cu", "first_layer_bwd",
     [P, P, P, P, P, I, I, I, I, I, P]))
+FWD_F32 = _build.register(_build.Kernel(
+    "first_layer_fwd_f32", "first_layer.cu", "first_layer_fwd_f32",
+    [P, P, P, P, P, I, I, I, I, P]))
+BWD_F32 = _build.register(_build.Kernel(
+    "first_layer_bwd_f32", "first_layer.cu", "first_layer_bwd_f32",
+    [P, P, P, P, P, I, I, I, I, I, P]))
+# each compute dtype's kernels: (forward, backward, bf16 parts of an operand)
+_KERNELS = {torch.bfloat16: (FWD, BWD, 1), torch.float32: (FWD_F32, BWD_F32, 3)}
 
-_TILE, _TK = 64, 32          # csrc/first_layer.cu: output tile, chunk depth
-_MIN_SPLIT_ROWS = 256        # students per split, at least
+# csrc/first_layer.cu: contraction chunk, output columns of a tile, items of
+# a backward tile, CTAs of the backward's cluster
+CHUNK, TILE_N, BWD_TILE_M, CLUSTER = 64, 128, 64, 8
 
 
 def first_layer_plain(packed, w_r, w_m, compute_dtype=torch.bfloat16):
@@ -52,46 +64,85 @@ def first_layer_bwd_plain(packed, dh, compute_dtype=torch.bfloat16):
     return rm.T @ dh_c, m.T @ dh_c
 
 
+def split_bf16x3(w: torch.Tensor):
+    """Twin of csrc/first_layer.cu:split_parts<3> -> (hi, mid, lo), three
+    f32 tensors whose values are bf16: each part is its remainder with the
+    f32's low 16 bits dropped. hi + mid + lo == w exactly for every finite
+    w whose lowest set bit is at least 2^-133 (all normal |w| >= 2^-110, and
+    0); smaller values lose their bits under 2^-133."""
+    def trunc(x):
+        return (x.view(torch.int32) & -65536).view(torch.float32)
+    w = w.float().contiguous()
+    hi = trunc(w)
+    r1 = w - hi
+    mid = trunc(r1)
+    return hi, mid, trunc(r1 - mid)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def first_layer_fwd_cuda(packed, w_r, w_m):
-    """Launch csrc/first_layer.cu:first_layer_fwd (bf16 operands)."""
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def code_reader(packed: torch.Tensor) -> str:
+    """The code tile reader the kernels take for these rows: "cp16"
+    (cp.async of 16 bytes, rows 16-byte aligned), "cp4" (4 bytes) or
+    "bytes" (any M)."""
+    m, ptr = packed.shape[1], packed.data_ptr()
+    if m % 16 == 0 and ptr % 16 == 0:
+        return "cp16"
+    if m % 4 == 0 and ptr % 4 == 0:
+        return "cp4"
+    return "bytes"
+
+
+_READER_CODE = {"cp16": 16, "cp4": 4, "bytes": 1}
+
+
+def bwd_plan(bsz: int, m: int, h: int) -> dict:
+    """The backward's launch: a grid of (item tiles, column tiles, CLUSTER)
+    CTAs, each cluster one output tile whose CTA z takes the students
+    [z * rows_per_split, (z + 1) * rows_per_split), rows_per_split a
+    multiple of the chunk depth, the CLUSTER runs covering B."""
+    rows = max(CHUNK, _up(-(-bsz // CLUSTER), CHUNK))
+    return {"grid": (-(-m // BWD_TILE_M), -(-h // TILE_N), CLUSTER),
+            "rows_per_split": rows}
+
+
+def first_layer_fwd_cuda(packed, w_r, w_m, compute_dtype=torch.bfloat16):
+    """Launch csrc/first_layer.cu's forward in the compute dtype's mode
+    (bf16 operands, or exact f32 products from three bf16 parts)."""
+    fwd, _, parts = _KERNELS[as_dtype(compute_dtype)]
     bsz, m = packed.shape
     h = w_r.shape[1]
-    out = torch.empty((bsz, h), dtype=torch.float32, device=packed.device)
-    FWD(packed.data_ptr(), w_r.data_ptr(), w_m.data_ptr(), out.data_ptr(),
-        bsz, m, h, _stream(packed))
+    dev = packed.device
+    out = torch.empty((bsz, h), dtype=torch.float32, device=dev)
+    wt = torch.empty((parts * _up(h, TILE_N) * 2 * _up(m, CHUNK),),
+                     dtype=torch.bfloat16, device=dev)
+    reader = code_reader(packed)
+    fwd(packed.data_ptr(), w_r.data_ptr(), w_m.data_ptr(), wt.data_ptr(),
+        out.data_ptr(), bsz, m, h, _READER_CODE[reader], _stream(packed),
+        variant=reader)
     return out
 
 
-def bwd_splits(bsz: int, m: int, h: int, sm_count: int) -> tuple[int, int]:
-    """(splits, rows_per_split) of the backward's student loop: enough
-    blocks for about four per SM, at least _MIN_SPLIT_ROWS students each,
-    rows_per_split a multiple of the kernel's chunk depth."""
-    tiles = -(-m // _TILE) * -(-h // _TILE)
-    splits = max(1, min(-(-4 * sm_count // tiles),
-                        -(-bsz // _MIN_SPLIT_ROWS)))
-    rows = -(-max(bsz, 1) // splits)
-    rows = -(-rows // _TK) * _TK
-    return -(-max(bsz, 1) // rows), rows
-
-
-def first_layer_bwd_cuda(packed, dh):
-    """Launch csrc/first_layer.cu:first_layer_bwd -> (dW_r, dW_m)."""
+def first_layer_bwd_cuda(packed, dh, compute_dtype=torch.bfloat16):
+    """Launch csrc/first_layer.cu's backward -> (dW_r, dW_m)."""
+    _, bwd, parts = _KERNELS[as_dtype(compute_dtype)]
     bsz, m = packed.shape
     h = dh.shape[1]
     dev = packed.device
     dwr = torch.empty((m, h), dtype=torch.float32, device=dev)
     dwm = torch.empty((m, h), dtype=torch.float32, device=dev)
-    splits, rows = bwd_splits(
-        bsz, m, h, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part = (torch.empty((splits, 2, m, h), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    BWD(packed.data_ptr(), dh.data_ptr(), dwr.data_ptr(), dwm.data_ptr(),
-        None if part is None else part.data_ptr(), bsz, m, h, splits, rows,
-        _stream(packed))
+    dht = torch.empty((parts * _up(h, TILE_N) * _up(bsz, CHUNK),),
+                      dtype=torch.bfloat16, device=dev)
+    reader = code_reader(packed)
+    bwd(packed.data_ptr(), dh.data_ptr(), dht.data_ptr(), dwr.data_ptr(),
+        dwm.data_ptr(), bsz, m, h, bwd_plan(bsz, m, h)["rows_per_split"],
+        _READER_CODE[reader], _stream(packed), variant=reader)
     return dwr, dwm
 
 
@@ -101,7 +152,7 @@ class _FirstLayer(torch.autograd.Function):
         ctx.save_for_backward(packed)
         ctx.cd = cd
         if packed.is_cuda:
-            return first_layer_fwd_cuda(packed, w_r, w_m)
+            return first_layer_fwd_cuda(packed, w_r, w_m, cd)
         return first_layer_plain(packed, w_r, w_m, cd)
 
     @staticmethod
@@ -109,7 +160,7 @@ class _FirstLayer(torch.autograd.Function):
         (packed,) = ctx.saved_tensors
         dh = dh.float().contiguous()
         if packed.is_cuda:
-            dwr, dwm = first_layer_bwd_cuda(packed, dh)
+            dwr, dwm = first_layer_bwd_cuda(packed, dh, ctx.cd)
         else:
             dwr, dwm = first_layer_bwd_plain(packed, dh, ctx.cd)
         return None, dwr, dwm, None
@@ -133,10 +184,10 @@ def packed_first_layer(packed: torch.Tensor, w_r: torch.Tensor,
                          f"{sorted(map(str, devices))}")
     w_r, w_m = w_r.float(), w_m.float()
     if packed.is_cuda:
-        if cd != torch.bfloat16:
+        if cd not in _KERNELS:
             raise NotImplementedError(
-                "the CUDA first-layer kernel runs bf16 operands only; the "
-                "f32 variant is ROADMAP queue A item 3")
+                f"the CUDA first-layer kernels take compute_dtype bfloat16 or "
+                f"float32, got {cd}")
         packed, w_r, w_m = (packed.contiguous(), w_r.contiguous(),
                             w_m.contiguous())
     elif packed.device.type != "cpu":

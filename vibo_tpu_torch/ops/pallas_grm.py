@@ -35,7 +35,6 @@ ARGTYPES = [P, L, L, P, P, P, P, L, L, P, P, P, I, I, I, I, I, P]
 TRAIN = _build.register(_build.Kernel(
     "loglik_grm_train", "loglik_categorical.cu", "loglik_grm_train",
     ARGTYPES))
-MAX_K = 8                   # the kernel is instantiated for K = 1..8
 MIN_C, MAX_C = 3, 32        # categories the kernel takes (VIBOConfig's range)
 STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_tile.cuh: scratch rows
 
@@ -165,9 +164,6 @@ def train_call(kernel, plain, theta, a, kap, packed):
                          f"{MAX_C} categories, got C={cm1 + 1}")
     theta, a, kap = theta.float(), a.float(), kap.float()
     if dev.type == "cuda":
-        if not 1 <= k <= MAX_K:
-            raise ValueError(f"the CUDA loglik kernel takes 1 <= K <= "
-                             f"{MAX_K}, got K={k}")
         a, kap, packed = a.contiguous(), kap.contiguous(), packed.contiguous()
     family = (kernel, plain)
     if not batched:

@@ -10,7 +10,7 @@
                              # grm/gpcm: (B, M, C) category probabilities
 
 Loading a trained checkpoint (`from_checkpoint`) comes with the port's
-checkpoint module (ROADMAP queue A item 5).
+checkpoint module (ROADMAP's "Trainer and checkpoint, the rest").
 """
 
 from __future__ import annotations

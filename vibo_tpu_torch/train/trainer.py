@@ -91,7 +91,8 @@ class Trainer:
         """One packed full-batch ELBO step on given noise."""
         if self.cfg.objective != "elbo":
             raise NotImplementedError(
-                "IWAE training on the int8 code is ROADMAP queue A item 14; "
+                "IWAE training on the int8 code comes with ROADMAP's "
+                "'Trainer and checkpoint, the rest'; "
                 "set batch_size to train it on decoded minibatches")
         model = self.model
         ll, klt, kli = model.elbo_packed_sums(
