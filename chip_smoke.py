@@ -17,11 +17,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      the minibatch shape (4,096 x 1,024) as the ELBO steps call it, with the
      IWAE steps' 5 samples, and on the padded last batch, and all of them at
      a ragged shape and at K = 1 and 8 with M off the vector width, the
-     masked loglik also with a leading sample axis and shared items; the 3PL
+     masked loglik also with a leading sample axis and shared items; the
+     one-pass kernels also at the edges of their item split (M off the
+     split's width, K = 4 and 12 at 777 x 301, all-missing student rows,
+     which must give exactly 0 ll and dtheta, 10,240 x 700 with the last
+     split shorter, 40 students), their main kernel and second pass timed
+     apart at the flagship; the 3PL
      kernels also at the extreme point theta = +-30, g_hat = -25; the GRM
      and the GPCM one-pass kernels (C = 5) at the flagship on each family's
-     own data, at the ragged shape, at K = 1 and 8 with M off the vector
-     width, at C = 3, 16, 17 and 32, through their autograd op with a
+     own data, at the ragged shape, at K = 1, 4, 8 and 12 with M off the
+     vector width, at the split's edges, at C = 3, 5, 8 (GPCM's compile-time
+     C), 9, 16, 17 and 32, through their autograd op with a
      non-uniform cotangent and with a sample axis of 3 (per-sample and
      shared items), and at the extreme points (|theta . a| beyond the
      clamp, a collapsing category, every cell in the first and in the last
@@ -76,9 +82,11 @@ over 989 TFLOP/s bf16 on the tensor cores (first layer) or 67 TFLOP/s f32
 outside them (loglik); and its special-function results (exp, log, the
 reciprocals: the MUFU instructions counted in the SASS, a cell's times the
 cells plus the per-item staging's once per item) over 16 a clock an SM, at
-this card's SM count and maximum SM clock. A GPCM cell runs its
-exponentials in a loop over the C categories, so its MUFU.EX2 lines count C
-times a cell; a GRM item stages its table in C + 1 steps. The deep kernel's
+this card's SM count and maximum SM clock. A GPCM cell at C <= 8 has its
+exponentials unrolled (C a template argument); above, they run in loops
+over the C categories, so those MUFU.EX2 lines count C times a cell; a GRM
+item stages its table in C + 1 steps. The build phase also prints each
+one-pass kernel's registers, spills and blocks an SM. The deep kernel's
 operations are the larger of its three products on the bf16 tensor cores
 (6 H^2 a pair at 989 TFLOP/s) and its f32 work outside them
 (DEEP_PAIR_OPS a pair at 67 TFLOP/s); its MUFU lines run once a pair.
@@ -118,6 +126,9 @@ F32_STEPS = 10                            # full-batch steps at f32 (JAX's CLI)
 WIDE_K = (9, 12, 16)                      # K past the instantiated 1..8
 WIDE_H = (384, 512)                       # deep widths of the wide variant
 FAMILIES = ("grm", "gpcm")                # the polytomous links
+GPCM_FIXED_C = 8                          # GPCM's compile-time C up to here
+SPLIT_TAIL = (10240, 700)                 # 6 item splits, the last shorter
+TINY = (40, 130)                          # fewer students than one block
 # each link's kernels: the one-pass training loglik (full batch) and the
 # general masked loglik's two directions (minibatch; the polytomous
 # families have none, as in JAX)
@@ -148,8 +159,8 @@ DEEP_PAIR_OPS = lambda h: 17 * h + 20   # noqa: E731
 # cells one thread covers in one pass of a kernel's unrolled tile loop
 # (students per warp x items per lane, csrc/loglik_tile.cuh and
 # csrc/masked_loglik.cu)
-CELLS_PER_PASS = {"loglik_train_kernel": 8 * 4,
-                  "loglik_categorical_kernel": 8 * 4,
+CELLS_PER_PASS = {"loglik_train_kernel": 4 * 2,
+                  "loglik_categorical_kernel": 4 * 2,
                   "masked_fwd_kernel": 2 * 4, "masked_bwd_kernel": 4 * 4}
 
 
@@ -226,6 +237,68 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def pass_times(fn, reps: int = 10) -> dict:
+    """Device time of a one-pass loglik call's two launches, its main
+    kernel and its second pass (sum_rows_kernel), from a torch.profiler
+    window over `reps` calls, each after the L2 flush and the spin of
+    Timer (which times the two together)."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(Timer.SPIN_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        key = ("reduce_ms" if "sum_rows_kernel" in ev.key else "main_ms"
+               if re.search(r"loglik_(train|categorical)_kernel", ev.key)
+               else None)
+        if key is not None:
+            out[key] = out.get(key, 0.0) + ev.device_time_total / 1e3 / reps
+    if set(out) != {"main_ms", "reduce_ms"}:
+        raise AssertionError(f"the profiler saw no main kernel or second "
+                             f"pass: {out}")
+    return out
+
+
+def occupancy(family: str, k: int, c: int = 0) -> dict:
+    """ptxas's registers and local (spill) bytes of the one-pass kernel a
+    call of `family` at (K, C) launches first, and its resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its block size and
+    shared memory), from the library's occupancy entry point."""
+    import ctypes
+    from vibo_tpu_torch.ops import _build
+    out = (ctypes.c_int * 3)()
+    if family in FAMILIES:
+        fn, lib = _build.bind("loglik_categorical.cu",
+                              "loglik_categorical_occupancy",
+                              [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        rc = fn(FAMILIES.index(family), k, c, out)
+    else:
+        fn, lib = _build.bind("loglik_train.cu", "loglik_train_occupancy",
+                              [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        rc = fn(("2pl", "3pl").index(family), k, out)
+    _build.check(rc, lib, f"occupancy query of {family} K={k} C={c}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
+
+
+def inert_rows(pk, ll, dth) -> int:
+    """Rows of the code with no observed cell must give exactly 0 ll (when
+    per person) and 0 dtheta; returns how many there were."""
+    empty = (pk == 0).all(1)
+    if ll is not None and ll.ndim == 1 and not bool(ll[empty].eq(0).all()):
+        raise AssertionError("an all-missing student row has ll != 0")
+    if not bool(dth[empty].eq(0).all()):
+        raise AssertionError("an all-missing student row has dtheta != 0")
+    return int(empty.sum())
+
+
 class Roofline:
     """The least time of a kernel's work on this card: the largest of its
     bytes over HBM, its operations over their peak, and its special-function
@@ -257,7 +330,8 @@ class Roofline:
 
     def mufu(self, source: str, kernel: str, link: str, k: int,
              packed: bool | None = None, loop_op: str | None = None,
-             trips: int = 1, item_steps: int = 1) -> tuple[int, int]:
+             trips: int = 1, item_steps: int = 1,
+             link_tag: str | None = None) -> tuple[int, int]:
         """(MUFU a cell, MUFU an item) of one instantiation, from its SASS
         up to its last EXIT (the division's slow-path subroutines after it
         are left out). The tile loop stages the link's per-item constants
@@ -265,8 +339,9 @@ class Roofline:
         are a staging step's (item_steps of them an item), those after it
         the unrolled cells', which must divide evenly by the cells one pass
         covers; lines of the op loop_op (e.g. "EX2") after it sit in a loop
-        a cell runs `trips` times."""
-        tag = f"Link{link.upper()}ELi{k}E"
+        a cell runs `trips` times. link_tag: the link's mangled name where
+        it is a template (the compile-time-C GPCM)."""
+        tag = f"{link_tag or 'Link' + link.upper()}ELi{k}E"
         if packed is not None:
             tag += f"Lb{int(packed)}E"
         tag += "Lb0E"          # the fixed-K instantiation, not the wide one
@@ -458,8 +533,10 @@ def check_loglik(timer, roof, pk, rng_gen, timed: bool,
             raise AssertionError(f"{name} ({layout}) at {tuple(pk.shape)}, "
                                  f"K={k} disagrees with its plain version "
                                  f"or is not finite: {r}")
+        r["inert_rows"] = inert_rows(pk, ll_k, dth)
         if timed:
             r["ms"] = timer(launch)
+            r.update(pass_times(launch))
             r["plain_ms"] = timer(
                 lambda: el.loglik_train_plain(theta, a, b, g_hat, pk))
             r["library_ms"] = None
@@ -650,15 +727,21 @@ def check_categorical(timer, roof, fam: str, pk, c: int, rng_gen,
         raise AssertionError(f"loglik_{fam}_train at {tuple(pk.shape)}, K={k}"
                              f", C={c} disagrees with its plain version or "
                              f"is not finite: {r}")
+    r["inert_rows"] = inert_rows(pk, got[0], got[1])
     if timed:
         r["ms"] = timer(launch)
+        r.update(pass_times(launch))
         r["plain_ms"] = timer(lambda: plain(theta, a, kap, pk))
         r["library_ms"] = None
         cells = bsz * m
+        # GPCM up to GPCM_FIXED_C: C unrolled, its table staged without
+        # special functions; above: the exponentials in loops over C
+        fixed = fam == "gpcm" and c <= GPCM_FIXED_C
         per_cell, per_item = roof.mufu(
             "loglik_categorical.cu", "loglik_categorical_kernel", fam, k,
-            loop_op="EX2" if fam == "gpcm" else None, trips=c,
-            item_steps=c + 1 if fam == "grm" else c)
+            loop_op="EX2" if fam == "gpcm" and not fixed else None, trips=c,
+            item_steps=c + 1 if fam == "grm" else 1 if fixed else c,
+            link_tag=f"LinkGPCMFixedILi{c}EE" if fixed else None)
         # the code, theta, a and kappa read once; ll, dtheta, da, dkappa
         # written once
         r["bound_ms"], r["bound_by"] = roof.bound(
@@ -735,15 +818,27 @@ def check_categorical_extremes(fam: str, rng_gen) -> dict:
 
 def categorical_checks(timer, roof, fam: str, data: dict, rng_gen,
                        ragged, odd) -> dict:
-    """Every check of one polytomous family's kernel (phase 3)."""
+    """Every check of one polytomous family's kernel (phase 3), at the item
+    split's edges too: the flagship, 777 x 301 at K = 1, 4, 8 and 12, with
+    all-missing rows, the split tail (the last split shorter), fewer
+    students than a block, and C on both sides of GPCM_FIXED_C."""
+    odd_empty = odd.clone()
+    odd_empty[[0, 5, odd.shape[0] - 1]] = 0
     out = {"flagship": check_categorical(timer, roof, fam, data["packed"], C,
                                          rng_gen, timed=True),
            "ragged": check_categorical(timer, roof, fam, ragged, C, rng_gen),
-           "odd_K1": check_categorical(timer, roof, fam, odd, C, rng_gen,
-                                       k=1),
-           "odd_K8": check_categorical(timer, roof, fam, odd, C, rng_gen,
-                                       k=8)}
-    for c in (3, 16, 17, 32):
+           "odd_empty_rows": check_categorical(timer, roof, fam, odd_empty,
+                                               C, rng_gen),
+           "split_tail": check_categorical(
+               timer, roof, fam, graded_code(SPLIT_TAIL, C, rng_gen), C,
+               rng_gen),
+           "tiny": check_categorical(timer, roof, fam,
+                                     graded_code(TINY, C, rng_gen), C,
+                                     rng_gen)}
+    for k in (1, 4, 8, 12):
+        out[f"odd_K{k}"] = check_categorical(timer, roof, fam, odd, C,
+                                             rng_gen, k=k)
+    for c in (3, 5, 8, 9, 16, 17, 32):
         out[f"ragged_C{c}"] = check_categorical(
             timer, roof, fam, graded_code(RAGGED, c, rng_gen), c, rng_gen)
     out["cotangent"] = check_categorical_op(fam, ragged, C, rng_gen)
@@ -1494,9 +1589,18 @@ def main() -> None:
     built = _build.build()
     ptxas = {s: ptxas_lines(open(v["log"]).read()) for s, v in built.items()}
     roof = Roofline()
+    # the one-pass kernels' registers, spills and blocks an SM, at every
+    # instantiated K and the wide variant (GRM/GPCM at C = 5, GPCM also at
+    # the largest compile-time C and the run-time path)
+    occ = {f"{fam} K={k}" + (f" C={c}" if fam in FAMILIES else ""):
+           occupancy(fam, k, c)
+           for fam in LINK_KERNELS for k in (*range(1, 9), 12)
+           for c in ((C, GPCM_FIXED_C, GPCM_FIXED_C + 1) if fam == "gpcm"
+                     else (C,))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {s: v["seconds"] for s, v in built.items()},
-          "ptxas": ptxas, "sms": roof.sms, "max_sm_mhz": roof.max_sm_mhz})
+          "ptxas": ptxas, "sms": roof.sms, "max_sm_mhz": roof.max_sm_mhz,
+          "one_pass_occupancy": occ})
 
     t0 = time.perf_counter()
     data = {link: link_data(link) for link in LINK_KERNELS}
@@ -1528,10 +1632,22 @@ def main() -> None:
                    "odd": list(ODD), "H20": 20},
           "results": first_layer, "card": smi})
     # (shape, int8 code (None: each link's flagship data), K); timed at the
-    # flagship
+    # flagship; the rest the item split's edges: M off the split's and the
+    # vector's width, K = 1, 4, 8 and 12 (wide), all-missing student rows,
+    # the last split shorter, fewer students than a block
     binary = [link for link in LINK_KERNELS if link not in FAMILIES]
+    odd_empty_pk = odd_pk.clone()
+    odd_empty_pk[[0, 5, ODD[0] - 1]] = 0
+    edge_codes = {name: torch.randint(0, 3, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                  for name, shape in (("split_tail", SPLIT_TAIL),
+                                      ("tiny", TINY))}
     for shape, pk, k in (("flagship", None, K), ("ragged", ragged_pk, K),
-                         ("odd_K1", odd_pk, 1), ("odd_K8", odd_pk, 8)):
+                         ("odd_K1", odd_pk, 1), ("odd_K4", odd_pk, 4),
+                         ("odd_K8", odd_pk, 8), ("odd_K12", odd_pk, 12),
+                         ("odd_empty_rows", odd_empty_pk, K),
+                         ("split_tail", edge_codes["split_tail"], K),
+                         ("tiny", edge_codes["tiny"], K)):
         timed = shape == "flagship"
         codes = {link: data[link]["packed"] if pk is None else pk
                  for link in binary}
@@ -1650,13 +1766,15 @@ def main() -> None:
         kernels.append(kernel_entry(
             name, f"vibo_tpu/ops/pallas_elbo.py:{kb} (and :{bk}, the (B, K) "
             "layout)", "loglik_train.cu", full[link][name],
-            fl[name]["kb"], bk_layout=fl[name]["bk"]))
+            fl[name]["kb"], bk_layout=fl[name]["bk"],
+            occupancy=occ[f"{link} K={K}"]))
     for fam, line in (("grm", 198), ("gpcm", 148)):
         name = LINK_KERNELS[fam]["train"]
         kernels.append(kernel_entry(
             name, f"vibo_tpu/ops/pallas_{fam}.py:{line}",
             "loglik_categorical.cu", full[fam][name],
             categorical[fam]["flagship"],
+            occupancy=occ[f"{fam} K={K} C={C}"],
             library_note="no single PyTorch call gives the graded or "
             "partial-credit loglik and its gradients from the code"))
     for link in binary:

@@ -127,6 +127,8 @@ def _value_and_grads(fam, theta, a, b_free, packed, through_table=True):
 @pytest.mark.parametrize("fam,shape", [
     ("grm", (45, 130, 4, 5)), ("grm", (9, 20, 1, 3)),
     ("gpcm", (45, 130, 4, 5)), ("gpcm", (9, 20, 1, 3)),
+    ("gpcm", (12, 40, 2, 8)),      # the kernel's largest compile-time C
+    ("gpcm", (12, 40, 2, 9)),      # the kernel's smallest run-time C
     ("gpcm", (12, 40, 2, 17)),     # JAX: its XLA twin above 16 categories
     ("grm", (23, 70, 12, 5)), ("gpcm", (23, 70, 12, 5)),   # K > 8
 ])

@@ -1,0 +1,39 @@
+"""The launch plan of the one-pass training loglik kernels
+(`csrc/loglik_train.cu`, `csrc/loglik_categorical.cu`), which share the tile
+mapping of `csrc/loglik_tile.cuh`: blocks of STUDENTS_PER_BLOCK students,
+items in tiles of ITEMS_PER_TILE, and the tiles cut into runs (splits), one
+run for each block of the grid's second dimension. The kernels check the
+plan they are given and refuse any other, so the scratch sized from it here
+cannot be overrun."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_tile.cuh
+ITEMS_PER_TILE = 64         # TMI in csrc/loglik_tile.cuh
+# Blocks a large matrix is cut into: four for each of an H100's 132 SMs,
+# two resident at a time. At the flagship (10,240 x 1,024) that is 4 splits
+# of 4 tiles; 2, 6, 8 and 16 splits were slower on the card (PERF.md):
+# shorter runs pay a block's start (theta, the first tile's latency) more
+# often, fewer blocks leave SMs idle in the last wave.
+TARGET_BLOCKS = 4 * 132
+
+
+class Plan(NamedTuple):
+    blocks: int             # student blocks: ceil(B / STUDENTS_PER_BLOCK)
+    splits: int             # runs of item tiles, none empty
+    tiles_per_split: int    # tiles a run (the last run may be shorter)
+
+
+def split_plan(bsz: int, m: int) -> Plan:
+    """The plan of a (bsz, m) code: as many splits as bring the grid to
+    about TARGET_BLOCKS blocks, at most one a tile, then the fewest splits
+    of that run length (so none is empty)."""
+    nblk = -(-bsz // STUDENTS_PER_BLOCK)
+    ntiles = -(-m // ITEMS_PER_TILE)
+    if ntiles == 0:
+        return Plan(nblk, 1, 1)
+    want = min(ntiles, max(1, -(-TARGET_BLOCKS // max(nblk, 1))))
+    tps = -(-ntiles // want)
+    return Plan(nblk, -(-ntiles // tps), tps)

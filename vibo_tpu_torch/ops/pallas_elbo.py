@@ -36,16 +36,19 @@ import torch
 
 from vibo_tpu_torch.ops import _build
 from vibo_tpu_torch.ops._build import I, P
+from vibo_tpu_torch.ops.one_pass import split_plan
 from vibo_tpu_torch.ops.packing import decode_packed
 
 L = ctypes.c_longlong
 
 TRAIN = _build.register(_build.Kernel(
     "loglik_2pl_train", "loglik_train.cu", "loglik_2pl_train",
-    [P, L, L, P, P, P, P, L, L, P, P, P, P, P, P, P, I, I, I, I, P]))
+    [P, L, L, P, P, P, P, L, L, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+     P]))
 TRAIN_3PL = _build.register(_build.Kernel(
     "loglik_3pl_train", "loglik_train.cu", "loglik_3pl_train",
-    [P, L, L, P, P, P, P, P, L, L, P, P, P, P, P, P, P, P, P, I, I, I, I, P]))
+    [P, L, L, P, P, P, P, P, L, L, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+     I, I, I, P]))
 MASKED_FWD = _build.register(_build.Kernel(
     "masked_loglik_2pl_fwd", "masked_loglik.cu", "masked_loglik_2pl_fwd",
     [P, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
@@ -59,7 +62,6 @@ MASKED_BWD_3PL = _build.register(_build.Kernel(
     "masked_loglik_3pl_bwd", "masked_loglik.cu", "masked_loglik_3pl_bwd",
     [P, P, P, L, P, L, P, L, P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I,
      P]))
-STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_train.cu: scratch rows
 MASKED_BWD_STUDENTS = 32    # BWD_TBS in csrc/masked_loglik.cu
 
 
@@ -143,15 +145,19 @@ def loglik_train_cuda(theta, a, b, g_hat, packed, dtheta, per_person: bool):
     3PL one) on theta (B, K) of any strides, writing dtheta (a (B, K) view
     of a preallocated buffer) through its strides. Returns (ll, item
     gradients): ll is (B,) if per_person else a scalar; the gradients are
-    (da, db) or (da, db, dg_hat)."""
+    (da, db) or (da, db, dg_hat). The scratch holds the per-block and
+    per-split partials of the plan (`one_pass.split_plan`)."""
     bsz, k = theta.shape
     m = a.shape[0]
     dev = theta.device
-    nblk = -(-bsz // STUDENTS_PER_BLOCK)
+    plan = split_plan(bsz, m)
+    nblk, nsplit = plan.blocks, plan.splits
     f32 = dict(dtype=torch.float32, device=dev)
+    part_dth = torch.empty((nsplit, bsz, k), **f32)
+    part_llp = torch.empty((nsplit, bsz), **f32) if per_person else None
     part_da = torch.empty((nblk, m, k), **f32)
     part_db = torch.empty((nblk, m), **f32)
-    part_ll = torch.empty((nblk,), **f32)
+    part_ll = torch.empty((nsplit, nblk), **f32)
     ll_person = torch.empty((bsz,), **f32) if per_person else None
     da = torch.empty((m, k), **f32)
     db = torch.empty((m,), **f32)
@@ -161,8 +167,10 @@ def loglik_train_cuda(theta, a, b, g_hat, packed, dtheta, per_person: bool):
     mid = (packed.data_ptr(), dtheta.data_ptr(), dtheta.stride(0),
            dtheta.stride(1),
            None if ll_person is None else ll_person.data_ptr(),
+           part_dth.data_ptr(),
+           None if part_llp is None else part_llp.data_ptr(),
            part_da.data_ptr(), part_db.data_ptr())
-    tail = (bsz, m, k, nblk, torch.cuda.current_stream(dev).cuda_stream)
+    tail = (bsz, m, k, *plan, torch.cuda.current_stream(dev).cuda_stream)
     if g_hat is None:
         TRAIN(*head, *mid, part_ll.data_ptr(), da.data_ptr(), db.data_ptr(),
               ll.data_ptr(), *tail)

@@ -10,9 +10,10 @@ for any per-person cotangent, da and dkap scaled by the first cotangent,
 the step sums reparameterized outside the op (`links.gpcm_cumsteps`), a
 leading sample axis one launch a sample. On a CUDA tensor the op runs
 csrc/loglik_categorical.cu (`loglik_gpcm_train`) at every C in [3, 32]
-(the JAX op sends C > 16 to its XLA twin; the kernel keeps its
-exponentials in shared memory instead of registers); on a CPU tensor the
-plain PyTorch version beside it.
+(the JAX op sends C > 16 to its XLA twin; the kernel takes C <= 8 as a
+compile-time value, its exponentials and dkap sums in registers, and any
+larger C at run time); on a CPU tensor the plain PyTorch version beside
+it.
 """
 
 from __future__ import annotations

@@ -28,15 +28,15 @@ import torch
 
 from vibo_tpu_torch.ops import _build
 from vibo_tpu_torch.ops._build import I, P
+from vibo_tpu_torch.ops.one_pass import split_plan
 from vibo_tpu_torch.ops.packing import decode_packed
 
 L = ctypes.c_longlong
-ARGTYPES = [P, L, L, P, P, P, P, L, L, P, P, P, I, I, I, I, I, P]
+ARGTYPES = [P, L, L, P, P, P, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, P]
 TRAIN = _build.register(_build.Kernel(
     "loglik_grm_train", "loglik_categorical.cu", "loglik_grm_train",
     ARGTYPES))
 MIN_C, MAX_C = 3, 32        # categories the kernel takes (VIBOConfig's range)
-STUDENTS_PER_BLOCK = 64     # TBS in csrc/loglik_tile.cuh: scratch rows
 
 _BIG = 50.0                 # boundary-category sentinel threshold
 _CLAMP = 30.0               # base saturation
@@ -98,19 +98,23 @@ def train_cuda(kernel, theta, a, kap, packed):
     """Launch one family's csrc/loglik_categorical.cu entry on theta (B, K)
     of any strides -> (ll (B,), dtheta (B, K), da (M, K), dkappa (M, C-1)),
     da and dkappa transposed views of the kernel's one (K + C - 1, M)
-    output."""
+    output. The scratch holds the per-block and per-split partials of the
+    plan (`one_pass.split_plan`)."""
     bsz, k = theta.shape
     m, cm1 = kap.shape
     f32 = dict(dtype=torch.float32, device=theta.device)
-    nblk = -(-bsz // STUDENTS_PER_BLOCK)
+    plan = split_plan(bsz, m)
     ll = torch.empty((bsz,), **f32)
     dth = torch.empty((bsz, k), **f32)
-    part = torch.empty((nblk, k + cm1, m), **f32)
+    part_dth = torch.empty((plan.splits, bsz, k), **f32)
+    part_llp = torch.empty((plan.splits, bsz), **f32)
+    part = torch.empty((plan.blocks, k + cm1, m), **f32)
     grads = torch.empty((k + cm1, m), **f32)
     kernel(theta.data_ptr(), theta.stride(0), theta.stride(1), a.data_ptr(),
            kap.data_ptr(), packed.data_ptr(), dth.data_ptr(), dth.stride(0),
-           dth.stride(1), ll.data_ptr(), part.data_ptr(), grads.data_ptr(),
-           bsz, m, k, cm1 + 1, nblk,
+           dth.stride(1), ll.data_ptr(), part_dth.data_ptr(),
+           part_llp.data_ptr(), part.data_ptr(), grads.data_ptr(),
+           bsz, m, k, cm1 + 1, *plan,
            torch.cuda.current_stream(theta.device).cuda_stream)
     return ll, dth, grads[:k].T, grads[k:].T
 
