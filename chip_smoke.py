@@ -86,10 +86,11 @@ this card's SM count and maximum SM clock. A GPCM cell at C <= 8 has its
 exponentials unrolled (C a template argument); above, they run in loops
 over the C categories, so those MUFU.EX2 lines count C times a cell; a GRM
 item stages its table in C + 1 steps. The build phase also prints each
-one-pass kernel's registers, spills and blocks an SM. The deep kernel's
-operations are the larger of its three products on the bf16 tensor cores
-(6 H^2 a pair at 989 TFLOP/s) and its f32 work outside them
-(DEEP_PAIR_OPS a pair at 67 TFLOP/s); its MUFU lines run once a pair.
+one-pass kernel's registers, spills and blocks an SM; the deep kernel's at
+H = 128 are in its config-5 check. The deep kernel's operations are the
+larger of its three products on the bf16 tensor cores (6 H^2 a pair at 989
+TFLOP/s) and its f32 work outside them (DEEP_PAIR_OPS a pair at 67
+TFLOP/s); its MUFU lines run once a pair (at H = 128 a lane's serve two).
 """
 
 from __future__ import annotations
@@ -152,9 +153,10 @@ CELL_OPS = {"2pl": (lambda k, c: 6 * k + 16, lambda k: 2 * k + 9,
 DEEP_B, DEEP_M, DEEP_K, DEEP_D, DEEP_H = 5520, 680, 2, 16, 128
 DEEP_STEPS, DEEP_DEFAULT_STEPS = 40, 10   # fused, JAX-default full batch
 # f32 operations a pair of the deep kernel outside the tensor cores, from
-# csrc/deep_link.cu: per hidden column 2 (h1) + 4 (logit) + 7 (dpre2, db2,
-# dwo) + 4 (mask, s_theta, s_d); per pair ~20 (the logit's reduction, ll,
-# dlogit, dbo)
+# csrc/deep_link.cu (the same work in the WMMA kernels and the mma.sync one
+# at H = 128): per hidden column 2 (h1) + 4 (logit) + 7 (dpre2, db2, dwo) +
+# 4 (mask, s_theta, s_d); per pair ~20 (the logit's reduction, ll, dlogit,
+# dbo)
 DEEP_PAIR_OPS = lambda h: 17 * h + 20   # noqa: E731
 # cells one thread covers in one pass of a kernel's unrolled tile loop
 # (students per warp x items per lane, csrc/loglik_tile.cuh and
@@ -270,11 +272,16 @@ def occupancy(family: str, k: int, c: int = 0) -> dict:
     """ptxas's registers and local (spill) bytes of the one-pass kernel a
     call of `family` at (K, C) launches first, and its resident blocks an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its block size and
-    shared memory), from the library's occupancy entry point."""
+    shared memory), from the library's occupancy entry point; family "deep":
+    deep_link_kernel<H> at link width H = k (128 or 256)."""
     import ctypes
     from vibo_tpu_torch.ops import _build
     out = (ctypes.c_int * 3)()
-    if family in FAMILIES:
+    if family == "deep":
+        fn, lib = _build.bind("deep_link.cu", "deep_link_occupancy",
+                              [ctypes.c_int, ctypes.c_void_p])
+        rc = fn(k, out)
+    elif family in FAMILIES:
         fn, lib = _build.bind("loglik_categorical.cu",
                               "loglik_categorical_occupancy",
                               [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -1385,10 +1392,15 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
         r["library_ms"] = None
         pairs = bsz * m
         # H = 128, 256: their own instantiations; other widths the wide
-        # variant (32 students a block up to H = 832)
+        # variant (32 students a block up to H = 832). At H = 128 a lane's
+        # special-function lines serve its two pairs (rows g and g + 8 of
+        # its row tile); elsewhere one lane takes a pair
         mufu = roof.mufu_lines("deep_link.cu", f"deep_link_kernelILi{h}E"
                                if h in (128, 256) else
                                "deep_link_wide_kernelILi32E")
+        if h == 128:
+            mufu /= 2
+            r["occupancy"] = occupancy("deep", h)
         # inputs t1, t2, W2, b2, wo, bo and the code read once; ll, s_theta,
         # s_d, dW2, db2, dwo, dbo written once
         small = bsz * h + m * h + h * h + 2 * h + 1

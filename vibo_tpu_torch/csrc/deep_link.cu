@@ -25,28 +25,54 @@
 // special-function results a pair (exp, log1p, the reciprocal of 1 + e) and
 // ~10 MB of traffic (a few microseconds): the tensor-core operations.
 //
-// The simple design: a block of 512 threads owns P students (64 at H = 128,
-// 32 at H = 256) and walks a contiguous run of items one at a time (grid y
-// splits the items so that the blocks fill the SMs); an item's P pairs are
-// the M side of the three products. W2 is staged once per block in shared
-// memory as bf16. Per item: build bf16(h1) (P x H) in shared memory; the
-// forward product h1 W2 (nvcuda::wmma, 16x16x16 bf16 -> f32) goes to an f32
-// staging tile; a row pass (TPR threads a pair) reduces the logit and takes
-// ll and dlogit; a column pass (a thread owns one of the H columns for 16
-// pairs) forms dpre2 as bf16 and sums db2 and dwo in registers; then
-// dW2 += h1^T dpre2 and dh1 = dpre2 W2^T, whose column pass applies the f32
-// h1 mask and sums s_theta (registers, the block owns its students) and the
-// item's s_d over the block's pairs. The tensor cores do not round their f32
+// Common to both fixed widths: a block of 512 threads owns P students (64
+// at H = 128, 32 at H = 256) and walks a contiguous run of items one at a
+// time (grid y splits the items so that the blocks fill the SMs); an item's
+// P pairs are the M side of the three products. W2 is staged once per block
+// in shared memory as bf16. The tensor cores do not round their f32
 // accumulation to nearest, so each item's dW2 product starts from a zero
-// fragment and is added to the running sum with f32 adds. At H = 128 the dW2
-// sums stay in registers over the whole loop (4 fragments a warp); at H =
-// 256 they do not fit, and each warp adds its tiles into the block's own
-// partial in device memory (a slice no other block touches). Every sum
-// across blocks (ll and s_theta over the item splits, s_d over the student
-// tiles, the weight gradients over all blocks) is a per-block partial that a
-// second kernel adds in block order: no atomics, deterministic. Plain WMMA
-// from shared memory, one item at a time: wgmma, TMA and software pipelining
-// are later work.
+// accumulator and is added to the running sum with f32 adds; the forward
+// product and dh1 are each one chain over k, 16 at a time. Every sum across
+// blocks (ll and s_theta over the item splits, s_d over the student tiles,
+// the weight gradients over all blocks) is a per-block partial that a second
+// kernel adds in block order: no atomics, deterministic.
+//
+// H = 128 (paper config 5), deep_link_kernel<128>: inline-PTX mma.sync
+// m16n8k16 (bf16 in, f32 accumulate; the instruction nvcuda::wmma's 16x16x16
+// step compiles to, twice) from ldmatrix, .trans where an operand is read
+// transposed (W2 for pre2, h1^T and dpre2 for dW2). Warp w owns 16 pairs x
+// 32 columns of each (P x H) product, so pre2 and dh1 stay in the
+// accumulators: a lane sums relu(pre2 + b2) wo over its 8 columns, its quad
+// over 32, and the row tile's four column groups through a 64 x 4 array in
+// a fixed order; dlogit, dpre2 (bf16 to shared), db2 and dwo are formed in
+// registers; dh1 is masked by the f32 pre-activations of the lane's own h1
+// (a bit mask kept from building it), s_theta accumulates in shared memory
+// at the lane's own positions and s_d is reduced over the warp's rows with
+// shuffles. h1 and dpre2 are double-buffered by item parity: an item has one
+// block-wide barrier (dpre2 ready) and two of its row tile's 128 threads (h1
+// ready, logit partials), against six block-wide ones and two f32 staging
+// passes in the WMMA design it replaced. dW2's running sum stays in
+// registers (32 a lane). 126 registers a thread, no spill, one block an SM.
+// What holds it back (estimates from the code, not measured): shared-memory
+// traffic of ~0.6 MB an item for a block, each warp loading its own A and B
+// fragments through ldmatrix (a W2 tile is read by the four row tiles, an h1
+// or dpre2 row tile by the four column groups), against ~0.8 us of tensor
+// work an item at one SM's share of the peak; and one block of 16 warps an
+// SM, whose phases wait at the barriers with nothing else to run. wgmma
+// (B read once per warpgroup from shared memory) on this register layout is
+// the next step.
+//
+// H = 256, deep_link_kernel<256>: plain WMMA from shared memory. Per item:
+// build bf16(h1) (P x H) in shared memory; the forward product h1 W2
+// (nvcuda::wmma, 16x16x16 bf16 -> f32) goes to an f32 staging tile; a row
+// pass (TPR threads a pair) reduces the logit and takes ll and dlogit; a
+// column pass (a thread owns one of the H columns for 16 pairs) forms dpre2
+// as bf16 and sums db2 and dwo in registers; then dW2 += h1^T dpre2 and
+// dh1 = dpre2 W2^T, whose column pass applies the f32 h1 mask and sums
+// s_theta (registers, the block owns its students) and the item's s_d over
+// the block's pairs. The dW2 sums do not fit in registers, and each warp
+// adds its tiles into the block's own partial in device memory (a slice no
+// other block touches).
 //
 // Every other width (H % 16 == 0; the op admits H % 128 == 0, as JAX's
 // does) takes the wide variant, deep_link_wide_kernel: at H = 384, W2 alone
@@ -84,7 +110,7 @@ __host__ __device__ constexpr size_t align128(size_t n) {
 
 template <int H>
 struct Cfg {
-  static constexpr int P = H == 128 ? 64 : 32;   // students a block, pairs an item
+  static constexpr int P = 32;                   // students a block, pairs an item
   static constexpr int LD = H + 8;               // bf16 row stride (ldm % 8 == 0)
   static constexpr int TPR = THREADS / P;        // row pass: threads a pair
   static constexpr int LDF = H + TPR;            // f32 row stride: row pass conflict-free
@@ -93,7 +119,6 @@ struct Cfg {
   static constexpr int TR = P / 16;              // tile rows of a (P x H) product
   static constexpr int WPR = WARPS / TR;         // warps a tile row
   static constexpr int TCW = H / 16 / WPR;       // tile columns a warp
-  static constexpr bool DW2_REGS = H == 128;     // dW2 in registers over the loop
   static constexpr int TCOLS = H / 16;           // tile columns of dW2
   static constexpr int DW2_TILES = TCOLS * TCOLS / WARPS;   // a warp
   // dynamic shared memory, each region 128-byte aligned
@@ -206,12 +231,6 @@ deep_link_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
   // the warp's tiles of a (P x H) product: rows wr0.., columns wc0..
   const int wr0 = (warp / C::WPR) * 16, wc0 = (warp % C::WPR) * TCW * 16;
 
-  FragC dw2_acc[C::DW2_REGS ? C::DW2_TILES : 1];
-  if constexpr (C::DW2_REGS) {
-#pragma unroll
-    for (int t = 0; t < C::DW2_TILES; ++t) wmma::fill_fragment(dw2_acc[t], 0.f);
-  }
-
   float t2_next = j0 < j1 ? t2[static_cast<size_t>(j0) * H + col] : 0.f;
   for (int j = j0; j < j1; ++j) {
     const int jj = (j - j0) % CHUNK;
@@ -300,49 +319,28 @@ deep_link_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
     // block's whole item run would drift (measured 3e-4 to 9e-4 of dW2's
     // largest element against the plain version).
     // warp w owns dW2's tiles w * DW2_TILES .. + DW2_TILES in row-major
-    // tile order
-    if constexpr (C::DW2_REGS) {
+    // tile order, added into the block's own partial
+    for (int i = 0; i < C::DW2_TILES; ++i) {
+      const int tr = (warp * C::DW2_TILES + i) / C::TCOLS,
+                tc = (warp * C::DW2_TILES + i) % C::TCOLS;
+      float* dst = dw2_blk + static_cast<size_t>(tr * 16) * H + tc * 16;
+      FragC part;
+      wmma::fill_fragment(part, 0.f);
 #pragma unroll
-      for (int t = 0; t < C::DW2_TILES; ++t) {
-        const int tr = (warp * C::DW2_TILES + t) / C::TCOLS,
-                  tc = (warp * C::DW2_TILES + t) % C::TCOLS;
-        FragC part;
-        wmma::fill_fragment(part, 0.f);
-#pragma unroll
-        for (int p0 = 0; p0 < P; p0 += 16) {
-          FragAT a;
-          FragB b;
-          wmma::load_matrix_sync(a, h1_s + p0 * LD + tr * 16, LD);
-          wmma::load_matrix_sync(b, dp_s + p0 * LD + tc * 16, LD);
-          wmma::mma_sync(part, a, b, part);
-        }
-#pragma unroll
-        for (int e = 0; e < part.num_elements; ++e) dw2_acc[t].x[e] += part.x[e];
+      for (int p0 = 0; p0 < P; p0 += 16) {
+        FragAT a;
+        FragB b;
+        wmma::load_matrix_sync(a, h1_s + p0 * LD + tr * 16, LD);
+        wmma::load_matrix_sync(b, dp_s + p0 * LD + tc * 16, LD);
+        wmma::mma_sync(part, a, b, part);
       }
-    } else {
-      // at H = 256 the tiles are added into the block's own partial
-      for (int i = 0; i < C::DW2_TILES; ++i) {
-        const int tr = (warp * C::DW2_TILES + i) / C::TCOLS,
-                  tc = (warp * C::DW2_TILES + i) % C::TCOLS;
-        float* dst = dw2_blk + static_cast<size_t>(tr * 16) * H + tc * 16;
-        FragC part;
-        wmma::fill_fragment(part, 0.f);
+      if (j > j0) {
+        FragC acc;
+        wmma::load_matrix_sync(acc, dst, H, wmma::mem_row_major);
 #pragma unroll
-        for (int p0 = 0; p0 < P; p0 += 16) {
-          FragAT a;
-          FragB b;
-          wmma::load_matrix_sync(a, h1_s + p0 * LD + tr * 16, LD);
-          wmma::load_matrix_sync(b, dp_s + p0 * LD + tc * 16, LD);
-          wmma::mma_sync(part, a, b, part);
-        }
-        if (j > j0) {
-          FragC acc;
-          wmma::load_matrix_sync(acc, dst, H, wmma::mem_row_major);
-#pragma unroll
-          for (int e = 0; e < part.num_elements; ++e) part.x[e] += acc.x[e];
-        }
-        wmma::store_matrix_sync(dst, part, H, wmma::mem_row_major);
+        for (int e = 0; e < part.num_elements; ++e) part.x[e] += acc.x[e];
       }
+      wmma::store_matrix_sync(dst, part, H, wmma::mem_row_major);
     }
     {
       FragC acc[TCW];
@@ -398,15 +396,7 @@ deep_link_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
     if (row < B)
       parts.sth[(static_cast<size_t>(split) * B + row) * H + col] = sth[k];
   }
-  if constexpr (C::DW2_REGS) {
-#pragma unroll
-    for (int t = 0; t < C::DW2_TILES; ++t) {
-      const int tr = (warp * C::DW2_TILES + t) / C::TCOLS,
-                tc = (warp * C::DW2_TILES + t) % C::TCOLS;
-      wmma::store_matrix_sync(dw2_blk + static_cast<size_t>(tr * 16) * H + tc * 16,
-                              dw2_acc[t], H, wmma::mem_row_major);
-    }
-  } else if (j0 >= j1) {
+  if (j0 >= j1) {
     for (int i = tid; i < H * H; i += THREADS) dw2_blk[i] = 0.f;
   }
   // db2, dwo over the row groups; dbo over the block's pairs
@@ -432,6 +422,442 @@ deep_link_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
   if (tid == 0) {
     float s = 0.f;
     for (int w = 0; w < WARPS; ++w) s += dbo_s[w];
+    parts.dbo[blk] = s;
+  }
+}
+
+// ---- H = 128: mma.sync from ldmatrix, pre2 and dh1 in registers ---------
+
+// The shared-memory address of p, for the PTX below.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory, lanes 8i .. 8i + 7 giving the
+// row addresses of matrix i; lane l gets row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each (with .trans: of each matrix transposed).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b on the tensor cores: a 16x16 (row), b 16x8 (col), bf16; d 16x8
+// f32. Lane l = 4 g + t holds d's rows g and g + 8, columns 2t and 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x through an opaque move: what is computed from it is computed where it
+// is used, not hoisted out of the item loop and held in registers across it
+// (without these moves deep_link_kernel<128> spills at 128 registers).
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+template <class T>
+__device__ __forceinline__ T* opaque(T* p) {
+  uint64_t x = reinterpret_cast<uint64_t>(p);
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return reinterpret_cast<T*>(x);
+}
+
+// Barrier `id` (1..15) of the 128 threads of one row tile.
+__device__ __forceinline__ void row_tile_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Sums of v[0..8) over the warp's eight row groups (lane / 4), reduced and
+// scattered in three shuffle steps: lane 4 g + t returns the sum of v[g].
+__device__ __forceinline__ float sum_row_groups(const float (&v)[8],
+                                                int lane) {
+  const int g = lane / 4;
+  float w[4], x[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool up = g & 4;
+    w[i] = (up ? v[i + 4] : v[i]) +
+           __shfl_xor_sync(0xffffffffu, up ? v[i] : v[i + 4], 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool up = g & 2;
+    x[i] = (up ? w[i + 2] : w[i]) +
+           __shfl_xor_sync(0xffffffffu, up ? w[i] : w[i + 2], 8);
+  }
+  const bool up = g & 1;
+  return (up ? x[1] : x[0]) +
+         __shfl_xor_sync(0xffffffffu, up ? x[0] : x[1], 4);
+}
+
+// Layout of deep_link_kernel<128>. Warp w owns row tile w / 4 (16 of the
+// item's 64 pairs) and column group w % 4 (32 of the 128 columns, four n8
+// tiles) of each (P x H) product, and dW2's rows 16 (w / 2) .. + 16 and
+// columns 64 (w % 2) .. + 64. h1 and dpre2 are double-buffered by item
+// parity, so an item needs one block-wide barrier besides two of its row
+// tile's.
+template <>
+struct Cfg<128> {
+  static constexpr int H = 128, P = 64;
+  static constexpr int LD = H + 8;      // bf16 row stride: 272 B, ldmatrix conflict-free
+  static constexpr int LDT = H + 8;     // f32 row stride of t1: float2 reads conflict-free
+  static constexpr int RT = P / 16;     // row tiles
+  static constexpr int CG = WARPS / RT; // column groups of 32
+  static constexpr size_t W2_OFF = 0;
+  static constexpr size_t H1_OFF = W2_OFF + align128(sizeof(__nv_bfloat16) * H * LD);
+  static constexpr size_t DP_OFF = H1_OFF + 2 * align128(sizeof(__nv_bfloat16) * P * LD);
+  static constexpr size_t T1_OFF = DP_OFF + 2 * align128(sizeof(__nv_bfloat16) * P * LD);
+  static constexpr size_t T2_OFF = T1_OFF + align128(sizeof(float) * P * LDT);
+  static constexpr size_t B2_OFF = T2_OFF + align128(sizeof(float) * 2 * H);
+  static constexpr size_t WO_OFF = B2_OFF + align128(sizeof(float) * H);
+  static constexpr size_t LG_OFF = WO_OFF + align128(sizeof(float) * H);
+  static constexpr size_t SD_OFF = LG_OFF + align128(sizeof(float) * P * CG);
+  static constexpr size_t RED_OFF = SD_OFF + align128(sizeof(float) * 2 * RT * H);
+  static constexpr size_t LL_OFF = RED_OFF + align128(sizeof(float) * 2 * RT * H);
+  static constexpr size_t DBO_OFF = LL_OFF + align128(sizeof(float) * P);
+  static constexpr size_t CODE_OFF = DBO_OFF + align128(sizeof(float) * P);
+  static constexpr size_t STH_OFF = CODE_OFF + align128(P * CHUNK);
+  static constexpr size_t SMEM = STH_OFF + align128(sizeof(float) * P * LDT);
+  static_assert(RT * CG == WARPS && CG * 32 == H, "warp tiles");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+template <>
+__global__ void __launch_bounds__(THREADS, 1)
+deep_link_kernel<128>(const float* __restrict__ t1,
+                      const float* __restrict__ t2,
+                      const float* __restrict__ w2,
+                      const float* __restrict__ b2,
+                      const float* __restrict__ wo,
+                      const float* __restrict__ bo,
+                      const int8_t* __restrict__ pk,
+                      float* __restrict__ scratch, int B, int M,
+                      int items_per_split) {
+  using C = Cfg<128>;
+  constexpr int H = C::H, P = C::P, LD = C::LD, LDT = C::LDT, RT = C::RT,
+                CG = C::CG;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* w2_s = reinterpret_cast<__nv_bfloat16*>(smem + C::W2_OFF);
+  __nv_bfloat16* h1_2 = reinterpret_cast<__nv_bfloat16*>(smem + C::H1_OFF);
+  __nv_bfloat16* dp_2 = reinterpret_cast<__nv_bfloat16*>(smem + C::DP_OFF);
+  float* t1_s = reinterpret_cast<float*>(smem + C::T1_OFF);
+  float* t2_s = reinterpret_cast<float*>(smem + C::T2_OFF);
+  float* b2_s = reinterpret_cast<float*>(smem + C::B2_OFF);
+  float* wo_s = reinterpret_cast<float*>(smem + C::WO_OFF);
+  float* lg_s = reinterpret_cast<float*>(smem + C::LG_OFF);
+  float* sd_s = reinterpret_cast<float*>(smem + C::SD_OFF);
+  float* red_s = reinterpret_cast<float*>(smem + C::RED_OFF);
+  float* ll_s = reinterpret_cast<float*>(smem + C::LL_OFF);
+  float* dbo_s = reinterpret_cast<float*>(smem + C::DBO_OFF);
+  int8_t* code_s = reinterpret_cast<int8_t*>(smem + C::CODE_OFF);
+  float* sth_s = reinterpret_cast<float*>(smem + C::STH_OFF);
+  constexpr size_t BUF = align128(sizeof(__nv_bfloat16) * P * LD) /
+                         sizeof(__nv_bfloat16);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rt = warp / CG, cg = warp % CG;
+  const int wr0 = rt * 16, wc0 = cg * 32;       // the warp's product tile
+  const int ra = wr0 + g, rb = ra + 8;           // this lane's two pairs
+  const int dr0 = (warp / 2) * 16, dc0 = (warp % 2) * 64;   // its dW2 strip
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int tiles = gridDim.x, splits = gridDim.y;
+  const int blk = tile * splits + split;
+  const int b0 = tile * P;
+  const int j0 = split * items_per_split;
+  const int j1 = min(M, j0 + items_per_split);
+
+  for (int i = tid; i < H * H; i += THREADS)
+    w2_s[(i / H) * LD + i % H] = __float2bfloat16(w2[i]);
+  for (int i = tid; i < P * H; i += THREADS) {
+    const int r = i / H, c = i % H;
+    sth_s[r * LDT + c] = 0.f;
+    t1_s[r * LDT + c] =
+        b0 + r < B ? t1[static_cast<size_t>(b0 + r) * H + c] : 0.f;
+  }
+  if (tid < H) {
+    b2_s[tid] = b2[tid];
+    wo_s[tid] = wo[tid];
+    t2_s[tid] = j0 < j1 ? t2[static_cast<size_t>(j0) * H + tid] : 0.f;
+  }
+  if (tid < P) {
+    ll_s[tid] = 0.f;
+    dbo_s[tid] = 0.f;
+  }
+  const float bov = bo[0];
+  __syncthreads();
+
+  // Sums over the block's item run. A lane's accumulator positions: element
+  // e of n8 tile n is row (e < 2 ? ra : rb), column wc0 + 8 n + 2 t + e % 2;
+  // of dW2, row dr0 + g + 8 (e / 2) of 16-column tile i, half h, column
+  // dc0 + 16 i + 8 h + 2 t + e % 2. dW2 in registers; s_theta in sth_s at
+  // the lane's own positions (16 more registers a thread pushed ptxas into
+  // spills at the 128 that 512 threads leave); db2 and dwo of the row tile's
+  // pairs in column cs, each item's summed over the warp's rows first; ll
+  // and dbo a pair in shared memory.
+  float dw2[4][2][4] = {}, db2 = 0.f, dwo = 0.f;
+  const int cs = wc0 + (g / 2) * 8 + 2 * t + g % 2;
+
+  for (int j = j0; j < j1; ++j) {
+    const int jj = (j - j0) % CHUNK, buf = (j - j0) & 1;
+    __nv_bfloat16* h1_s = h1_2 + buf * BUF;
+    __nv_bfloat16* dp_s = dp_2 + buf * BUF;
+    if (jj == 0) {   // the row tile's codes of the next CHUNK items: thread
+      // q takes row wr0 + q / 8, items 2 (q % 8) and + 1
+      const int q = opaque(tid) % 128, crow = wr0 + q / 8, ci = 2 * (q % 8);
+      const bool in = b0 + crow < B;
+      const int8_t* src = opaque(pk) + static_cast<size_t>(b0 + crow) * M + j + ci;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        code_s[crow * CHUNK + ci + u] =
+            in && j + ci + u < j1 ? src[u] : int8_t(0);
+    }
+    float t2_next = 0.f;
+    if (tid < H && j + 1 < j1)
+      t2_next = opaque(t2)[static_cast<size_t>(j + 1) * H + tid];
+
+    // 1. bf16(h1) at this lane's positions of the row tile, and the relu
+    // mask of its f32 pre-activations (bit 4 n + e)
+    uint32_t live = 0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc0 + 8 * n + 2 * t;
+      const float2 u = *reinterpret_cast<const float2*>(t2_s + buf * H + c);
+      const float2 xa = *reinterpret_cast<const float2*>(t1_s + ra * LDT + c);
+      const float2 xb = *reinterpret_cast<const float2*>(t1_s + rb * LDT + c);
+      const float p[4] = {xa.x + u.x, xa.y + u.y, xb.x + u.x, xb.y + u.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) live |= (p[e] > 0.f ? 1u : 0u) << (4 * n + e);
+      *reinterpret_cast<__nv_bfloat162*>(h1_s + ra * LD + c) =
+          __floats2bfloat162_rn(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f));
+      *reinterpret_cast<__nv_bfloat162*>(h1_s + rb * LD + c) =
+          __floats2bfloat162_rn(fmaxf(p[2], 0.f), fmaxf(p[3], 0.f));
+    }
+    row_tile_sync(1 + rt);
+
+    // 2. pre2 = h1 W2 + b2 (one chain over k, as the WMMA kernels')
+    float acc[4][4] = {};
+#pragma unroll 2
+    for (int k0 = 0; k0 < H; k0 += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, h1_s + (wr0 + lane % 16) * LD + k0 + (lane / 16) * 8);
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, w2_s + (k0 + lane % 16) * LD + wc0 + 16 * n2 +
+                             (lane / 16) * 8);
+        mma_bf16(acc[2 * n2], a, b[0], b[1]);
+        mma_bf16(acc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    // 3. the logit: this lane's 8 columns, its quad's 32, then the row
+    // tile's four column groups in order (the same sum in every warp)
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc0 + 8 * n + 2 * t;
+      const float2 bb = *reinterpret_cast<const float2*>(b2_s + c);
+      const float2 ww = *reinterpret_cast<const float2*>(wo_s + c);
+      acc[n][0] += bb.x; acc[n][1] += bb.y;
+      acc[n][2] += bb.x; acc[n][3] += bb.y;
+      part[0] = fmaf(fmaxf(acc[n][0], 0.f), ww.x, part[0]);
+      part[0] = fmaf(fmaxf(acc[n][1], 0.f), ww.y, part[0]);
+      part[1] = fmaf(fmaxf(acc[n][2], 0.f), ww.x, part[1]);
+      part[1] = fmaf(fmaxf(acc[n][3], 0.f), ww.y, part[1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+    }
+    if (t == 0) {
+      lg_s[ra * CG + cg] = part[0];
+      lg_s[rb * CG + cg] = part[1];
+    }
+    row_tile_sync(1 + rt);
+    float dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? rb : ra;
+      const float4 q = *reinterpret_cast<const float4*>(lg_s + r * CG);
+      const float logit = (((q.x + q.y) + q.z) + q.w) + bov;
+      const float cf = static_cast<float>(code_s[r * CHUNK + jj]);
+      const float m = fminf(cf, 1.f), rr = fmaxf(cf - 1.f, 0.f);
+      const float e = expf(-fabsf(logit));
+      const float inv = 1.f / (1.f + e);
+      const float s = logit >= 0.f ? inv : 1.f - inv;   // sigmoid(logit)
+      dl[h] = m * (rr - s);
+      if (cg == 0 && t == 0) {   // one lane a pair sums ll and dbo
+        const float sp = log1pf(e) + fmaxf(logit, 0.f);   // softplus(logit)
+        ll_s[r] += -m * (rr > 0.5f ? sp - logit : sp);
+        dbo_s[r] += dl[h];
+      }
+    }
+    // 4. dpre2 = [pre2 > 0] dlogit wo (bf16 to shared), db2 and dwo
+    float vdb[8], vdw[8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc0 + 8 * n + 2 * t;
+      const float2 ww = *reinterpret_cast<const float2*>(wo_s + c);
+      float dp[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[e] = acc[n][e] > 0.f ? dl[e / 2] * (e % 2 ? ww.y : ww.x) : 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        vdb[2 * n + e] = dp[e] + dp[e + 2];
+        vdw[2 * n + e] = fmaf(fmaxf(acc[n][e + 2], 0.f), dl[1],
+                              fmaxf(acc[n][e], 0.f) * dl[0]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dp_s + ra * LD + c) =
+          __floats2bfloat162_rn(dp[0], dp[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dp_s + rb * LD + c) =
+          __floats2bfloat162_rn(dp[2], dp[3]);
+    }
+    db2 += sum_row_groups(vdb, lane);
+    dwo += sum_row_groups(vdw, lane);
+    if (tid < H && j + 1 < j1) t2_s[(buf ^ 1) * H + tid] = t2_next;
+    __syncthreads();   // the only block-wide barrier of an item
+
+    // 5. the previous item's s_d: its row tiles' partials, in order
+    if (j > j0 && tid < H) {
+      const float* s = sd_s + (buf ^ 1) * RT * H + tid;
+      Parts(opaque(scratch), B, M, H, tiles, splits)
+          .sd[(static_cast<size_t>(tile) * M + j - 1) * H + tid] =
+          ((s[0] + s[H]) + s[2 * H]) + s[3 * H];
+    }
+
+    // 6. dW2 += h1^T dpre2: the item's product from a fresh accumulator (a
+    // chain of P / 16 steps), added to the running sum with f32 adds: the
+    // tensor cores do not round their f32 accumulation to nearest, so a
+    // chain over the block's whole item run would drift (measured 3e-4 to
+    // 9e-4 of dW2's largest element against the plain version)
+#pragma unroll
+    for (int i2 = 0; i2 < 4; i2 += 2) {
+      float fresh[2][2][4] = {};
+#pragma unroll 1
+      for (int p0 = 0; p0 < P; p0 += 16) {
+        uint32_t a[4];   // h1^T: rows dr0.. of dW2 by pairs p0..
+        ldsm_x4_trans(a, h1_s + (p0 + lane % 8 + (lane / 16) * 8) * LD + dr0 +
+                             ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, dp_s + (p0 + lane % 16) * LD + dc0 +
+                               16 * (i2 + u) + (lane / 16) * 8);
+          mma_bf16(fresh[u][0], a, b[0], b[1]);
+          mma_bf16(fresh[u][1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dw2[i2 + u][h][e] += fresh[u][h][e];
+    }
+
+    // 7. dh1 = dpre2 W2^T (one chain over W2's columns), the f32 h1 mask,
+    // s_theta, and the row tile's part of the item's s_d
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < H; k0 += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, dp_s + (wr0 + lane % 16) * LD + k0 + (lane / 16) * 8);
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2) {
+        uint32_t b[4];   // W2^T as a col operand: (k, n) at w2_s[n][k]
+        ldsm_x4(b, w2_s + (wc0 + 16 * n2 + lane % 8 + (lane / 16) * 8) * LD +
+                       k0 + ((lane / 8) % 2) * 8);
+        mma_bf16(acc[2 * n2], a, b[0], b[1]);
+        mma_bf16(acc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    float col[8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float d1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d1[e] = (live >> (4 * n + e)) & 1u ? acc[n][e] : 0.f;
+      const int c = wc0 + 8 * n + 2 * t;
+      float2* sa = reinterpret_cast<float2*>(sth_s + ra * LDT + c);
+      float2* sb = reinterpret_cast<float2*>(sth_s + rb * LDT + c);
+      float2 va = *sa, vb = *sb;
+      va.x += d1[0]; va.y += d1[1]; vb.x += d1[2]; vb.y += d1[3];
+      *sa = va; *sb = vb;
+      col[2 * n] = d1[0] + d1[2];
+      col[2 * n + 1] = d1[1] + d1[3];
+    }
+    sd_s[(buf * RT + rt) * H + cs] = sum_row_groups(col, lane);
+  }
+  __syncthreads();
+
+  // the last item's s_d, this split's ll and s_theta of the block's
+  // students, the block's dW2
+  const Parts parts(opaque(scratch), B, M, H, tiles, splits);
+  if (j1 > j0 && tid < H) {
+    const float* s = sd_s + ((j1 - 1 - j0) & 1) * RT * H + tid;
+    parts.sd[(static_cast<size_t>(tile) * M + j1 - 1) * H + tid] =
+        ((s[0] + s[H]) + s[2 * H]) + s[3 * H];
+  }
+  if (tid < P && b0 + tid < B)
+    parts.ll[static_cast<size_t>(split) * B + b0 + tid] = ll_s[tid];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = b0 + (h ? rb : ra);
+    if (row >= B) continue;
+    float* dst = parts.sth + (static_cast<size_t>(split) * B + row) * H;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      *reinterpret_cast<float2*>(dst + wc0 + 8 * n + 2 * t) =
+          *reinterpret_cast<const float2*>(sth_s + (h ? rb : ra) * LDT + wc0 + 8 * n + 2 * t);
+  }
+  float* dw2_blk = parts.dw2 + static_cast<size_t>(blk) * H * H;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(
+            dw2_blk + static_cast<size_t>(dr0 + g + 8 * r) * H + dc0 +
+            16 * i + 8 * h + 2 * t) =
+            make_float2(dw2[i][h][2 * r], dw2[i][h][2 * r + 1]);
+  // db2, dwo over the row tiles in order; dbo over the block's pairs
+  red_s[rt * H + cs] = db2;
+  red_s[(RT + rt) * H + cs] = dwo;
+  __syncthreads();
+  if (tid < H) {
+    const float* s = red_s + tid;
+    parts.db2[static_cast<size_t>(blk) * H + tid] =
+        ((s[0] + s[H]) + s[2 * H]) + s[3 * H];
+    s += RT * H;
+    parts.dwo[static_cast<size_t>(blk) * H + tid] =
+        ((s[0] + s[H]) + s[2 * H]) + s[3 * H];
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int r = 0; r < P; ++r) s += dbo_s[r];
     parts.dbo[blk] = s;
   }
 }
@@ -850,6 +1276,24 @@ int launch(const void* t1, const void* t2, const void* w2, const void* b2,
                                  splits, stream));
 }
 
+template <int H>
+int occupancy(int* out) {
+  const void* fn = reinterpret_cast<const void*>(deep_link_kernel<H>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Cfg<H>::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
+                                                      Cfg<H>::SMEM);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -898,6 +1342,14 @@ int deep_link_train(const void* t1, const void* t2, const void* w2,
       return launch_wide<16>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
                              H, splits, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// deep_link_kernel<H> (H = 128 or 256): ptxas's registers a thread, its
+// local (spill) bytes and its resident blocks an SM, into out[0..3).
+int deep_link_occupancy(int H, int* out) {
+  if (H == 128) return occupancy<128>(out);
+  if (H == 256) return occupancy<256>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
