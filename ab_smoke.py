@@ -10,8 +10,9 @@ PARENT_DIR again, so drift of the card or its host over the call falls on
 both sides alike. Each run builds its kernels in its own tree. A run's
 whole output goes to chiprun_out/ab/<n>_<side>.log. Then one JSON line per
 run: its exit code and seconds, each kernel's time from its kernels line
-(with the one-pass kernels' main kernel and second pass apart, the (B, K)
-layout and the int8 reader where it has them; the deep
+(with the one-pass kernels' and the masked VJP's main kernel, second pass
+and GRM prologue apart, the (B, K) layout and the int8 reader where it has
+them; the deep
 link's kernel also at the 10,240 x 1,024 shape and at widths 256 and
 384), and the
 step median, device busy time and idle share of each training phase, by
@@ -45,9 +46,10 @@ def summarize(stdout: str) -> dict:
             continue
         for e in obj.get("kernels", []):
             kernels[e["name"]] = e.get("ms")
-            for part in ("main_ms", "reduce_ms"):
-                if part in e:
-                    kernels[f"{e['name']} {part[:-3]}"] = e[part]
+            for tag, r in (("", e), (" int8", e.get("int8_reader", {}))):
+                for part in ("main_ms", "reduce_ms", "prologue_ms"):
+                    if part in r:
+                        kernels[f"{e['name']}{tag} {part[:-3]}"] = r[part]
             for extra, tag in (("bk_layout", "bk"), ("int8_reader", "int8"),
                                ("table_shape", "10240x1024"),
                                ("h256", "H256"), ("h384_wide", "H384")):

@@ -17,7 +17,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      the minibatch shape (4,096 x 1,024) as the ELBO steps call it, with the
      IWAE steps' 5 samples, and on the padded last batch, and all of them at
      a ragged shape and at K = 1 and 8 with M off the vector width, the
-     masked loglik also with a leading sample axis and shared items; the
+     masked loglik also with a leading sample axis and shared items, and
+     its VJP at its item split's edge (4,000 x 700: the last split shorter,
+     B off the block; also with 2 samples), its main kernel and second pass
+     timed apart at the minibatch; the
      one-pass kernels also at the edges of their item split (M off the
      split's width, K = 4 and 12 at 777 x 301, all-missing student rows,
      which must give exactly 0 ll and dtheta, 10,240 x 700 with the last
@@ -26,8 +29,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      kernels also at the extreme point theta = +-30, g_hat = -25; the GRM
      and the GPCM one-pass kernels (C = 5) at the flagship on each family's
      own data, at the ragged shape, at K = 1, 4, 8 and 12 with M off the
-     vector width, at the split's edges, at C = 3, 5, 8 (GPCM's compile-time
-     C), 9, 16, 17 and 32, through their autograd op with a
+     vector width, at the split's edges, at C = 3, 5, 8 (both families'
+     compile-time C), 9, 16, 17 and 32 (the run-time C), each check naming
+     the link its kernel ran (from the profiler), through their autograd
+     op with a
      non-uniform cotangent and with a sample axis of 3 (per-sample and
      shared items), and at the extreme points (|theta . a| beyond the
      clamp, a collapsing category, every cell in the first and in the last
@@ -85,8 +90,11 @@ cells plus the per-item staging's once per item) over 16 a clock an SM, at
 this card's SM count and maximum SM clock. A GPCM cell at C <= 8 has its
 exponentials unrolled (C a template argument); above, they run in loops
 over the C categories, so those MUFU.EX2 lines count C times a cell; a GRM
-item stages its table in C + 1 steps. The build phase also prints each
-one-pass kernel's registers, spills and blocks an SM; the deep kernel's at
+item stages its table in C + 1 steps, or at C <= 8 in C slots of the
+prologue (grm_table_kernel), and a GRM cell counts GRM_CELL_MUFU, the
+function's special functions whatever kernel computes it (the SASS's
+count beside it). The build phase also prints each one-pass kernel's and
+the masked VJP's registers, spills and blocks an SM; the deep kernel's at
 H = 128 are in its config-5 check. The deep kernel's operations are the
 larger of its three products on the bf16 tensor cores (6 H^2 a pair at 989
 TFLOP/s) and its f32 work outside them (DEEP_PAIR_OPS a pair at 67
@@ -139,8 +147,8 @@ LINK_KERNELS = {
                f"masked_loglik_{link}_fwd", f"masked_loglik_{link}_bwd")}
     for link in ("2pl", "3pl", *FAMILIES)}
 # f32 operations a cell, from the cell math (csrc/irt_links.cuh,
-# csrc/loglik_categorical.cu), of K and C: the one-pass kernel, the masked
-# forward and the masked backward
+# csrc/loglik_grm.cu, loglik_gpcm.cu), of K and C: the one-pass kernel, the
+# masked forward and the masked backward
 CELL_OPS = {"2pl": (lambda k, c: 6 * k + 16, lambda k: 2 * k + 9,
                     lambda k: 6 * k + 10),
             "3pl": (lambda k, c: 6 * k + 45, lambda k: 2 * k + 25,
@@ -163,7 +171,27 @@ DEEP_PAIR_OPS = lambda h: 17 * h + 20   # noqa: E731
 # csrc/masked_loglik.cu)
 CELLS_PER_PASS = {"loglik_train_kernel": 4 * 2,
                   "loglik_categorical_kernel": 4 * 2,
-                  "masked_fwd_kernel": 2 * 4, "masked_bwd_kernel": 4 * 4}
+                  "masked_fwd_kernel": 2 * 4, "masked_bwd_kernel": 4 * 2}
+# The special functions a GRM cell needs, as the run-time-C kernel issues
+# them (its SASS: two exp and four reciprocals). The compile-time-C kernel
+# computes the same function with fewer (one reciprocal for both sigmoids,
+# one for both dkappa ratios); the bound reads the function's work, not the
+# implementation's, so it keeps this count and prints the SASS's beside it.
+GRM_CELL_MUFU = 6
+GRM_FIXED_C = 8                           # GRM's compile-time C up to here
+MASKED_SPLIT_TAIL = (4000, 700)           # masked VJP: 6 splits, the last
+                                          # shorter; B off the 64-student block
+# the kernel of each one-pass or VJP call and its second pass (and the GRM
+# prologue), told apart in a profiler window
+# A profiler window now and then keeps none or half of its launches'
+# records: the mean is taken over the records kept, and a window that kept
+# no record of a kernel it must show is taken again, up to this many times.
+PROFILER_TRIES = 3
+LINK_OF_KERNEL = r"loglik_categorical_kernel<vibo::(\w+(?:<\d+>)?)"
+PASS_KERNELS = (("reduce_ms", "sum_rows_kernel"),
+                ("prologue_ms", "grm_table_kernel"),
+                ("main_ms", r"loglik_(train|categorical)_kernel"
+                            r"|masked_bwd_kernel"))
 
 
 def ptxas_lines(log: str) -> list:
@@ -239,11 +267,11 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def pass_times(fn, reps: int = 10) -> dict:
-    """Device time of a one-pass loglik call's two launches, its main
-    kernel and its second pass (sum_rows_kernel), from a torch.profiler
-    window over `reps` calls, each after the L2 flush and the spin of
-    Timer (which times the two together)."""
+def profiled(fn, reps: int) -> list:
+    """(kernel name, mean device ms of its launches) of every kernel `reps`
+    calls of fn launch, from a torch.profiler window, each call after the
+    L2 flush and the spin of Timer. The mean is over the launches the
+    window recorded (PROFILER_TRIES)."""
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
@@ -255,17 +283,40 @@ def pass_times(fn, reps: int = 10) -> dict:
             torch.cuda._sleep(Timer.SPIN_CYCLES)
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        key = ("reduce_ms" if "sum_rows_kernel" in ev.key else "main_ms"
-               if re.search(r"loglik_(train|categorical)_kernel", ev.key)
-               else None)
-        if key is not None:
-            out[key] = out.get(key, 0.0) + ev.device_time_total / 1e3 / reps
-    if set(out) != {"main_ms", "reduce_ms"}:
-        raise AssertionError(f"the profiler saw no main kernel or second "
-                             f"pass: {out}")
-    return out
+    return [(ev.key, ev.device_time_total / 1e3 / ev.count)
+            for ev in prof.key_averages() if ev.device_time_total > 0]
+
+
+def pass_times(fn, reps: int = 10) -> dict:
+    """Device time of a one-pass loglik or masked VJP call's launches (one
+    of each at K <= 8): its main kernel, its second pass (sum_rows_kernel)
+    and, for the compile-time GRM, its prologue (grm_table_kernel), from a
+    profiler window over `reps` calls (Timer times them together)."""
+    for _ in range(PROFILER_TRIES):
+        out = {}
+        for name, ms in profiled(fn, reps):
+            key = next((k for k, pat in PASS_KERNELS
+                        if re.search(pat, name)), None)
+            if key is not None:
+                out[key] = out.get(key, 0.0) + ms
+        if {"main_ms", "reduce_ms"} <= set(out):
+            return out
+    raise AssertionError(f"the profiler saw no main kernel or second pass "
+                         f"in {PROFILER_TRIES} windows: {out}")
+
+
+def ran_link(fn) -> str:
+    """The link template argument of the one loglik_categorical_kernel one
+    call of fn launches (demangled by the profiler), e.g. LinkGRMFixed<5>."""
+    for _ in range(PROFILER_TRIES):
+        found = (re.search(LINK_OF_KERNEL, name)
+                 for name, _ in profiled(fn, 2))
+        names = {m.group(1) for m in found if m}
+        if names:
+            break
+    if len(names) != 1:
+        raise AssertionError(f"not one categorical kernel launched: {names}")
+    return names.pop()
 
 
 def occupancy(family: str, k: int, c: int = 0) -> dict:
@@ -273,19 +324,24 @@ def occupancy(family: str, k: int, c: int = 0) -> dict:
     call of `family` at (K, C) launches first, and its resident blocks an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its block size and
     shared memory), from the library's occupancy entry point; family "deep":
-    deep_link_kernel<H> at link width H = k (128 or 256)."""
+    deep_link_kernel<H> at link width H = k (128 or 256); "masked_2pl" or
+    "masked_3pl": the masked VJP's kernel, c = 0 the dense reader, 1 int8."""
     import ctypes
     from vibo_tpu_torch.ops import _build
     out = (ctypes.c_int * 3)()
-    if family == "deep":
+    if family.startswith("masked_"):
+        fn, lib = _build.bind("masked_loglik.cu", "masked_bwd_occupancy",
+                              [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        rc = fn(("2pl", "3pl").index(family[7:]), k, c, out)
+    elif family == "deep":
         fn, lib = _build.bind("deep_link.cu", "deep_link_occupancy",
                               [ctypes.c_int, ctypes.c_void_p])
         rc = fn(k, out)
     elif family in FAMILIES:
-        fn, lib = _build.bind("loglik_categorical.cu",
-                              "loglik_categorical_occupancy",
-                              [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        rc = fn(FAMILIES.index(family), k, c, out)
+        fn, lib = _build.bind(f"loglik_{family}.cu",
+                              f"loglik_{family}_occupancy",
+                              [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        rc = fn(k, c, out)
     else:
         fn, lib = _build.bind("loglik_train.cu", "loglik_train_occupancy",
                               [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -661,6 +717,8 @@ def check_masked(timer, roof, resp, mask, rng_gen, timed: bool,
                                              (w, bwd, bwd_plain, True)):
                 r.update(ms=timer(kernel), plain_ms=timer(plain),
                          library_ms=None)
+                if is_bwd:
+                    r.update(pass_times(kernel))
                 r["bound_ms"], r["bound_by"] = masked_bound(
                     roof, bsz, m, k, s, nbytes, is_bwd, link)
         out[reader] = {"fwd": f, "bwd": w}
@@ -709,7 +767,7 @@ def graded_code(shape, c: int, rng_gen):
 
 def check_categorical(timer, roof, fam: str, pk, c: int, rng_gen,
                       timed: bool = False, k: int = K, inputs=None) -> dict:
-    """A polytomous family's one-pass kernel (csrc/loglik_categorical.cu)
+    """A polytomous family's one-pass kernel (csrc/loglik_{fam}.cu)
     against its plain version on the code pk of C categories: ll, dtheta,
     da and dkappa; inputs (theta (B, K), a, kappa) default to random
     draws."""
@@ -735,6 +793,13 @@ def check_categorical(timer, roof, fam: str, pk, c: int, rng_gen,
                              f", C={c} disagrees with its plain version or "
                              f"is not finite: {r}")
     r["inert_rows"] = inert_rows(pk, got[0], got[1])
+    r["link"] = ran_link(launch)
+    fixed = k <= 8 and c <= (GPCM_FIXED_C if fam == "gpcm" else GRM_FIXED_C)
+    want = ("Link" + fam.upper() + ("Fixed" if fixed else "")
+            + (f"<{c}>" if fixed else ""))
+    if r["link"] != want:
+        raise AssertionError(f"loglik_{fam}_train at K={k}, C={c} ran "
+                             f"{r['link']}, not {want}")
     if timed:
         r["ms"] = timer(launch)
         r.update(pass_times(launch))
@@ -742,13 +807,19 @@ def check_categorical(timer, roof, fam: str, pk, c: int, rng_gen,
         r["library_ms"] = None
         cells = bsz * m
         # GPCM up to GPCM_FIXED_C: C unrolled, its table staged without
-        # special functions; above: the exponentials in loops over C
-        fixed = fam == "gpcm" and c <= GPCM_FIXED_C
+        # special functions; above: the exponentials in loops over C. GRM
+        # up to GRM_FIXED_C: its table from the prologue, C slots an item
+        tag = f"Link{fam.upper()}FixedILi{c}EE" if fixed else None
         per_cell, per_item = roof.mufu(
-            "loglik_categorical.cu", "loglik_categorical_kernel", fam, k,
+            f"loglik_{fam}.cu", "loglik_categorical_kernel", fam, k,
             loop_op="EX2" if fam == "gpcm" and not fixed else None, trips=c,
             item_steps=c + 1 if fam == "grm" else 1 if fixed else c,
-            link_tag=f"LinkGPCMFixedILi{c}EE" if fixed else None)
+            link_tag=tag)
+        if fam == "grm" and fixed:
+            per_item = c * roof.mufu_lines("loglik_grm.cu",
+                                           "grm_table_kernel")
+            r["mufu_per_cell_sass"] = per_cell
+            per_cell = GRM_CELL_MUFU
         # the code, theta, a and kappa read once; ll, dtheta, da, dkappa
         # written once
         r["bound_ms"], r["bound_by"] = roof.bound(
@@ -1251,9 +1322,16 @@ def masked_checks(timer, roof, link: str, data: dict, gen, ragged, odd):
     """check_masked of one link at every shape the paths give it and at
     the edges: the minibatch (timed), the IWAE call, the padded batch, a
     ragged shape with sample axes and shared items, K = 1 and 8 at M off
-    the vector width."""
+    the vector width, and the VJP's item split's edge (the last split
+    shorter, B off the block, also with 2 samples)."""
     kw = dict(link=link)
+    tail = torch.randint(0, 3, MASKED_SPLIT_TAIL, generator=gen,
+                         device="cuda", dtype=torch.int8)
+    tail = ((tail == 2).float(), (tail > 0).float())
     return {
+        "split_tail": check_masked(timer, roof, *tail, gen, False, **kw),
+        "split_tail_S2": check_masked(timer, roof, *tail, gen, False,
+                                      samples=2, **kw),
         "minibatch": check_masked(timer, roof, *data["first"], gen, True,
                                   **kw),
         # the IWAE steps' call: S samples, per-sample items, shared data
@@ -1602,13 +1680,18 @@ def main() -> None:
     ptxas = {s: ptxas_lines(open(v["log"]).read()) for s, v in built.items()}
     roof = Roofline()
     # the one-pass kernels' registers, spills and blocks an SM, at every
-    # instantiated K and the wide variant (GRM/GPCM at C = 5, GPCM also at
-    # the largest compile-time C and the run-time path)
+    # instantiated K and the wide variant (GRM/GPCM at C = 5 and the
+    # run-time path at C = 9, GPCM also at its largest compile-time C); the
+    # masked VJP's, both readers
     occ = {f"{fam} K={k}" + (f" C={c}" if fam in FAMILIES else ""):
            occupancy(fam, k, c)
            for fam in LINK_KERNELS for k in (*range(1, 9), 12)
            for c in ((C, GPCM_FIXED_C, GPCM_FIXED_C + 1) if fam == "gpcm"
-                     else (C,))}
+                     else (C, GRM_FIXED_C + 1) if fam == "grm" else (C,))}
+    occ.update({f"masked_{link} K={k} {reader}":
+                occupancy(f"masked_{link}", k, packed)
+                for link in ("2pl", "3pl") for k in (*range(1, 9), 12)
+                for packed, reader in ((0, "dense"), (1, "int8"))})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {s: v["seconds"] for s, v in built.items()},
           "ptxas": ptxas, "sms": roof.sms, "max_sm_mhz": roof.max_sm_mhz,
@@ -1690,6 +1773,7 @@ def main() -> None:
         emit({"phase": "kernel_check", "kernel": f"masked_loglik_{link}",
               "dims": {"minibatch": [BATCH, M, K],
                        "padded_rows": data[link]["pad_rows"],
+                       "split_tail": list(MASKED_SPLIT_TAIL),
                        "ragged": list(RAGGED) + [K], "odd": list(ODD)},
               "results": masked[link], "card": smi})
     emit({"phase": "kernel_check", "kernel": "3pl extreme point",
@@ -1784,7 +1868,7 @@ def main() -> None:
         name = LINK_KERNELS[fam]["train"]
         kernels.append(kernel_entry(
             name, f"vibo_tpu/ops/pallas_{fam}.py:{line}",
-            "loglik_categorical.cu", full[fam][name],
+            f"loglik_{fam}.cu", full[fam][name],
             categorical[fam]["flagship"],
             occupancy=occ[f"{fam} K={K} C={C}"],
             library_note="no single PyTorch call gives the graded or "
@@ -1796,6 +1880,9 @@ def main() -> None:
             line, int8_line = masked_lines[link][direction]
             int8 = {k: v for k, v in mb["int8"][direction].items()
                     if k != "rel_err"}
+            extra = ({"occupancy": occ[f"masked_{link} K={K} dense"],
+                      "occupancy_int8": occ[f"masked_{link} K={K} int8"]}
+                     if direction == "bwd" else {})
             kernels.append(kernel_entry(
                 name, f"vibo_tpu/ops/pallas_elbo.py:{line} (dense reader; "
                 f"int8 reader :{int8_line})", "masked_loglik.cu",
@@ -1803,7 +1890,7 @@ def main() -> None:
                 int8_reader={**int8,
                              "launches": mini_readers[link][name]["int8"],
                              "note": int8_note},
-                launches_by_reader=mini_readers[link][name]))
+                launches_by_reader=mini_readers[link][name], **extra))
     dc = deep_checks["config5"]
     kernels.append(kernel_entry(
         "deep_link_train", "vibo_tpu/ops/pallas_deep.py:154 (_fused_deep_fwd;"

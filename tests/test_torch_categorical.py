@@ -239,3 +239,24 @@ def test_train_op_checks_inputs_and_launches_nothing_on_cpu(fam):
         top(torch.from_numpy(theta), torch.from_numpy(a), kap, pk.int())
     with pytest.raises(ValueError, match="do not match"):
         top(torch.from_numpy(theta), torch.from_numpy(a)[:4], kap, pk)
+
+
+@pytest.mark.parametrize("c", [3, 5, 8, 9])
+def test_grm_tables_match_jax(c):
+    """The port's `grm_tables` (D and log D a category, the table the GRM
+    kernel's prologue computes once a call) against JAX's `_grm_tables` on
+    sorted thresholds with one gap collapsing below the -1e-6 clamp and one
+    just above it, within 1e-6."""
+    rng = np.random.default_rng(c)
+    kappa = np.sort(rng.standard_normal((37, c - 1)), -1).astype(np.float32)
+    kappa[:, 1] = kappa[:, 0] + 1e-8              # collapses: clamped
+    kappa[0, 1] = kappa[0, 0] + 4e-6              # just wider than the clamp
+    kappa = np.sort(kappa, -1)
+    d, ld = pallas_grm.grm_tables(torch.from_numpy(kappa))
+    jd, jld = jgrm._grm_tables(jnp.asarray(kappa))
+    assert d.shape == ld.shape == (37, c)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd).T, rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(ld.numpy(), np.asarray(jld).T, rtol=1e-6,
+                               atol=1e-6)
+    assert np.isfinite(ld.numpy()).all()

@@ -1,11 +1,13 @@
-"""The launch plan of the port's one-pass training loglik kernels
-(`vibo_tpu_torch.ops.one_pass.split_plan`): at odd shapes, its student blocks
-and item splits cover every (student, item) cell of the code exactly once
-with no empty split, it cuts a large matrix into about TARGET_BLOCKS blocks,
-and both wrappers (`pallas_elbo.loglik_train_cuda`, `pallas_grm.train_cuda`)
-hand the kernel that plan with scratch sized from it. The wrappers run here
-against a stand-in for the C entry point, since the kernels run only on the
-card (`chip_smoke.py`)."""
+"""The launch plan of the port's one-pass training loglik kernels and of
+the masked loglik's VJP (`vibo_tpu_torch.ops.one_pass.split_plan`): at odd
+shapes and sample counts, its student blocks, item splits (and samples)
+cover every (sample, student, item) cell exactly once with no empty split,
+it cuts a large matrix into about TARGET_BLOCKS blocks, and the wrappers
+(`pallas_elbo.loglik_train_cuda`, `pallas_elbo.masked_bwd_cuda`,
+`pallas_grm.train_cuda`) hand the kernel that plan with scratch sized from
+it (GRM: and the slot table of its prologue). The wrappers run here against
+a stand-in for the C entry point, since the kernels run only on the card
+(`chip_smoke.py`)."""
 
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ SHAPES = [(1, 1), (63, 65), (64, 64), (65, 127), (777, 301), (1000, 300),
 
 def _tiles(plan, split, m):
     """The item tiles split `split` covers, as the kernels walk them
-    (csrc/loglik_{train,categorical}.cu)."""
+    (csrc/loglik_tile.cuh)."""
     ntiles = -(-m // one_pass.ITEMS_PER_TILE)
     lo = split * plan.tiles_per_split
     return range(lo, min(lo + plan.tiles_per_split, ntiles))
@@ -122,3 +124,80 @@ def test_categorical_wrapper_sizes_its_scratch_from_the_plan(c,
             (plan.blocks, k + c - 1, m)} <= set(record_scratch)
     assert da.shape == (m, k) and dk.shape == (m, c - 1)
     assert ll.shape == (bsz,) and dth.shape == (bsz, k)
+
+
+@pytest.mark.parametrize("bsz,m", SHAPES)
+@pytest.mark.parametrize("samples", [1, 3, 5])
+def test_masked_vjp_plan_covers_every_cell_once(bsz, m, samples):
+    """The VJP's grid (blocks, splits, samples): each sample's blocks and
+    splits cover its cells once, so every (sample, student, item) cell is
+    taken exactly once, with no empty split."""
+    plan = one_pass.split_plan(bsz, m, samples=samples)
+    assert plan.blocks == -(-bsz // one_pass.STUDENTS_PER_BLOCK)
+    count = np.stack([_covered(bsz, m, plan) for _ in range(samples)])
+    assert count.shape == (samples, bsz, m) and (count == 1).all()
+
+
+def test_masked_vjp_plan_fills_the_card_at_the_minibatch_shape():
+    """The minibatch (4,096 x 1,024) gets about TARGET_BLOCKS blocks with
+    one sample and with the IWAE steps' five; more samples, fewer splits."""
+    for samples in (1, 5):
+        plan = one_pass.split_plan(4096, 1024, samples=samples)
+        blocks = plan.blocks * plan.splits * samples
+        assert 0.75 * one_pass.TARGET_BLOCKS <= blocks
+        assert blocks <= 1.25 * one_pass.TARGET_BLOCKS
+    assert (one_pass.split_plan(4096, 1024, samples=5).splits
+            < one_pass.split_plan(4096, 1024).splits)
+
+
+@pytest.mark.parametrize("link", ["2pl", "3pl"])
+@pytest.mark.parametrize("reader", ["dense", "int8"])
+@pytest.mark.parametrize("samples,shared", [(1, False), (3, False),
+                                            (3, True)])
+def test_masked_wrapper_sizes_its_scratch_from_the_plan(link, reader,
+                                                        samples, shared,
+                                                        record_scratch,
+                                                        monkeypatch):
+    bsz, m, k = 4000, 700, 3
+    plan = one_pass.split_plan(bsz, m, samples=samples)
+    rec = _Recorder()
+    monkeypatch.setattr(pallas_elbo, "MASKED_BWD" if link == "2pl"
+                        else "MASKED_BWD_3PL",
+                        lambda *args, variant: rec(*args))
+    sa = 1 if shared else samples
+    g_hat = torch.zeros((sa, m)) if link == "3pl" else None
+    data = ((torch.zeros((1, bsz, m)), torch.zeros((1, bsz, m)), None)
+            if reader == "dense"
+            else (None, None, torch.zeros((1, bsz, m), dtype=torch.int8)))
+    grads = pallas_elbo.masked_bwd_cuda(
+        torch.zeros((samples, bsz)), torch.zeros((samples, bsz, k)),
+        torch.zeros((sa, m, k)), torch.zeros((sa, m)), g_hat, *data)
+    assert rec.args[-8:-1] == (samples, bsz, m, k, *plan)
+    want = {(plan.splits, samples, bsz, k), (plan.blocks, samples, m, k),
+            (plan.blocks, samples, m)}
+    assert want <= set(record_scratch)
+    assert grads[0].shape == (samples, bsz, k)
+    assert grads[1].shape == (sa, m, k) and grads[2].shape == (sa, m)
+    assert len(grads) == (4 if link == "3pl" else 3)
+
+
+@pytest.mark.parametrize("c,k", [(3, 2), (5, 4), (8, 8), (9, 4), (5, 9)])
+def test_grm_wrapper_sizes_its_slot_table(c, k, record_scratch, monkeypatch):
+    """GRM gets the table its prologue writes (at C <= 8, K <= 8), one
+    16-byte slot for each category of each item of each 64-item tile; GPCM
+    gets none."""
+    bsz, m = 1000, 300
+    rec = _Recorder()
+    monkeypatch.setattr(pallas_grm, "TRAIN", rec)
+    pallas_grm.train_cuda(rec, torch.zeros((bsz, k)), torch.zeros((m, k)),
+                          torch.zeros((m, c - 1)),
+                          torch.zeros((bsz, m), dtype=torch.int8))
+    n = -(-m // one_pass.ITEMS_PER_TILE) * c * one_pass.ITEMS_PER_TILE * 4
+    assert pallas_grm.slot_table_floats(m, c) == n
+    assert (n,) in record_scratch
+    assert rec.args[5] is not None
+    gpcm = _Recorder()
+    pallas_grm.train_cuda(gpcm, torch.zeros((bsz, k)), torch.zeros((m, k)),
+                          torch.zeros((m, c - 1)),
+                          torch.zeros((bsz, m), dtype=torch.int8))
+    assert gpcm.args[5] is None

@@ -1,14 +1,17 @@
 // The tile mapping and the item split the one-pass training logliks share
-// (loglik_train.cu for the binary links, loglik_categorical.cu for the
-// polytomous families), and the second pass that sums their partials.
+// (loglik_train.cu for the binary links, loglik_categorical.cuh for the
+// polytomous families) with the masked loglik's VJP (masked_loglik.cu), and
+// the second pass that sums their partials. cp_async16 serves a tile's
+// table copied a tile ahead (the compile-time GRM's slots).
 //
-// The grid is (student blocks, item splits). Block (x, y) owns the TBS = 64
-// students x * TBS .. and the item tiles y * tps .. (y + 1) * tps - 1 of
-// TMI = 64 items each; the host's plan (ops/one_pass.py split_plan) picks
-// the number of splits so that a large matrix gives about four blocks an
-// SM (two resident at a time), and no split is empty (check_plan refuses
-// any other plan). Before the split, a block walked all items and the flagship's 160
-// blocks left most SMs with one block of 8 warps.
+// The grid is (student blocks, item splits; the VJP's third dimension its
+// samples). Block (x, y) owns the TBS = 64 students x * TBS .. and the item
+// tiles y * tps .. (y + 1) * tps - 1 of TMI = 64 items each; the host's plan
+// (ops/one_pass.py split_plan) picks the number of splits so that a large
+// matrix gives about four blocks an SM (two resident at a time), and no
+// split is empty (check_plan refuses any other plan). Before the split, a
+// block walked all items and the flagship's 160 blocks left most SMs with
+// one block of 8 warps.
 //
 // Inside a block: NWARP = 16 warps, a warp takes SPT = 4 students, a lane
 // IPT = 2 consecutive items, so a warp reads 64 contiguous bytes of each
@@ -92,6 +95,21 @@ __device__ __forceinline__ void load_consts(const float* src,
 #pragma unroll
   for (; x < N; ++x)
     asm volatile("ld.shared.f32 %0, [%1];" : "=f"(out[x]) : "r"(addr + 4 * x));
+}
+
+// 16 bytes from device memory into shared memory without passing through
+// registers (cp.async, global and shared addresses 16-byte aligned); the
+// thread waits for its copies with cp_async_wait_all, and a barrier after
+// that makes them visible to the block.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // theta . a_j over all kt ability dims (the wide variant's logit).

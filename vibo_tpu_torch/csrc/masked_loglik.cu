@@ -26,7 +26,8 @@
 // this op apart from the uniform-cotangent one-pass training kernel of
 // loglik_train.cu).
 //
-// Leading sample axis: grid dimension y runs the S samples of one call;
+// Leading sample axis: the last grid dimension runs the S samples of one
+// call (the forward's y, the VJP's z);
 // theta, g, ll and dtheta carry the axis, a, b, g_hat and the data each
 // carry it or are shared (sample stride 0). A shared a (or b, g_hat) gets
 // the gradient summed over samples.
@@ -38,26 +39,41 @@
 // the cell (exp, log1p, reciprocals: chip_smoke.py counts them in this
 // library's SASS, at 16 a clock an SM) or its f32 operations bound it. The
 // 3PL cell takes about three times the special functions of the 2PL cell.
+// What holds the VJP back is latency: at that shape a grid of student
+// blocks alone gives one block of a few warps an SM.
 //
-// The simple design. Forward: a block of 8 warps owns 16 students (2 per
+// Forward (the simple design): a block of 8 warps owns 16 students (2 per
 // warp) and walks all items in tiles of 128, with the tile's a and the
 // link's per-item constants (b; for 3PL also log g, log(1-g) and g,
 // computed once per item, not once per cell) staged in shared memory; a
 // lane reads 4 neighbouring items of a row (one float4 of resp and one of
 // mask, or 4 bytes of code; a scalar tail for ragged M or unaligned rows)
 // and a warp-shuffle sum gives the per-person ll. A block owns whole rows,
-// so no cross-block reduction is needed. Backward: ONE pass over the data
-// (Pallas needs two, one per grid accumulation axis): a block owns 32
-// students (4 per warp), keeps their dtheta in registers, sums the tile's
-// da/db(/dg) over its warps in shared memory and writes them as the block's
-// partial; a second kernel sums the partials in block order. No float
-// atomics: every output is deterministic.
+// so no cross-block reduction is needed.
+//
+// VJP: ONE pass over the data (Pallas needs two, one per grid accumulation
+// axis) on loglik_tile.cuh's tile mapping and item split, the design of the
+// one-pass training kernels (loglik_train.cu): the grid is (student blocks
+// of 64, item splits, samples), planned on the host by ops/one_pass.py
+// split_plan so that the minibatch gets about four blocks an SM (two of 16
+// warps resident), and checked here. A warp takes 4 students, a lane 2
+// consecutive items of a 64-item tile; the tile's a and the link's
+// constants are staged in the lane-major slot order (no bank conflict) and
+// read in 16-byte loads; the next tile's item data and int8 codes are
+// loaded a tile ahead into registers, the next tile's dense rows asked into
+// L2; two barriers a tile. dtheta accumulates per student in lane-private
+// shared slots and is written as the split's partial; the tile's da/db(/dg)
+// are summed over the 16 warps and written as the block's partial. The
+// second pass (loglik_tile.cuh sum_rows_kernel: 32 columns a block, 8 row
+// groups) sums dtheta over the splits and each item gradient over the
+// student blocks, and over the samples where the item array is shared, in a
+// fixed order. No float atomics: every output is deterministic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "irt_links.cuh"
-#include "loglik_tile.cuh"  // KC, wide_dot: the K > 8 variant
+#include "loglik_tile.cuh"  // the backward's tile mapping; KC, wide_dot
 
 namespace {
 
@@ -70,8 +86,6 @@ constexpr int TMI = 128;                  // items per tile
 constexpr int IPT = TMI / 32;             // neighbouring items per lane
 constexpr int FWD_SPW = 2;                // forward: students per warp
 constexpr int FWD_TBS = NWARP * FWD_SPW;  // forward: students per block
-constexpr int BWD_SPW = 4;                // backward: students per warp
-constexpr int BWD_TBS = NWARP * BWD_SPW;  // backward: students per block
 
 // The 4 cells (m, r) of row `row` at items gj..gj+3 (zero outside [0, M)).
 template <bool PACKED>
@@ -238,9 +252,74 @@ masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
   }
 }
 
+// ---------------------------------------------------------------- VJP
+//
+// The backward takes loglik_tile.cuh's mapping (vibo::NWARP = 16 warps, a
+// warp SPT = 4 students, a lane IPT = 2 consecutive items, tiles of TMI =
+// 64 items), with the grid (student blocks, item splits, samples).
+
+// Blocks an SM the backward is built for: two of 16 warps (64 registers a
+// thread) up to K = 4, one above.
+template <int K>
+constexpr int bwd_min_blocks() {
+  return K <= 4 ? 2 : 1;
+}
+
+// Shared memory of the (Link, K) backward, in floats: the per-item
+// constants (first, 16-byte aligned), theta, the cotangent, a, the reduce
+// rows and the students' lane-private dtheta sums.
+template <class Link, int K>
+constexpr int bwd_smem_floats() {
+  return vibo::TMI * Link::NP + vibo::TBS * K + vibo::TBS +
+         vibo::TMI * vibo::a_stride(K) +
+         vibo::NWARP * (K + 1 + Link::NX) * vibo::TMI + vibo::TBS * K * 32;
+}
+
+// The (m, r) of student gs at the lane's IPT = 2 items gj, gj + 1 from the
+// dense (resp, mask) rows (zero outside [0, B) x [0, M)); vec: rows 8-byte
+// aligned (M even), so each is one float2 load.
+__device__ __forceinline__ void dense_pair(const float* __restrict__ resp,
+                                           const float* __restrict__ mask,
+                                           int gs, int gj, int B, int M,
+                                           bool vec, float (&mk)[2],
+                                           float (&r)[2]) {
+  const size_t at = static_cast<size_t>(gs) * M + gj;
+  if (gs < B && vec && gj + 2 <= M) {
+    const float2 vr = *reinterpret_cast<const float2*>(resp + at);
+    const float2 vm = *reinterpret_cast<const float2*>(mask + at);
+    r[0] = vr.x; r[1] = vr.y; mk[0] = vm.x; mk[1] = vm.y;
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const bool ok = gs < B && gj + p < M;
+    r[p] = ok ? resp[at + p] : 0.f;
+    mk[p] = ok ? mask[at + p] : 0.f;
+  }
+}
+
+// The dense rows of the warp's SPT students over tile m0 (2 x 256 bytes a
+// student) asked into L2 a tile ahead: 16 lanes, one 128-byte line each;
+// the cells' loads then wait on L2, not on device memory, and hold no
+// registers between tiles.
+__device__ __forceinline__ void dense_to_l2(const float* resp,
+                                            const float* mask, int s_warp,
+                                            int m0, int B, int M) {
+  const int lane = threadIdx.x & 31;
+  const int gs = s_warp + (lane >> 2), gj = m0 + (lane & 1) * 32;
+  if (lane >= 16 || gs >= B || gj >= M) return;
+  const float* row = ((lane >> 1) & 1 ? mask : resp) +
+                     static_cast<size_t>(gs) * M + gj;
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(row));
+}
+
 // WIDE: K = KC, one pass over the dims [k0, k0 + KC) of kt (loglik_tile.cuh).
+// Block (x, y, z): the students x * TBS .. of sample z on the item tiles
+// y * tps .. min((y + 1) * tps, tiles) - 1 (ops/one_pass.py split_plan).
+// Partials: part_dth (nsplit, S, B, kt); part_da (nblk, S, M, kt); part_db
+// and part_dg (nblk, S, M).
 template <class Link, int K, bool PACKED, bool WIDE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(vibo::THREADS, bwd_min_blocks<K>())
 masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
                   const float* __restrict__ a, long long a_ss,
                   const float* __restrict__ b, long long b_ss,
@@ -248,77 +327,138 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
                   const float* __restrict__ resp,
                   const float* __restrict__ mask,
                   const int8_t* __restrict__ pk, long long d_ss,
-                  float* __restrict__ dtheta, float* __restrict__ part_da,
+                  float* __restrict__ part_dth, float* __restrict__ part_da,
                   float* __restrict__ part_db, float* __restrict__ part_dg,
-                  int B, int M, int kt_arg, int k0_arg) {
+                  int B, int M, int tps, int kt_arg, int k0_arg) {
+  using vibo::IPT;
+  using vibo::NWARP;
+  using vibo::SPT;
+  using vibo::TBS;
+  constexpr int TM = vibo::TMI, NT = vibo::THREADS;
   constexpr int NP = Link::NP;
   constexpr int NC = K + 1 + Link::NX;  // reduced columns: da, db[, dg]
+  constexpr int KA = vibo::a_stride(K);
   const int kt = WIDE ? kt_arg : K, k0 = WIDE ? k0_arg : 0;
   const bool first = k0 == 0;  // writes db and dg
-  __shared__ float a_s[TMI][K];
-  __shared__ float p_s[NP][TMI];
-  __shared__ float red_s[NWARP][TMI][NC];
-  const size_t s = blockIdx.y;
-  g += s * B;
-  theta += s * B * kt;
-  dtheta += s * B * kt;
-  a += s * a_ss;
-  b += s * b_ss;
+  extern __shared__ __align__(16) float smem[];
+  float* p_s = smem;                          // NP constants a slot
+  float* th_s = p_s + TM * NP;                // TBS x K
+  float* g_s = th_s + TBS * K;                // the students' cotangents
+  float* a_s = g_s + TBS;                     // KA floats a slot
+  float* red_s = a_s + TM * KA;               // warp, column, slot
+  float* acc_s = red_s + NWARP * NC * TM;     // lane-private dtheta sums
+
+  const int S = gridDim.z;
+  const size_t smp = blockIdx.z;
+  g += smp * B;
+  theta += smp * B * kt;
+  a += smp * a_ss;
+  b += smp * b_ss;
+  if constexpr (Link::NX > 0) gh += smp * g_ss;
   if constexpr (PACKED) {
-    pk += s * d_ss;
+    pk += smp * d_ss;
   } else {
-    resp += s * d_ss;
-    mask += s * d_ss;
+    resp += smp * d_ss;
+    mask += smp * d_ss;
   }
-  const size_t blk = s * gridDim.x + blockIdx.x;   // partial's index
+  const size_t blk = static_cast<size_t>(blockIdx.x) * S + smp;
   part_da += blk * M * kt;
   part_db += blk * M;
-  if constexpr (Link::NX > 0) {
-    gh += s * g_ss;
-    part_dg += blk * M;
-  }
-  const bool vec = rows_aligned<PACKED>(resp, mask, pk, M, d_ss);
+  if constexpr (Link::NX > 0) part_dg += blk * M;
+  part_dth += (static_cast<size_t>(blockIdx.y) * S + smp) * B * kt;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int s0 = blockIdx.x * BWD_TBS + warp * BWD_SPW;
-  float th[BWD_SPW][K], dth[BWD_SPW][K], gi[BWD_SPW];
-#pragma unroll
-  for (int q = 0; q < BWD_SPW; ++q) {
-    const bool ok = s0 + q < B;
-    gi[q] = ok ? g[s0 + q] : 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      th[q][k] = ok && k0 + k < kt
-                     ? theta[static_cast<size_t>(s0 + q) * kt + k0 + k] : 0.f;
-      dth[q][k] = 0.f;
-    }
-  }
-
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * TBS, s_warp = s0 + warp * SPT;
+  const int split = blockIdx.y;
+  const int t_end = min((split + 1) * tps, (M + TM - 1) / TM);
+  const bool vec =
+      PACKED ? M % 2 == 0 && reinterpret_cast<uintptr_t>(pk) % 2 == 0
+             : M % 2 == 0 && reinterpret_cast<uintptr_t>(resp) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % 8 == 0;
   const int j0 = lane * IPT;
-  for (int m0 = 0; m0 < M; m0 += TMI) {
-    stage_items<Link, K>(a, b, gh, m0, M, a_s, p_s, k0, kt);
-    __syncthreads();
-    float aj[IPT][K], pj[IPT][NP], da[IPT][K], db[IPT], dx[IPT];
+  float* red_w = red_s + warp * NC * TM;
+  float* acc_w = acc_s + warp * SPT * K * 32;
+
+  vibo::stage_theta<K>(th_s, theta, kt, 1, s0, B, k0, kt);
+  for (int i = tid; i < TBS; i += NT) g_s[i] = s0 + i < B ? g[s0 + i] : 0.f;
+#pragma unroll
+  for (int c = 0; c < SPT * K; ++c) acc_w[c * 32 + lane] = 0.f;
+
+  // tile t's raw item data and (int8) codes, loaded a tile ahead; the dense
+  // rows are asked into L2 instead
+  uint32_t nxt[SPT];
+  float pa = 0.f, pb = 0.f, pg = 0.f;
+  auto prefetch = [&](int t) {
+    const int m0 = t * TM, n = min(TM, M - m0);
+    if constexpr (PACKED) {
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+        nxt[q] = vibo::load_code_pair(pk, s_warp + q, m0 + j0, B, M, vec);
+    } else {
+      dense_to_l2(resp, mask, s_warp, m0, B, M);
+    }
+    if constexpr (!WIDE) pa = vibo::prefetch1(a + static_cast<size_t>(m0) * K,
+                                              n * K);
+    pb = vibo::prefetch1(b + m0, n);
+    if constexpr (Link::NX > 0) pg = vibo::prefetch1(gh + m0, n);
+  };
+  if (split * tps < t_end) prefetch(split * tps);
+
+  for (int t = split * tps; t < t_end; ++t) {
+    const int m0 = t * TM;
+    // the previous tile's cells are done (its second barrier): a_s and p_s
+    // are free; its reduce reads only red_s
+    if constexpr (WIDE)
+      vibo::stage_items<K>(a_s, a, m0, M, k0, kt);
+    else
+      vibo::store_items<K>(a_s, pa);
+    if (tid < TM) {
+      float pp[NP];
+      Link::stage(pb, pg, pp);
+#pragma unroll
+      for (int x = 0; x < NP; ++x) p_s[vibo::slot_of(tid) * NP + x] = pp[x];
+    }
+    uint32_t cur[SPT];
+#pragma unroll
+    for (int q = 0; q < SPT; ++q) cur[q] = PACKED ? nxt[q] : 0u;
+    __syncthreads();  // staging visible; the previous reduce is done
+    if (t + 1 < t_end) prefetch(t + 1);
+
+    float da[IPT][K], db[IPT], dx[IPT];
 #pragma unroll
     for (int p = 0; p < IPT; ++p) {
       db[p] = 0.f;
       dx[p] = 0.f;
 #pragma unroll
-      for (int x = 0; x < NP; ++x) pj[p][x] = p_s[x][j0 + p];
+      for (int k = 0; k < K; ++k) da[p][k] = 0.f;
+    }
+
+#pragma unroll
+    for (int q = 0; q < SPT; ++q) {
+      const int sq = warp * SPT + q, gs = s0 + sq;
+      float mk[IPT], r[IPT];
+      if constexpr (PACKED) {
+#pragma unroll
+        for (int p = 0; p < IPT; ++p) {
+          const float c = static_cast<float>(vibo::code_at(cur[q], p));
+          mk[p] = fminf(c, 1.f);
+          r[p] = fmaxf(c - 1.f, 0.f);
+        }
+      } else {
+        dense_pair(resp, mask, gs, m0 + j0, B, M, vec, mk, r);
+      }
+      const float gq = g_s[sq];
+      float th[K], dq[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        aj[p][k] = a_s[j0 + p][k];
-        da[p][k] = 0.f;
+        th[k] = th_s[sq * K + k];
+        dq[k] = 0.f;
       }
-    }
-#pragma unroll
-    for (int q = 0; q < BWD_SPW; ++q) {
-      const int gs = s0 + q;
-      float mk[IPT], r[IPT];
-      read_cells<PACKED>(resp, mask, pk, static_cast<size_t>(gs) * M,
-                         m0 + j0, M, gs < B, vec, mk, r);
 #pragma unroll
       for (int p = 0; p < IPT; ++p) {
+        float pj[NP], aj[K];
+        vibo::load_consts<NP>(p_s + (p * 32 + lane) * NP, pj);
+        vibo::load_consts<K>(a_s + (p * 32 + lane) * KA, aj);
         float dot = 0.f;
         if constexpr (WIDE) {
           const int gj = m0 + j0 + p;
@@ -327,103 +467,68 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
                                  a + static_cast<size_t>(gj) * kt, kt);
         } else {
 #pragma unroll
-          for (int k = 0; k < K; ++k) dot = fmaf(th[q][k], aj[p][k], dot);
+          for (int k = 0; k < K; ++k) dot = fmaf(th[k], aj[k], dot);
         }
         float dxc;
-        const float dl =
-            gi[q] * Link::grad(dot - pj[p][0], pj[p], mk[p], r[p], dxc);
+        const float dl = gq * Link::grad(dot - pj[0], pj, mk[p], r[p], dxc);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-          dth[q][k] = fmaf(dl, aj[p][k], dth[q][k]);
-          da[p][k] = fmaf(dl, th[q][k], da[p][k]);
+          dq[k] = fmaf(dl, aj[k], dq[k]);
+          da[p][k] = fmaf(dl, th[k], da[p][k]);
         }
         db[p] -= dl;
-        if constexpr (Link::NX > 0) dx[p] += gi[q] * dxc;
+        if constexpr (Link::NX > 0) dx[p] = fmaf(gq, dxc, dx[p]);
       }
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc_w[(q * K + k) * 32 + lane] += dq[k];
     }
+
 #pragma unroll
     for (int p = 0; p < IPT; ++p) {
+      const int sl = p * 32 + lane;
 #pragma unroll
-      for (int k = 0; k < K; ++k) red_s[warp][j0 + p][k] = da[p][k];
-      red_s[warp][j0 + p][K] = db[p];
-      if constexpr (Link::NX > 0) red_s[warp][j0 + p][K + 1] = dx[p];
+      for (int k = 0; k < K; ++k) red_w[k * TM + sl] = da[p][k];
+      red_w[K * TM + sl] = db[p];
+      if constexpr (Link::NX > 0) red_w[(K + 1) * TM + sl] = dx[p];
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < TMI * NC; i += THREADS) {
-      const int j = i / NC, c = i % NC, gj = m0 + j;
+    __syncthreads();  // every warp's sums visible; a_s and p_s are free
+    // (column, slot) pairs by the constant TMI; slot sl is item
+    // (sl % 32) * IPT + sl / 32 of the tile
+    for (int i = tid; i < TM * NC; i += NT) {
+      const int col = i / TM, sl = i % TM;
+      const int gj = m0 + (sl % 32) * IPT + sl / 32;
       if (gj >= M) continue;
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < NWARP; ++w) sum += red_s[w][j][c];
-      if (c < K) {
-        if (k0 + c < kt) part_da[static_cast<size_t>(gj) * kt + k0 + c] = sum;
+      for (int w = 0; w < NWARP; ++w) sum += red_s[(w * NC + col) * TM + sl];
+      if (col < K) {
+        if (k0 + col < kt)
+          part_da[static_cast<size_t>(gj) * kt + k0 + col] = sum;
       } else if (!first) {
         continue;
-      } else if (c == K) {
+      } else if (col == K) {
         part_db[gj] = sum;
       } else {
         part_dg[gj] = sum;
       }
     }
-    __syncthreads();  // a_s, p_s and red_s are rewritten by the next tile
   }
 
+  // acc_w is this warp's own: its lanes' adds precede these reads
+  __syncwarp();
 #pragma unroll
-  for (int q = 0; q < BWD_SPW; ++q) {
+  for (int q = 0; q < SPT; ++q) {
+    const int gs = s_warp + q;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      float v = dth[q][k];
+      float v = acc_w[(q * K + k) * 32 + lane];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && s0 + q < B && k0 + k < kt)
-        dtheta[static_cast<size_t>(s0 + q) * kt + k0 + k] = v;
+      if (lane == 0 && gs < B && k0 + k < kt)
+        part_dth[static_cast<size_t>(gs) * kt + k0 + k] = v;
     }
   }
-}
-
-// Sums the partials in block order: da (Sa, M, K), db (Sb, M) and, when
-// part_dg is not null, dg (Sg, M), where a shared a (Sa = 1) sums the
-// partials of all S samples, and a per-sample a (Sa = S) those of its own
-// sample (likewise b and g_hat).
-__global__ void masked_reduce_kernel(const float* __restrict__ part_da,
-                                     const float* __restrict__ part_db,
-                                     const float* __restrict__ part_dg,
-                                     float* __restrict__ da,
-                                     float* __restrict__ db,
-                                     float* __restrict__ dg, int S, int nblk,
-                                     int M, int K, int a_shared, int b_shared,
-                                     int g_shared) {
-  const size_t n_da = static_cast<size_t>(a_shared ? 1 : S) * M * K;
-  const size_t n_db = static_cast<size_t>(b_shared ? 1 : S) * M;
-  const size_t n_dg =
-      part_dg != nullptr ? static_cast<size_t>(g_shared ? 1 : S) * M : 0;
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const float* part;
-  float* out;
-  size_t width, so, col;
-  int shared;
-  if (i < n_da) {
-    width = static_cast<size_t>(M) * K;
-    so = i / width; col = i % width; part = part_da; shared = a_shared;
-    out = da + i;
-  } else if (i < n_da + n_db) {
-    width = M;
-    so = (i - n_da) / width; col = (i - n_da) % width; part = part_db;
-    shared = b_shared; out = db + (i - n_da);
-  } else if (i < n_da + n_db + n_dg) {
-    width = M;
-    so = (i - n_da - n_db) / width; col = (i - n_da - n_db) % width;
-    part = part_dg; shared = g_shared; out = dg + (i - n_da - n_db);
-  } else {
-    return;
-  }
-  const size_t lo = shared ? 0 : so, hi = shared ? S : so + 1;
-  float sum = 0.f;
-  for (size_t t = lo; t < hi; ++t)
-    for (int k = 0; k < nblk; ++k)
-      sum += part[(t * nblk + k) * width + col];
-  *out = sum;
 }
 
 template <class Link, int K, bool WIDE = false>
@@ -449,18 +554,22 @@ cudaError_t launch_bwd(const float* g, const float* theta, const float* a,
                        long long a_ss, const float* b, long long b_ss,
                        const float* gh, long long g_ss, const float* resp,
                        const float* mask, const int8_t* pk, long long d_ss,
-                       float* dtheta, float* part_da, float* part_db,
+                       float* part_dth, float* part_da, float* part_db,
                        float* part_dg, int S, int B, int M, int nblk,
-                       cudaStream_t stream, int kt = K, int k0 = 0) {
-  const dim3 grid(nblk, S);
-  if (pk != nullptr)
-    masked_bwd_kernel<Link, K, true, WIDE><<<grid, THREADS, 0, stream>>>(
-        g, theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, dtheta,
-        part_da, part_db, part_dg, B, M, kt, k0);
-  else
-    masked_bwd_kernel<Link, K, false, WIDE><<<grid, THREADS, 0, stream>>>(
-        g, theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, dtheta,
-        part_da, part_db, part_dg, B, M, kt, k0);
+                       int nsplit, int tps, cudaStream_t stream, int kt = K,
+                       int k0 = 0) {
+  const size_t smem = sizeof(float) * bwd_smem_floats<Link, K>();
+  auto kernel = pk != nullptr ? masked_bwd_kernel<Link, K, true, WIDE>
+                              : masked_bwd_kernel<Link, K, false, WIDE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(nblk, nsplit, S), vibo::THREADS, smem, stream>>>(
+      g, theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, part_dth,
+      part_da, part_db, part_dg, B, M, tps, kt, k0);
   return cudaGetLastError();
 }
 
@@ -504,19 +613,34 @@ int fwd_entry(const void* theta, const void* a, long long a_ss,
   return static_cast<int>(err);
 }
 
+// The second pass's segment of one item gradient: the partials (nblk, S,
+// n) summed over the student blocks, and over the samples too when the
+// item array is shared (sample stride 0): rows in a fixed order either way.
+vibo::SumSeg item_seg(const float* part, void* out, long long n, int nblk,
+                      int S, bool shared) {
+  return shared ? vibo::SumSeg{part, static_cast<float*>(out), n, nblk * S,
+                               1, 1, 0}
+                : vibo::SumSeg{part, static_cast<float*>(out), n * S, nblk,
+                               1, 1, 0};
+}
+
 // The backward entry points' common body; gh, part_dg and dg are null for
 // 2PL.
 template <class Link>
 int bwd_entry(const void* g, const void* theta, const void* a, long long a_ss,
               const void* b, long long b_ss, const void* gh, long long g_ss,
               const void* resp, const void* mask, const void* pk,
-              long long d_ss, void* dtheta, void* part_da, void* part_db,
-              void* part_dg, void* da, void* db, void* dg, int S, int B,
-              int M, int K, int scratch_blocks, void* stream_ptr) {
-  if (bad_sizes(S, B, M, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const int nblk = (B + BWD_TBS - 1) / BWD_TBS;
-  if (scratch_blocks != nblk) return static_cast<int>(cudaErrorInvalidValue);
+              long long d_ss, void* dtheta, void* part_dth, void* part_da,
+              void* part_db, void* part_dg, void* da, void* db, void* dg,
+              int S, int B, int M, int K, int nblk, int nsplit, int tps,
+              void* stream_ptr) {
+  if (bad_sizes(S, B, M, K) || !vibo::check_plan(B, M, nblk, nsplit, tps))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  float* pt = static_cast<float*>(part_dth);
+  float* pa = static_cast<float*>(part_da);
+  float* pb = static_cast<float*>(part_db);
+  float* pg = static_cast<float*>(part_dg);
   if (nblk > 0) {
     const float* gv = static_cast<const float*>(g);
     const float* t = static_cast<const float*>(theta);
@@ -526,17 +650,13 @@ int bwd_entry(const void* g, const void* theta, const void* a, long long a_ss,
     const float* rv = static_cast<const float*>(resp);
     const float* mv = static_cast<const float*>(mask);
     const int8_t* p = static_cast<const int8_t*>(pk);
-    float* dt = static_cast<float*>(dtheta);
-    float* pa = static_cast<float*>(part_da);
-    float* pb = static_cast<float*>(part_db);
-    float* pg = static_cast<float*>(part_dg);
     cudaError_t err = cudaErrorInvalidValue;
     switch (K) {
 #define VIBO_CASE(KK)                                                       \
   case KK:                                                                  \
     err = launch_bwd<Link, KK>(gv, t, av, a_ss, bv, b_ss, hv, g_ss, rv, mv, \
-                               p, d_ss, dt, pa, pb, pg, S, B, M, nblk,      \
-                               stream);                                     \
+                               p, d_ss, pt, pa, pb, pg, S, B, M, nblk,      \
+                               nsplit, tps, stream);                        \
     break;
       VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
       VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
@@ -544,27 +664,41 @@ int bwd_entry(const void* g, const void* theta, const void* a, long long a_ss,
       default:  // K > 8: one wide pass a chunk of KC dims
         err = cudaSuccess;
         for (int k0 = 0; k0 < K && err == cudaSuccess; k0 += vibo::KC)
-          err = launch_bwd<Link, vibo::KC, true>(gv, t, av, a_ss, bv, b_ss, hv,
-                                                 g_ss, rv, mv, p, d_ss, dt, pa,
-                                                 pb, pg, S, B, M, nblk, stream,
-                                                 K, k0);
+          err = launch_bwd<Link, vibo::KC, true>(
+              gv, t, av, a_ss, bv, b_ss, hv, g_ss, rv, mv, p, d_ss, pt, pa,
+              pb, pg, S, B, M, nblk, nsplit, tps, stream, K, k0);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int a_shared = a_ss == 0, b_shared = b_ss == 0, g_shared = g_ss == 0;
-  const size_t n_out =
-      static_cast<size_t>(a_shared ? 1 : S) * M * K +
-      static_cast<size_t>(b_shared ? 1 : S) * M +
-      (part_dg != nullptr ? static_cast<size_t>(g_shared ? 1 : S) * M : 0);
-  if (n_out == 0) return static_cast<int>(cudaSuccess);
-  const int threads = 256;
-  const unsigned grid = static_cast<unsigned>((n_out + threads - 1) / threads);
-  masked_reduce_kernel<<<grid, threads, 0, stream>>>(
-      static_cast<const float*>(part_da), static_cast<const float*>(part_db),
-      static_cast<const float*>(part_dg), static_cast<float*>(da),
-      static_cast<float*>(db), static_cast<float*>(dg), S, nblk, M, K,
-      a_shared, b_shared, g_shared);
-  return static_cast<int>(cudaGetLastError());
+  // second pass: dtheta over the splits; da, db[, dg] over the student
+  // blocks (and the samples, where shared)
+  const long long mk = static_cast<long long>(M) * K;
+  const vibo::SumSeg segs[] = {
+      {pt, static_cast<float*>(dtheta), static_cast<long long>(S) * B * K,
+       nsplit, 1, 1, 0},
+      item_seg(pa, da, mk, nblk, S, a_ss == 0),
+      item_seg(pb, db, M, nblk, S, b_ss == 0),
+      item_seg(pg, dg, pg != nullptr ? M : 0, nblk, S, g_ss == 0)};
+  return static_cast<int>(vibo::launch_sum_rows(segs, 4, stream));
+}
+
+// The backward kernel of (Link, K, reader) (K > 8: the wide variant) and its
+// dynamic shared memory, for the occupancy query.
+template <class Link, bool PACKED>
+const void* bwd_kernel_of(int K, size_t* smem) {
+  switch (K) {
+#define VIBO_CASE(KK)                                                 \
+  case KK:                                                            \
+    *smem = sizeof(float) * bwd_smem_floats<Link, KK>();              \
+    return reinterpret_cast<const void*>(                             \
+        masked_bwd_kernel<Link, KK, PACKED, false>);
+    VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
+    VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
+#undef VIBO_CASE
+  }
+  *smem = sizeof(float) * bwd_smem_floats<Link, vibo::KC>();
+  return reinterpret_cast<const void*>(
+      masked_bwd_kernel<Link, vibo::KC, PACKED, true>);
 }
 
 }  // namespace
@@ -602,37 +736,66 @@ int masked_loglik_3pl_fwd(const void* theta, const void* a, long long a_ss,
 
 // The VJP for the cotangent g (S, B): dtheta (S, B, K); da (Sa, M, K) and
 // db (Sb, M), with Sa = 1 when a_ss == 0 (shared a) else S, likewise Sb.
-// Scratch part_da (S * nblk, M, K) and part_db (S * nblk, M), with
-// nblk = ceil(B / 32), which the caller passes so a mismatch is refused
-// instead of overrunning the scratch. Other arguments as the forward's.
+// The plan (nblk, nsplit, tps) of ops/one_pass.py split_plan for (B, M, S),
+// checked here (loglik_tile.cuh check_plan) so a mismatch is refused
+// instead of overrunning the scratch: part_dth (nsplit, S, B, K), part_da
+// (nblk, S, M, K) and part_db (nblk, S, M). Other arguments as the
+// forward's.
 int masked_loglik_2pl_bwd(const void* g, const void* theta, const void* a,
                           long long a_ss, const void* b, long long b_ss,
                           const void* resp, const void* mask, const void* pk,
-                          long long d_ss, void* dtheta, void* part_da,
-                          void* part_db, void* da, void* db, int S, int B,
-                          int M, int K, int scratch_blocks,
-                          void* stream_ptr) {
+                          long long d_ss, void* dtheta, void* part_dth,
+                          void* part_da, void* part_db, void* da, void* db,
+                          int S, int B, int M, int K, int nblk, int nsplit,
+                          int tps, void* stream_ptr) {
   return bwd_entry<Link2PL>(g, theta, a, a_ss, b, b_ss, nullptr, 0, resp,
-                            mask, pk, d_ss, dtheta, part_da, part_db, nullptr,
-                            da, db, nullptr, S, B, M, K, scratch_blocks,
-                            stream_ptr);
+                            mask, pk, d_ss, dtheta, part_dth, part_da,
+                            part_db, nullptr, da, db, nullptr, S, B, M, K,
+                            nblk, nsplit, tps, stream_ptr);
 }
 
 // As masked_loglik_2pl_bwd, with g_hat as in masked_loglik_3pl_fwd, the
-// scratch part_dg (S * nblk, M) and the output dg (Sg, M), Sg = 1 when
+// scratch part_dg (nblk, S, M) and the output dg (Sg, M), Sg = 1 when
 // g_ss == 0 else S.
 int masked_loglik_3pl_bwd(const void* g, const void* theta, const void* a,
                           long long a_ss, const void* b, long long b_ss,
                           const void* g_hat, long long g_ss, const void* resp,
                           const void* mask, const void* pk, long long d_ss,
-                          void* dtheta, void* part_da, void* part_db,
-                          void* part_dg, void* da, void* db, void* dg, int S,
-                          int B, int M, int K, int scratch_blocks,
-                          void* stream_ptr) {
+                          void* dtheta, void* part_dth, void* part_da,
+                          void* part_db, void* part_dg, void* da, void* db,
+                          void* dg, int S, int B, int M, int K, int nblk,
+                          int nsplit, int tps, void* stream_ptr) {
   return bwd_entry<Link3PL>(g, theta, a, a_ss, b, b_ss, g_hat, g_ss, resp,
-                            mask, pk, d_ss, dtheta, part_da, part_db, part_dg,
-                            da, db, dg, S, B, M, K, scratch_blocks,
-                            stream_ptr);
+                            mask, pk, d_ss, dtheta, part_dth, part_da,
+                            part_db, part_dg, da, db, dg, S, B, M, K, nblk,
+                            nsplit, tps, stream_ptr);
+}
+
+// Registers, local (spill) bytes and blocks an SM of the backward kernel of
+// (link, K, reader) (link 0: 2PL, 1: 3PL; packed 0: dense, 1: int8; K > 8:
+// the wide variant), into out[0..2].
+int masked_bwd_occupancy(int link, int K, int packed, int* out) {
+  size_t smem = 0;
+  const void* fn =
+      link == 0 ? (packed ? bwd_kernel_of<Link2PL, true>(K, &smem)
+                          : bwd_kernel_of<Link2PL, false>(K, &smem))
+                : (packed ? bwd_kernel_of<Link3PL, true>(K, &smem)
+                          : bwd_kernel_of<Link3PL, false>(K, &smem));
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      vibo::THREADS, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

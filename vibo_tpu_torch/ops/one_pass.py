@@ -1,10 +1,11 @@
-"""The launch plan of the one-pass training loglik kernels
-(`csrc/loglik_train.cu`, `csrc/loglik_categorical.cu`), which share the tile
-mapping of `csrc/loglik_tile.cuh`: blocks of STUDENTS_PER_BLOCK students,
-items in tiles of ITEMS_PER_TILE, and the tiles cut into runs (splits), one
-run for each block of the grid's second dimension. The kernels check the
-plan they are given and refuse any other, so the scratch sized from it here
-cannot be overrun."""
+"""The launch plan of the kernels that share the tile mapping of
+`csrc/loglik_tile.cuh`: the one-pass training logliks (`csrc/loglik_train.cu`,
+`csrc/loglik_grm.cu`, `csrc/loglik_gpcm.cu`) and the masked loglik's VJP
+(`csrc/masked_loglik.cu`): blocks of STUDENTS_PER_BLOCK students, items in
+tiles of ITEMS_PER_TILE, and the tiles cut into runs (splits), one run for
+each block of the grid's second dimension (the VJP's third dimension runs
+its samples). The kernels check the plan they are given and refuse any
+other, so the scratch sized from it here cannot be overrun."""
 
 from __future__ import annotations
 
@@ -26,14 +27,15 @@ class Plan(NamedTuple):
     tiles_per_split: int    # tiles a run (the last run may be shorter)
 
 
-def split_plan(bsz: int, m: int) -> Plan:
-    """The plan of a (bsz, m) code: as many splits as bring the grid to
-    about TARGET_BLOCKS blocks, at most one a tile, then the fewest splits
-    of that run length (so none is empty)."""
+def split_plan(bsz: int, m: int, samples: int = 1) -> Plan:
+    """The plan of a (bsz, m) code, for `samples` samples a launch: as many
+    splits as bring the grid (blocks x splits x samples) to about
+    TARGET_BLOCKS blocks, at most one a tile, then the fewest splits of
+    that run length (so none is empty)."""
     nblk = -(-bsz // STUDENTS_PER_BLOCK)
     ntiles = -(-m // ITEMS_PER_TILE)
     if ntiles == 0:
         return Plan(nblk, 1, 1)
-    want = min(ntiles, max(1, -(-TARGET_BLOCKS // max(nblk, 1))))
+    want = min(ntiles, max(1, -(-TARGET_BLOCKS // max(nblk * samples, 1))))
     tps = -(-ntiles // want)
     return Plan(nblk, -(-ntiles // tps), tps)

@@ -54,15 +54,15 @@ MASKED_FWD = _build.register(_build.Kernel(
     [P, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
 MASKED_BWD = _build.register(_build.Kernel(
     "masked_loglik_2pl_bwd", "masked_loglik.cu", "masked_loglik_2pl_bwd",
-    [P, P, P, L, P, L, P, P, P, L, P, P, P, P, P, I, I, I, I, I, P]))
+    [P, P, P, L, P, L, P, P, P, L, P, P, P, P, P, P, I, I, I, I, I, I, I,
+     P]))
 MASKED_FWD_3PL = _build.register(_build.Kernel(
     "masked_loglik_3pl_fwd", "masked_loglik.cu", "masked_loglik_3pl_fwd",
     [P, P, L, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
 MASKED_BWD_3PL = _build.register(_build.Kernel(
     "masked_loglik_3pl_bwd", "masked_loglik.cu", "masked_loglik_3pl_bwd",
-    [P, P, P, L, P, L, P, L, P, P, P, L, P, P, P, P, P, P, P, I, I, I, I, I,
-     P]))
-MASKED_BWD_STUDENTS = 32    # BWD_TBS in csrc/masked_loglik.cu
+    [P, P, P, L, P, L, P, L, P, P, P, L, P, P, P, P, P, P, P, P, I, I, I, I,
+     I, I, I, P]))
 
 
 # ----------------------------------------------------- 3PL cell math
@@ -419,27 +419,31 @@ def masked_fwd_cuda(theta, a, b, g_hat, resp, mask, packed):
 
 def masked_bwd_cuda(g, theta, a, b, g_hat, resp, mask, packed):
     """Launch the link's backward kernels for the cotangent g (S, B):
-    (dtheta (S, B, K), da (Sa, M, K), db (Sb, M)[, dg_hat (Sg, M)])."""
+    (dtheta (S, B, K), da (Sa, M, K), db (Sb, M)[, dg_hat (Sg, M)]). The
+    scratch holds the per-split dtheta and the per-block item partials of
+    the plan (`one_pass.split_plan` over the S samples)."""
     s, bsz, k = theta.shape
     m = a.shape[1]
     dev = theta.device
     f32 = dict(dtype=torch.float32, device=dev)
-    nblk = -(-bsz // MASKED_BWD_STUDENTS)
+    plan = split_plan(bsz, m, samples=s)
+    nblk = plan.blocks
     dtheta = torch.empty((s, bsz, k), **f32)
-    part_da = torch.empty((s * nblk, m, k), **f32)
-    part_db = torch.empty((s * nblk, m), **f32)
+    part_dth = torch.empty((plan.splits, s, bsz, k), **f32)
+    part_da = torch.empty((nblk, s, m, k), **f32)
+    part_db = torch.empty((nblk, s, m), **f32)
     da = torch.empty(a.shape, **f32)
     db = torch.empty(b.shape, **f32)
     rp, mp, pp, data, reader = _data_args(resp, mask, packed)
     head = (g.data_ptr(), theta.data_ptr(), *_item_args(a, b, g_hat, s), rp,
             mp, pp, _sample_stride(data, s), dtheta.data_ptr(),
-            part_da.data_ptr(), part_db.data_ptr())
-    tail = (s, bsz, m, k, nblk, torch.cuda.current_stream(dev).cuda_stream)
+            part_dth.data_ptr(), part_da.data_ptr(), part_db.data_ptr())
+    tail = (s, bsz, m, k, *plan, torch.cuda.current_stream(dev).cuda_stream)
     if g_hat is None:
         MASKED_BWD(*head, da.data_ptr(), db.data_ptr(), *tail,
                    variant=reader)
         return dtheta, da, db
-    part_dg = torch.empty((s * nblk, m), **f32)
+    part_dg = torch.empty((nblk, s, m), **f32)
     dg = torch.empty(g_hat.shape, **f32)
     MASKED_BWD_3PL(*head, part_dg.data_ptr(), da.data_ptr(), db.data_ptr(),
                    dg.data_ptr(), *tail, variant=reader)

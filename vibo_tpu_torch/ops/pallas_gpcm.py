@@ -9,7 +9,7 @@ the value and every gradient from one pass over the code, dtheta exact
 for any per-person cotangent, da and dkap scaled by the first cotangent,
 the step sums reparameterized outside the op (`links.gpcm_cumsteps`), a
 leading sample axis one launch a sample. On a CUDA tensor the op runs
-csrc/loglik_categorical.cu (`loglik_gpcm_train`) at every C in [3, 32]
+csrc/loglik_gpcm.cu (`loglik_gpcm_train`) at every C in [3, 32]
 (the JAX op sends C > 16 to its XLA twin; the kernel takes C <= 8 as a
 compile-time value, its exponentials and dkap sums in registers, and any
 larger C at run time); on a CPU tensor the plain PyTorch version beside
@@ -24,7 +24,7 @@ from vibo_tpu_torch.ops import _build
 from vibo_tpu_torch.ops.pallas_grm import ARGTYPES, decode_categories, train_call
 
 TRAIN = _build.register(_build.Kernel(
-    "loglik_gpcm_train", "loglik_categorical.cu", "loglik_gpcm_train",
+    "loglik_gpcm_train", "loglik_gpcm.cu", "loglik_gpcm_train",
     ARGTYPES))
 
 

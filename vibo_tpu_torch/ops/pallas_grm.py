@@ -15,9 +15,11 @@ autograd chains dkappa through that small (M, C-1) map. A leading sample
 axis (theta (S, B, K)) runs one launch a sample, with a and kappa per
 sample ((S, M, K), (S, M, C-1)) or shared, on one shared code.
 
-On a CUDA tensor the op runs csrc/loglik_categorical.cu (`loglik_grm_train`)
-at every C in [3, 32]; on a CPU tensor the plain PyTorch version beside it.
-Nothing else falls back.
+On a CUDA tensor the op runs csrc/loglik_grm.cu (`loglik_grm_train`)
+at every C in [3, 32]: at C <= 8 (K <= 8) a prologue writes each item's
+thresholds, D and log D once a call (the counterpart of JAX's
+`_grm_tables`), and the main kernel takes C at compile time; on a CPU
+tensor the plain PyTorch version beside it. Nothing else falls back.
 """
 
 from __future__ import annotations
@@ -28,13 +30,14 @@ import torch
 
 from vibo_tpu_torch.ops import _build
 from vibo_tpu_torch.ops._build import I, P
-from vibo_tpu_torch.ops.one_pass import split_plan
+from vibo_tpu_torch.ops.one_pass import ITEMS_PER_TILE, split_plan
 from vibo_tpu_torch.ops.packing import decode_packed
 
 L = ctypes.c_longlong
-ARGTYPES = [P, L, L, P, P, P, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I, P]
+ARGTYPES = [P, L, L, P, P, P, P, P, L, L, P, P, P, P, P, I, I, I, I, I, I, I,
+            P]
 TRAIN = _build.register(_build.Kernel(
-    "loglik_grm_train", "loglik_categorical.cu", "loglik_grm_train",
+    "loglik_grm_train", "loglik_grm.cu", "loglik_grm_train",
     ARGTYPES))
 MIN_C, MAX_C = 3, 32        # categories the kernel takes (VIBOConfig's range)
 
@@ -94,16 +97,28 @@ def loglik_grm_train_plain(theta, a, kappa, packed):
         return ll.sum(-1), dbase @ a, dbase.T @ theta, dk
 
 
+def slot_table_floats(m: int, c: int) -> int:
+    """Floats of the GRM kernel's per-call slot table: one (lo, hi, D,
+    log D) slot for every category of every item of every
+    ITEMS_PER_TILE-item tile (its prologue writes it where the kernel takes
+    C at compile time, C <= 8 and K <= 8)."""
+    return -(-m // ITEMS_PER_TILE) * c * ITEMS_PER_TILE * 4
+
+
 def train_cuda(kernel, theta, a, kap, packed):
-    """Launch one family's csrc/loglik_categorical.cu entry on theta (B, K)
+    """Launch one family's entry (csrc/loglik_grm.cu, loglik_gpcm.cu: the
+    kernel of loglik_categorical.cuh) on theta (B, K)
     of any strides -> (ll (B,), dtheta (B, K), da (M, K), dkappa (M, C-1)),
     da and dkappa transposed views of the kernel's one (K + C - 1, M)
     output. The scratch holds the per-block and per-split partials of the
-    plan (`one_pass.split_plan`)."""
+    plan (`one_pass.split_plan`) and, for GRM, the slot table its prologue
+    writes (`slot_table_floats`)."""
     bsz, k = theta.shape
     m, cm1 = kap.shape
     f32 = dict(dtype=torch.float32, device=theta.device)
     plan = split_plan(bsz, m)
+    tab = (torch.empty((slot_table_floats(m, cm1 + 1),), **f32)
+           if kernel is TRAIN else None)
     ll = torch.empty((bsz,), **f32)
     dth = torch.empty((bsz, k), **f32)
     part_dth = torch.empty((plan.splits, bsz, k), **f32)
@@ -111,7 +126,8 @@ def train_cuda(kernel, theta, a, kap, packed):
     part = torch.empty((plan.blocks, k + cm1, m), **f32)
     grads = torch.empty((k + cm1, m), **f32)
     kernel(theta.data_ptr(), theta.stride(0), theta.stride(1), a.data_ptr(),
-           kap.data_ptr(), packed.data_ptr(), dth.data_ptr(), dth.stride(0),
+           kap.data_ptr(), None if tab is None else tab.data_ptr(),
+           packed.data_ptr(), dth.data_ptr(), dth.stride(0),
            dth.stride(1), ll.data_ptr(), part_dth.data_ptr(),
            part_llp.data_ptr(), part.data_ptr(), grads.data_ptr(),
            bsz, m, k, cm1 + 1, *plan,
