@@ -10,7 +10,7 @@ PARENT_DIR again, so drift of the card or its host over the call falls on
 both sides alike. Each run builds its kernels in its own tree. A run's
 whole output goes to chiprun_out/ab/<n>_<side>.log. Then one JSON line per
 run: its exit code and seconds, each kernel's time from its kernels line
-(with the one-pass kernels' and the masked VJP's main kernel, second pass
+(with the one-pass kernels' and the masked loglik's main kernel, second pass
 and GRM prologue apart, the (B, K) layout and the int8 reader where it has
 them; the deep
 link's kernel also at the 10,240 x 1,024 shape and at widths 256 and

@@ -18,15 +18,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      IWAE steps' 5 samples, and on the padded last batch, and all of them at
      a ragged shape and at K = 1 and 8 with M off the vector width, the
      masked loglik also with a leading sample axis and shared items, and
-     its VJP at its item split's edge (4,000 x 700: the last split shorter,
-     B off the block; also with 2 samples), its main kernel and second pass
-     timed apart at the minibatch; the
+     both directions at their item split's edge (4,000 x 700: the last
+     split shorter, B off the block; also with 2 samples), each direction's
+     main kernel and second pass timed apart at the minibatch and a second
+     launch of each bitwise equal to the first; the
      one-pass kernels also at the edges of their item split (M off the
      split's width, K = 4 and 12 at 777 x 301, all-missing student rows,
      which must give exactly 0 ll and dtheta, 10,240 x 700 with the last
      split shorter, 40 students), their main kernel and second pass timed
-     apart at the flagship; the 3PL
-     kernels also at the extreme point theta = +-30, g_hat = -25; the GRM
+     apart at the flagship, a second launch bitwise equal to the first; the
+     3PL kernels also at the extreme point theta = +-30, g_hat = -25; the GRM
      and the GPCM one-pass kernels (C = 5) at the flagship on each family's
      own data, at the ragged shape, at K = 1, 4, 8 and 12 with M off the
      vector width, at the split's edges, at C = 3, 5, 8 (both families'
@@ -93,8 +94,10 @@ over the C categories, so those MUFU.EX2 lines count C times a cell; a GRM
 item stages its table in C + 1 steps, or at C <= 8 in C slots of the
 prologue (grm_table_kernel), and a GRM cell counts GRM_CELL_MUFU, the
 function's special functions whatever kernel computes it (the SASS's
-count beside it). The build phase also prints each one-pass kernel's and
-the masked VJP's registers, spills and blocks an SM; the deep kernel's at
+count beside it), as a 2PL training cell counts TRAIN_2PL_CELL_MUFU and
+a 2PL masked forward cell MASKED_FWD_2PL_CELL_MUFU. The
+build phase also prints each one-pass kernel's and the masked forward's
+and VJP's registers, spills and blocks an SM; the deep kernel's at
 H = 128 are in its config-5 check. The deep kernel's operations are the
 larger of its three products on the bf16 tensor cores (6 H^2 a pair at 989
 TFLOP/s) and its f32 work outside them (DEEP_PAIR_OPS a pair at 67
@@ -167,11 +170,19 @@ DEEP_STEPS, DEEP_DEFAULT_STEPS = 40, 10   # fused, JAX-default full batch
 # dbo)
 DEEP_PAIR_OPS = lambda h: 17 * h + 20   # noqa: E731
 # cells one thread covers in one pass of a kernel's unrolled tile loop
-# (students per warp x items per lane, csrc/loglik_tile.cuh and
-# csrc/masked_loglik.cu)
-CELLS_PER_PASS = {"loglik_train_kernel": 4 * 2,
+# (students per warp x items per lane, csrc/loglik_tile.cuh)
+CELLS_PER_PASS = {"loglik_train_kernel": 4 * 2, "loglik_2pl_kernel": 4 * 2,
                   "loglik_categorical_kernel": 4 * 2,
-                  "masked_fwd_kernel": 2 * 4, "masked_bwd_kernel": 4 * 2}
+                  "masked_fwd_kernel": 4 * 2, "masked_bwd_kernel": 4 * 2}
+# The special functions a 2PL training cell needs: exp and a reciprocal, as
+# JAX's cost estimate counts them (transcendentals = 2 B M,
+# vibo_tpu/ops/pallas_elbo.py:1274). The 2PL kernel (loglik_2pl_kernel)
+# issues three (ex2, rcp and an lg2 for log1p); the bound reads the
+# function's work, so it keeps this count and prints the SASS's beside it.
+TRAIN_2PL_CELL_MUFU = 2
+# Likewise the 2PL masked forward: one a cell (transcendentals = B M,
+# vibo_tpu/ops/pallas_elbo.py:270), where its kernel issues two (ex2, lg2).
+MASKED_FWD_2PL_CELL_MUFU = 1
 # The special functions a GRM cell needs, as the run-time-C kernel issues
 # them (its SASS: two exp and four reciprocals). The compile-time-C kernel
 # computes the same function with fewer (one reciprocal for both sigmoids,
@@ -179,19 +190,23 @@ CELLS_PER_PASS = {"loglik_train_kernel": 4 * 2,
 # implementation's, so it keeps this count and prints the SASS's beside it.
 GRM_CELL_MUFU = 6
 GRM_FIXED_C = 8                           # GRM's compile-time C up to here
-MASKED_SPLIT_TAIL = (4000, 700)           # masked VJP: 6 splits, the last
+MASKED_SPLIT_TAIL = (4000, 700)           # masked loglik: 6 splits, the last
                                           # shorter; B off the 64-student block
-# the kernel of each one-pass or VJP call and its second pass (and the GRM
-# prologue), told apart in a profiler window
-# A profiler window now and then keeps none or half of its launches'
-# records: the mean is taken over the records kept, and a window that kept
-# no record of a kernel it must show is taken again, up to this many times.
-PROFILER_TRIES = 3
+# the kernel of each one-pass or masked call and its second pass (and the
+# GRM prologue), told apart in a profiler window
+# A profiler window closed right after its last launch completes now and
+# then keeps none or only the first of its launches' records; held open
+# PROFILER_PAD_S before its first launch and after its synchronize, it
+# keeps them all. So every window is padded; the mean is taken over the
+# records kept all the same, and a window that kept no record of a kernel
+# it must show is taken again, up to PROFILER_TRIES times.
+PROFILER_PAD_S = 0.02
+PROFILER_TRIES = 5
 LINK_OF_KERNEL = r"loglik_categorical_kernel<vibo::(\w+(?:<\d+>)?)"
 PASS_KERNELS = (("reduce_ms", "sum_rows_kernel"),
                 ("prologue_ms", "grm_table_kernel"),
-                ("main_ms", r"loglik_(train|categorical)_kernel"
-                            r"|masked_bwd_kernel"))
+                ("main_ms", r"loglik_(train|2pl|categorical)_kernel"
+                            r"|masked_(fwd|bwd)_kernel"))
 
 
 def ptxas_lines(log: str) -> list:
@@ -270,28 +285,31 @@ class Timer:
 def profiled(fn, reps: int) -> list:
     """(kernel name, mean device ms of its launches) of every kernel `reps`
     calls of fn launch, from a torch.profiler window, each call after the
-    L2 flush and the spin of Timer. The mean is over the launches the
-    window recorded (PROFILER_TRIES)."""
+    L2 flush and the spin of Timer, in a window held open PROFILER_PAD_S at
+    both ends. The mean is over the launches the window recorded."""
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
         for _ in range(reps):
             flush.zero_()
             torch.cuda._sleep(Timer.SPIN_CYCLES)
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
     return [(ev.key, ev.device_time_total / 1e3 / ev.count)
             for ev in prof.key_averages() if ev.device_time_total > 0]
 
 
 def pass_times(fn, reps: int = 10) -> dict:
-    """Device time of a one-pass loglik or masked VJP call's launches (one
-    of each at K <= 8): its main kernel, its second pass (sum_rows_kernel)
-    and, for the compile-time GRM, its prologue (grm_table_kernel), from a
-    profiler window over `reps` calls (Timer times them together)."""
+    """Device time of a one-pass loglik or masked loglik call's launches
+    (one of each at K <= 8): its main kernel, its second pass
+    (sum_rows_kernel) and, for the compile-time GRM, its prologue
+    (grm_table_kernel), from a profiler window over `reps` calls (Timer
+    times them together)."""
     for _ in range(PROFILER_TRIES):
         out = {}
         for name, ms in profiled(fn, reps):
@@ -324,15 +342,18 @@ def occupancy(family: str, k: int, c: int = 0) -> dict:
     call of `family` at (K, C) launches first, and its resident blocks an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its block size and
     shared memory), from the library's occupancy entry point; family "deep":
-    deep_link_kernel<H> at link width H = k (128 or 256); "masked_2pl" or
-    "masked_3pl": the masked VJP's kernel, c = 0 the dense reader, 1 int8."""
+    deep_link_kernel<H> at link width H = k (128 or 256); "masked_fwd_2pl",
+    "masked_bwd_2pl" (and 3pl): the masked forward's or VJP's kernel, c = 0
+    the dense reader, 1 int8."""
     import ctypes
     from vibo_tpu_torch.ops import _build
     out = (ctypes.c_int * 3)()
     if family.startswith("masked_"):
-        fn, lib = _build.bind("masked_loglik.cu", "masked_bwd_occupancy",
+        _, direction, link = family.split("_")
+        fn, lib = _build.bind("masked_loglik.cu",
+                              f"masked_{direction}_occupancy",
                               [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        rc = fn(("2pl", "3pl").index(family[7:]), k, c, out)
+        rc = fn(("2pl", "3pl").index(link), k, c, out)
     elif family == "deep":
         fn, lib = _build.bind("deep_link.cu", "deep_link_occupancy",
                               [ctypes.c_int, ctypes.c_void_p])
@@ -394,7 +415,8 @@ class Roofline:
     def mufu(self, source: str, kernel: str, link: str, k: int,
              packed: bool | None = None, loop_op: str | None = None,
              trips: int = 1, item_steps: int = 1,
-             link_tag: str | None = None) -> tuple[int, int]:
+             link_tag: str | None = None,
+             tag: str | None = None) -> tuple[int, int]:
         """(MUFU a cell, MUFU an item) of one instantiation, from its SASS
         up to its last EXIT (the division's slow-path subroutines after it
         are left out). The tile loop stages the link's per-item constants
@@ -403,11 +425,13 @@ class Roofline:
         the unrolled cells', which must divide evenly by the cells one pass
         covers; lines of the op loop_op (e.g. "EX2") after it sit in a loop
         a cell runs `trips` times. link_tag: the link's mangled name where
-        it is a template (the compile-time-C GPCM)."""
-        tag = f"{link_tag or 'Link' + link.upper()}ELi{k}E"
-        if packed is not None:
-            tag += f"Lb{int(packed)}E"
-        tag += "Lb0E"          # the fixed-K instantiation, not the wide one
+        it is a template (the compile-time-C GPCM). tag: the mangled
+        template arguments, for a kernel not templated on a link."""
+        if tag is None:
+            tag = f"{link_tag or 'Link' + link.upper()}ELi{k}E"
+            if packed is not None:
+                tag += f"Lb{int(packed)}E"
+            tag += "Lb0E"      # the fixed-K instantiation, not the wide one
         found = [lines for name, lines in self._functions(source)
                  if kernel in name and tag in name]
         if len(found) != 1:
@@ -557,8 +581,9 @@ def check_loglik(timer, roof, pk, rng_gen, timed: bool,
                  link: str = "2pl", k: int = K, theta_t=None, a=None,
                  b=None, g_hat=None) -> dict:
     """The one-pass training loglik of `link` in both theta layouts against
-    its plain version; theta_t (k, B), a, b and g_hat default to random
-    draws (the extreme-point check passes its own)."""
+    its plain version, and a second launch bitwise equal to the first;
+    theta_t (k, B), a, b and g_hat default to random draws (the
+    extreme-point check passes its own)."""
     from vibo_tpu_torch.ops import pallas_elbo as el
     bsz, m = pk.shape
     if theta_t is None:
@@ -580,6 +605,11 @@ def check_loglik(timer, roof, pk, rng_gen, timed: bool,
             return el.loglik_train_cuda(theta, a, b, g_hat, pk, dth,
                                         per_person=layout == "bk")
         ll_k, grads_k = launch()
+        first = [x.clone() for x in (ll_k, dth, *grads_k)]
+        again = launch()
+        repeat = all(torch.equal(x, y) for x, y in
+                     zip(first, (again[0], dth, *again[1])))
+        ll_k, grads_k = first[0], first[2:]
         ll_p, dth_p, *grads_p = el.loglik_train_plain(theta, a, b, g_hat, pk)
         if layout == "kb":
             ll_p = ll_p.sum()
@@ -596,6 +626,10 @@ def check_loglik(timer, roof, pk, rng_gen, timed: bool,
             raise AssertionError(f"{name} ({layout}) at {tuple(pk.shape)}, "
                                  f"K={k} disagrees with its plain version "
                                  f"or is not finite: {r}")
+        if not repeat:
+            raise AssertionError(f"{name} ({layout}) at {tuple(pk.shape)}, "
+                                 f"K={k}: two launches on the same inputs "
+                                 "differ")
         r["inert_rows"] = inert_rows(pk, ll_k, dth)
         if timed:
             r["ms"] = timer(launch)
@@ -605,8 +639,15 @@ def check_loglik(timer, roof, pk, rng_gen, timed: bool,
             r["library_ms"] = None
             items = 1 if g_hat is None else 2       # b[, g_hat] in, out
             cells = bsz * m
-            per_cell, per_item = roof.mufu("loglik_train.cu",
-                                           "loglik_train_kernel", link, k)
+            if link == "2pl":      # its own kernel (k <= 8)
+                per_cell, per_item = roof.mufu(
+                    "loglik_train.cu", "loglik_2pl_kernel", link, k,
+                    tag=f"ILi{k}EE")
+                r["mufu_per_cell_sass"] = per_cell
+                per_cell = TRAIN_2PL_CELL_MUFU
+            else:
+                per_cell, per_item = roof.mufu("loglik_train.cu",
+                                               "loglik_train_kernel", link, k)
             r["bound_ms"], r["bound_by"] = roof.bound(
                 cells + 2 * bsz * k * 4 + 2 * m * k * 4 + 2 * items * m * 4
                 + 4, CELL_OPS[link][0](k, 2) * cells, F32_FLOPS,
@@ -621,7 +662,10 @@ def masked_bound(roof, bsz: int, m: int, k: int, s: int, cell_bytes: int,
     once (8 bytes dense, 1 int8) plus theta, the items (and g) read and ll
     (or dtheta and the item gradients) written once; the cell's f32
     operations (CELL_OPS); the MUFU results counted in the SASS, a cell's
-    for every cell and an item's once for each of the s samples' items."""
+    for every cell and an item's once for each of the s samples' items (the
+    2PL forward's cell: MASKED_FWD_2PL_CELL_MUFU). Returns (ms, limiting
+    resource, the SASS's MUFU a cell where the bound counts the
+    function's instead, else None)."""
     items = 1 if link == "2pl" else 2                # b[, g_hat]
     small = 4 * (bsz * k + m * k + items * m)
     if bwd:
@@ -633,8 +677,11 @@ def masked_bound(roof, bsz: int, m: int, k: int, s: int, cell_bytes: int,
     kernel = "masked_bwd_kernel" if bwd else "masked_fwd_kernel"
     per_cell, per_item = roof.mufu("masked_loglik.cu", kernel, link, k,
                                    packed=cell_bytes == 1)
-    return roof.bound(cell_bytes * bsz * m + s * small, ops, F32_FLOPS,
-                      per_cell * cells + per_item * s * m)
+    sass = None
+    if link == "2pl" and not bwd:
+        sass, per_cell = per_cell, MASKED_FWD_2PL_CELL_MUFU
+    return (*roof.bound(cell_bytes * bsz * m + s * small, ops, F32_FLOPS,
+                        per_cell * cells + per_item * s * m), sass)
 
 
 def check_masked(timer, roof, resp, mask, rng_gen, timed: bool,
@@ -642,7 +689,8 @@ def check_masked(timer, roof, resp, mask, rng_gen, timed: bool,
                  k: int = K, link: str = "2pl", theta=None, items=None):
     """The general masked loglik's forward and backward kernels of `link`
     against their plain versions, dense and int8 readers, on (resp, mask)
-    and a non-uniform cotangent, and all-missing rows exactly inert;
+    and a non-uniform cotangent, a second launch of each bitwise equal to
+    the first, and all-missing rows exactly inert;
     samples: a leading sample axis of that length (per-sample items, or
     shared over the samples; the data is shared, as on the IWAE path); k:
     ability dims; theta (S, B, K) and items (a, b[, g_hat]) with their
@@ -689,6 +737,8 @@ def check_masked(timer, roof, resp, mask, rng_gen, timed: bool,
         def bwd_plain():
             return el.masked_vjp_plain(g, theta, a, b, g_hat, *cells())
         ll_k, grads_k = fwd(), bwd()
+        repeat = (torch.equal(ll_k, fwd())
+                  and all(torch.equal(x, y) for x, y in zip(grads_k, bwd())))
         ll_p, grads_p = fwd_plain(), bwd_plain()
         torch.cuda.synchronize()
         f = {"rel_err": rel_err(ll_k, ll_p), "max_abs_err": max_abs(ll_k,
@@ -703,6 +753,10 @@ def check_masked(timer, roof, resp, mask, rng_gen, timed: bool,
                 f"{name} ({reader}, S={s}, shared_items={shared_items}, "
                 f"K={k}) at {(bsz, m)} disagrees with its plain version or "
                 f"is not finite: fwd {f}, bwd {w}")
+        if not repeat:
+            raise AssertionError(f"{name} ({reader}, S={s}, K={k}) at "
+                                 f"{(bsz, m)}: two launches on the same "
+                                 "inputs differ")
         # rows with no observed cell (a last minibatch's zero padding) give
         # exactly 0 loglik and 0 dtheta
         empty = mask.sum(-1) == 0
@@ -717,10 +771,14 @@ def check_masked(timer, roof, resp, mask, rng_gen, timed: bool,
                                              (w, bwd, bwd_plain, True)):
                 r.update(ms=timer(kernel), plain_ms=timer(plain),
                          library_ms=None)
-                if is_bwd:
-                    r.update(pass_times(kernel))
-                r["bound_ms"], r["bound_by"] = masked_bound(
+                r["bound_ms"], r["bound_by"], sass = masked_bound(
                     roof, bsz, m, k, s, nbytes, is_bwd, link)
+                if sass is not None:
+                    r["mufu_per_cell_sass"] = sass
+            # the profiler windows after both directions' CUDA-event times,
+            # so that no window runs right before a timed launch
+            for r, kernel in ((f, fwd), (w, bwd)):
+                r.update(pass_times(kernel))
         out[reader] = {"fwd": f, "bwd": w}
     return out
 
@@ -1027,16 +1085,19 @@ def check_path(phase: str, launches: dict, ran: tuple,
 
 def profile_steps(step, steps: int, med_ms: float, smi: str) -> dict:
     """Device time by kernel over `steps` calls of step() in a
-    torch.profiler window, and the device idle share against the
-    unprofiled median step med_ms (the profiler slows the host)."""
+    torch.profiler window (padded as in profiled), and the device idle
+    share against the unprofiled median step med_ms (the profiler slows
+    the host)."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAD_S)
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILER_PAD_S)
     rows = []
     for evt in prof.key_averages():
         # device-side kernel records only: an op's record, or a user
@@ -1682,15 +1743,16 @@ def main() -> None:
     # the one-pass kernels' registers, spills and blocks an SM, at every
     # instantiated K and the wide variant (GRM/GPCM at C = 5 and the
     # run-time path at C = 9, GPCM also at its largest compile-time C); the
-    # masked VJP's, both readers
+    # masked forward's and VJP's, both readers
     occ = {f"{fam} K={k}" + (f" C={c}" if fam in FAMILIES else ""):
            occupancy(fam, k, c)
            for fam in LINK_KERNELS for k in (*range(1, 9), 12)
            for c in ((C, GPCM_FIXED_C, GPCM_FIXED_C + 1) if fam == "gpcm"
                      else (C, GRM_FIXED_C + 1) if fam == "grm" else (C,))}
-    occ.update({f"masked_{link} K={k} {reader}":
-                occupancy(f"masked_{link}", k, packed)
-                for link in ("2pl", "3pl") for k in (*range(1, 9), 12)
+    occ.update({f"masked_{direction}_{link} K={k} {reader}":
+                occupancy(f"masked_{direction}_{link}", k, packed)
+                for direction in ("fwd", "bwd") for link in ("2pl", "3pl")
+                for k in (*range(1, 9), 12)
                 for packed, reader in ((0, "dense"), (1, "int8"))})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": {s: v["seconds"] for s, v in built.items()},
@@ -1880,9 +1942,10 @@ def main() -> None:
             line, int8_line = masked_lines[link][direction]
             int8 = {k: v for k, v in mb["int8"][direction].items()
                     if k != "rel_err"}
-            extra = ({"occupancy": occ[f"masked_{link} K={K} dense"],
-                      "occupancy_int8": occ[f"masked_{link} K={K} int8"]}
-                     if direction == "bwd" else {})
+            extra = {"occupancy":
+                     occ[f"masked_{direction}_{link} K={K} dense"],
+                     "occupancy_int8":
+                     occ[f"masked_{direction}_{link} K={K} int8"]}
             kernels.append(kernel_entry(
                 name, f"vibo_tpu/ops/pallas_elbo.py:{line} (dense reader; "
                 f"int8 reader :{int8_line})", "masked_loglik.cu",

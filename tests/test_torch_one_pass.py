@@ -1,13 +1,13 @@
-"""The launch plan of the port's one-pass training loglik kernels and of
-the masked loglik's VJP (`vibo_tpu_torch.ops.one_pass.split_plan`): at odd
-shapes and sample counts, its student blocks, item splits (and samples)
-cover every (sample, student, item) cell exactly once with no empty split,
-it cuts a large matrix into about TARGET_BLOCKS blocks, and the wrappers
-(`pallas_elbo.loglik_train_cuda`, `pallas_elbo.masked_bwd_cuda`,
-`pallas_grm.train_cuda`) hand the kernel that plan with scratch sized from
-it (GRM: and the slot table of its prologue). The wrappers run here against
-a stand-in for the C entry point, since the kernels run only on the card
-(`chip_smoke.py`)."""
+"""The launch plan of the port's one-pass training loglik kernels and of the
+masked loglik's forward and VJP (`vibo_tpu_torch.ops.one_pass.split_plan`):
+at odd shapes and sample counts, its student blocks, item splits (and
+samples) cover every (sample, student, item) cell exactly once with no empty
+split, it cuts a large matrix into about TARGET_BLOCKS blocks, and the
+wrappers (`pallas_elbo.loglik_train_cuda`, `pallas_elbo.masked_fwd_cuda`,
+`pallas_elbo.masked_bwd_cuda`, `pallas_grm.train_cuda`) hand the kernel that
+plan with scratch sized from it (GRM: and the slot table of its prologue).
+The wrappers run here against a stand-in for the C entry point, since the
+kernels run only on the card (`chip_smoke.py`)."""
 
 import numpy as np
 import pytest
@@ -179,6 +179,38 @@ def test_masked_wrapper_sizes_its_scratch_from_the_plan(link, reader,
     assert grads[0].shape == (samples, bsz, k)
     assert grads[1].shape == (sa, m, k) and grads[2].shape == (sa, m)
     assert len(grads) == (4 if link == "3pl" else 3)
+
+
+@pytest.mark.parametrize("link", ["2pl", "3pl"])
+@pytest.mark.parametrize("reader", ["dense", "int8"])
+@pytest.mark.parametrize("samples,shared", [(1, False), (3, False),
+                                            (3, True)])
+def test_masked_fwd_wrapper_sizes_its_scratch_from_the_plan(link, reader,
+                                                            samples, shared,
+                                                            record_scratch,
+                                                            monkeypatch):
+    """The forward runs on the VJP's plan: (blocks, splits, samples), with
+    each split's ll of every (sample, student) in part_ll, which the second
+    pass sums into ll (S, B)."""
+    bsz, m, k = 4000, 700, 3
+    plan = one_pass.split_plan(bsz, m, samples=samples)
+    rec = _Recorder()
+    monkeypatch.setattr(pallas_elbo, "MASKED_FWD" if link == "2pl"
+                        else "MASKED_FWD_3PL",
+                        lambda *args, variant: rec(*args))
+    sa = 1 if shared else samples
+    g_hat = torch.zeros((sa, m)) if link == "3pl" else None
+    data = ((torch.zeros((1, bsz, m)), torch.zeros((1, bsz, m)), None)
+            if reader == "dense"
+            else (None, None, torch.zeros((1, bsz, m), dtype=torch.int8)))
+    ll = pallas_elbo.masked_fwd_cuda(
+        torch.zeros((samples, bsz, k)), torch.zeros((sa, m, k)),
+        torch.zeros((sa, m)), g_hat, *data)
+    assert rec.args[-8:-1] == (samples, bsz, m, k, *plan)
+    assert (plan.splits, samples, bsz) in record_scratch
+    assert ll.shape == (samples, bsz)
+    assert not any(s[0] not in (plan.splits, samples)
+                   for s in record_scratch)
 
 
 @pytest.mark.parametrize("c,k", [(3, 2), (5, 4), (8, 8), (9, 4), (5, 9)])

@@ -279,18 +279,10 @@ cudaError_t launch(const float* theta, long long th_sb, long long th_sk,
                    float* part_dth, float* part_llp, float* part, int nblk,
                    int nsplit, int tps, int B, int M, int C,
                    cudaStream_t stream, int kt = K, int k0 = 0) {
-  const size_t smem = vibo::smem_bytes<Link>(K, C);
-  auto kernel = loglik_categorical_kernel<Link, K, WIDE>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(nblk, nsplit), THREADS, smem, stream>>>(
-      theta, th_sb, th_sk, a, kap, pk, part_dth, part_llp, part, B, M, C, tps,
-      kt, k0);
-  return cudaGetLastError();
+  return vibo::launch_tiled(loglik_categorical_kernel<Link, K, WIDE>,
+                            dim3(nblk, nsplit), vibo::smem_bytes<Link>(K, C),
+                            stream, theta, th_sb, th_sk, a, kap, pk,
+                            part_dth, part_llp, part, B, M, C, tps, kt, k0);
 }
 
 // The launch arguments every path passes through.
@@ -399,27 +391,6 @@ const void* runtime_kernel_of(int K, int C, size_t* smem) {
 #undef VIBO_RT
   }
   return nullptr;
-}
-
-// Registers, local (spill) bytes and blocks an SM of the kernel fn with
-// smem bytes of dynamic shared memory, into out[0..2].
-int occupancy_of(const void* fn, size_t smem, int* out) {
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
-                                                      smem);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = blocks;
-  return static_cast<int>(err);
 }
 
 }  // namespace

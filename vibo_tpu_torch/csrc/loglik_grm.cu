@@ -267,7 +267,7 @@ int loglik_grm_train(const void* theta, long long th_sb, long long th_sk,
 // call launches first, into out[0..2].
 int loglik_grm_occupancy(int K, int C, int* out) {
   size_t smem = 0;
-  return occupancy_of(kernel_of(K, C, &smem), smem, out);
+  return vibo::occupancy_of(kernel_of(K, C, &smem), smem, out);
 }
 
 }  // extern "C"

@@ -1,35 +1,38 @@
 // The tile mapping and the item split the one-pass training logliks share
 // (loglik_train.cu for the binary links, loglik_categorical.cuh for the
-// polytomous families) with the masked loglik's VJP (masked_loglik.cu), and
-// the second pass that sums their partials. cp_async16 serves a tile's
-// table copied a tile ahead (the compile-time GRM's slots).
+// polytomous families) with the masked loglik's forward and VJP
+// (masked_loglik.cu), and the second pass that sums their partials. cp_async16
+// serves a tile's table copied a tile ahead (the compile-time GRM's slots).
 //
-// The grid is (student blocks, item splits; the VJP's third dimension its
-// samples). Block (x, y) owns the TBS = 64 students x * TBS .. and the item
-// tiles y * tps .. (y + 1) * tps - 1 of TMI = 64 items each; the host's plan
-// (ops/one_pass.py split_plan) picks the number of splits so that a large
-// matrix gives about four blocks an SM (two resident at a time), and no
-// split is empty (check_plan refuses any other plan). Before the split, a
-// block walked all items and the flagship's 160 blocks left most SMs with
-// one block of 8 warps.
+// The grid is (student blocks, item splits; the masked loglik's third
+// dimension its samples). Block (x, y) owns the TBS = 64 students x * TBS ..
+// and the item tiles y * tps .. (y + 1) * tps - 1 of TMI = 64 items each; the
+// host's plan (ops/one_pass.py split_plan) picks the number of splits so that
+// a large matrix gives about four blocks an SM (two resident at a time), and
+// no split is empty (check_plan refuses any other plan). Before the split, a
+// block walked all items and the flagship's 160 blocks left most SMs with one
+// block of 8 warps.
 //
-// Inside a block: NWARP = 16 warps, a warp takes SPT = 4 students, a lane
-// IPT = 2 consecutive items, so a warp reads 64 contiguous bytes of each
-// student's code row and a thread covers 8 cells a tile. What bounds the
-// blocks an SM holds is the register file: the kernels are held to 64
-// registers a thread at small K (two blocks, 32 warps an SM), and keep only
-// a lane's per-item sums in registers across a tile. A cell reads its item's
-// a and link constants from shared memory in 16-byte loads (load_consts),
-// and a student's dtheta and ll, summed over the lane's items, are added
-// into lane-private shared slots once a tile (add_student); at the end a
-// warp sums its students' slots over the lanes by shuffles into the split's
-// partial (write_dtheta_ll). The next tile's codes (a 16-bit word a
-// student) and item data are loaded into registers a tile ahead, so their
-// latency, the code's from device memory above all, hides behind the cells.
-// A tile's per-item sums go through shared memory in two barriers (staging
-// visible; per-warp sums visible), and each column sum over the 16 warps is
-// the block's partial for that item: every item sits in exactly one split,
-// so that partial is (student blocks, items) as before the split.
+// Inside a block: NWARP = 16 warps, a warp takes SPT = 4 students, a lane IPT
+// = 2 consecutive items, so a warp reads 64 contiguous bytes of each student's
+// code row and a thread covers 8 cells a tile. What bounds the blocks an SM
+// holds is the register file: the kernels are held to 64 registers a thread at
+// small K (two blocks, 32 warps an SM), and keep only a lane's per-item sums
+// in registers across a tile. A cell reads its item's a and link constants
+// from shared memory in 16-byte loads (load_consts), and a student's dtheta
+// and ll, summed over the lane's items, are added into lane-private shared
+// slots once a tile (add_student); at the end a warp sums its students' slots
+// over the lanes by shuffles into the split's partial (write_dtheta_ll); the
+// 2PL training kernel and the masked forward instead keep a lane's item
+// constants and each student's sums in registers (loglik_train.cu,
+// masked_loglik.cu). The next tile's codes (a 16-bit word a student) and item
+// data are loaded into registers a tile ahead, so their latency, the code's
+// from device memory above all, hides behind the cells. A tile's per-item sums
+// go through shared memory in two barriers (staging visible; per-warp sums
+// visible; the 2PL training kernel: one, double buffered), and each column sum
+// over the 16 warps is the block's partial for that item: every item sits in
+// exactly one split, so that partial is (student blocks, items) as before the
+// split.
 //
 // The second pass (sum_rows_kernel) sums every partial over its rows in a
 // fixed order: 32 columns a block, 8 row groups each summing a strided run
@@ -58,6 +61,14 @@ constexpr int TBS = NWARP * SPT;        // students per block
 constexpr int IPT = 2;                  // consecutive items per lane
 constexpr int TMI = 32 * IPT;           // items per tile
 constexpr int KC = 8;                   // ability dims a wide pass covers
+
+// Blocks an SM the binary links' kernels (loglik_train.cu,
+// masked_loglik.cu) are built for: two of 16 warps (64 registers a thread)
+// up to K = 4, one above.
+template <int K>
+constexpr int min_blocks() {
+  return K <= 4 ? 2 : 1;
+}
 
 // The slot of tile item j in a staged row: lane-major, p * 32 + lane, so a
 // warp's reads of its lanes' items never conflict.
@@ -301,6 +312,44 @@ sum_rows_kernel(SumSegs segs) {
     for (int y = 0; y < SUM_GROUPS; ++y) s += part_s[y * SUM_COLS + tx];
     sg.dst[(i / sg.inner) * sg.d_outer + (i % sg.inner) * sg.d_inner] = s;
   }
+}
+
+// Launches a kernel of this mapping (THREADS threads a block) on grid with
+// smem bytes of dynamic shared memory, raising the kernel's limit first
+// where smem is past the default 48 KB.
+template <class... Params, class... Args>
+__host__ cudaError_t launch_tiled(void (*kernel)(Params...), dim3 grid,
+                                  size_t smem, cudaStream_t stream,
+                                  Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Registers, local (spill) bytes and blocks an SM of the kernel fn of this
+// mapping with smem bytes of dynamic shared memory, into out[0..2].
+__host__ inline int occupancy_of(const void* fn, size_t smem, int* out) {
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
+                                                      smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  return static_cast<int>(err);
 }
 
 // Launches the second pass over the segments (nseg <= MAX_SEGS; segments of

@@ -27,7 +27,7 @@
 // loglik_train.cu).
 //
 // Leading sample axis: the last grid dimension runs the S samples of one
-// call (the forward's y, the VJP's z);
+// call (the grid's z in both directions);
 // theta, g, ll and dtheta carry the axis, a, b, g_hat and the data each
 // carry it or are shared (sample stride 0). A shared a (or b, g_hat) gets
 // the gradient summed over samples.
@@ -37,243 +37,56 @@
 // 3.35 TB/s) in both directions, so bytes bound the 2PL kernels; the int8
 // forward reads 4.2 MB (~1.25 us), so there the special-function results of
 // the cell (exp, log1p, reciprocals: chip_smoke.py counts them in this
-// library's SASS, at 16 a clock an SM) or its f32 operations bound it. The
-// 3PL cell takes about three times the special functions of the 2PL cell.
-// What holds the VJP back is latency: at that shape a grid of student
-// blocks alone gives one block of a few warps an SM.
+// library's SASS, at 16 a clock an SM; for the 2PL forward the function's
+// one a cell) or its f32 operations bound it. The 3PL cell takes about
+// three times the special functions of the 2PL cell.
 //
-// Forward (the simple design): a block of 8 warps owns 16 students (2 per
-// warp) and walks all items in tiles of 128, with the tile's a and the
-// link's per-item constants (b; for 3PL also log g, log(1-g) and g,
-// computed once per item, not once per cell) staged in shared memory; a
-// lane reads 4 neighbouring items of a row (one float4 of resp and one of
-// mask, or 4 bytes of code; a scalar tail for ragged M or unaligned rows)
-// and a warp-shuffle sum gives the per-person ll. A block owns whole rows,
-// so no cross-block reduction is needed.
+// Both directions share loglik_tile.cuh's mapping and item split, the
+// design of the one-pass training kernels (loglik_train.cu): the grid is
+// (student blocks of 64, item splits, samples), planned on the host by
+// ops/one_pass.py split_plan so that the minibatch gets about four blocks
+// an SM (two of 16 warps resident), and checked here. A warp takes 4
+// students, a lane 2 consecutive items of a 64-item tile; the tile's a and
+// the link's constants (b; for 3PL also log g, log(1-g) and g, computed
+// once per item, not once per cell) are staged in the lane-major slot
+// order (no bank conflict); the next tile's item data and cells are loaded
+// ahead, interior tiles without bounds checks. The second pass
+// (loglik_tile.cuh sum_rows_kernel: 32 columns a block, 8 row groups) sums
+// the partials in a fixed order. No float atomics: every output is
+// deterministic.
+//
+// Forward: nothing is summed over the warps, so one barrier a tile guards
+// the double-buffered item staging. A lane reads its items' constants into
+// registers once a tile for its 4 students; a student's next-tile cells
+// (the dense (m, r) pairs or the int8 code word) are loaded into registers
+// as soon as its cells of the current tile are done; each student's ll
+// stays in registers across the split's tiles and is summed over the lanes
+// by shuffles once, into the split's partial (nsplit, S, B), which the
+// second pass sums over the splits. The 2PL cell takes exp and log1p from
+// the special-function unit's approximations (irt_links.cuh). What holds
+// it back now: the dense 2PL forward moves its bytes at about half the
+// HBM rate, the int8 and 3PL forwards are held by the cell's instruction
+// count (estimates from the code and the times, no profiler counter).
 //
 // VJP: ONE pass over the data (Pallas needs two, one per grid accumulation
-// axis) on loglik_tile.cuh's tile mapping and item split, the design of the
-// one-pass training kernels (loglik_train.cu): the grid is (student blocks
-// of 64, item splits, samples), planned on the host by ops/one_pass.py
-// split_plan so that the minibatch gets about four blocks an SM (two of 16
-// warps resident), and checked here. A warp takes 4 students, a lane 2
-// consecutive items of a 64-item tile; the tile's a and the link's
-// constants are staged in the lane-major slot order (no bank conflict) and
-// read in 16-byte loads; the next tile's item data and int8 codes are
-// loaded a tile ahead into registers, the next tile's dense rows asked into
-// L2; two barriers a tile. dtheta accumulates per student in lane-private
-// shared slots and is written as the split's partial; the tile's da/db(/dg)
-// are summed over the 16 warps and written as the block's partial. The
-// second pass (loglik_tile.cuh sum_rows_kernel: 32 columns a block, 8 row
-// groups) sums dtheta over the splits and each item gradient over the
-// student blocks, and over the samples where the item array is shared, in a
-// fixed order. No float atomics: every output is deterministic.
+// axis). The next tile's int8 codes are loaded into registers, its dense
+// rows asked into L2; two barriers a tile. dtheta accumulates per student
+// in lane-private shared slots and is written as the split's partial; the
+// tile's da/db(/dg) are summed over the 16 warps and written as the
+// block's partial. The second pass sums dtheta over the splits and each
+// item gradient over the student blocks, and over the samples where the
+// item array is shared.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "irt_links.cuh"
-#include "loglik_tile.cuh"  // the backward's tile mapping; KC, wide_dot
+#include "loglik_tile.cuh"
 
 namespace {
 
 using vibo::Link2PL;
 using vibo::Link3PL;
-
-constexpr int NWARP = 8;
-constexpr int THREADS = NWARP * 32;
-constexpr int TMI = 128;                  // items per tile
-constexpr int IPT = TMI / 32;             // neighbouring items per lane
-constexpr int FWD_SPW = 2;                // forward: students per warp
-constexpr int FWD_TBS = NWARP * FWD_SPW;  // forward: students per block
-
-// The 4 cells (m, r) of row `row` at items gj..gj+3 (zero outside [0, M)).
-template <bool PACKED>
-__device__ __forceinline__ void read_cells(const float* __restrict__ resp,
-                                           const float* __restrict__ mask,
-                                           const int8_t* __restrict__ pk,
-                                           size_t row, int gj, int M,
-                                           bool in_row, bool vec,
-                                           float (&mk)[IPT], float (&r)[IPT]) {
-  if constexpr (PACKED) {
-    int8_t c[IPT];
-    const int8_t* p = pk + row + gj;
-    if (in_row && vec && gj + IPT <= M) {
-      const char4 v = *reinterpret_cast<const char4*>(p);
-      c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
-    } else {
-#pragma unroll
-      for (int q = 0; q < IPT; ++q)
-        c[q] = (in_row && gj + q < M) ? p[q] : int8_t(0);
-    }
-#pragma unroll
-    for (int q = 0; q < IPT; ++q) {
-      const float f = static_cast<float>(c[q]);
-      mk[q] = fminf(f, 1.f);
-      r[q] = fmaxf(f - 1.f, 0.f);
-    }
-  } else {
-    const float* pr = resp + row + gj;
-    const float* pm = mask + row + gj;
-    if (in_row && vec && gj + IPT <= M) {
-      const float4 vr = *reinterpret_cast<const float4*>(pr);
-      const float4 vm = *reinterpret_cast<const float4*>(pm);
-      r[0] = vr.x; r[1] = vr.y; r[2] = vr.z; r[3] = vr.w;
-      mk[0] = vm.x; mk[1] = vm.y; mk[2] = vm.z; mk[3] = vm.w;
-    } else {
-#pragma unroll
-      for (int q = 0; q < IPT; ++q) {
-        const bool ok = in_row && gj + q < M;
-        r[q] = ok ? pr[q] : 0.f;
-        mk[q] = ok ? pm[q] : 0.f;
-      }
-    }
-  }
-}
-
-// True when every row of the data starts on a vector boundary.
-template <bool PACKED>
-__device__ __forceinline__ bool rows_aligned(const float* resp,
-                                             const float* mask,
-                                             const int8_t* pk, int M,
-                                             long long d_ss) {
-  if constexpr (PACKED)
-    return M % 4 == 0 && d_ss % 4 == 0 &&
-           reinterpret_cast<uintptr_t>(pk) % 4 == 0;
-  return M % 4 == 0 && d_ss % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(resp) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(mask) % 16 == 0;
-}
-
-// Stages the tile's a (TMI x K; the wide variant the dims k0 .. k0 + K - 1
-// of kt, zero past kt) and the link's per-item constants.
-template <class Link, int K>
-__device__ __forceinline__ void stage_items(const float* __restrict__ a,
-                                            const float* __restrict__ b,
-                                            const float* __restrict__ gh,
-                                            int m0, int M, float (*a_s)[K],
-                                            float (*p_s)[TMI], int k0 = 0,
-                                            int kt = K) {
-  for (int i = threadIdx.x; i < TMI * K; i += THREADS) {
-    const int j = i / K, k = i % K, gj = m0 + j;
-    a_s[j][k] = gj < M && k0 + k < kt
-                    ? a[static_cast<size_t>(gj) * kt + k0 + k] : 0.f;
-  }
-  for (int j = threadIdx.x; j < TMI; j += THREADS) {
-    const int gj = m0 + j;
-    float ghj = 0.f;
-    if constexpr (Link::NX > 0) ghj = gj < M ? gh[gj] : 0.f;
-    float p[Link::NP];
-    Link::stage(gj < M ? b[gj] : 0.f, ghj, p);
-#pragma unroll
-    for (int x = 0; x < Link::NP; ++x) p_s[x][j] = p[x];
-  }
-}
-
-// WIDE: K = KC, the logit over all kt dims by wide_dot (one pass).
-template <class Link, int K, bool PACKED, bool WIDE>
-__global__ void __launch_bounds__(THREADS)
-masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
-                  long long a_ss, const float* __restrict__ b, long long b_ss,
-                  const float* __restrict__ gh, long long g_ss,
-                  const float* __restrict__ resp,
-                  const float* __restrict__ mask,
-                  const int8_t* __restrict__ pk, long long d_ss,
-                  float* __restrict__ ll, int B, int M, int kt_arg) {
-  constexpr int NP = Link::NP;
-  const int kt = WIDE ? kt_arg : K;
-  __shared__ float a_s[TMI][K];
-  __shared__ float p_s[NP][TMI];
-  const size_t s = blockIdx.y;
-  theta += s * B * kt;
-  a += s * a_ss;
-  b += s * b_ss;
-  if constexpr (Link::NX > 0) gh += s * g_ss;
-  ll += s * B;
-  if constexpr (PACKED) {
-    pk += s * d_ss;
-  } else {
-    resp += s * d_ss;
-    mask += s * d_ss;
-  }
-  const bool vec = rows_aligned<PACKED>(resp, mask, pk, M, d_ss);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int s0 = blockIdx.x * FWD_TBS + warp * FWD_SPW;
-  float th[FWD_SPW][K], acc[FWD_SPW];
-#pragma unroll
-  for (int q = 0; q < FWD_SPW; ++q) {
-    acc[q] = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      th[q][k] = s0 + q < B && k < kt
-                     ? theta[static_cast<size_t>(s0 + q) * kt + k] : 0.f;
-  }
-
-  const int j0 = lane * IPT;
-  for (int m0 = 0; m0 < M; m0 += TMI) {
-    stage_items<Link, K>(a, b, gh, m0, M, a_s, p_s, 0, kt);
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < FWD_SPW; ++q) {
-      const int gs = s0 + q;
-      float mk[IPT], r[IPT];
-      read_cells<PACKED>(resp, mask, pk, static_cast<size_t>(gs) * M,
-                         m0 + j0, M, gs < B, vec, mk, r);
-#pragma unroll
-      for (int p = 0; p < IPT; ++p) {
-        float pp[NP];
-#pragma unroll
-        for (int x = 0; x < NP; ++x) pp[x] = p_s[x][j0 + p];
-        float dot = 0.f;
-        if constexpr (WIDE) {
-          const int gj = m0 + j0 + p;
-          if (gs < B && gj < M)
-            dot = vibo::wide_dot(theta + static_cast<size_t>(gs) * kt, 1,
-                                 a + static_cast<size_t>(gj) * kt, kt);
-        } else {
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-            dot = fmaf(th[q][k], a_s[j0 + p][k], dot);
-        }
-        acc[q] += Link::value(dot - pp[0], pp, mk[p], r[p]);
-      }
-    }
-    __syncthreads();  // a_s, p_s are rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int q = 0; q < FWD_SPW; ++q) {
-    float v = acc[q];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && s0 + q < B) ll[s0 + q] = v;
-  }
-}
-
-// ---------------------------------------------------------------- VJP
-//
-// The backward takes loglik_tile.cuh's mapping (vibo::NWARP = 16 warps, a
-// warp SPT = 4 students, a lane IPT = 2 consecutive items, tiles of TMI =
-// 64 items), with the grid (student blocks, item splits, samples).
-
-// Blocks an SM the backward is built for: two of 16 warps (64 registers a
-// thread) up to K = 4, one above.
-template <int K>
-constexpr int bwd_min_blocks() {
-  return K <= 4 ? 2 : 1;
-}
-
-// Shared memory of the (Link, K) backward, in floats: the per-item
-// constants (first, 16-byte aligned), theta, the cotangent, a, the reduce
-// rows and the students' lane-private dtheta sums.
-template <class Link, int K>
-constexpr int bwd_smem_floats() {
-  return vibo::TMI * Link::NP + vibo::TBS * K + vibo::TBS +
-         vibo::TMI * vibo::a_stride(K) +
-         vibo::NWARP * (K + 1 + Link::NX) * vibo::TMI + vibo::TBS * K * 32;
-}
 
 // The (m, r) of student gs at the lane's IPT = 2 items gj, gj + 1 from the
 // dense (resp, mask) rows (zero outside [0, B) x [0, M)); vec: rows 8-byte
@@ -298,6 +111,222 @@ __device__ __forceinline__ void dense_pair(const float* __restrict__ resp,
   }
 }
 
+// True when the reader's rows allow its vector loads: 2 int8 codes or a
+// float2 of resp and of mask (M even, base pointers aligned).
+template <bool PACKED>
+__device__ __forceinline__ bool rows_aligned(const float* resp,
+                                             const float* mask,
+                                             const int8_t* pk, int M) {
+  if constexpr (PACKED)
+    return M % 2 == 0 && reinterpret_cast<uintptr_t>(pk) % 2 == 0;
+  return M % 2 == 0 && reinterpret_cast<uintptr_t>(resp) % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(mask) % 8 == 0;
+}
+
+// ------------------------------------------------------------ forward
+//
+// The VJP's mapping (loglik_tile.cuh: 16 warps, a warp 4 students, a lane
+// 2 consecutive items of a 64-item tile; the grid (student blocks, item
+// splits, samples)), with nothing to reduce over the warps: one barrier a
+// tile, for the double-buffered item staging.
+
+// Shared memory of the (Link, K) forward, in floats: two buffers of the
+// tile's link constants (NP a slot, first: 16-byte aligned) and a
+// (a_stride(K) a slot; none in the wide variant, whose logit reads a from
+// global memory), then theta (TBS x K; none in the wide variant).
+template <class Link, int K, bool WIDE>
+__host__ __device__ constexpr int fwd_item_floats() {
+  return vibo::TMI * (Link::NP + (WIDE ? 0 : vibo::a_stride(K)));
+}
+
+template <class Link, int K, bool WIDE>
+constexpr int fwd_smem_floats() {
+  return 2 * fwd_item_floats<Link, K, WIDE>() + (WIDE ? 0 : vibo::TBS * K);
+}
+
+// WIDE: K = KC, the logit over all kt dims by wide_dot (one pass).
+// Block (x, y, z): the students x * TBS .. of sample z on the item tiles
+// y * tps .. min((y + 1) * tps, tiles) - 1 (ops/one_pass.py split_plan);
+// writes each student's ll over those items into part_ll (nsplit, S, B).
+template <class Link, int K, bool PACKED, bool WIDE>
+__global__ void __launch_bounds__(vibo::THREADS, vibo::min_blocks<K>())
+masked_fwd_kernel(const float* __restrict__ theta, const float* __restrict__ a,
+                  long long a_ss, const float* __restrict__ b, long long b_ss,
+                  const float* __restrict__ gh, long long g_ss,
+                  const float* __restrict__ resp,
+                  const float* __restrict__ mask,
+                  const int8_t* __restrict__ pk, long long d_ss,
+                  float* __restrict__ part_ll, int B, int M, int tps,
+                  int kt_arg) {
+  using vibo::IPT;
+  using vibo::SPT;
+  using vibo::TBS;
+  constexpr int TM = vibo::TMI;
+  constexpr int NP = Link::NP;
+  constexpr int KA = WIDE ? 0 : vibo::a_stride(K);
+  constexpr int BUF = fwd_item_floats<Link, K, WIDE>();
+  const int kt = WIDE ? kt_arg : K;
+  extern __shared__ __align__(16) float smem[];
+  float* th_s = smem + 2 * BUF;               // TBS x K
+
+  const int S = gridDim.z;
+  const size_t smp = blockIdx.z;
+  theta += smp * B * kt;
+  a += smp * a_ss;
+  b += smp * b_ss;
+  if constexpr (Link::NX > 0) gh += smp * g_ss;
+  if constexpr (PACKED) {
+    pk += smp * d_ss;
+  } else {
+    resp += smp * d_ss;
+    mask += smp * d_ss;
+  }
+  part_ll += (static_cast<size_t>(blockIdx.y) * S + smp) * B;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * TBS, s_warp = s0 + warp * SPT;
+  const int split = blockIdx.y;
+  const int t0 = split * tps, t_end = min(t0 + tps, (M + TM - 1) / TM);
+  const bool vec = rows_aligned<PACKED>(resp, mask, pk, M);
+  const int j0 = lane * IPT;
+
+  // the cells of the next tile (int8: a code word a student; dense: the
+  // (m, r) pairs), loaded a student at a time once the current tile's cells
+  // of that student are done, and the next tile's raw item data
+  uint32_t ncode[SPT];
+  float nmk[SPT][IPT], nr[SPT][IPT];
+  const bool full_rows = vec && s0 + TBS <= B;
+  auto load_cells = [&](int q, int m0) {
+    const size_t at = static_cast<size_t>(s_warp + q) * M + m0 + j0;
+    if (full_rows && m0 + TM <= M) {  // block-uniform: no bounds to check
+      if constexpr (PACKED) {
+        ncode[q] = *reinterpret_cast<const uint16_t*>(pk + at);
+      } else {
+        const float2 vr = *reinterpret_cast<const float2*>(resp + at);
+        const float2 vm = *reinterpret_cast<const float2*>(mask + at);
+        nr[q][0] = vr.x; nr[q][1] = vr.y; nmk[q][0] = vm.x; nmk[q][1] = vm.y;
+      }
+    } else if constexpr (PACKED) {
+      ncode[q] = vibo::load_code_pair(pk, s_warp + q, m0 + j0, B, M, vec);
+    } else {
+      dense_pair(resp, mask, s_warp + q, m0 + j0, B, M, vec, nmk[q], nr[q]);
+    }
+  };
+  float pa = 0.f, pb = 0.f, pg = 0.f;
+  auto load_items = [&](int t) {
+    const int m0 = t * TM, n = min(TM, M - m0);
+    if constexpr (!WIDE) pa = vibo::prefetch1(a + static_cast<size_t>(m0) * K,
+                                              n * K);
+    pb = vibo::prefetch1(b + m0, n);
+    if constexpr (Link::NX > 0) pg = vibo::prefetch1(gh + m0, n);
+  };
+  if (t0 < t_end) {
+    load_items(t0);
+#pragma unroll
+    for (int q = 0; q < SPT; ++q) load_cells(q, t0 * TM);
+  }
+  // staged while the first tile's loads are in flight
+  if constexpr (!WIDE) vibo::stage_theta<K>(th_s, theta, kt, 1, s0, B);
+
+  float llq[SPT];
+#pragma unroll
+  for (int q = 0; q < SPT; ++q) llq[q] = 0.f;
+
+#pragma unroll 1
+  for (int t = t0; t < t_end; ++t) {
+    const int m0 = t * TM;
+    // buffer t & 1 was last read by tile t - 2's cells, before the
+    // previous barrier
+    float* p_s = smem + (t & 1) * BUF;
+    if constexpr (!WIDE) vibo::store_items<K>(p_s + TM * NP, pa);
+    if (tid < TM) {
+      float pp[NP];
+      Link::stage(pb, pg, pp);
+#pragma unroll
+      for (int x = 0; x < NP; ++x) p_s[vibo::slot_of(tid) * NP + x] = pp[x];
+    }
+    __syncthreads();  // tile t's items (and theta) visible
+    if (t + 1 < t_end) load_items(t + 1);
+
+    // the lane's items' constants, once a tile for its 4 students
+    float pj[IPT][NP], aj[IPT][K];
+#pragma unroll
+    for (int p = 0; p < IPT; ++p) {
+      const int sl = p * 32 + lane;
+#pragma unroll
+      for (int x = 0; x < NP; ++x) pj[p][x] = p_s[sl * NP + x];
+      if constexpr (!WIDE) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) aj[p][k] = p_s[TM * NP + sl * KA + k];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < SPT; ++q) {
+      const int gs = s_warp + q;
+      float mk[IPT], r[IPT];
+#pragma unroll
+      for (int p = 0; p < IPT; ++p) {
+        if constexpr (PACKED) {
+          const float c = static_cast<float>(vibo::code_at(ncode[q], p));
+          mk[p] = fminf(c, 1.f);
+          r[p] = fmaxf(c - 1.f, 0.f);
+        } else {
+          mk[p] = nmk[q][p];
+          r[p] = nr[q][p];
+        }
+      }
+      float th[K];
+      if constexpr (!WIDE) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) th[k] = th_s[(warp * SPT + q) * K + k];
+      }
+#pragma unroll
+      for (int p = 0; p < IPT; ++p) {
+        float dot = 0.f;
+        if constexpr (WIDE) {
+          const int gj = m0 + j0 + p;
+          if (gs < B && gj < M)
+            dot = vibo::wide_dot(theta + static_cast<size_t>(gs) * kt, 1,
+                                 a + static_cast<size_t>(gj) * kt, kt);
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k) dot = fmaf(th[k], aj[p][k], dot);
+        }
+        llq[q] += Link::value(dot - pj[p][0], pj[p], mk[p], r[p]);
+      }
+      // this student's cells of the next tile, in flight over the other
+      // students' cells, the staging and the barrier
+      if (t + 1 < t_end) load_cells(q, m0 + TM);
+    }
+  }
+
+  // each student's ll over the split's items, summed over the lanes
+#pragma unroll
+  for (int q = 0; q < SPT; ++q) {
+    float v = llq[q];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0 && s_warp + q < B) part_ll[s_warp + q] = v;
+  }
+}
+
+// ---------------------------------------------------------------- VJP
+//
+// The backward takes loglik_tile.cuh's mapping (vibo::NWARP = 16 warps, a
+// warp SPT = 4 students, a lane IPT = 2 consecutive items, tiles of TMI =
+// 64 items), with the grid (student blocks, item splits, samples).
+
+// Shared memory of the (Link, K) backward, in floats: the per-item
+// constants (first, 16-byte aligned), theta, the cotangent, a, the reduce
+// rows and the students' lane-private dtheta sums.
+template <class Link, int K>
+constexpr int bwd_smem_floats() {
+  return vibo::TMI * Link::NP + vibo::TBS * K + vibo::TBS +
+         vibo::TMI * vibo::a_stride(K) +
+         vibo::NWARP * (K + 1 + Link::NX) * vibo::TMI + vibo::TBS * K * 32;
+}
+
 // The dense rows of the warp's SPT students over tile m0 (2 x 256 bytes a
 // student) asked into L2 a tile ahead: 16 lanes, one 128-byte line each;
 // the cells' loads then wait on L2, not on device memory, and hold no
@@ -319,7 +348,7 @@ __device__ __forceinline__ void dense_to_l2(const float* resp,
 // Partials: part_dth (nsplit, S, B, kt); part_da (nblk, S, M, kt); part_db
 // and part_dg (nblk, S, M).
 template <class Link, int K, bool PACKED, bool WIDE>
-__global__ void __launch_bounds__(vibo::THREADS, bwd_min_blocks<K>())
+__global__ void __launch_bounds__(vibo::THREADS, vibo::min_blocks<K>())
 masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
                   const float* __restrict__ a, long long a_ss,
                   const float* __restrict__ b, long long b_ss,
@@ -371,10 +400,7 @@ masked_bwd_kernel(const float* __restrict__ g, const float* __restrict__ theta,
   const int s0 = blockIdx.x * TBS, s_warp = s0 + warp * SPT;
   const int split = blockIdx.y;
   const int t_end = min((split + 1) * tps, (M + TM - 1) / TM);
-  const bool vec =
-      PACKED ? M % 2 == 0 && reinterpret_cast<uintptr_t>(pk) % 2 == 0
-             : M % 2 == 0 && reinterpret_cast<uintptr_t>(resp) % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(mask) % 8 == 0;
+  const bool vec = rows_aligned<PACKED>(resp, mask, pk, M);
   const int j0 = lane * IPT;
   float* red_w = red_s + warp * NC * TM;
   float* acc_w = acc_s + warp * SPT * K * 32;
@@ -535,18 +561,16 @@ template <class Link, int K, bool WIDE = false>
 cudaError_t launch_fwd(const float* theta, const float* a, long long a_ss,
                        const float* b, long long b_ss, const float* gh,
                        long long g_ss, const float* resp, const float* mask,
-                       const int8_t* pk, long long d_ss, float* ll, int S,
-                       int B, int M, cudaStream_t stream, int kt = K) {
-  const dim3 grid((B + FWD_TBS - 1) / FWD_TBS, S);
-  if (pk != nullptr)
-    masked_fwd_kernel<Link, K, true, WIDE><<<grid, THREADS, 0, stream>>>(
-        theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, ll, B, M,
-        kt);
-  else
-    masked_fwd_kernel<Link, K, false, WIDE><<<grid, THREADS, 0, stream>>>(
-        theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, ll, B, M,
-        kt);
-  return cudaGetLastError();
+                       const int8_t* pk, long long d_ss, float* part_ll,
+                       int S, int B, int M, int nblk, int nsplit, int tps,
+                       cudaStream_t stream, int kt = K) {
+  return vibo::launch_tiled(pk != nullptr
+                                ? masked_fwd_kernel<Link, K, true, WIDE>
+                                : masked_fwd_kernel<Link, K, false, WIDE>,
+                            dim3(nblk, nsplit, S),
+                            sizeof(float) * fwd_smem_floats<Link, K, WIDE>(),
+                            stream, theta, a, a_ss, b, b_ss, gh, g_ss, resp,
+                            mask, pk, d_ss, part_ll, B, M, tps, kt);
 }
 
 template <class Link, int K, bool WIDE = false>
@@ -558,19 +582,14 @@ cudaError_t launch_bwd(const float* g, const float* theta, const float* a,
                        float* part_dg, int S, int B, int M, int nblk,
                        int nsplit, int tps, cudaStream_t stream, int kt = K,
                        int k0 = 0) {
-  const size_t smem = sizeof(float) * bwd_smem_floats<Link, K>();
-  auto kernel = pk != nullptr ? masked_bwd_kernel<Link, K, true, WIDE>
-                              : masked_bwd_kernel<Link, K, false, WIDE>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(nblk, nsplit, S), vibo::THREADS, smem, stream>>>(
-      g, theta, a, a_ss, b, b_ss, gh, g_ss, resp, mask, pk, d_ss, part_dth,
-      part_da, part_db, part_dg, B, M, tps, kt, k0);
-  return cudaGetLastError();
+  return vibo::launch_tiled(pk != nullptr
+                                ? masked_bwd_kernel<Link, K, true, WIDE>
+                                : masked_bwd_kernel<Link, K, false, WIDE>,
+                            dim3(nblk, nsplit, S),
+                            sizeof(float) * bwd_smem_floats<Link, K>(),
+                            stream, g, theta, a, a_ss, b, b_ss, gh, g_ss,
+                            resp, mask, pk, d_ss, part_dth, part_da, part_db,
+                            part_dg, B, M, tps, kt, k0);
 }
 
 bool bad_sizes(int S, int B, int M, int K) {
@@ -582,35 +601,43 @@ template <class Link>
 int fwd_entry(const void* theta, const void* a, long long a_ss,
               const void* b, long long b_ss, const void* gh, long long g_ss,
               const void* resp, const void* mask, const void* pk,
-              long long d_ss, void* ll, int S, int B, int M, int K,
-              void* stream_ptr) {
-  if (bad_sizes(S, B, M, K)) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return static_cast<int>(cudaSuccess);
+              long long d_ss, void* part_ll, void* ll, int S, int B, int M,
+              int K, int nblk, int nsplit, int tps, void* stream_ptr) {
+  if (bad_sizes(S, B, M, K) || !vibo::check_plan(B, M, nblk, nsplit, tps))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const float* t = static_cast<const float*>(theta);
-  const float* av = static_cast<const float*>(a);
-  const float* bv = static_cast<const float*>(b);
-  const float* gv = static_cast<const float*>(gh);
-  const float* rv = static_cast<const float*>(resp);
-  const float* mv = static_cast<const float*>(mask);
-  const int8_t* p = static_cast<const int8_t*>(pk);
-  float* out = static_cast<float*>(ll);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (K) {
+  float* pl = static_cast<float*>(part_ll);
+  if (nblk > 0) {
+    const float* t = static_cast<const float*>(theta);
+    const float* av = static_cast<const float*>(a);
+    const float* bv = static_cast<const float*>(b);
+    const float* gv = static_cast<const float*>(gh);
+    const float* rv = static_cast<const float*>(resp);
+    const float* mv = static_cast<const float*>(mask);
+    const int8_t* p = static_cast<const int8_t*>(pk);
+    cudaError_t err = cudaErrorInvalidValue;
+    switch (K) {
 #define VIBO_CASE(KK)                                                       \
   case KK:                                                                  \
     err = launch_fwd<Link, KK>(t, av, a_ss, bv, b_ss, gv, g_ss, rv, mv, p,  \
-                               d_ss, out, S, B, M, stream);                 \
+                               d_ss, pl, S, B, M, nblk, nsplit, tps,        \
+                               stream);                                     \
     break;
-    VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
-    VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
+      VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
+      VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
 #undef VIBO_CASE
-    default:  // K > 8: the wide variant, one pass
-      err = launch_fwd<Link, vibo::KC, true>(t, av, a_ss, bv, b_ss, gv, g_ss,
-                                             rv, mv, p, d_ss, out, S, B, M,
-                                             stream, K);
+      default:  // K > 8: the wide variant, one pass
+        err = launch_fwd<Link, vibo::KC, true>(t, av, a_ss, bv, b_ss, gv,
+                                               g_ss, rv, mv, p, d_ss, pl, S,
+                                               B, M, nblk, nsplit, tps,
+                                               stream, K);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(err);
+  // second pass: ll over the splits
+  const vibo::SumSeg seg{pl, static_cast<float*>(ll),
+                         static_cast<long long>(S) * B, nsplit, 1, 1, 0};
+  return static_cast<int>(vibo::launch_sum_rows(&seg, 1, stream));
 }
 
 // The second pass's segment of one item gradient: the partials (nblk, S,
@@ -682,23 +709,47 @@ int bwd_entry(const void* g, const void* theta, const void* a, long long a_ss,
   return static_cast<int>(vibo::launch_sum_rows(segs, 4, stream));
 }
 
-// The backward kernel of (Link, K, reader) (K > 8: the wide variant) and its
-// dynamic shared memory, for the occupancy query.
-template <class Link, bool PACKED>
-const void* bwd_kernel_of(int K, size_t* smem) {
+// The forward (FWD) or backward kernel of (Link, K, reader) (K > 8: the
+// wide variant) and its dynamic shared memory, for the occupancy query.
+template <class Link, bool PACKED, bool FWD>
+const void* kernel_of(int K, size_t* smem) {
   switch (K) {
-#define VIBO_CASE(KK)                                                 \
-  case KK:                                                            \
-    *smem = sizeof(float) * bwd_smem_floats<Link, KK>();              \
-    return reinterpret_cast<const void*>(                             \
+#define VIBO_CASE(KK)                                                     \
+  case KK:                                                                \
+    if constexpr (FWD) {                                                  \
+      *smem = sizeof(float) * fwd_smem_floats<Link, KK, false>();         \
+      return reinterpret_cast<const void*>(                               \
+          masked_fwd_kernel<Link, KK, PACKED, false>);                    \
+    }                                                                     \
+    *smem = sizeof(float) * bwd_smem_floats<Link, KK>();                  \
+    return reinterpret_cast<const void*>(                                 \
         masked_bwd_kernel<Link, KK, PACKED, false>);
     VIBO_CASE(1) VIBO_CASE(2) VIBO_CASE(3) VIBO_CASE(4)
     VIBO_CASE(5) VIBO_CASE(6) VIBO_CASE(7) VIBO_CASE(8)
 #undef VIBO_CASE
   }
+  if constexpr (FWD) {
+    *smem = sizeof(float) * fwd_smem_floats<Link, vibo::KC, true>();
+    return reinterpret_cast<const void*>(
+        masked_fwd_kernel<Link, vibo::KC, PACKED, true>);
+  }
   *smem = sizeof(float) * bwd_smem_floats<Link, vibo::KC>();
   return reinterpret_cast<const void*>(
       masked_bwd_kernel<Link, vibo::KC, PACKED, true>);
+}
+
+// Registers, local (spill) bytes and blocks an SM of the kernel of
+// (link, K, reader) (link 0: 2PL, 1: 3PL; packed 0: dense, 1: int8), into
+// out[0..2].
+template <bool FWD>
+int occupancy(int link, int K, int packed, int* out) {
+  size_t smem = 0;
+  const void* fn =
+      link == 0 ? (packed ? kernel_of<Link2PL, true, FWD>(K, &smem)
+                          : kernel_of<Link2PL, false, FWD>(K, &smem))
+                : (packed ? kernel_of<Link3PL, true, FWD>(K, &smem)
+                          : kernel_of<Link3PL, false, FWD>(K, &smem));
+  return vibo::occupancy_of(fn, smem, out);
 }
 
 }  // namespace
@@ -712,15 +763,19 @@ const char* vibo_error_string(int err) {
 // theta (S, B, K) f32 contiguous; a at a + s*a_ss, (M, K) contiguous, and b
 // at b + s*b_ss, (M,) (a sample stride of 0 shares them over samples); the
 // data at a sample stride d_ss (0 = shared): dense resp and mask (B, M) f32
-// with pk null, or the int8 code pk (B, M) with resp and mask null.
-// Writes ll (S, B).
+// with pk null, or the int8 code pk (B, M) with resp and mask null. The
+// plan (nblk, nsplit, tps) of ops/one_pass.py split_plan for (B, M, S),
+// checked here (loglik_tile.cuh check_plan) so a mismatch is refused
+// instead of overrunning the scratch part_ll (nsplit, S, B). Writes ll
+// (S, B).
 int masked_loglik_2pl_fwd(const void* theta, const void* a, long long a_ss,
                           const void* b, long long b_ss, const void* resp,
                           const void* mask, const void* pk, long long d_ss,
-                          void* ll, int S, int B, int M, int K,
-                          void* stream_ptr) {
+                          void* part_ll, void* ll, int S, int B, int M, int K,
+                          int nblk, int nsplit, int tps, void* stream_ptr) {
   return fwd_entry<Link2PL>(theta, a, a_ss, b, b_ss, nullptr, 0, resp, mask,
-                            pk, d_ss, ll, S, B, M, K, stream_ptr);
+                            pk, d_ss, part_ll, ll, S, B, M, K, nblk, nsplit,
+                            tps, stream_ptr);
 }
 
 // As masked_loglik_2pl_fwd, with the guess logits g_hat at g_hat + s*g_ss,
@@ -728,10 +783,12 @@ int masked_loglik_2pl_fwd(const void* theta, const void* a, long long a_ss,
 int masked_loglik_3pl_fwd(const void* theta, const void* a, long long a_ss,
                           const void* b, long long b_ss, const void* g_hat,
                           long long g_ss, const void* resp, const void* mask,
-                          const void* pk, long long d_ss, void* ll, int S,
-                          int B, int M, int K, void* stream_ptr) {
+                          const void* pk, long long d_ss, void* part_ll,
+                          void* ll, int S, int B, int M, int K, int nblk,
+                          int nsplit, int tps, void* stream_ptr) {
   return fwd_entry<Link3PL>(theta, a, a_ss, b, b_ss, g_hat, g_ss, resp, mask,
-                            pk, d_ss, ll, S, B, M, K, stream_ptr);
+                            pk, d_ss, part_ll, ll, S, B, M, K, nblk, nsplit,
+                            tps, stream_ptr);
 }
 
 // The VJP for the cotangent g (S, B): dtheta (S, B, K); da (Sa, M, K) and
@@ -771,31 +828,15 @@ int masked_loglik_3pl_bwd(const void* g, const void* theta, const void* a,
                             nsplit, tps, stream_ptr);
 }
 
-// Registers, local (spill) bytes and blocks an SM of the backward kernel of
-// (link, K, reader) (link 0: 2PL, 1: 3PL; packed 0: dense, 1: int8; K > 8:
-// the wide variant), into out[0..2].
+// Registers, local (spill) bytes and blocks an SM of the forward or the
+// backward kernel of (link, K, reader) (link 0: 2PL, 1: 3PL; packed 0:
+// dense, 1: int8; K > 8: the wide variant), into out[0..2].
+int masked_fwd_occupancy(int link, int K, int packed, int* out) {
+  return occupancy<true>(link, K, packed, out);
+}
+
 int masked_bwd_occupancy(int link, int K, int packed, int* out) {
-  size_t smem = 0;
-  const void* fn =
-      link == 0 ? (packed ? bwd_kernel_of<Link2PL, true>(K, &smem)
-                          : bwd_kernel_of<Link2PL, false>(K, &smem))
-                : (packed ? bwd_kernel_of<Link3PL, true>(K, &smem)
-                          : bwd_kernel_of<Link3PL, false>(K, &smem));
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
-                                                      vibo::THREADS, smem);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = blocks;
-  return static_cast<int>(err);
+  return occupancy<false>(link, K, packed, out);
 }
 
 }  // extern "C"

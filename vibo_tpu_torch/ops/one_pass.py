@@ -1,11 +1,17 @@
 """The launch plan of the kernels that share the tile mapping of
 `csrc/loglik_tile.cuh`: the one-pass training logliks (`csrc/loglik_train.cu`,
-`csrc/loglik_grm.cu`, `csrc/loglik_gpcm.cu`) and the masked loglik's VJP
-(`csrc/masked_loglik.cu`): blocks of STUDENTS_PER_BLOCK students, items in
-tiles of ITEMS_PER_TILE, and the tiles cut into runs (splits), one run for
-each block of the grid's second dimension (the VJP's third dimension runs
-its samples). The kernels check the plan they are given and refuse any
-other, so the scratch sized from it here cannot be overrun."""
+`csrc/loglik_grm.cu`, `csrc/loglik_gpcm.cu`) and the masked loglik's
+forward and VJP (`csrc/masked_loglik.cu`): blocks of STUDENTS_PER_BLOCK
+students, items in tiles of ITEMS_PER_TILE, and the tiles cut into runs
+(splits), one run for each block of the grid's second dimension (the masked
+loglik's third dimension runs its samples). Each split writes its own
+partial of the per-student sums (ll, dtheta) and each student block its own
+partial of the per-item sums, which a second pass adds in a fixed order.
+What bounds a plan is the card's 132 SMs, two blocks of 16 warps resident
+on each: too few blocks leave SMs idle, too short runs pay each block's
+start (theta, the first tile's latency) more often. The kernels check the
+plan they are given and refuse any other, so the scratch sized from it here
+cannot be overrun."""
 
 from __future__ import annotations
 

@@ -51,14 +51,14 @@ TRAIN_3PL = _build.register(_build.Kernel(
      I, I, I, P]))
 MASKED_FWD = _build.register(_build.Kernel(
     "masked_loglik_2pl_fwd", "masked_loglik.cu", "masked_loglik_2pl_fwd",
-    [P, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
+    [P, P, L, P, L, P, P, P, L, P, P, I, I, I, I, I, I, I, P]))
 MASKED_BWD = _build.register(_build.Kernel(
     "masked_loglik_2pl_bwd", "masked_loglik.cu", "masked_loglik_2pl_bwd",
     [P, P, P, L, P, L, P, P, P, L, P, P, P, P, P, P, I, I, I, I, I, I, I,
      P]))
 MASKED_FWD_3PL = _build.register(_build.Kernel(
     "masked_loglik_3pl_fwd", "masked_loglik.cu", "masked_loglik_3pl_fwd",
-    [P, P, L, P, L, P, L, P, P, P, L, P, I, I, I, I, P]))
+    [P, P, L, P, L, P, L, P, P, P, L, P, P, I, I, I, I, I, I, I, P]))
 MASKED_BWD_3PL = _build.register(_build.Kernel(
     "masked_loglik_3pl_bwd", "masked_loglik.cu", "masked_loglik_3pl_bwd",
     [P, P, P, L, P, L, P, L, P, P, P, L, P, P, P, P, P, P, P, P, I, I, I, I,
@@ -402,16 +402,21 @@ def _item_args(a, b, g_hat, s: int) -> tuple:
 
 
 def masked_fwd_cuda(theta, a, b, g_hat, resp, mask, packed):
-    """Launch the link's forward kernel (g_hat None: 2PL): ll (S, B). Pass
+    """Launch the link's forward kernels (g_hat None: 2PL): ll (S, B). Pass
     (resp, mask) with packed None for the dense reader, or packed with resp
-    and mask None."""
+    and mask None. The scratch holds the per-split ll of the plan
+    (`one_pass.split_plan` over the S samples)."""
     s, bsz, k = theta.shape
     m = a.shape[1]
-    ll = torch.empty((s, bsz), dtype=torch.float32, device=theta.device)
+    f32 = dict(dtype=torch.float32, device=theta.device)
+    plan = split_plan(bsz, m, samples=s)
+    part_ll = torch.empty((plan.splits, s, bsz), **f32)
+    ll = torch.empty((s, bsz), **f32)
     rp, mp, pp, data, reader = _data_args(resp, mask, packed)
     kernel = MASKED_FWD if g_hat is None else MASKED_FWD_3PL
     kernel(theta.data_ptr(), *_item_args(a, b, g_hat, s), rp, mp, pp,
-           _sample_stride(data, s), ll.data_ptr(), s, bsz, m, k,
+           _sample_stride(data, s), part_ll.data_ptr(), ll.data_ptr(), s,
+           bsz, m, k, *plan,
            torch.cuda.current_stream(theta.device).cuda_stream,
            variant=reader)
     return ll
