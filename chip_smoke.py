@@ -39,7 +39,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      clamp, a collapsing category, every cell in the first and in the last
      category); the first layer's two kernels in both modes (bf16, and f32
      against exact f32 products) at the flagship (timed beside the matmul of
-     the decoded code), at H = 512, at config 5's 5,520 x 680, at the
+     the decoded code, and each launched FIRST_LAYER_REPEATS times on one
+     input, every launch bitwise equal to the first), at H = 512, at config 5's 5,520 x 680, at the
      ragged and the odd shape at H = 256 and 20, and on the GRM flagship's
      graded code, meeting all three code readers; every loglik kernel at K
      = 9, 12 and 16 (the wide variant) on the ragged shape; the deep-link kernel (csrc/deep_link.cu) at paper config 5
@@ -49,9 +50,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      sample and shared d) against the CPU, at the extreme points
      (|logit| > 30, rows with no observed cell, every cell right or wrong),
      and at widths 384 and 512 (the kernel's wide variant) on config 5;
-  4. small-shape checks of the packed and the decoded-data objectives and
+  4. small-shape checks of the packed ELBO, the decoded-data ELBO and the
+     packed IWAE terms (S = 3, a fixed non-uniform cotangent a sample) and
      every gradient on the card against the CPU path, per link (deep: the
-     one-pass op on the packed path);
+     one-pass op on the packed paths);
   5. full-batch path, per link: the flagship (bf16 encoder, conditional
      posterior) with the 2PL, the 3PL (theta transposed), the GRM and the
      GPCM (C = 5, theta (B, K)) link trains 40 steps through Trainer.step,
@@ -81,6 +83,26 @@ held-out IWAE-100 with its peak memory; profiles of the three; 5 fused
 steps at link width 384 (the deep kernel's wide variant). Then the
 kernels summary line, the card's name and power limit, and the final
 status line {"ok": true, "device": {...}}.
+
+Fused phases (`fused`): after its eager phase, each full-batch path (the
+2PL, 3PL, GRM and GPCM flagships, the 2PL at f32, config 5's one-pass
+deep step and JAX's default deep route) trains through Trainer.fit with
+fuse_epochs, each eval interval's steps one CUDA graph: 40 epochs at
+eval_every 10 (the default deep route 10 at 5), every held-out accuracy
+in [0, 1], the ELBO rising where the eager phase asserts it and its
+trajectory beside the eager phase's (same init, seed and noise); then
+FUSED_REPLAYS replays of a FUSED_CHECK_LEN-step graph held against eager
+steps fed each replay's noise (params, Adam's state and aux bitwise
+equal, every step's noise new), a chunk's replays timed by CUDA
+events beside the eager steps' median, and a profiler window of replays
+in which each kernel of DEVICE_KERNELS (the wrappers' main kernels and
+the kernels they launch beside them) runs as many times a step as in a
+window of eager steps of the same model, where each path kernel's calls
+equal its wrapper's launches (the launch counters do not see replays).
+The profile windows also give the device records' union on the timeline
+beside their sum. Each link's flagship and config 5 run it
+again with the IWAE bound (S = 5, 10 epochs at 5). Before them the card's
+capturable Adam is held against the plain form.
 
 Bounds: the largest of three times, each at the H100 SXM's published peak:
 the bytes the function must move over 3.35 TB/s of HBM; its operations
@@ -207,6 +229,44 @@ PASS_KERNELS = (("reduce_ms", "sum_rows_kernel"),
                 ("prologue_ms", "grm_table_kernel"),
                 ("main_ms", r"loglik_(train|2pl|categorical)_kernel"
                             r"|masked_(fwd|bwd)_kernel"))
+# The fused full-batch path (Trainer.fit under fuse_epochs: each eval
+# interval's steps one CUDA graph). Its kernels run as graph replays, which
+# the launch counters do not see (_build.Kernel), so a fused phase counts
+# each kernel below by its device name in a profiler window of replays and
+# in one of eager steps: the calls a step must be equal, and each path
+# kernel's eager calls equal to its wrapper's launches. The first block is
+# each wrapper's main kernel, the second the kernels a wrapper launches
+# beside it.
+DEVICE_KERNELS = {
+    "first_layer_fwd": r"first_layer_fwd_kernel<1>",
+    "first_layer_bwd": r"first_layer_bwd_kernel<1>",
+    "first_layer_fwd_f32": r"first_layer_fwd_kernel<3>",
+    "first_layer_bwd_f32": r"first_layer_bwd_kernel<3>",
+    "loglik_2pl_train": r"loglik_2pl_kernel<",
+    "loglik_3pl_train": r"loglik_train_kernel<vibo::Link3PL",
+    "loglik_grm_train": r"loglik_categorical_kernel<vibo::LinkGRM",
+    "loglik_gpcm_train": r"loglik_categorical_kernel<vibo::LinkGPCM",
+    "deep_link_train": r"deep_link_kernel<",
+    "first_layer_prep": r"prep_kernel<1>",
+    "first_layer_prep_f32": r"prep_kernel<3>",
+    "sum_rows": r"sum_rows_kernel",
+    "grm_table": r"grm_table_kernel",
+    "deep_link_reduce": r"deep_link_reduce_kernel"}
+EAGER_COUNT_STEPS = 2                     # eager steps of a counting window
+# objective_matches_cpu's IWAE cotangent, one weight a sample
+IWAE_COTANGENT = (0.5, 0.3, 0.2)
+# epochs and eval_every of the ELBO phases and of the default deep route's;
+# epochs, eval_every and samples of the IWAE phases
+FUSED_EPOCHS, FUSED_EVAL_EVERY = 40, 10
+DEEP_DEFAULT_FUSED = (10, 5)
+IWAE_FUSED = (10, 5, 5)
+# graph against eager: FUSED_REPLAYS replays of a FUSED_CHECK_LEN-step graph,
+# each replay's noise then fed to as many eager steps on a copy of the state
+FUSED_REPLAYS, FUSED_CHECK_LEN = 5, 2
+FUSED_TIMED_REPLAYS = 5                   # of a chunk, timed by CUDA events
+# the first layer's kernels at the flagship: launches on one input, each
+# bitwise equal to the first, in each mode
+FIRST_LAYER_REPEATS = 200
 
 
 def ptxas_lines(log: str) -> list:
@@ -503,7 +563,9 @@ def check_first_layer(timer, roof, pk, rng_gen, timed: bool, h: int = H,
     off; 1e-5: only the summation order differs, and the tensor cores do
     not round their f32 sums to nearest). Timed: beside the plain version
     and the one PyTorch call computing the same function (the matmul of the
-    decoded code at that dtype)."""
+    decoded code at that dtype), and each kernel launched
+    FIRST_LAYER_REPEATS times on its input, every launch bitwise equal to
+    the first."""
     from vibo_tpu_torch.ops import pallas_encoder as enc
     from vibo_tpu_torch.ops.packing import decode_packed
     bsz, m = pk.shape
@@ -527,6 +589,20 @@ def check_first_layer(timer, roof, pk, rng_gen, timed: bool, h: int = H,
             raise AssertionError(f"{name} at {tuple(pk.shape)}, H={h} "
                                  f"disagrees with its plain version: {r}")
     if timed:
+        for name, r, launch, first in (
+                (f"first_layer_fwd{tag}", fwd,
+                 lambda: [enc.first_layer_fwd_cuda(pk, wr, wm, cd)], [h_k]),
+                (f"first_layer_bwd{tag}", bwd,
+                 lambda: enc.first_layer_bwd_cuda(pk, dh, cd),
+                 [dwr_k, dwm_k])):
+            r["repeats_differing"] = sum(
+                not all(torch.equal(x, y) for x, y in zip(launch(), first))
+                for _ in range(FIRST_LAYER_REPEATS - 1))
+            r["repeats"] = FIRST_LAYER_REPEATS
+            if r["repeats_differing"]:
+                raise AssertionError(f"{name}: {r['repeats_differing']} of "
+                                     f"{FIRST_LAYER_REPEATS} launches on one "
+                                     f"input differ from the first")
         lib = torch.float32 if f32 else torch.bfloat16
         m_, rm_ = (x.to(lib) for x in decode_packed(pk))
         x_cat = torch.cat([rm_, m_], dim=1)                 # (B, 2M)
@@ -553,7 +629,7 @@ def check_first_layer(timer, roof, pk, rng_gen, timed: bool, h: int = H,
 def first_layer_checks(timer, roof, data: dict, deep: dict, ragged_pk,
                        odd_pk, gen) -> dict:
     """check_first_layer in both modes at every listed shape: the flagship
-    (timed), H = 512, config 5's 5,520 x 680, the ragged and the odd shape
+    (timed, and the repeat gate), H = 512, config 5's 5,520 x 680, the ragged and the odd shape
     at H = 256 and at a width off the 8-column step (20), and the GRM
     flagship's graded code. The three code readers are all met: cp16 (M =
     1,024), cp4 (M = 680, 300), bytes (M = 301)."""
@@ -985,23 +1061,29 @@ def categorical_checks(timer, roof, fam: str, data: dict, rng_gen,
     return out
 
 
-def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
+def objective_matches_cpu(mode: str, link: str = "2pl") -> float:
     """An objective and every gradient at a small shape on the card
-    (kernels) against the CPU (plain versions), same params and noise: the
-    packed full-batch ELBO (S = 1, transposed theta), or the decoded-data
-    minibatch ELBO (S = 2, item_scale 0.4, an all-missing row). bf16
-    encoder, so 1e-2 of each array's largest magnitude (a bf16 rounding of
-    an encoder operand may flip between the two). grm/gpcm: C = 5,
-    theta (B, K); deep: item latent 16, link width 128, the one-pass op on
-    the packed path and the plain link in blocks of 256 items on the
-    decoded one."""
+    (kernels) against the CPU (plain versions), same params and noise.
+    mode "packed": the packed full-batch ELBO (S = 1, transposed theta);
+    "decoded": the decoded-data minibatch ELBO (S = 2, item_scale 0.4, an
+    all-missing row); "iwae": the packed IWAE terms (S = 3, local and
+    ratio a sample) and its bound, the gradients those of sum_s w_s
+    (local_s + ratio_s) at the fixed non-uniform w = IWAE_COTANGENT. That
+    is the IWAE bound's gradient at weights w; the bound's own weights at
+    random params are one-hot to f32 (log weights hundreds apart), so they
+    would drive one sample only. bf16 encoder, so 1e-2 of each array's
+    largest magnitude (a bf16 rounding of an encoder operand may flip
+    between the two). grm/gpcm: C = 5, theta (B, K); deep: item latent
+    16, link width 128, the one-pass op on the packed path and the plain
+    link in blocks of 256 items on the decoded one."""
     from vibo_tpu_torch.convert import (params_from_jax, params_to_numpy,
                                         tree_leaves)
     from vibo_tpu_torch.models import VIBO, VIBOConfig
     from vibo_tpu_torch.ops import objectives
     from vibo_tpu_torch.ops.packing import packed_on_device
     n, m = 300, 200
-    s = 2 if decoded else 1
+    decoded = mode == "decoded"
+    s = {"packed": 1, "decoded": 2, "iwae": len(IWAE_COTANGENT)}[mode]
     cats = C if link in FAMILIES else 2
     rng = np.random.default_rng(3)
     resp = rng.integers(0, cats, (n, m)).astype(np.float32)
@@ -1036,19 +1118,25 @@ def objective_matches_cpu(decoded: bool, link: str = "2pl") -> float:
                 params, torch.from_numpy(resp).to(dev),
                 torch.from_numpy(mask).to(dev), ie, te, 0.4)
             terms = [aux[k] for k in ("loglik", "kl_theta", "kl_items")]
-        else:
+        elif mode == "packed":
             packed, rv = packed_on_device(resp, mask, dev)
             terms = model.elbo_packed_sums(params, packed, ie, te, rv,
                                            transposed=transposed)
             bound = objectives.elbo(*terms)
+        else:
+            packed, rv = packed_on_device(resp, mask, dev)
+            local, ratio = model.iwae_packed_terms(params, packed, ie, te,
+                                                   rv, transposed=transposed)
+            terms = [local, ratio, objectives.iwae_bound(local + ratio)]
+            w = torch.tensor(IWAE_COTANGENT, device=dev)
+            bound = (w * (local + ratio)).sum()
         bound.backward()
         results.append([t.detach().cpu() for t in terms]
                        + [p.grad.cpu() for p in tree_leaves(params)])
     worst = max(rel_err(g, c) for g, c in zip(*results))
     if not worst <= 1e-2:
-        raise AssertionError(f"{link} {'decoded' if decoded else 'packed'} "
-                             f"objective on the card disagrees with the CPU "
-                             f"path: {worst}")
+        raise AssertionError(f"{link} {mode} objective on the card "
+                             f"disagrees with the CPU path: {worst}")
     return worst
 
 
@@ -1083,11 +1171,18 @@ def check_path(phase: str, launches: dict, ran: tuple,
             f"of {steps} steps {miscounted}: {launches}")
 
 
-def profile_steps(step, steps: int, med_ms: float, smi: str) -> dict:
-    """Device time by kernel over `steps` calls of step() in a
-    torch.profiler window (padded as in profiled), and the device idle
-    share against the unprofiled median step med_ms (the profiler slows
-    the host)."""
+def profile_steps(step, steps: int, med_ms: float, smi: str,
+                  per_call: int = 1, counts: bool = False) -> dict:
+    """Device time by kernel a training step over `steps` calls of step()
+    (per_call training steps each: a graph replay of a chunk) in a
+    torch.profiler window (padded as in profiled), the device records
+    (kernels, memcpys, memsets) a step, and the device idle share against
+    the unprofiled step time med_ms (the profiler slows the host, and the
+    device too: a busy time above med_ms gives a negative share, reported
+    as measured). The records' union on the device's timeline beside their
+    sum (equal unless a record is counted twice or two overlap) and the
+    idle share within the window's own wall time; counts: also every
+    device record's name with its calls a step."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1098,26 +1193,53 @@ def profile_steps(step, steps: int, med_ms: float, smi: str) -> dict:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILER_PAD_S)
+    n_steps = steps * per_call
     rows = []
-    for evt in prof.key_averages():
-        # device-side kernel records only: an op's record, or a user
-        # annotation such as the optimizer step's, carries its kernels'
-        # time a second time
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)
-                or "#" in evt.key):
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def device_record(evt, host) -> bool:
+        # device-side records only: an op's record, or a user annotation
+        # such as the optimizer step's (its device record under the host
+        # record's name), carries its kernels' time a second time. A
+        # kernel's own name may hold '#' (a lambda's, "{lambda()#1}", in a
+        # demangled template argument: about half the elementwise kernels
+        # of a step), so names are matched whole, never searched for it
+        return not (evt.device_type != cuda
+                    or getattr(evt, "is_user_annotation", False)
+                    or evt.key in host)
+
+    averages = prof.key_averages()
+    host = {evt.key for evt in averages if evt.device_type != cuda}
+    for evt in averages:
+        if not device_record(evt, host):
             continue
         dt = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
         if dt > 0:
-            rows.append((dt / 1e3 / steps, evt.key, evt.count))
+            rows.append((dt / 1e3 / n_steps, evt.key, evt.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    return {"steps": steps, "wall_ms_per_step": window_ms / steps,
-            "device_ms_per_step": busy,
-            "device_idle_share": 1.0 - busy / med_ms,
-            "top": [{"ms_per_step": round(t, 4), "name": n[:80],
-                     "calls": c} for t, n, c in rows[:14]], "card": smi}
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if device_record(e, host)
+                   and e.time_range.end > e.time_range.start)
+    union, reach = 0.0, float("-inf")
+    for a, b in spans:                   # us
+        union += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    union_ms = union / 1e3 / n_steps
+    out = {"steps": n_steps,
+           "wall_ms_per_step": window_ms / n_steps,
+           "device_ms_per_step": busy,
+           "device_union_ms_per_step": union_ms,
+           "device_records_per_step": sum(r[2] for r in rows) / n_steps,
+           "device_idle_share": 1.0 - busy / med_ms,
+           "device_idle_share_in_window": 1.0 - union_ms * n_steps
+           / window_ms,
+           "top": [{"ms_per_step": round(t, 4), "name": n[:80],
+                    "calls": c} for t, n, c in rows[:14]], "card": smi}
+    if counts:
+        out["counts"] = {n: c / n_steps for _, n, c in rows}
+    return out
 
 
 def full_batch_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
@@ -1201,7 +1323,223 @@ def full_batch_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
     emit({"phase": "profile", "link": tag, **profile_steps(
         lambda: trainer.step(params, optimizer, packed, row_valid, noise),
         10, med, smi)})
-    return {"launches": launches, "step_ms_median": med}
+    return {"launches": launches, "step_ms_median": med, "elbos": elbos}
+
+
+def adam_capturable_matches_plain() -> float:
+    """The card's Adam (make_optimizer: capturable, step count and bias
+    correction on the device) against torch.optim.Adam's plain form, which
+    tests/test_torch_trainer.py holds against optax.adam on the CPU: 6
+    steps on gradients of 1e-3 to 1e2. Returns the max relative error."""
+    from vibo_tpu_torch.train import make_optimizer
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x0 = torch.randn((4, 3), generator=gen, device="cuda")
+    grads = [torch.randn((4, 3), generator=gen, device="cuda") * 10 ** (i - 3)
+             for i in range(6)]
+    xs = [x0.clone().requires_grad_(True) for _ in range(2)]
+    opts = (make_optimizer({"x": xs[0]}, 1e-2),
+            torch.optim.Adam([xs[1]], lr=1e-2, betas=(0.9, 0.999), eps=1e-8,
+                             capturable=False))
+    if not opts[0].defaults["capturable"]:
+        raise AssertionError("make_optimizer is not capturable on the card")
+    for g in grads:
+        for x, opt in zip(xs, opts):
+            x.grad = g.clone()
+            opt.step()
+    err = rel_err(xs[0].detach(), xs[1].detach())
+    if not err <= 1e-6:
+        raise AssertionError(f"capturable Adam is {err} from the plain form")
+    return err
+
+
+def graph_matches_eager(tag: str, trainer, params, optimizer, packed,
+                        row_valid, samples: int) -> dict:
+    """FUSED_REPLAYS replays of a FUSED_CHECK_LEN-step graph (make_scan),
+    each replay's noise cloned from the graph's static buffers and fed to
+    eager step_with_noise on a copy of the params and Adam's state taken
+    before: max |graph - eager| / max |eager| of the per-step aux, the
+    params and Adam's moments and step count after all of them, which
+    must all be bitwise equal, every replay's noise new (each step's
+    against the step before it), and the eager steps' median time."""
+    from vibo_tpu_torch.convert import tree_leaves, tree_map
+    from vibo_tpu_torch.train import make_optimizer
+    from vibo_tpu_torch.train.trainer import AUX_KEYS
+
+    copy = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+    copy_opt = make_optimizer(copy, trainer.cfg.lr)
+    for p, q in zip(tree_leaves(params), tree_leaves(copy)):
+        copy_opt.state[q] = {k: v.clone()
+                             for k, v in optimizer.state[p].items()}
+    scan = trainer.make_scan(1.0, samples, FUSED_CHECK_LEN)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    graph_aux, noises = [], []
+    for _ in range(FUSED_REPLAYS):
+        graph_aux.append(scan(params, optimizer, packed, row_valid, gen))
+        noises.extend(tree_map(torch.clone, n) for n in scan.noise)
+    stale = sum(torch.equal(a[1], b[1]) for a, b in zip(noises, noises[1:]))
+    eager_aux, eager_ms = [], []
+    for item_eps, theta_eps in noises:
+        t0 = time.perf_counter()
+        aux = trainer.step_with_noise(copy, copy_opt, packed, row_valid,
+                                      item_eps, theta_eps)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        eager_aux.append(torch.stack([aux[k] for k in AUX_KEYS]))
+    pairs = {"aux": [(torch.cat(graph_aux), torch.stack(eager_aux))],
+             "params": [(p.detach(), q.detach()) for p, q in
+                        zip(tree_leaves(params), tree_leaves(copy))],
+             "adam": [(optimizer.state[p][k], copy_opt.state[q][k])
+                      for p, q in zip(tree_leaves(params), tree_leaves(copy))
+                      for k in ("exp_avg", "exp_avg_sq", "step")]}
+    out = {"steps": len(noises),
+           **{f"{k}_max_rel": max(rel_err(a, b) for a, b in v)
+              for k, v in pairs.items()},
+           "bitwise": all(torch.equal(a, b) for v in pairs.values()
+                          for a, b in v),
+           "noise_repeats": stale,
+           "eager_step_ms_median": statistics.median(eager_ms[2:])}
+    if not out["bitwise"] or stale:
+        raise AssertionError(f"{tag}: graph replays and eager steps "
+                             f"disagree: {out}")
+    return out
+
+
+def device_counts(counts: dict) -> dict:
+    """Calls a step of each kernel of DEVICE_KERNELS, from a profile_steps
+    window's counts."""
+    return {k: sum(c for n, c in counts.items() if re.search(rx, n))
+            for k, rx in DEVICE_KERNELS.items()}
+
+
+def eager_counts(tag: str, trainer, params, optimizer, packed, row_valid,
+                 ran: tuple, med_ms: float, smi: str) -> tuple:
+    """EAGER_COUNT_STEPS eager steps of a fused phase's model in a profiler
+    window: (each kernel wrapper's launches a step, each DEVICE_KERNELS
+    kernel's device calls a step). The steps launch every kernel of `ran`
+    and no other, and each path kernel's device calls equal its wrapper's
+    launches (a window that lost records is opened again)."""
+    from vibo_tpu_torch.ops import _build
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    for _ in range(PROFILER_TRIES):
+        _build.reset_launches()
+        prof = profile_steps(
+            lambda: trainer.step(params, optimizer, packed, row_valid, gen),
+            EAGER_COUNT_STEPS, med_ms, smi, counts=True)
+        launches = launch_counts()
+        check_path(f"{tag} eager counting window", launches, ran)
+        wrapper = {n: c / EAGER_COUNT_STEPS for n, c in launches.items()}
+        dev = device_counts(prof["counts"])
+        if all(dev[n] == wrapper[n] for n in ran):
+            return wrapper, dev
+    raise AssertionError(f"{tag}: device calls a step {dev} of the path's "
+                         f"kernels differ from their wrappers' launches "
+                         f"{wrapper}")
+
+
+def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
+                epochs: int, eval_every: int, objective: str = "elbo",
+                samples: int = 1, must_rise: bool = True,
+                eager=None) -> dict:
+    """The fused full-batch path for one model: Trainer.fit with
+    fuse_epochs (each chunk of eval_every steps one CUDA graph) for
+    `epochs` at `objective`, every eval's held-out accuracy in [0, 1],
+    the bound finite and, where must_rise, rising; graph_matches_eager;
+    a chunk's replays timed by CUDA events; and a profiler window of
+    replays, in which every kernel of DEVICE_KERNELS runs as many times a
+    step as in eager steps of the same model (eager_counts), so every
+    kernel of `ran` once a step where its wrapper launches it once a step.
+    `eager`: full_batch_phase's result for the same
+    model, whose steps (same init, seed and noise) the fit's first epochs
+    repeat: their ELBOs' max difference is reported beside its step
+    median."""
+    from vibo_tpu_torch.models import VIBO
+    from vibo_tpu_torch.train import Trainer, TrainConfig
+
+    ds, packed, row_valid = data["ds"], data["packed"], data["row_valid"]
+    model = VIBO(cfg)
+    trainer = Trainer(model, TrainConfig(
+        lr=5e-3, epochs=epochs, eval_every=eval_every, objective=objective,
+        num_mc_samples=samples))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = trainer.fit(ds)
+    fit_s = time.perf_counter() - t0
+    bounds = [h["elbo"] for h in res["history"] if h["event"] == "train"]
+    accs = [h["acc"] for h in res["history"] if h["event"] == "eval"]
+    if not (len(bounds) == epochs and np.isfinite(bounds).all()):
+        raise AssertionError(f"{tag} fused fit: bad bounds {bounds}")
+    if not (len(accs) == -(-epochs // eval_every)
+            and all(0.0 <= a <= 1.0 for a in accs)):
+        raise AssertionError(f"{tag} fused fit: bad held-out accuracy "
+                             f"{accs}")
+    if must_rise and not np.mean(bounds[-5:]) > np.mean(bounds[:5]):
+        raise AssertionError(f"{tag} fused {objective} did not rise: "
+                             f"{bounds}")
+    params, optimizer = res["params"], res["optimizer"]
+    equal = graph_matches_eager(tag, trainer, params, optimizer, packed,
+                                row_valid, samples)
+    wrapper, eager_dev = eager_counts(tag, trainer, params, optimizer,
+                                      packed, row_valid, ran,
+                                      equal["eager_step_ms_median"], smi)
+
+    scan = trainer.make_scan(1.0, samples, eval_every)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def chunk():
+        return scan(params, optimizer, packed, row_valid, gen)
+
+    chunk()                                   # capture and a first replay
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FUSED_TIMED_REPLAYS):
+        chunk()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / (FUSED_TIMED_REPLAYS * eval_every)
+    for _ in range(PROFILER_TRIES):
+        prof = profile_steps(chunk, 3, replay_ms, smi, per_call=eval_every,
+                             counts=True)
+        replay = device_counts(prof["counts"])
+        if replay == eager_dev:
+            break
+    else:
+        raise AssertionError(f"{tag} fused: device calls a step of the "
+                             f"replays {replay} differ from eager steps' "
+                             f"{eager_dev}")
+    names = prof.pop("counts")
+    seen = {name: [n for n in names if re.search(DEVICE_KERNELS[name], n)]
+            for name in ran}
+    launches = {k: {"replay": replay[k], "eager": eager_dev[k],
+                    **({"wrapper": wrapper[k]} if k in wrapper else {})}
+                for k in DEVICE_KERNELS if replay[k] or eager_dev[k]}
+    emit({"phase": "fused", "link": tag, "objective": objective,
+          "samples": samples, "epochs": epochs, "eval_every": eval_every,
+          "fit_seconds": fit_s, "train_seconds": res["train_seconds"],
+          "warm_train_seconds": res["warm_train_seconds"],
+          "bound_first": bounds[0], "bound_last": bounds[-1],
+          "heldout_acc": accs, "graph_vs_eager": equal,
+          "replay_step_ms": replay_ms,
+          "eager_step_ms_median": equal["eager_step_ms_median"],
+          "eager_over_replay": equal["eager_step_ms_median"] / replay_ms,
+          "kernels_seen": {k: v[0][:60] for k, v in seen.items()},
+          "launches_per_step": launches,
+          **({} if eager is None else {
+              "eager_phase_step_ms_median": eager["step_ms_median"],
+              "eager_phase_elbo_max_abs": max(
+                  abs(a - b) for a, b in zip(bounds, eager["elbos"]))}),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "profile": prof, "card": smi})
+    return {"replay_step_ms": replay_ms,
+            "eager_step_ms_median": equal["eager_step_ms_median"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "device_idle_share": prof["device_idle_share"]}
 
 
 def minibatch_phase(link: str, ds, smi: str, cfg=None, masked=None,
@@ -1855,10 +2193,12 @@ def main() -> None:
 
     for link in (*LINK_KERNELS, "deep"):
         emit({"phase": "objective_vs_cpu", "link": link,
-              "packed_max_rel_err": objective_matches_cpu(False, link),
-              "decoded_max_rel_err": objective_matches_cpu(True, link)})
+              **{f"{mode}_max_rel_err": objective_matches_cpu(mode, link)
+                 for mode in ("packed", "decoded", "iwae")}})
 
-    full, mini, mini_readers = {}, {}, {}
+    emit({"phase": "adam_capturable_vs_plain",
+          "max_rel_err": adam_capturable_matches_plain()})
+    full, mini, mini_readers, fused = {}, {}, {}, {}
     for link in LINK_KERNELS:
         d = data[link]
         train = LINK_KERNELS[link]["train"]
@@ -1866,6 +2206,13 @@ def main() -> None:
             link, flagship_config(link), d, smi, (*FIRST_LAYER, train),
             (train,), fresh=simulate_irt(link, 256, M, ability_dim=K, seed=1,
                                          missing_rate=0.1, num_categories=C))
+        fused[link] = fused_phase(
+            link, flagship_config(link), d, smi, (*FIRST_LAYER, train),
+            FUSED_EPOCHS, FUSED_EVAL_EVERY, eager=full[link])
+        fused[f"{link}_iwae"] = fused_phase(
+            f"{link}_iwae", flagship_config(link), d, smi,
+            (*FIRST_LAYER, train), *IWAE_FUSED[:2], "iwae", IWAE_FUSED[2],
+            must_rise=False)
         mini[link], mini_readers[link] = minibatch_phase(link, d["ds"], smi)
     # JAX's CLI configuration: use_pallas at compute_dtype float32, so the
     # f32 first layer and the 2PL one-pass loglik once a step
@@ -1873,6 +2220,9 @@ def main() -> None:
     full["2pl_f32"] = full_batch_phase(
         "2pl_f32", flagship_config("2pl", "float32"), data["2pl"], smi,
         f32_path, f32_path, F32_STEPS)
+    fused["2pl_f32"] = fused_phase(
+        "2pl_f32", flagship_config("2pl", "float32"), data["2pl"], smi,
+        f32_path, FUSED_EPOCHS, FUSED_EVAL_EVERY, eager=full["2pl_f32"])
     # config 5: the one-pass deep kernel, then JAX's default (the decoded
     # code and the plain link: no loglik kernel), then minibatches (the
     # plain link, as in JAX: no kernel at all)
@@ -1881,9 +2231,18 @@ def main() -> None:
         "deep", deep_config(True), deep, smi, deep_path, deep_path,
         DEEP_STEPS, fresh=simulate_irt("nonlinear", 256, DEEP_M,
                                        ability_dim=DEEP_K, seed=1))
+    fused["deep"] = fused_phase(
+        "deep", deep_config(True), deep, smi, deep_path, FUSED_EPOCHS,
+        FUSED_EVAL_EVERY, eager=full["deep"])
+    fused["deep_iwae"] = fused_phase(
+        "deep_iwae", deep_config(True), deep, smi, deep_path,
+        *IWAE_FUSED[:2], "iwae", IWAE_FUSED[2], must_rise=False)
     deep_default = full_batch_phase(
         "deep_default", deep_config(False), deep, smi, FIRST_LAYER,
         FIRST_LAYER, DEEP_DEFAULT_STEPS, must_rise=False)
+    fused["deep_default"] = fused_phase(
+        "deep_default", deep_config(False), deep, smi, FIRST_LAYER,
+        *DEEP_DEFAULT_FUSED, must_rise=False, eager=deep_default)
     # a width of the deep kernel's wide variant, a few fused steps
     full["deep_H384"] = full_batch_phase(
         "deep_H384", deep_config(True, WIDE_H[0]), deep, smi, deep_path,
@@ -1898,6 +2257,7 @@ def main() -> None:
     # not get back to the first epoch's
     minibatch_phase("deep", deep["ds"], smi, deep_config(True), (),
                     must_rise=False)
+    emit({"phase": "fused_paths", "card": smi, "paths": fused})
     full = {k: v["launches"] for k, v in full.items()}
 
     fl = checks["flagship"]

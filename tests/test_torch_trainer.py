@@ -306,9 +306,11 @@ def test_fit_runs_both_paths_and_checks_options():
                 if h["event"] == "train"] == [0, 1, 2]
         assert np.isfinite(res["final_elbo"]) and res["cells_per_sec"] > 0
         assert res["best"]["epoch"] >= 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, TrainConfig(epochs=1, objective="iwae"),
-                device="cpu").fit(ds)
+    # full-batch IWAE on the int8 code
+    res = Trainer(model, TrainConfig(epochs=3, eval_every=2,
+                                     objective="iwae", num_mc_samples=2),
+                  device="cpu").fit(ds)
+    assert np.isfinite(res["final_elbo"]) and res["best"]["epoch"] >= 0
     # the polytomous families on both paths (graded data, C = 4)
     gds = jholdout(rng.integers(0, 4, (30, 12)).astype(np.float32),
                    (rng.random((30, 12)) < 0.9).astype(np.float32), 0.2,

@@ -45,7 +45,9 @@
 //   (128 x 64 bf16 each, 128-byte swizzle) come by TMA, their bytes counted
 //   on the slot's mbarrier; block thread 0 starts the first STAGES chunks,
 //   and after that the second warpgroup to finish with a slot refills it
-//   (a per-slot counter). Each warpgroup copies its own code tile (cp.async
+//   (a per-slot counter; a warpgroup has finished with it once all four of
+//   its warps are past their wgmma wait, a barrier of the warpgroup). Each
+//   warpgroup copies its own code tile (cp.async
 //   of 16 bytes where the code's rows are 16-byte aligned, M % 16 == 0; of
 //   4 bytes where M % 4 == 0; else plain byte loads: config 5 has M = 680,
 //   the odd test shapes M = 301) and decodes its A fragments straight from
@@ -87,7 +89,9 @@
 //   their own shared memory and each sums an eighth of the tile over the
 //   cluster's ranks in rank order through distributed shared memory. No
 //   partial goes through HBM (the former design wrote and re-read a 19 MB
-//   split buffer) and nothing uses float atomics: deterministic.
+//   split buffer) and nothing uses float atomics. Both directions, in both
+//   modes, give the same bits at every launch on one input
+//   (chip_smoke.py launches each FIRST_LAYER_REPEATS times).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from
                    // the driver at run time, so nothing links -lcuda
@@ -391,7 +395,8 @@ struct Ring {
 };
 
 // One consumer warpgroup over the nchunks chunks. The two warpgroups share
-// the B tiles and run decoupled: no barrier of the block in the loop. Each
+// the B tiles and run decoupled: no barrier of the block in the loop (a
+// warpgroup's own barrier before it releases a slot). Each
 // warpgroup copies its own code tiles. LEAN: decode a chunk, run its
 // wgmma into acc, wait. Else chunk c + 1 is decoded while the tensor cores
 // run chunk c, and each chunk's product goes to a fresh accumulator
@@ -435,6 +440,7 @@ __device__ __forceinline__ void consume(Ring<STAGES>& ring, int nchunks,
       keep_live(a);
 #pragma unroll
       for (int i = 0; i < 64; ++i) reg_fence(acc[i]);
+      wg_sync(wg);  // every warp's share of chunk c done (see below)
       codes(c + STAGES);
       if (leader && c + STAGES < nchunks &&
           atomicAdd(&ring.done[c % STAGES], 1u) % 2 == 1)
@@ -479,9 +485,14 @@ __device__ __forceinline__ void consume(Ring<STAGES>& ring, int nchunks,
       mma(c + 1, a, part, true);
       wgmma_commit();
     }
-    // slot c % STAGES: every thread of the warpgroup decoded chunk c before
-    // its (warpgroup-wide) wgmma, which has completed; refill this
-    // warpgroup's code tile, and the B tiles once both are done with them
+    // slot c % STAGES: a warp's wgmma wait covers its own 16 rows only, so
+    // the warpgroup's barrier makes sure all four warps' shares of chunk c
+    // have completed (and read the slot's B tiles) before the leader
+    // counts the warpgroup done with them; else a lagging warp's last
+    // wgmma may read a tile the next chunk's TMA is overwriting. Then
+    // refill this warpgroup's code tile, and the B tiles once both
+    // warpgroups are done with them
+    wg_sync(wg);
     codes(c + STAGES);
     if (leader && c + STAGES < nchunks &&
         atomicAdd(&ring.done[c % STAGES], 1u) % 2 == 1)

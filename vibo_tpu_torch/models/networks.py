@@ -194,7 +194,10 @@ def apply_deep_link(params, theta, d, item_chunk: int = 0,
         def block(dc):
             return apply_deep_link(params, theta, dc,
                                    compute_dtype=compute_dtype)
-        logits = [checkpoint(block, dc, use_reentrant=False)
+        # no randomness inside a block, so no RNG state to save and
+        # restore (which a CUDA graph's capture would have to allow)
+        logits = [checkpoint(block, dc, use_reentrant=False,
+                             preserve_rng_state=False)
                   for dc in d_p.split(item_chunk, dim=-2)]
         return torch.cat(logits, -1)[..., :m]
     cd = as_dtype(compute_dtype)

@@ -15,14 +15,15 @@ q(d) per-item diagonal Gaussians; q(theta_i | d, r_i) an MLP encoder on the
 response row, conditioned on a flattened item draw ("sample") or on the
 item-posterior means ("mean").
 
-Objectives: the packed full-batch ELBO on the int8 code
-(`elbo_packed_sums`), and the ELBO and IWAE bounds on decoded (response,
-mask) minibatches (`elbo`, `iwae`), whose masked loglik runs the general
-kernel op under `use_pallas` (`loglik_per_person`). Each objective has a
-core that takes its noise from outside (`elbo_eps`, `iwae_eps`,
-`elbo_packed_sums`), so the tests feed the JAX package and the port the
-same numbers; `sample_noise` draws that noise from a torch.Generator, and
-`elbo` / `iwae` wrap it around the decoded-data cores. Samples run
+Objectives: the packed full-batch ELBO and IWAE bound on the int8 code
+(`elbo_packed_sums`, `iwae_packed_terms`, one per-sample body), and the
+ELBO and IWAE bounds on decoded (response, mask) minibatches (`elbo`,
+`iwae`), whose masked loglik runs the general kernel op under `use_pallas`
+(`loglik_per_person`). Each objective has a core that takes its noise from
+outside (`elbo_eps`, `iwae_eps`, `elbo_packed_sums`, `iwae_packed_terms`),
+so the tests feed the JAX package and the port the same numbers;
+`sample_noise` draws that noise from a torch.Generator, and `elbo` /
+`iwae` / `iwae_packed` wrap it around the cores. Samples run
 batched along a leading axis. Everything outside this scope raises NotImplementedError naming the
 ROADMAP item that ports it.
 """
@@ -348,26 +349,35 @@ class VIBO:
         return self.elbo_eps(params, response, mask, item_eps, theta_eps,
                              item_scale)
 
-    def iwae_log_weights(self, params: dict, response, mask, item_eps: dict,
-                         theta_eps, item_scale: float = 1.0,
-                         eval_mask=None, post: dict | None = None
-                         ) -> torch.Tensor:
-        """(S,) importance log-weights log p(r, theta_s, d_s) - log
-        q(theta_s, d_s), item terms scaled by item_scale. The encoder
-        conditions on (response, mask); the loglik and the valid rows (any
-        evaluated cell) use eval_mask (None = mask). post: the item
-        posterior to draw from (None = item_dist)."""
+    def iwae_terms(self, params: dict, response, mask, item_eps: dict,
+                   theta_eps, eval_mask=None, post: dict | None = None,
+                   row_weight=None):
+        """(local (S,), ratio (S,)) of the IWAE log-weights on decoded data:
+        local_s = loglik + log p(theta_s) - log q(theta_s) over the valid
+        rows, ratio_s = log p(d_s) - log q(d_s). The encoder conditions on
+        (response, mask); the loglik and the valid rows (any evaluated cell,
+        or row_weight where given) use eval_mask (None = mask). post: the
+        item posterior to draw from (None = item_dist)."""
         emask = mask if eval_mask is None else eval_mask
         post, item_sample, mu, logvar, theta = self._draw(
             params, response, mask, item_eps, theta_eps, post)
         ll = self.loglik_per_person(params, theta, item_sample, response,
                                     emask).sum(-1)
-        valid = (emask.sum(-1) > 0).to(mu.dtype)
+        valid = ((emask.sum(-1) > 0).to(mu.dtype) if row_weight is None
+                 else row_weight)
         lp = (dist.standard_normal_log_prob(theta).sum(-1) * valid).sum(-1)
         lq = (self.theta_logq(theta, mu, logvar) * valid).sum(-1)
-        ratio = self.item_log_ratio_from(post, item_sample)
-        return objectives.importance_log_weights(ll, lp, lq, ratio, 0.0,
-                                                 item_scale)
+        return ll + lp - lq, self.item_log_ratio_from(post, item_sample)
+
+    def iwae_log_weights(self, params: dict, response, mask, item_eps: dict,
+                         theta_eps, item_scale: float = 1.0,
+                         eval_mask=None, post: dict | None = None
+                         ) -> torch.Tensor:
+        """(S,) importance log-weights log p(r, theta_s, d_s) - log
+        q(theta_s, d_s), item terms scaled by item_scale (iwae_terms)."""
+        local, ratio = self.iwae_terms(params, response, mask, item_eps,
+                                       theta_eps, eval_mask, post)
+        return local + item_scale * ratio
 
     def iwae_eps(self, params: dict, response, mask, item_eps: dict,
                  theta_eps, item_scale: float = 1.0) -> torch.Tensor:
@@ -399,42 +409,29 @@ class VIBO:
         return item_eps, torch.randn(shape, generator=generator,
                                      device=self.device)
 
-    def elbo_packed_sums(self, params: dict, packed, item_eps: dict,
-                         theta_eps, row_weight=None,
-                         transposed: bool = False):
-        """(loglik_sum, kl_theta_sum, kl_items) from the int8 code and
-        exogenous noise, the first two averaged over the sample axis.
-
-        With use_pallas the encoder's first layer runs the fused kernel, and
-        the loglik the link's one-pass op where _use_packed_kernel holds
-        (its uniform-cotangent contract holds: it is summed into the loss);
-        otherwise (deep without deep_fused_kernel) the code is decoded for
-        the plain link. Without use_pallas the code is decoded and
-        elbo_sums runs on (response, mask). row_weight ((B,), 0/1) masks
-        the theta-KL of rows with no observed cell; None derives it from
-        the code. transposed: theta in (K, B), theta_eps from
-        sample_noise(..., transposed=True), fused kernels of the 1pl/2pl/3pl
-        links only (grm/gpcm run their one-pass op on theta (B, K), the
-        table reparameterized outside it; deep its op or the plain link on
-        theta (B, K)). Same math either way."""
-        valid = (packed_row_valid(packed) if row_weight is None
-                 else row_weight)
+    def _check_packed_layout(self, transposed: bool) -> None:
         if transposed and (self._categorical or self._deep):
             raise ValueError(f"{self.cfg.irt_model} runs theta as (B, K): "
                              "transposed=True is for the 1pl/2pl/3pl links")
-        if not self.cfg.use_pallas:
-            if transposed:
-                raise ValueError("transposed=True requires the fused kernels "
-                                 "(use_pallas=True)")
-            mask, response = decode_packed(packed)
-            return self.elbo_sums(params, response, mask, item_eps,
-                                  theta_eps, valid)
+        if transposed and not self.cfg.use_pallas:
+            raise ValueError("transposed=True requires the fused kernels "
+                             "(use_pallas=True)")
+
+    def _packed_samples(self, params: dict, packed, item_eps: dict,
+                        theta_eps, transposed: bool):
+        """What the packed objectives share under use_pallas, one sample at
+        a time: yields (ll_s, item_sample, mu, logvar, theta) with ll_s the
+        loglik summed over persons. The encoder's first layer runs the fused
+        kernel, the loglik the link's one-pass op where _use_packed_kernel
+        holds (each sample's sum sees one scalar cotangent: the ELBO's 1/S,
+        the IWAE's weight w_s, so the ops' uniform-cotangent contract
+        holds); otherwise (deep without deep_fused_kernel) the code is
+        decoded for the plain link."""
         post = self.item_dist(params)
         m = packed.shape[-1]
         fused = self._use_packed_kernel(params)
         if not fused:                      # deep on the plain link
             mask, response = decode_packed(packed)
-        lls, klts = [], []
         for s in range(theta_eps.shape[0]):
             item_sample = {
                 name: dist.reparameterize_eps(item_eps[name][s],
@@ -445,14 +442,12 @@ class VIBO:
                 params, packed, self._item_feats(post, item_sample),
                 transposed=transposed)
             theta = dist.reparameterize_eps(theta_eps[s], mu, logvar)
-            kl = dist.kl_standard_normal(mu, logvar).sum(0 if transposed
-                                                         else -1)
-            klts.append((kl * valid).sum())
             if self._deep:
-                lls.append((pallas_deep.masked_loglik_deep_packed_train(
+                ll = (pallas_deep.masked_loglik_deep_packed_train(
                     theta, item_sample["d"], params["deep_link"], packed)
                     if fused else self.loglik_per_person(
-                        params, theta, item_sample, response, mask)).sum())
+                        params, theta, item_sample, response, mask)).sum()
+                yield ll, item_sample, mu, logvar, theta
                 continue
             a, b, g_hat = self._link_params(item_sample, m)
             if self._categorical:
@@ -463,14 +458,87 @@ class VIBO:
                 train_t = (pallas_elbo.masked_loglik_2pl_packed_train_t
                            if g_hat is None else
                            pallas_elbo.masked_loglik_3pl_packed_train_t)
-                lls.append(train_t(theta, *items, packed))
+                ll = train_t(theta, *items, packed)
             else:
                 train = _PACKED_TRAIN.get(
                     self.cfg.irt_model,
                     pallas_elbo.masked_loglik_2pl_packed_train)
-                lls.append(train(theta, *items, packed).sum())
+                ll = train(theta, *items, packed).sum()
+            yield ll, item_sample, mu, logvar, theta
+
+    def elbo_packed_sums(self, params: dict, packed, item_eps: dict,
+                         theta_eps, row_weight=None,
+                         transposed: bool = False):
+        """(loglik_sum, kl_theta_sum, kl_items) from the int8 code and
+        exogenous noise, the first two averaged over the sample axis.
+
+        With use_pallas the samples run _packed_samples (the fused first
+        layer and the link's one-pass op). Without use_pallas the code is
+        decoded and elbo_sums runs on (response, mask). row_weight ((B,),
+        0/1) masks the theta-KL of rows with no observed cell; None derives
+        it from the code. transposed: theta in (K, B), theta_eps from
+        sample_noise(..., transposed=True), fused kernels of the 1pl/2pl/3pl
+        links only (grm/gpcm run their one-pass op on theta (B, K), the
+        table reparameterized outside it; deep its op or the plain link on
+        theta (B, K)). Same math either way."""
+        valid = (packed_row_valid(packed) if row_weight is None
+                 else row_weight)
+        self._check_packed_layout(transposed)
+        if not self.cfg.use_pallas:
+            mask, response = decode_packed(packed)
+            return self.elbo_sums(params, response, mask, item_eps,
+                                  theta_eps, valid)
+        lls, klts = [], []
+        for ll, _, mu, logvar, _ in self._packed_samples(
+                params, packed, item_eps, theta_eps, transposed):
+            kl = dist.kl_standard_normal(mu, logvar).sum(0 if transposed
+                                                         else -1)
+            klts.append((kl * valid).sum())
+            lls.append(ll)
         return (torch.stack(lls).mean(), torch.stack(klts).mean(),
-                self.item_kl_from(post))
+                self.item_kl_from(self.item_dist(params)))
+
+    def iwae_packed_terms(self, params: dict, packed, item_eps: dict,
+                          theta_eps, row_weight=None,
+                          transposed: bool = False):
+        """(local (S,), ratio (S,)) of the IWAE log-weights from the int8
+        code and exogenous noise (the JAX `iwae_packed_terms` on one
+        device): local_s = loglik + log p(theta_s) - log q(theta_s) over the
+        valid rows (row_weight, None = derived from the code), ratio_s =
+        log p(d_s) - log q(d_s). Samples, layouts and the use_pallas=False
+        fallback as in elbo_packed_sums (iwae_terms on the decoded code)."""
+        valid = (packed_row_valid(packed) if row_weight is None
+                 else row_weight)
+        self._check_packed_layout(transposed)
+        if not self.cfg.use_pallas:
+            mask, response = decode_packed(packed)
+            return self.iwae_terms(params, response, mask, item_eps,
+                                   theta_eps, row_weight=valid)
+        post = self.item_dist(params)
+        kdim = 0 if transposed else -1
+        local, ratio = [], []
+        for ll, item_sample, mu, logvar, theta in self._packed_samples(
+                params, packed, item_eps, theta_eps, transposed):
+            lp = (dist.standard_normal_log_prob(theta).sum(kdim)
+                  * valid).sum()
+            lq = (dist.gaussian_log_prob(theta, mu, logvar).sum(kdim)
+                  * valid).sum()
+            local.append(ll + lp - lq)
+            ratio.append(self.item_log_ratio_from(post, item_sample))
+        return torch.stack(local), torch.stack(ratio)
+
+    def iwae_packed(self, params: dict, packed, item_scale: float = 1.0,
+                    num_samples: int = 10, row_valid=None,
+                    generator: torch.Generator | None = None):
+        """IWAE-S bound (scalar) on the int8 code: iwae_packed_terms with
+        num_samples draws of noise from `generator`, the item terms scaled
+        by item_scale."""
+        tp = self.wants_transposed_theta()
+        item_eps, theta_eps = self.sample_noise(
+            packed.shape[0], num_samples, transposed=tp, generator=generator)
+        local, ratio = self.iwae_packed_terms(
+            params, packed, item_eps, theta_eps, row_valid, transposed=tp)
+        return objectives.iwae_bound(local + item_scale * ratio)
 
     # ------------------------------------------------- scoring / imputation
 

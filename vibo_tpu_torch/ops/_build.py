@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "vibo_tpu_torch"
@@ -118,7 +120,10 @@ class Kernel:
     """One C entry point of a csrc/ library with a launch counter.
 
     `launches` counts successful launches through __call__ only; the
-    wrapper calls it where it launches the kernel and nowhere else.
+    wrapper calls it where it launches the kernel and nowhere else. A call
+    on a stream that a CUDA graph is capturing records the launch in the
+    graph and is not counted: the graph's replays launch it, and a profiler
+    window sees them, not this count.
     `launches_by` splits the count by the `variant` the wrapper names (the
     input reader of a kernel templated on it), or is empty."""
 
@@ -139,6 +144,8 @@ class Kernel:
     def __call__(self, *args, variant: str | None = None) -> None:
         rc = self._bind()(*args)
         check(rc, self._lib, f"CUDA kernel {self.name} launch")
+        if torch.cuda.is_current_stream_capturing():
+            return
         self.launches += 1
         if variant is not None:
             self.launches_by[variant] = self.launches_by.get(variant, 0) + 1
