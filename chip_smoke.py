@@ -50,6 +50,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      sample and shared d) against the CPU, at the extreme points
      (|logit| > 30, rows with no observed cell, every cell right or wrong),
      and at widths 384 and 512 (the kernel's wide variant) on config 5;
+     the deep link's f32 kernel (csrc/deep_link_f32.cu, row 15f, the deep
+     HMC potential's) against the plain f32 version at the deep gold's
+     2,000 x 200 with 4 chains on one code and at config 5 (both timed),
+     at 777 x 301 (K = 1, 8, empty rows), 40 students and widths 256 and
+     512, a second launch of each bitwise equal to the first;
   4. small-shape checks of the packed ELBO, the decoded-data ELBO and the
      packed IWAE terms (S = 3, a fixed non-uniform cotangent a sample) and
      every gradient on the card against the CPU path, per link (deep: the
@@ -80,9 +85,25 @@ and the plain link: the first layer only) with both step medians; 4
 minibatch epochs at 4,096 (2 steps, the second padded with 2,672 empty
 rows) and 3 IWAE steps (S = 5) on the plain link (no kernel at all), the
 held-out IWAE-100 with its peak memory; profiles of the three; 5 fused
-steps at link width 384 (the deep kernel's wide variant). Then the
-kernels summary line, the card's name and power limit, and the final
-status line {"ok": true, "device": {...}}.
+steps at link width 384 (the deep kernel's wide variant). Then the HMC
+baseline (vibo_tpu_torch/models/hmc.py, fixed trajectories, 4 chains,
+target accept 0.65), each run through run_hmc with its kernel launched
+once a chain each potential evaluation and no other kernel: the flagship
+gold (simulate_irt("2pl", 10,240, 1,024, K = 4, seed 0), 10 % held out,
+row 4; 50 + 50 iterations at 64 leapfrogs) and the GRM gold (2,000 x
+100, K = 1, C = 5, the dense potential; 50 + 50 at 32) held against the
+JAX package's posteriors in artifacts/gold (theta-mean Pearson after
+Procrustes >= 0.99, held-out accuracy within 0.003 / 0.01), short runs
+of 1PL and 3PL (rows 4, 9) and of the opt-in GRM and GPCM kernels (rows
+13, 14), and a decoder trained by Trainer.fit on synthetic-nonlinear
+2,000 x 200 sampled through the dense deep potential and row 15f; every
+kernel potential held against the dense one (value, per-person loglik
+and gradients, at the MAP and one sd off it, per-chain items); each with
+ms a potential
+evaluation, ms an iteration and a profiler window's busy and idle
+shares and kernel calls an iteration. Then the kernels summary line, the
+card's name and power limit, and the final status line {"ok": true,
+"device": {...}}.
 
 Fused phases (`fused`): after its eager phase, each full-batch path (the
 2PL, 3PL, GRM and GPCM flagships, the 2PL at f32, config 5's one-pass
@@ -191,6 +212,33 @@ DEEP_STEPS, DEEP_DEFAULT_STEPS = 40, 10   # fused, JAX-default full batch
 # 4 (mask, s_theta, s_d); per pair ~20 (the logit's reduction, ll, dlogit,
 # dbo)
 DEEP_PAIR_OPS = lambda h: 17 * h + 20   # noqa: E731
+# the special functions a pair of the deep link needs (exp, log1p and the
+# reciprocal of 1 + e): row 15f's bound
+DEEP_F32_PAIR_MUFU = 3
+# The HMC baseline (vibo_tpu_torch/models/hmc.py, fixed trajectories). The
+# golds under artifacts/gold were sampled by the JAX package with 800
+# warm-up and 1,600 draws a chain at 64 leapfrogs
+# (scripts/run_benchmark_configs.sh:43-50, :98-102); the smoke cuts each
+# gold's depth to HMC_GOLD_DEPTH (warm-up, draws, leapfrogs; the smallest
+# depth of hmc_depth.py's sweep that held both gates with margin), widths
+# and data unchanged. A short run: HMC_SHORT.
+GOLD_DIR = Path(__file__).resolve().parent / "artifacts" / "gold"
+HMC_CHAINS, HMC_TARGET = 4, 0.65
+HMC_GOLD_DEPTH = {"k4": (50, 50, 64), "grm": (50, 50, 32)}
+HMC_SHORT = (20, 20, 16)
+HMC_PEARSON_MIN = 0.99                    # theta posterior means vs a gold
+HMC_ACC_TOL = {"k4": 0.003, "grm": 0.01}  # held-out accuracy vs a gold's
+HMC_PROFILE_ITERS = 3                     # iterations of a profiler window
+HMC_FLIP_BOUND = 4e-4                     # a relu flip's gradient row, of
+                                          # the largest magnitude (4 x 1e-4)
+# the deep gold's shape (synthetic-nonlinear 2,000 x 200, K = 2; D = 16,
+# H = 128 as config 5's decoder) and the decoder's fused training epochs
+DEEP_GOLD_B, DEEP_GOLD_M, DEEP_DECODER_EPOCHS = 2000, 200, 200
+GRM_GOLD = (2000, 100)                    # the GRM gold's students, items
+# the loglik kernels of DEVICE_KERNELS (the others are their helpers)
+LOGLIK_DEVICE_KERNELS = ("loglik_2pl_train", "loglik_3pl_train",
+                         "loglik_grm_train", "loglik_gpcm_train",
+                         "deep_link_train", "deep_link_f32_train")
 # cells one thread covers in one pass of a kernel's unrolled tile loop
 # (students per warp x items per lane, csrc/loglik_tile.cuh)
 CELLS_PER_PASS = {"loglik_train_kernel": 4 * 2, "loglik_2pl_kernel": 4 * 2,
@@ -247,11 +295,13 @@ DEVICE_KERNELS = {
     "loglik_grm_train": r"loglik_categorical_kernel<vibo::LinkGRM",
     "loglik_gpcm_train": r"loglik_categorical_kernel<vibo::LinkGPCM",
     "deep_link_train": r"deep_link_kernel<",
+    "deep_link_f32_train": r"deep_link_f32_kernel<",
     "first_layer_prep": r"prep_kernel<1>",
     "first_layer_prep_f32": r"prep_kernel<3>",
     "sum_rows": r"sum_rows_kernel",
     "grm_table": r"grm_table_kernel",
-    "deep_link_reduce": r"deep_link_reduce_kernel"}
+    "deep_link_reduce": r"deep_link_reduce_kernel",
+    "deep_link_f32_reduce": r"deep_link_f32_reduce_kernel"}
 EAGER_COUNT_STEPS = 2                     # eager steps of a counting window
 # objective_matches_cpu's IWAE cotangent, one weight a sample
 IWAE_COTANGENT = (0.5, 0.3, 0.2)
@@ -1803,11 +1853,15 @@ def deep_args(link: dict, theta, d, pk):
 
 
 def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
-               timed: bool = False, link=None, theta=None, d=None) -> dict:
-    """The deep-link kernel (csrc/deep_link.cu) against its plain version on
+               timed: bool = False, link=None, theta=None, d=None,
+               f32_dots: bool = False) -> dict:
+    """The deep-link kernel (csrc/deep_link.cu; f32_dots: row 15f,
+    csrc/deep_link_f32.cu, against the plain version's f32 mode, a second
+    launch bitwise equal to the first) against its plain version on
     the code pk: ll, s_theta, s_d, dW2, db2, dwo and dbo. Both round the
-    same operands to bf16 and sum in different orders (the tensor cores
-    against cuBLAS's f32 product), so ll, dwo and dbo must agree to 1e-5,
+    same operands to bf16 (or neither does) and sum in different orders
+    (the tensor cores or CUDA-core fmaf chains against cuBLAS's f32
+    product), so ll, dwo and dbo must agree to 1e-5,
     1e-4 and 1e-4 of their largest magnitude. The others also carry relu
     flips: a pre2 within that summation noise of 0 takes the other branch in
     one version, which moves its pair's dpre2_n by dlogit wo_n (|dlogit| <
@@ -1825,8 +1879,9 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
         theta = torch.randn((bsz, k), generator=gen, device="cuda")
         d = torch.randn((m, DEEP_D), generator=gen, device="cuda")
     args = deep_args(link, theta, d, pk)
-    got = pd.train_cuda(*args)
-    ref = pd.fused_deep_plain(*args)
+    got = pd.train_cuda(*args, f32_dots=f32_dots)
+    ref = pd.fused_deep_plain(*args, f32_dots=f32_dots)
+    again = pd.train_cuda(*args, f32_dots=True) if f32_dots else got
     torch.cuda.synchronize()
     names = ("ll", "s_theta", "s_d", "dW2", "db2", "dwo", "dbo")
     by_output = {n: rel_err(x, y) for n, x, y in zip(names, got, ref)}
@@ -1857,13 +1912,37 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
                     for n in ("s_theta", "s_d"))
                 and all(flips[n]["excess_over_1e-4_in_flips"] <= 4.0
                         for n in ("dW2", "db2")))
+    r["bitwise_repeat"] = all(bool(torch.equal(x, y))
+                              for x, y in zip(got, again))
     if not (finite and inert and flips_ok and by_output["ll"] <= 1e-5
-            and by_output["dwo"] <= 1e-4 and by_output["dbo"] <= 1e-4):
-        raise AssertionError(f"deep_link_train at {tuple(pk.shape)}, K={k}, "
-                             f"H={h} disagrees with its plain version, is not "
-                             f"finite or an all-missing row is not inert: {r}")
+            and by_output["dwo"] <= 1e-4 and by_output["dbo"] <= 1e-4
+            and r["bitwise_repeat"]):
+        raise AssertionError(f"deep_link_{'f32_' if f32_dots else ''}train "
+                             f"at {tuple(pk.shape)}, K={k}, H={h} disagrees "
+                             f"with its plain version, is not finite, does "
+                             f"not repeat bitwise or an all-missing row is "
+                             f"not inert: {r}")
     r["inert_rows"] = int(empty.sum())
-    if timed:
+    if timed and f32_dots:
+        pairs = bsz * m
+        r["ms"] = timer(lambda: pd.train_cuda(*args, f32_dots=True))
+        r["plain_ms"] = timer(lambda: pd.fused_deep_plain(*args,
+                                                          f32_dots=True))
+        r["library_ms"] = None
+        small = bsz * h + m * h + h * h + 2 * h + 1
+        # three f32 products (6 H^2 a pair) and the cell work outside them,
+        # all on the CUDA cores' f32 rate; the function's special functions
+        # (exp, log1p, the reciprocal) a pair, the SASS's lines beside it
+        r["bound_ms"], r["bound_by"], r["bound_terms_ms"] = roof.bound(
+            pairs + 4 * small + 4 * (small + bsz),
+            (6 * h * h + DEEP_PAIR_OPS(h)) * pairs, F32_FLOPS,
+            DEEP_F32_PAIR_MUFU * pairs, terms=True)
+        r["sass_mufu_lines"] = roof.mufu_lines(
+            "deep_link_f32.cu", "deep_link_f32_kernelILb1ELb1E"
+            if h == 128 else "deep_link_f32_kernelILb0ELb1E"
+            if h <= 384 else "deep_link_f32_kernelILb0ELb0E")
+        r["occupancy"] = deep_f32_occupancy(h)
+    elif timed:
         r["ms"] = timer(lambda: pd.train_cuda(*args))
         r["plain_ms"] = timer(lambda: pd.fused_deep_plain(*args))
         r["library_ms"] = None
@@ -2015,6 +2094,490 @@ def deep_kernel_checks(timer, roof, data: dict, gen) -> dict:
         "S3_shared_d": check_deep_op(odd, gen, 3, shared_d=True),
         "extremes": deep_extremes(gen),
     }
+
+
+def deep_f32_occupancy(h: int) -> dict:
+    """Row 15f's kernel at width h: ptxas's registers, local (spill) bytes
+    and resident blocks an SM (`deep_link_f32_occupancy`)."""
+    import ctypes
+    from vibo_tpu_torch.ops import _build
+    out = (ctypes.c_int * 3)()
+    fn, lib = _build.bind("deep_link_f32.cu", "deep_link_f32_occupancy",
+                          [ctypes.c_int, ctypes.c_void_p])
+    _build.check(fn(h, out), lib, f"deep_link_f32_occupancy H={h}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
+
+
+def check_deep_f32_chains(timer, roof, pk, gen, k: int, chains: int,
+                          timed: bool) -> dict:
+    """Row 15f (csrc/deep_link_f32.cu) as the deep HMC potential calls it:
+    `chains` draws of theta (B, K) and d (M, D) under one link on one code,
+    one launch a chain, each against the plain f32 version (check_deep's
+    gates, f32_dots), the first timed."""
+    link = deep_link_params(k, DEEP_H, gen)
+    bsz, m = pk.shape
+    per = []
+    for c in range(chains):
+        theta = torch.randn((bsz, k), generator=gen, device="cuda")
+        d = torch.randn((m, DEEP_D), generator=gen, device="cuda")
+        per.append(check_deep(timer, roof, pk, gen, k, DEEP_H,
+                              timed and c == 0, link, theta, d,
+                              f32_dots=True))
+    r = dict(per[0])
+    for key in ("ll_rel_err", "grad_rel_err", "max_abs_err"):
+        r[key] = max(x[key] for x in per)
+    r["chains"] = chains
+    r["relu_flip_rows"] = [{n: x["relu_flips"][n]["rows"]
+                            for n in ("s_theta", "s_d")} for x in per]
+    return r
+
+
+def deep_f32_checks(timer, roof, deep: dict, gen) -> dict:
+    """Row 15f at the deep gold's shape (2,000 x 200, K = 2, H = 128) with
+    4 chains (timed), at config 5's (timed), and at the edges: 777 x 301
+    at K = 1 and 8 with empty rows, 40 students, widths 256 (its own
+    variant: W2 from L2) and 512 (its buffers in the scratch)."""
+    gold_pk = torch.randint(0, 3, (DEEP_GOLD_B, DEEP_GOLD_M), generator=gen,
+                            device="cuda", dtype=torch.int8)
+    odd = torch.randint(0, 3, ODD, generator=gen, device="cuda",
+                        dtype=torch.int8)
+    odd[[0, 5, ODD[0] - 1]] = 0
+    tiny = torch.randint(0, 3, TINY, generator=gen, device="cuda",
+                         dtype=torch.int8)
+    return {
+        "deep_gold_4_chains": check_deep_f32_chains(
+            timer, roof, gold_pk, gen, DEEP_K, HMC_CHAINS, timed=True),
+        "config5": check_deep(timer, roof, deep["packed"], gen, timed=True,
+                              f32_dots=True),
+        "odd_K1": check_deep(timer, roof, odd, gen, k=1, f32_dots=True),
+        "odd_K8": check_deep(timer, roof, odd, gen, k=8, f32_dots=True),
+        "tiny": check_deep(timer, roof, tiny, gen, f32_dots=True),
+        "odd_H256": check_deep(timer, roof, odd, gen, h=256, f32_dots=True),
+        "gold_H512": check_deep(timer, roof, gold_pk[:300], gen, h=512,
+                                f32_dots=True),
+    }
+
+
+def load_gold(name: str) -> dict:
+    """artifacts/gold/<name>/baseline_hmc.npz: the JAX package's posterior
+    summary (theta_hat, theta_sd) and its summary line."""
+    z = np.load(GOLD_DIR / name / "baseline_hmc.npz")
+    return {"theta_hat": z["theta_hat"], "theta_sd": z["theta_sd"],
+            "summary": json.loads(str(z["summary_json"])),
+            "shape": [int(v) for v in z["shape"]], "seed": int(z["seed"])}
+
+
+def heldout_accuracy(prob: np.ndarray, ds) -> float:
+    """The CLI's held-out accuracy of posterior-predictive probabilities:
+    p > 0.5, or the most probable category of (N, M, C)."""
+    pred = (prob.argmax(-1) if prob.ndim == 3 else prob > 0.5
+            ).astype(np.float32)
+    h = ds.heldout_mask
+    return float((h * (pred == ds.response)).sum() / h.sum())
+
+
+def hmc_cfg(model: str, k: int, c: int = 2, depth: tuple = HMC_SHORT,
+            **kw):
+    """The smoke's HMCConfig: depth (warm-up, draws, leapfrogs), HMC_CHAINS
+    chains at HMC_TARGET, seed 0."""
+    from vibo_tpu_torch.models import hmc
+    warm, draws, leap = depth
+    return hmc.HMCConfig(irt_model=model, ability_dim=k, num_categories=c,
+                         num_warmup=warm, num_samples=draws,
+                         num_leapfrog=leap, num_chains=HMC_CHAINS,
+                         target_accept=HMC_TARGET, seed=0, **kw)
+
+
+def depth_cut(depth: tuple, gold: bool = False) -> str:
+    warm, draws, leap = depth
+    return (f"{warm} warm-up + {draws} draws a chain at {leap} leapfrogs"
+            + (" (the gold: 800 + 1,600 at 64); widths and data the gold's"
+               if gold else ""))
+
+
+def hmc_evals_per_iter(cfg) -> int:
+    """Potential evaluations an iteration: the trajectory's leapfrogs and
+    the refresh after the ridge or rotation moves."""
+    ridge = cfg.ridge_moves > 0 and cfg.irt_model != "deep"
+    rot = cfg.ability_dim > 1 and cfg.irt_model in ("2pl", "3pl", "grm",
+                                                    "gpcm")
+    return cfg.num_leapfrog + int(ridge or rot)
+
+
+def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
+              deep_params=None) -> dict:
+    """Timing and a profiler window of the chain programs at the run's
+    posterior mean (the run's own MAP stays inside run_hmc): ms a potential
+    evaluation of all chains (CUDA events, L2 flushed), ms an iteration
+    (sampling flags; host clock over a synchronized run), and a profiler
+    window of HMC_PROFILE_ITERS iterations: busy and idle shares, and each
+    loglik kernel's device calls an iteration, which must be C times the
+    evaluations for the path's kernel (its helpers beside it) and 0 for
+    every other."""
+    import dataclasses
+    from vibo_tpu_torch.models import hmc
+    from vibo_tpu_torch.ops.packing import pack_responses
+    n, m = ds.response.shape
+    packed = kernel is not None
+    run_cfg = dataclasses.replace(cfg, use_packed_kernel=packed)
+    if cfg.irt_model == "deep":
+        run_cfg = dataclasses.replace(
+            run_cfg, deep_latent_dim=int(deep_params["w_item"].shape[0]),
+            deep_hidden_dim=int(deep_params["w_theta"].shape[1]))
+    prog = hmc._chain_programs(run_cfg, n, m)
+    if packed:
+        base = {"pk": torch.from_numpy(pack_responses(
+            ds.response, ds.train_mask)).cuda()}
+    else:
+        base = {"resp": torch.from_numpy(ds.response).cuda(),
+                "mask": torch.from_numpy(ds.train_mask).cuda()}
+    if deep_params is not None:
+        base["deep"] = deep_params
+    center = {k: torch.from_numpy(np.ascontiguousarray(
+        samples[k].mean(0), np.float32)).cuda() for k in prog.names}
+    scale = hmc.fisher_scale(ds.train_mask, prog.spec, "cuda")
+    data = dict(base, center=center, scale=scale,
+                ll_ref=prog.ll_ref_fn(center, base))
+    state = prog.init({k: torch.zeros((HMC_CHAINS,) + v, device="cuda")
+                       for k, v in prog.spec.items()}, data)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    holder = [state]
+
+    def iteration():
+        holder[0], _ = prog.step(holder[0], 0.0, 0.0, 0.0, data, gen)
+
+    vg_ms = Timer()(lambda: prog.vg(holder[0]["pos"], data), reps=10)
+    for _ in range(2):
+        iteration()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        iteration()
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) * 1e3 / 5
+    evals = hmc_evals_per_iter(run_cfg)
+    for _ in range(PROFILER_TRIES):
+        prof = profile_steps(iteration, HMC_PROFILE_ITERS, iter_ms, smi,
+                             counts=True)
+        dev = device_counts(prof["counts"])
+        calls = {n: dev[n] for n in LOGLIK_DEVICE_KERNELS}
+        want = {n: (HMC_CHAINS * evals if n == kernel else 0)
+                for n in LOGLIK_DEVICE_KERNELS}
+        if calls == want:
+            break
+    else:
+        raise AssertionError(f"{tag}: loglik kernels an iteration in the "
+                             f"profiler window {calls}, want {want}")
+    prof.pop("counts")
+    return {"ms_per_potential_eval": vg_ms, "ms_per_iteration": iter_ms,
+            "evals_per_iteration": evals,
+            "ms_per_eval_in_iteration": iter_ms / evals,
+            "device_calls_per_iteration": {n: v for n, v in dev.items()
+                                           if v},
+            "profile": prof}
+
+
+def gold_agreement(samples: dict, heldout_acc: float, gold: str) -> dict:
+    """A run's posterior against a gold of the JAX package: the
+    Procrustes-aligned Pearson of the theta means (gated at
+    HMC_PEARSON_MIN), the held-out accuracy's distance (gated at
+    HMC_ACC_TOL) and the theta sds' Pearson after rotate_diag_sigma
+    (reported)."""
+    from vibo_tpu_torch import evaluation
+    g = load_gold(gold)
+    mean = samples["theta"].mean(0)
+    rot = evaluation.procrustes_rotation(mean, g["theta_hat"])
+    sd = evaluation.rotate_diag_sigma(samples["theta"].std(0), rot)
+    r = {"gold": f"artifacts/gold/{gold}",
+         "gold_heldout_acc": g["summary"]["heldout_acc"],
+         "theta_mean_pearson_vs_gold": evaluation.correlation(
+             mean, g["theta_hat"], align_rotation=True)["pearson"],
+         "theta_sd_pearson_vs_gold": evaluation.correlation(
+             sd, g["theta_sd"], align_sign=False)["pearson"],
+         "heldout_acc_minus_gold": heldout_acc - g["summary"]["heldout_acc"]}
+    r["gold_gates_hold"] = (
+        r["theta_mean_pearson_vs_gold"] >= HMC_PEARSON_MIN
+        and abs(r["heldout_acc_minus_gold"]) <= HMC_ACC_TOL[gold])
+    return r
+
+
+def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
+              deep_params=None, probe: bool = False,
+              cut: str = "") -> dict:
+    """One run_hmc on the card (the entry point a user calls) with its
+    launches counted: the path's kernel (None: no kernel at all) once a
+    chain each potential evaluation, map_init_steps times for the MAP (no
+    chain axis) and once for ll_ref, and no other kernel; every draw
+    finite; the accept rate in (0, 1]. With a gold: the Procrustes-aligned
+    Pearson of the posterior theta means against the gold's >=
+    HMC_PEARSON_MIN and the held-out accuracy of posterior_mean_prob within
+    HMC_ACC_TOL of the gold's; the sd agreement after rotate_diag_sigma is
+    reported."""
+    from vibo_tpu_torch.models import hmc
+    from vibo_tpu_torch.ops import _build
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = hmc.run_hmc(ds.response, ds.train_mask, cfg,
+                      deep_params=deep_params)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    iters = cfg.num_warmup + cfg.num_samples
+    evals = hmc_evals_per_iter(cfg)
+    if kernel is None:
+        check_path(f"{tag} HMC path", launches, ())
+        expected = 0
+    else:
+        expected = (cfg.map_init_steps + 1
+                    + HMC_CHAINS * (1 + iters * evals))
+        check_path(f"{tag} HMC path", launches, (kernel,), (kernel,),
+                   expected)
+    samples = out["samples"]
+    d = out["diagnostics"]
+    if not (all(np.isfinite(v).all() for v in samples.values())
+            and 0.0 < out["accept_rate"] <= 1.0):
+        raise AssertionError(f"{tag}: non-finite draws or accept rate "
+                             f"{out['accept_rate']}")
+    t1 = time.perf_counter()
+    prob = hmc.posterior_mean_prob(samples, cfg.irt_model,
+                                   deep_params=deep_params)
+    r = {"phase": "hmc", "path": tag, "model": cfg.irt_model,
+         "shape": list(ds.response.shape), "K": cfg.ability_dim,
+         "chains": cfg.num_chains, "warmup": cfg.num_warmup,
+         "samples": cfg.num_samples, "leapfrog": cfg.num_leapfrog,
+         "target_accept": cfg.target_accept, "depth_cut": cut,
+         "potential": kernel or "dense PyTorch (no kernel)",
+         "kernel_launches": launches.get(kernel, 0) if kernel else 0,
+         "launches_expected": expected, "evals_per_iteration": evals,
+         "seconds": seconds, "posterior_mean_prob_seconds":
+         time.perf_counter() - t1,
+         "seconds_per_iteration": seconds / iters,
+         "accept_rate": out["accept_rate"], "step_size": out["step_size"],
+         "rhat_max": d["rhat_max"], "ess_min": d["ess_min"],
+         "divergences": d["divergences"],
+         "theta_sd_split_half_r": d["theta_sd_split_half_r"],
+         "heldout_acc": heldout_accuracy(prob, ds), "card": smi}
+    if gold is not None:
+        r.update(gold_agreement(samples, r["heldout_acc"], gold))
+        if not r["gold_gates_hold"]:
+            raise AssertionError(f"{tag}: the posterior does not reproduce "
+                                 f"the gold: {r}")
+    if probe:
+        r["probe"] = hmc_probe(tag, cfg, ds, samples, kernel, smi,
+                               deep_params)
+    emit(r)
+    r["samples"] = samples
+    return r
+
+
+def deep_decoder(smi: str) -> tuple:
+    """A deep decoder trained by the port's Trainer.fit (fused full batch,
+    DEEP_DECODER_EPOCHS epochs, config 5's widths: K = 2, item latent 16,
+    link width 128) on synthetic-nonlinear at the deep gold's shape, 10 %
+    held out -> (dataset, the decoder's params)."""
+    import dataclasses
+    from vibo_tpu_torch.data import holdout_split, simulate_irt
+    from vibo_tpu_torch.models import VIBO
+    from vibo_tpu_torch.train import Trainer, TrainConfig
+    sim = simulate_irt("nonlinear", DEEP_GOLD_B, DEEP_GOLD_M,
+                       ability_dim=DEEP_K, seed=0, missing_rate=0.0)
+    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    cfg = dataclasses.replace(deep_config(True), num_items=DEEP_GOLD_M)
+    t0 = time.perf_counter()
+    res = Trainer(VIBO(cfg), TrainConfig(
+        lr=5e-3, epochs=DEEP_DECODER_EPOCHS, eval_every=100)).fit(ds)
+    torch.cuda.synchronize()
+    emit({"phase": "hmc_deep_decoder", "shape": [DEEP_GOLD_B, DEEP_GOLD_M],
+          "epochs": DEEP_DECODER_EPOCHS, "seconds": time.perf_counter() - t0,
+          "best_heldout_acc": res["best"]["heldout_acc"],
+          "final_elbo": res["final_elbo"],
+          "card": smi})
+    if not np.isfinite(res["final_elbo"]):
+        raise AssertionError("the deep decoder's ELBO is not finite")
+    return ds, {k: (v.detach() if isinstance(v, torch.Tensor) else
+                    {kk: vv.detach() for kk, vv in v.items()})
+                for k, v in res["params"]["deep_link"].items()}
+
+
+def potentials_agree(tag: str, cfg, ds, deep_params=None) -> dict:
+    """An HMC potential's two routes through the chain programs (what
+    run_hmc evaluates): dense PyTorch and the kernel (rows 4 and 9 through
+    _TrainChains, 13 and 14 through their per-sample loop, 15f), on the
+    same x with C = HMC_CHAINS chains: at the dense route's MAP (x = 0) and
+    one whitened sd around it (x ~ N(0, I), a chain each, so every chain
+    has its own a, b, g_hat or d). Gated, every link:
+    - the per-person loglik (C, N) within 1e-5 of its largest magnitude;
+    - the value U within 1e-6 of |U| + sum_i |ll_i| (U subtracts the MAP's
+      loglik, so at 10,240 x 1,024 it is ~1e-3 of the sum it is taken from
+      and its f32 error is that sum's);
+    - every gradient within 1e-4 of its largest magnitude; at the MAP of
+      its loglik part's (the gradient less the prior's, which is the same
+      in both routes): there U's gradient is the MAP's residual, 0 but
+      for Adam's last steps.
+    The deep link keeps its stricter gates: U within 1e-5 of |U|, the
+    gradient within 1e-5 of U's at the MAP; off it a pre2 within f32
+    rounding of 0 takes the other relu branch in one route now and then
+    (check_deep's allowance), moving its student's and its item's rows,
+    so there all but 1 % of the rows (a student's theta or an item's d in
+    a chain; at least 2) within 1e-5 and every row within HMC_FLIP_BOUND
+    of U's gradient's largest magnitude."""
+    import dataclasses
+    from vibo_tpu_torch.models import hmc
+    from vibo_tpu_torch.ops.packing import pack_responses
+    n, m = ds.response.shape
+    deep = cfg.irt_model == "deep"
+    if deep:
+        cfg = dataclasses.replace(
+            cfg, deep_latent_dim=int(deep_params["w_item"].shape[0]),
+            deep_hidden_dim=int(deep_params["w_theta"].shape[1]))
+    dense = hmc._chain_programs(dataclasses.replace(
+        cfg, use_packed_kernel=False), n, m)
+    fused = hmc._chain_programs(dataclasses.replace(
+        cfg, use_packed_kernel=True), n, m)
+    base_dense = {"resp": torch.from_numpy(ds.response).cuda(),
+                  "mask": torch.from_numpy(ds.train_mask).cuda()}
+    base_fused = {"pk": torch.from_numpy(pack_responses(
+        ds.response, ds.train_mask)).cuda()}
+    if deep:
+        base_dense["deep"] = base_fused["deep"] = deep_params
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    p0 = {k: 0.1 * torch.randn(v, generator=gen, device="cuda")
+          for k, v in dense.spec.items()}
+    center = dense.map_run(p0, base_dense)
+    scale = hmc.fisher_scale(ds.train_mask, dense.spec, "cuda")
+    ll_ref = dense.ll_ref_fn(center, base_dense)
+    out = {"phase": "hmc_potentials", "path": tag, "model": cfg.irt_model,
+           "shape": [n, m], "K": cfg.ability_dim, "chains": HMC_CHAINS}
+    for where, x in (("center", {k: torch.zeros((HMC_CHAINS,) + v,
+                                                device="cuda")
+                                 for k, v in dense.spec.items()}),
+                     ("one_sd", {k: torch.randn((HMC_CHAINS,) + v,
+                                                generator=gen,
+                                                device="cuda")
+                                 for k, v in dense.spec.items()})):
+        q = {k: center[k] + scale[k] * x[k] for k in x}
+        ll0 = dense.ll_ref_fn(q, base_dense)
+        ll1 = fused.ll_ref_fn(q, base_fused)
+        (u0, g0), (u1, g1) = (
+            prog.vg(x, dict(base, center=center, scale=scale,
+                            ll_ref=ll_ref))
+            for prog, base in ((dense, base_dense), (fused, base_fused)))
+        # the prior's gradient in x: scale * q (U's prior is 0.5 |q|^2)
+        ll_part = {k: g0[k] - scale[k] * q[k] for k in g0}
+        r = {"loglik_rel_err": rel_err(ll1, ll0),
+             "value_rel_err": rel_err(u1, u0),
+             "value_err_of_loglik_sum": float(
+                 ((u1 - u0).abs() / (u0.abs() + ll0.abs().sum(-1))).max()),
+             "grad_rel_err": {k: rel_err(g1[k], g0[k]) for k in g0},
+             "grad_err_of_loglik_part": {
+                 k: max_abs(g1[k], g0[k])
+                 / float(ll_part[k].abs().max()) for k in g0},
+             "value": u0.tolist()}
+        ok = (r["loglik_rel_err"] <= 1e-5
+              and r["value_err_of_loglik_sum"] <= 1e-6)
+        if deep and where == "one_sd":
+            far = {}
+            for k in g0:
+                row_err = (g1[k] - g0[k]).abs().amax(-1).flatten()
+                far[k] = {"rows": int((row_err > 1e-5 * g0[k].abs().max()
+                                       ).sum()),
+                          "allowed": max(2, int(0.01 * row_err.numel()))}
+            r["grad_rows_past_1e-5"] = far
+            ok = ok and all(far[k]["rows"] <= far[k]["allowed"]
+                            and r["grad_rel_err"][k] <= HMC_FLIP_BOUND
+                            for k in g0)
+        else:
+            grad = r["grad_err_of_loglik_part" if where == "center"
+                     else "grad_rel_err"]
+            ok = ok and all(v <= 1e-4 for v in grad.values())
+        if deep:
+            ok = ok and r["value_rel_err"] <= 1e-5 and (
+                where != "center"
+                or all(v <= 1e-5 for v in r["grad_rel_err"].values()))
+        out[where] = r
+        if not ok:
+            raise AssertionError(f"{tag}: the HMC potentials disagree at "
+                                 f"{where}: {out}")
+    emit(out)
+    return out
+
+
+def gold_data(gold: str):
+    """A gold's data as its command made it (vibo_tpu/cli.py defaults):
+    k4, simulate_irt("2pl", 10,240, 1,024, K = 4); grm, ("grm", 2,000, 100,
+    K = 1, C = 5); seed 0, 10 % held out with seed 0."""
+    from vibo_tpu_torch.data import holdout_split, simulate_irt
+    if gold == "k4":
+        sim = simulate_irt("2pl", B, M, ability_dim=K, seed=0,
+                           missing_rate=0.0)
+        return holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    sim = simulate_irt("grm", *GRM_GOLD, ability_dim=1, seed=0,
+                       num_categories=C)
+    return holdout_split(sim.response, sim.mask, 0.1, seed=0,
+                         num_categories=C)
+
+
+def hmc_phases(smi: str) -> dict:
+    """The HMC baseline on the card: the flagship gold (2PL, 10,240 x 1,024,
+    K = 4, row 4) and the GRM gold (2,000 x 100, C = 5, dense) against the
+    JAX package's posteriors, depth cut to HMC_GOLD_DEPTH; short runs of
+    the opt-in GRM and GPCM potentials (rows 13, 14), of 3PL (row 9) and
+    1PL (row 4 at unit a); a decoder trained by Trainer.fit and the deep
+    potential's two routes (dense; row 15f). Every kernel potential is held
+    against the dense one on its run's data (potentials_agree). Returns
+    each path's result."""
+    from vibo_tpu_torch.data import holdout_split, simulate_irt
+    short = depth_cut(HMC_SHORT)
+    runs = {}
+    t0 = time.perf_counter()
+    ds = gold_data("k4")
+    emit({"phase": "hmc_data", "path": "hmc_2pl_k4", "shape": [B, M],
+          "seconds": time.perf_counter() - t0})
+    runs["hmc_2pl_k4"] = hmc_phase(
+        "hmc_2pl_k4", hmc_cfg("2pl", K, depth=HMC_GOLD_DEPTH["k4"]), ds,
+        smi, "loglik_2pl_train", gold="k4", probe=True,
+        cut=depth_cut(HMC_GOLD_DEPTH["k4"], gold=True))
+    potentials_agree("hmc_2pl_k4", hmc_cfg("2pl", K), ds)
+    sim = simulate_irt("1pl", B, M, ability_dim=1, seed=0, missing_rate=0.0)
+    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    runs["hmc_1pl"] = hmc_phase("hmc_1pl", hmc_cfg("1pl", 1), ds, smi,
+                                "loglik_2pl_train", cut=short)
+    potentials_agree("hmc_1pl", hmc_cfg("1pl", 1), ds)
+    sim = simulate_irt("3pl", B, M, ability_dim=K, seed=0, missing_rate=0.0)
+    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    runs["hmc_3pl"] = hmc_phase("hmc_3pl", hmc_cfg("3pl", K), ds, smi,
+                                "loglik_3pl_train", probe=True, cut=short)
+    potentials_agree("hmc_3pl", hmc_cfg("3pl", K), ds)
+    for fam in FAMILIES:
+        if fam == "grm":
+            ds = gold_data("grm")
+            runs["hmc_grm"] = hmc_phase(
+                "hmc_grm", hmc_cfg("grm", 1, C, depth=HMC_GOLD_DEPTH["grm"]),
+                ds, smi, gold="grm", probe=True,
+                cut=depth_cut(HMC_GOLD_DEPTH["grm"], gold=True))
+        else:
+            sim = simulate_irt(fam, *GRM_GOLD, ability_dim=1, seed=0,
+                               num_categories=C)
+            ds = holdout_split(sim.response, sim.mask, 0.1, seed=0,
+                               num_categories=C)
+        runs[f"hmc_{fam}_packed"] = hmc_phase(
+            f"hmc_{fam}_packed", hmc_cfg(fam, 1, C, use_packed_kernel=True),
+            ds, smi, f"loglik_{fam}_train", probe=True, cut=short)
+        potentials_agree(f"hmc_{fam}_packed", hmc_cfg(fam, 1, C), ds)
+    ds, decoder = deep_decoder(smi)
+    runs["hmc_deep_dense"] = hmc_phase(
+        "hmc_deep_dense", hmc_cfg("deep", DEEP_K), ds, smi,
+        deep_params=decoder, probe=True, cut=short)
+    runs["hmc_deep_f32"] = hmc_phase(
+        "hmc_deep_f32", hmc_cfg("deep", DEEP_K, use_packed_kernel=True), ds,
+        smi, "deep_link_f32_train", deep_params=decoder, probe=True,
+        cut=short)
+    potentials_agree("hmc_deep_f32", hmc_cfg("deep", DEEP_K), ds, decoder)
+    return runs
 
 
 def deep_config(fused: bool = True, width: int = DEEP_H):
@@ -2188,6 +2751,14 @@ def main() -> None:
                    "table_shape": [B, M, K, DEEP_H], "odd": list(ODD),
                    "H256": [DEEP_B, DEEP_M, DEEP_K, 256]},
           "results": deep_checks, "card": smi})
+    deep_f32 = deep_f32_checks(timer, roof, deep, gen)
+    emit({"phase": "kernel_check", "kernel": "deep_link_f32_train (row 15f)",
+          "dims": {"deep_gold": [DEEP_GOLD_B, DEEP_GOLD_M, DEEP_K, DEEP_H,
+                                 HMC_CHAINS],
+                   "config5": [DEEP_B, DEEP_M, DEEP_K, DEEP_H],
+                   "odd": list(ODD), "tiny": list(TINY), "H256": 256,
+                   "H512": [300, DEEP_GOLD_M, DEEP_K, 512]},
+          "results": deep_f32, "card": smi})
     emit({"phase": "special_functions", "counts": roof.counts,
           "mufu_per_s": roof.mufu_per_s})
 
@@ -2259,6 +2830,13 @@ def main() -> None:
                     must_rise=False)
     emit({"phase": "fused_paths", "card": smi, "paths": fused})
     full = {k: v["launches"] for k, v in full.items()}
+    hmc_runs = hmc_phases(smi)
+    hmc_launches = {
+        name: {tag: hmc_runs[tag]["kernel_launches"] for tag in tags}
+        for name, tags in (("loglik_2pl_train", ("hmc_2pl_k4", "hmc_1pl")),
+                           ("loglik_3pl_train", ("hmc_3pl",)),
+                           ("loglik_grm_train", ("hmc_grm_packed",)),
+                           ("loglik_gpcm_train", ("hmc_gpcm_packed",)))}
 
     fl = checks["flagship"]
     fl1 = first_layer["flagship"]
@@ -2285,7 +2863,11 @@ def main() -> None:
             name, f"vibo_tpu/ops/pallas_elbo.py:{kb} (and :{bk}, the (B, K) "
             "layout)", "loglik_train.cu", full[link][name],
             fl[name]["kb"], bk_layout=fl[name]["bk"],
-            occupancy=occ[f"{link} K={K}"]))
+            occupancy=occ[f"{link} K={K}"],
+            hmc_launches=hmc_launches[name],
+            hmc_note=f"HMC: the (B, K) layout (:{bk}), {HMC_CHAINS} "
+            "launches (one a chain) a potential evaluation, once for the "
+            "MAP's Adam steps and for ll_ref"))
     for fam, line in (("grm", 198), ("gpcm", 148)):
         name = LINK_KERNELS[fam]["train"]
         kernels.append(kernel_entry(
@@ -2293,6 +2875,7 @@ def main() -> None:
             f"loglik_{fam}.cu", full[fam][name],
             categorical[fam]["flagship"],
             occupancy=occ[f"{fam} K={K} C={C}"],
+            hmc_launches=hmc_launches[name],
             library_note="no single PyTorch call gives the graded or "
             "partial-credit loglik and its gradients from the code"))
     for link in binary:
@@ -2322,6 +2905,19 @@ def main() -> None:
         table_shape=deep_checks["table_shape_K4"],
         h256=deep_checks["config5_H256"],
         h384_wide=deep_checks["config5_H384"],
+        library_note="no single PyTorch call gives the deep link's loglik "
+        "and its gradients"))
+    kernels.append(kernel_entry(
+        "deep_link_f32_train", "vibo_tpu/ops/pallas_deep.py:154 "
+        "(_fused_deep_fwd with f32_dots=True; kernel _fused_deep_kernel :75, "
+        "dot_dtype f32 :175)", "deep_link_f32.cu",
+        hmc_runs["hmc_deep_f32"]["kernel_launches"],
+        deep_f32["deep_gold_4_chains"], config5=deep_f32["config5"],
+        launches_path="hmc_deep_f32: the deep HMC potential, "
+        "use_packed_kernel=True",
+        gold_note="the decoder is trained here (Trainer.fit), not the one "
+        "behind artifacts/gold/deep (other RNG streams; only its "
+        "fingerprint is stored): the deep gold is not compared",
         library_note="no single PyTorch call gives the deep link's loglik "
         "and its gradients"))
     emit({"kernels": kernels})

@@ -1,0 +1,62 @@
+"""Depth sweep of chip_smoke.py's two HMC gold comparisons on one card.
+
+    python3 hmc_depth.py
+
+Runs the port's `run_hmc` on the data of artifacts/gold/k4 (2PL, 10,240 x
+1,024, K = 4, the (B, K) one-pass kernel) and of artifacts/gold/grm (2,000 x
+100, C = 5, the dense potential) at each (warm-up, draws, leapfrogs) of
+DEPTHS, with chip_smoke.py's chains, accept target and seed, and prints one
+JSON line a run: its seconds, accept rate, R-hat, and the agreement with the
+gold and whether its gates hold (`chip_smoke.gold_agreement`). Then the
+card's name and power limit, and last {"ok": true} when every run held its
+gates. chip_smoke.py's HMC_GOLD_DEPTH is taken from such a sweep.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+
+import chip_smoke as cs
+
+DEPTHS = {"k4": [(50, 50, 64), (75, 75, 64), (100, 100, 64)],
+          "grm": [(50, 50, 64), (100, 100, 64), (50, 50, 32), (75, 75, 32),
+                  (100, 100, 32)]}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("hmc_depth.py needs a CUDA card")
+    from vibo_tpu_torch._device import resolve_device
+    from vibo_tpu_torch.models import hmc
+    resolve_device(None)
+    smi = cs.nvidia_smi("name,power.limit")
+    ok = True
+    for gold, depths in DEPTHS.items():
+        ds = cs.gold_data(gold)
+        model, k, c = ("2pl", cs.K, 2) if gold == "k4" else ("grm", 1, cs.C)
+        for depth in depths:
+            cfg = cs.hmc_cfg(model, k, c, depth=depth)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = hmc.run_hmc(ds.response, ds.train_mask, cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            prob = hmc.posterior_mean_prob(out["samples"], model)
+            r = {"gold": gold, "depth": list(depth), "seconds": seconds,
+                 "accept_rate": out["accept_rate"],
+                 "rhat_max": out["diagnostics"]["rhat_max"],
+                 **cs.gold_agreement(out["samples"],
+                                     cs.heldout_accuracy(prob, ds), gold)}
+            ok = ok and r["gold_gates_hold"]
+            print(json.dumps(r), flush=True)
+    print(smi)
+    print(json.dumps({"ok": ok}))
+    sys.exit(0 if ok else 1)
+
+
+if __name__ == "__main__":
+    main()

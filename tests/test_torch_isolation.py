@@ -11,7 +11,7 @@ import textwrap
 import pytest
 import torch
 
-from vibo_tpu_torch.models import VIBO, VIBOConfig
+from vibo_tpu_torch.models import VIBO, VIBOConfig, hmc
 from vibo_tpu_torch.ops import (_build, pallas_deep, pallas_elbo,
                                 pallas_encoder, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.serve import AbilityScorer
@@ -34,6 +34,7 @@ def test_import_loads_no_jax_or_reference_package():
                    if m.startswith("vibo_tpu_torch.")]), bad)
         from vibo_tpu_torch.ops import _build
         assert all(k._fn is None for k in _build.KERNELS.values())
+        assert "vibo_tpu_torch.models.hmc" in sys.modules
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -54,6 +55,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         Trainer(model, TrainConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         AbilityScorer(model, model.init_params(0))
+    resp = torch.ones((4, 3)).numpy()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hmc.run_hmc(resp, resp, hmc.HMCConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hmc.posterior_mean_prob({"theta": resp[None, :, :1],
+                                 "b": resp[None, 0]}, "1pl")
 
 
 def test_out_of_scope_config_raises():
@@ -113,6 +120,7 @@ def test_cpu_tensors_take_the_plain_path():
                                    "first_layer_fwd_f32",
                                    "first_layer_bwd_f32",
                                    "deep_link_train",
+                                   "deep_link_f32_train",
                                    "loglik_2pl_train", "loglik_3pl_train",
                                    "loglik_grm_train", "loglik_gpcm_train",
                                    "masked_loglik_2pl_fwd",

@@ -1,6 +1,8 @@
 """Held-out imputation accuracy and the IWAE test log-likelihood
 (counterpart of `vibo_tpu.evaluation.imputation_accuracy`, `full_item_dist`
-and `iwae_loglik`).
+and `iwae_loglik`), and the latent-space comparisons of recovery and of
+posteriors across methods (`procrustes_rotation`, `procrustes_align`,
+`rotate_diag_sigma`, `correlation`: numpy and scipy, as in JAX's module).
 
 Protocol (arXiv:2002.00276 sections 6.3-6.4): encode each person's
 train-visible responses; push the posterior-mean ability and the
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import scipy.stats
 import torch
 
 from vibo_tpu_torch.data.masking import Dataset
@@ -138,3 +141,66 @@ def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
         cells += float(emask_host[s:e].sum())
     return {"loglik": total, "loglik_per_cell": total / max(cells, 1.0),
             "num_cells": int(cells), "num_samples": num_samples}
+
+
+# ------------------------------------------------- latent-space comparisons
+
+
+def procrustes_rotation(inferred: np.ndarray, truth: np.ndarray) -> np.ndarray:
+    """(K, K) orthogonal W = UV^T minimizing ||inferred @ W - truth||_F,
+    SVD(inferred^T truth) = U S V^T."""
+    inferred = np.asarray(inferred, np.float64)
+    truth = np.asarray(truth, np.float64)
+    u, _, vt = np.linalg.svd(inferred.T @ truth)
+    return u @ vt
+
+
+def procrustes_align(inferred: np.ndarray, truth: np.ndarray) -> np.ndarray:
+    """Rotate inferred (N, K) onto truth with the orthogonal Procrustes
+    solution: multidimensional IRT latents are identified only up to an
+    orthogonal transform of (theta, a) jointly."""
+    inferred = np.asarray(inferred, np.float64)
+    return inferred @ procrustes_rotation(inferred, truth)
+
+
+def rotate_diag_sigma(sigma: np.ndarray, rotation: np.ndarray) -> np.ndarray:
+    """Per-person posterior sds (N, K) transported through an orthogonal
+    rotation W of the latent space: sqrt(sum_k W[k, d]^2 sigma_i,k^2), so
+    two methods' uncertainties compare in one frame."""
+    sigma = np.asarray(sigma, np.float64)
+    return np.sqrt((sigma ** 2) @ (np.asarray(rotation, np.float64) ** 2))
+
+
+def correlation(inferred: np.ndarray, truth: np.ndarray,
+                align_sign: bool = True, align_rotation: bool = False) -> dict:
+    """Pearson/Spearman correlation per trailing dim, averaged.
+
+    align_sign flips each inferred dim to correlate positively with truth
+    (the deciding sign is that of p + s); align_rotation applies the
+    orthogonal Procrustes alignment first. A constant or near-constant dim
+    (its statistics not finite) counts as 0."""
+    inferred = np.asarray(inferred, np.float64)
+    truth = np.asarray(truth, np.float64)
+    if inferred.ndim == 1:
+        inferred, truth = inferred[:, None], truth[:, None]
+    if align_rotation and truth.shape[1] > 1:
+        inferred = procrustes_align(inferred, truth)
+    pearsons, spearmans = [], []
+    for d in range(truth.shape[1]):
+        x, y = inferred[:, d], truth[:, d]
+        if np.std(x) == 0.0 or np.std(y) == 0.0:
+            pearsons.append(0.0)
+            spearmans.append(0.0)
+            continue
+        p = scipy.stats.pearsonr(x, y).statistic
+        s = scipy.stats.spearmanr(x, y).statistic
+        if not (np.isfinite(p) and np.isfinite(s)):
+            pearsons.append(0.0)
+            spearmans.append(0.0)
+            continue
+        if align_sign and p + s < 0:
+            p, s = -p, -s
+        pearsons.append(p)
+        spearmans.append(s)
+    return {"pearson": float(np.mean(pearsons)),
+            "spearman": float(np.mean(spearmans))}

@@ -1,0 +1,870 @@
+"""HMC baseline with fixed trajectories: the gold posterior over abilities
+and item parameters (counterpart of `vibo_tpu.models.hmc`, same names).
+
+The sampler of arXiv:2002.00276 sections 6.4-6.5, as the JAX package builds
+it: the joint potential U(theta, items) = -[masked loglik + N(0, I)
+log-priors], referenced per person to the MAP loglik and evaluated in
+whitened coordinates q = MAP + Fisher_sd * x; leapfrog with the (U, grad)
+pair cached across Metropolis steps (num_leapfrog evaluations a
+trajectory); step-size jitter; dual averaging pooled over the chains;
+Stan-style expanding variance windows pooled over the chains;
+Metropolis-within-Gibbs sweeps along the link's likelihood-null ridges and
+a Haar rotation move for K > 1; per-draw Procrustes alignment, split-R-hat
+and bulk ESS. `irt_model="deep"` samples (theta, d) under a trained deep
+decoder with its weights fixed.
+
+Every state tensor carries a leading chain axis C: the chains run batched
+(one launch a chain of each kernel). A chain program is a function on
+tensors; `step_with_noise` takes its draws as tensors (the momentum z per
+name in sorted order, the jitter and accept uniforms, the ridge draws
+(R, K, 4): normal, uniform, normal, uniform per move and dimension, and the
+rotation's (K, K) Gaussian), and `step` draws them from an explicit
+torch.Generator seeded from cfg.seed. The potentials: on the card the
+(B, K) one-pass kernels for 1pl/2pl/3pl (rows 4 and 9 of the kernel
+table); dense PyTorch for grm/gpcm/deep unless use_packed_kernel=True
+(then csrc/loglik_grm.cu, loglik_gpcm.cu and, for the deep link, the f32
+kernel csrc/deep_link_f32.cu); dense everywhere on the CPU, as JAX off its
+TPU. f32 products run at full precision (TF32 off, `resolve_device`), the
+counterpart of JAX's matmul precision "highest". Dynamic trajectories
+(NUTS) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import types
+
+import numpy as np
+import torch
+
+from vibo_tpu_torch._device import resolve_device
+from vibo_tpu_torch.models import networks
+from vibo_tpu_torch.ops import (likelihood as lik, links, pallas_deep,
+                                pallas_elbo, pallas_gpcm, pallas_grm)
+from vibo_tpu_torch.ops.packing import pack_responses
+
+NUTS_NOT_PORTED = ("trajectory='nuts' (dynamic-length NUTS) is not ported "
+                   "yet: ROADMAP.md A8, the next baselines slice")
+
+
+@dataclasses.dataclass(frozen=True)
+class HMCConfig:
+    irt_model: str = "2pl"             # 1pl | 2pl | 3pl | grm | gpcm | deep
+                                       # (deep: pass deep_params to run_hmc)
+    ability_dim: int = 1
+    num_categories: int = 2            # grm/gpcm: b holds the C-1
+                                       # unconstrained table coordinates
+    deep_latent_dim: int = 0           # deep only; filled by run_hmc from
+    deep_hidden_dim: int = 0           # deep_params' shapes
+    num_warmup: int = 300
+    num_samples: int = 300
+    num_leapfrog: int = 20             # trajectory="fixed" only
+    trajectory: str = "fixed"          # "fixed" | "nuts" (not ported yet)
+    max_tree_depth: int = 8            # nuts only
+    target_accept: float = 0.8
+    init_step_size: float = 0.05
+    seed: int = 0
+    thin: int = 1
+    num_chains: int = 4                # >= 2 enables split-R-hat
+    adapt_mass: bool = True            # diagonal mass adaptation in warmup
+    init_mode: str = "map"             # "map" | "prior"
+    map_init_steps: int = 400          # Adam steps for the "map" init
+    init_overdispersion: float = 2.0   # chain spread, posterior-sd units
+    use_packed_kernel: bool | None = None
+                                       # potential via the one-pass kernels;
+                                       # None = on the card for the binary
+                                       # links only (JAX's choice on TPU)
+    scan_chunk: int = 100              # chain iterations per host fetch
+                                       # (fixed trajectories past 64
+                                       # leapfrogs shrink it in proportion)
+    ridge_moves: int = 8               # Gibbs sweeps along the ridges an
+                                       # iteration; 0 disables
+
+
+def _flatten_spec(n, m, cfg):
+    if cfg.irt_model == "deep":
+        return {"theta": (n, cfg.ability_dim), "d": (m, cfg.deep_latent_dim)}
+    if cfg.irt_model in ("grm", "gpcm"):
+        return {"theta": (n, cfg.ability_dim), "a": (m, cfg.ability_dim),
+                "b": (m, cfg.num_categories - 1)}
+    spec = {"theta": (n, cfg.ability_dim), "b": (m,)}
+    if cfg.irt_model in ("2pl", "3pl"):
+        spec["a"] = (m, cfg.ability_dim)
+    if cfg.irt_model == "3pl":
+        spec["g_hat"] = (m,)
+    return spec
+
+
+def _prior(params: dict) -> torch.Tensor:
+    """0.5 |q|^2 over every parameter: a scalar, or (C,) when the params
+    carry the chain axis (theta (C, N, K))."""
+    lead = 1 if params["theta"].ndim == 3 else 0
+    return sum(0.5 * params[k].square().flatten(lead).sum(-1)
+               for k in sorted(params))
+
+
+def make_potential(resp, mask, cfg: HMCConfig, packed=None, ll_ref=None,
+                   deep_params=None):
+    """U(params) = -log p(r, theta, d) with standard-normal priors: a
+    scalar, or (C,) for params with a leading chain axis.
+
+    packed: the int8 response code (`pack_responses`) for the one-pass
+    kernels (value and every gradient in one pass; U consumes -ll.sum(),
+    so their uniform-cotangent contract holds per chain). ll_ref: an (N,)
+    per-person reference loglik (the MAP's) subtracted before the sum, a
+    constant shift that keeps f32 energy differences resolvable at large
+    N x M."""
+    per_person = _make_loglik_per_person(resp, mask, cfg, packed, deep_params)
+
+    def u(params):
+        ll = per_person(params)
+        if ll_ref is not None:
+            ll = ll - ll_ref
+        return -ll.sum(-1) + _prior(params)
+    return u
+
+
+def _per_person_fn(cfg: HMCConfig, m: int, use_pk: bool):
+    """(params, data) -> (N,) masked loglik per person ((C, N) with a chain
+    axis), through the one-pass kernels (use_pk) or dense PyTorch; shared
+    by the chain programs and make_potential."""
+    if cfg.irt_model == "deep":
+        if use_pk:
+            def per_person(params, data):
+                # f32 products: bf16 rounding is a dH noise floor the
+                # Metropolis test cannot take
+                return pallas_deep.masked_loglik_deep_packed_train(
+                    params["theta"], params["d"], data["deep"], data["pk"],
+                    f32_dots=True)
+            return per_person
+
+        def per_person(params, data):
+            logits = networks.apply_deep_link(
+                data["deep"], params["theta"], params["d"], item_chunk=256)
+            return lik.masked_loglik_per_person(logits, data["resp"],
+                                                data["mask"])
+        return per_person
+    if cfg.irt_model in ("grm", "gpcm"):
+        fam = cfg.irt_model
+        if use_pk:
+            if fam == "grm":
+                def per_person(params, data):
+                    return pallas_grm.masked_loglik_grm_packed_train(
+                        params["theta"], params["a"],
+                        links.grm_thresholds(params["b"]), data["pk"])
+                return per_person
+
+            def per_person(params, data):
+                return pallas_gpcm.masked_loglik_gpcm_packed_train(
+                    params["theta"], params["a"],
+                    links.gpcm_cumsteps(params["b"]), data["pk"])
+            return per_person
+
+        def per_person(params, data):
+            return lik.categorical_loglik_per_person(
+                fam, links.grm_base(params["theta"], params["a"]),
+                links.categorical_table(fam, params["b"]),
+                data["resp"], data["mask"])
+        return per_person
+    if use_pk:
+        def per_person(params, data):
+            theta = params["theta"]
+            if cfg.irt_model == "1pl":
+                ones_a = torch.ones((m, cfg.ability_dim), device=theta.device)
+                return pallas_elbo.masked_loglik_2pl_packed_train(
+                    theta, ones_a, params["b"], data["pk"])
+            if cfg.irt_model == "2pl":
+                return pallas_elbo.masked_loglik_2pl_packed_train(
+                    theta, params["a"], params["b"], data["pk"])
+            return pallas_elbo.masked_loglik_3pl_packed_train(
+                theta, params["a"], params["b"], params["g_hat"], data["pk"])
+        return per_person
+
+    def per_person(params, data):
+        theta = params["theta"]
+        if cfg.irt_model == "1pl":
+            logits = links.logits_1pl(theta, params["b"])
+            g_hat = None
+        else:
+            logits = links.logits_2pl(theta, params["a"], params["b"])
+            g_hat = params.get("g_hat") if cfg.irt_model == "3pl" else None
+        return lik.masked_loglik_per_person(logits, data["resp"],
+                                            data["mask"], g_hat=g_hat)
+    return per_person
+
+
+def _f32(x, device=None) -> torch.Tensor:
+    """A numpy array or tensor as an f32 tensor on the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+def _deep_on(deep_params: dict, device) -> dict:
+    """The decoder's weights as f32 tensors on the device (numpy or torch
+    leaves)."""
+    if isinstance(deep_params, dict):
+        return {k: _deep_on(v, device) for k, v in deep_params.items()}
+    return _f32(deep_params, device).detach()
+
+
+def _make_loglik_per_person(resp, mask, cfg: HMCConfig, packed=None,
+                            deep_params=None):
+    """(params) -> (N,) masked loglik per person: _per_person_fn with the
+    data closed over (the form make_potential and the tests use)."""
+    if packed is not None:
+        data = {"pk": packed}
+        dev = packed.device
+    else:
+        data = {"resp": _f32(resp), "mask": _f32(mask)}
+        dev = data["resp"].device
+    if deep_params is not None:
+        data["deep"] = _deep_on(deep_params, dev)
+    f = _per_person_fn(cfg, resp.shape[1], packed is not None)
+    return lambda params: f(params, data)
+
+
+def _bc(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-chain (C,) value shaped to broadcast against like (C, ...)."""
+    return v.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def _chain_programs(cfg: HMCConfig, n: int, m: int):
+    """The chain programs for cfg (cfg.use_packed_kernel resolved to a
+    bool), all data passed as arguments: data {"pk"} or {"resp", "mask"}
+    (plus "deep"), and for the whitened programs "center", "scale" (no
+    chain axis) and "ll_ref" (N,). A chain state is a dict of tensors with
+    a leading chain axis: pos, u, g, log_eps, log_eps_bar, h_bar, t, mu,
+    inv_mass, w_mean, w_m2, w_cnt (the JAX carry's fields, in its order)."""
+    if cfg.trajectory != "fixed":
+        raise NotImplementedError(NUTS_NOT_PORTED)
+    use_pk = bool(cfg.use_packed_kernel)
+    spec = _flatten_spec(n, m, cfg)
+    names = sorted(spec)
+    do_mass = cfg.adapt_mass and cfg.num_warmup >= 20
+    # the deep link's MLP breaks the linear links' exact location/scale/
+    # rotation invariances: no ridge to move along
+    do_ridge = cfg.ridge_moves > 0 and cfg.irt_model != "deep"
+    do_rot = cfg.ability_dim > 1 and cfg.irt_model in ("2pl", "3pl", "grm",
+                                                        "gpcm")
+    kdim = cfg.ability_dim
+    per_person = _per_person_fn(cfg, m, use_pk)
+
+    def to_q(x, data):
+        return {k: data["center"][k] + data["scale"][k] * x[k] for k in names}
+
+    def u_plain(params, data):
+        return -per_person(params, data).sum(-1) + _prior(params)
+
+    def u_x(x, data):
+        q = to_q(x, data)
+        ll = per_person(q, data) - data["ll_ref"]
+        return -ll.sum(-1) + _prior(q)
+
+    def vg(x, data):
+        """(U, {name: dU/dx}) of the whitened potential at x: U (C,) for x
+        with a chain axis (the chains' gradients apart), else a scalar."""
+        with torch.enable_grad():
+            xs = {k: x[k].detach().requires_grad_() for k in names}
+            u = u_x(xs, data)
+            grads = torch.autograd.grad(u.sum(), [xs[k] for k in names])
+        return u.detach(), dict(zip(names, grads))
+
+    def leapfrog(pos, mom, eps, inv_mass, g0, data):
+        # g0 is the cached gradient at pos: each trajectory costs exactly
+        # num_leapfrog potential evaluations
+        e = {k: _bc(eps, pos[k]) for k in names}
+        mom = {k: mom[k] - 0.5 * e[k] * g0[k] for k in names}
+        for _ in range(cfg.num_leapfrog - 1):
+            pos = {k: pos[k] + e[k] * inv_mass[k] * mom[k] for k in names}
+            _, g = vg(pos, data)
+            mom = {k: mom[k] - e[k] * g[k] for k in names}
+        pos = {k: pos[k] + e[k] * inv_mass[k] * mom[k] for k in names}
+        u_new, g_new = vg(pos, data)
+        mom = {k: mom[k] - 0.5 * e[k] * g_new[k] for k in names}
+        return pos, mom, u_new, g_new
+
+    def kinetic(mom, inv_mass):
+        return sum(0.5 * (mom[k].square() * inv_mass[k]).flatten(1).sum(-1)
+                   for k in names)
+
+    gamma, t0, kappa = 0.05, 10.0, 0.75
+    log10 = math.log(10.0)
+    sig_s = 2.4 / np.sqrt(2.0 * (n + m))
+    sig_c = 2.4 / np.sqrt(1.0 * (n + m))
+
+    def ridge_sweep(theta_q, a_q, b_q, draws, eye):
+        """One sweep along the location and scale ridges of every latent
+        dimension; draws (C, K, 4): the scale move's normal and uniform,
+        the location move's normal and uniform; eye: the (K, K) identity
+        (a column update multiplies by 1 or adds 0 elsewhere: exact)."""
+        # polytomous b_q (C, M, C-1): the location ridge theta_k += c moves
+        # the grm thresholds' first column (the increments are shift-
+        # invariant) and every gpcm step column by c a_k
+        grm_b = b_q is not None and b_q.ndim == 3
+        for kd in range(kdim):
+            onehot = eye[kd]
+            if a_q is not None:
+                sp = sig_s * draws[:, kd, 0]
+                st = theta_q[..., kd].square().sum(-1)
+                sa = a_q[..., kd].square().sum(-1)
+                logr = (-0.5 * ((torch.exp(2 * sp) - 1.0) * st
+                                + (torch.exp(-2 * sp) - 1.0) * sa)
+                        + (n - m) * sp)
+                ok = torch.log(draws[:, kd, 1]) < logr
+                es = torch.where(ok, torch.exp(sp), 1.0)
+                # x * 1.0 is exact: the other columns stay bitwise
+                theta_q = theta_q * (1.0 + onehot * (es[:, None] - 1.0)
+                                     )[:, None, :]
+                a_q = a_q * (1.0 + onehot * (1.0 / es[:, None] - 1.0)
+                             )[:, None, :]
+                ak = a_q[..., kd]
+            else:
+                ak = torch.ones_like(b_q)
+            if grm_b and cfg.irt_model == "gpcm":
+                b0 = b_q.sum(-1)
+                ncols = b_q.shape[-1]
+            else:
+                b0 = b_q[..., 0] if grm_b else b_q
+                ncols = 1
+            cp = sig_c * draws[:, kd, 2]
+            logr = -0.5 * (2 * cp * theta_q[..., kd].sum(-1)
+                           + n * cp * cp
+                           + 2 * cp * (b0 * ak).sum(-1)
+                           + ncols * cp * cp * ak.square().sum(-1))
+            ok = torch.log(draws[:, kd, 3]) < logr
+            cc = torch.where(ok, cp, 0.0)
+            theta_q = theta_q + (onehot * cc[:, None])[:, None, :]
+            shift = cc[:, None] * ak
+            if grm_b and cfg.irt_model == "gpcm":
+                b_q = b_q + shift[..., None]
+            elif grm_b:
+                b_q = torch.cat([b_q[..., :1] + shift[..., None],
+                                 b_q[..., 1:]], -1)
+            else:
+                b_q = b_q + shift
+        return theta_q, a_q, b_q
+
+    def step_with_noise(state, noise, adapt, collect, switch, data):
+        """One iteration of every chain on exogenous draws -> (state, out).
+        noise: {"z": {name: (C, ...)}, "jitter": (C,), "accept": (C,),
+        "ridge": (C, ridge_moves, K, 4), "rotation": (C, K, K)}; adapt,
+        collect, switch: this iteration's warm-up flags (floats)."""
+        pos, u_cur, g_cur = state["pos"], state["u"], state["g"]
+        log_eps, log_eps_bar = state["log_eps"], state["log_eps_bar"]
+        h_bar, t, mu = state["h_bar"], state["t"], state["mu"]
+        inv_mass = state["inv_mass"]
+        w_mean, w_m2, w_cnt = state["w_mean"], state["w_m2"], state["w_cnt"]
+        # p ~ N(0, M) with M = 1/inv_mass  =>  p = z / sqrt(inv_mass)
+        mom = {k: noise["z"][k] * torch.rsqrt(inv_mass[k]) for k in names}
+        eps = torch.exp(log_eps if adapt else log_eps_bar)
+        # jitter the trajectory length through the step (state-independent:
+        # detailed balance holds): a fixed eps L resonates
+        eps = eps * (1.0 - noise["jitter"] / 3.0)
+        u0 = u_cur + kinetic(mom, inv_mass)
+        new_pos, new_mom, u_pot, g_new = leapfrog(pos, mom, eps, inv_mass,
+                                                  g_cur, data)
+        u1 = u_pot + kinetic(new_mom, inv_mass)
+        log_accept = torch.clamp(u0 - u1, max=0.0)
+        # a NaN trajectory (divergence) is rejected
+        log_accept = torch.where(torch.isfinite(log_accept), log_accept,
+                                 -torch.inf)
+        divergent = 1.0 - torch.isfinite(u1 - u0).float()
+        accept = torch.log(noise["accept"]) < log_accept
+        pos = {k: torch.where(_bc(accept, pos[k]), new_pos[k], pos[k])
+               for k in names}
+        u_cur = torch.where(accept, u_pot, u_cur)
+        g_cur = {k: torch.where(_bc(accept, g_cur[k]), g_new[k], g_cur[k])
+                 for k in names}
+        accept_prob = torch.exp(log_accept)
+        dh_rep = u1 - u0
+        if do_ridge or do_rot:
+            # Metropolis-within-Gibbs along the likelihood-null ridges (the
+            # accepts cost prior ratios only), then the exact O(K) rotation
+            # move; one potential evaluation refreshes the (U, grad) cache
+            q0 = to_q(pos, data)
+            theta_q, a_q, b_q = q0["theta"], q0.get("a"), q0.get("b")
+            if do_ridge:
+                eye = torch.eye(kdim, device=theta_q.device)
+                for r in range(cfg.ridge_moves):
+                    theta_q, a_q, b_q = ridge_sweep(theta_q, a_q, b_q,
+                                                    noise["ridge"][:, r], eye)
+            if do_rot:
+                # R ~ Haar(O(K)): QR of a Gaussian with the R-diagonal sign
+                # fix; the posterior is invariant under (theta R, a R)
+                qm, rm = torch.linalg.qr(noise["rotation"])
+                rot = qm * torch.sign(torch.diagonal(rm, dim1=-2, dim2=-1)
+                                      )[:, None, :]
+                theta_q = theta_q @ rot
+                a_q = a_q @ rot
+            q1 = dict(q0)
+            q1["theta"] = theta_q
+            if b_q is not None:
+                q1["b"] = b_q
+            if a_q is not None:
+                q1["a"] = a_q
+            pos = {k: (q1[k] - data["center"][k]) / data["scale"][k]
+                   for k in names}
+            u_cur, g_cur = vg(pos, data)
+        if adapt:
+            # dual averaging, its statistic pooled over the chains (JAX's
+            # pmean over the vmapped axis); the accept stays per chain
+            t = t + adapt
+            accept_stat = accept_prob.mean()
+            h_bar = ((1.0 - 1.0 / (t + t0)) * h_bar
+                     + (cfg.target_accept - accept_stat) / (t + t0))
+            log_eps = mu - torch.sqrt(t) / gamma * h_bar
+            eta = t ** (-kappa)
+            log_eps_bar = eta * log_eps + (1.0 - eta) * log_eps_bar
+        if do_mass:
+            # Welford accumulation over the memoryless windows (the flags
+            # come from the host's schedule)
+            if collect > 0:
+                w_cnt_new = w_cnt + 1.0
+                w_mean_new = {k: w_mean[k] + (pos[k] - w_mean[k])
+                              / _bc(w_cnt_new, pos[k]) for k in names}
+                w_m2 = {k: w_m2[k] + (pos[k] - w_mean[k])
+                        * (pos[k] - w_mean_new[k]) for k in names}
+                w_mean, w_cnt = w_mean_new, w_cnt_new
+            if switch > 0:
+                denom = torch.clamp(w_cnt - 1.0, min=1.0)
+                shrink = w_cnt / (w_cnt + 5.0)
+
+                def new_im(k):
+                    # the window variances pooled over the chains; shrunk
+                    # toward the whitened prior metric 1; an almost empty
+                    # window keeps the old metric
+                    var = (w_m2[k] / _bc(denom, w_m2[k])).mean(
+                        0, keepdim=True)
+                    sh = _bc(shrink, w_m2[k])
+                    est = torch.clamp(sh * var + (1.0 - sh), 1e-6, 1e6)
+                    return torch.where(_bc(w_cnt >= 4.0, w_m2[k]), est,
+                                       inv_mass[k])
+                inv_mass = {k: new_im(k) for k in names}
+                w_cnt = torch.zeros_like(w_cnt)
+                w_mean = {k: torch.zeros_like(v) for k, v in w_mean.items()}
+                w_m2 = {k: torch.zeros_like(v) for k, v in w_m2.items()}
+                mu = log10 + log_eps_bar
+                log_eps = log_eps_bar
+                h_bar = torch.zeros_like(h_bar)
+                t = torch.zeros_like(t)
+        state = {"pos": pos, "u": u_cur, "g": g_cur, "log_eps": log_eps,
+                 "log_eps_bar": log_eps_bar, "h_bar": h_bar, "t": t,
+                 "mu": mu, "inv_mass": inv_mass, "w_mean": w_mean,
+                 "w_m2": w_m2, "w_cnt": w_cnt}
+        out = {"pos": pos, "accept": accept_prob, "divergent": divergent,
+               "eps": eps, "dh": dh_rep}
+        return state, out
+
+    def draw_noise(generator, chains: int) -> dict:
+        """One iteration's draws for `chains` chains from the generator."""
+        dev = generator.device
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, device=dev)
+
+        def uniform(shape):
+            return torch.rand(shape, generator=generator, device=dev)
+        z = {k: normal((chains,) + spec[k]) for k in names}
+        ridge = torch.stack([normal((chains, cfg.ridge_moves, kdim)),
+                             uniform((chains, cfg.ridge_moves, kdim)),
+                             normal((chains, cfg.ridge_moves, kdim)),
+                             uniform((chains, cfg.ridge_moves, kdim))], -1)
+        return {"z": z, "jitter": uniform((chains,)),
+                "accept": uniform((chains,)), "ridge": ridge,
+                "rotation": normal((chains, kdim, kdim))}
+
+    def step(state, adapt, collect, switch, data, generator):
+        chains = state["u"].shape[0]
+        return step_with_noise(state, draw_noise(generator, chains), adapt,
+                               collect, switch, data)
+
+    def init_chain(position, data):
+        u_init, g_init = vg(position, data)
+        chains = u_init.shape[0]
+        dev = u_init.device
+        log0 = torch.full((chains,), math.log(cfg.init_step_size),
+                          device=dev)
+        return {"pos": {k: position[k] for k in names}, "u": u_init,
+                "g": g_init, "log_eps": log0, "log_eps_bar": log0.clone(),
+                "h_bar": torch.zeros(chains, device=dev),
+                "t": torch.zeros(chains, device=dev),
+                "mu": torch.full((chains,),
+                                 math.log(10.0 * cfg.init_step_size),
+                                 device=dev),
+                "inv_mass": {k: torch.ones_like(position[k]) for k in names},
+                "w_mean": {k: torch.zeros_like(position[k]) for k in names},
+                "w_m2": {k: torch.zeros_like(position[k]) for k in names},
+                "w_cnt": torch.zeros(chains, device=dev)}
+
+    def map_run(params, data):
+        """The joint MAP (no chain axis): _adam_map on the unwhitened
+        potential from params."""
+        return _adam_map(lambda p: u_plain(p, data),
+                         {k: params[k] for k in names}, cfg.map_init_steps)
+
+    def ll_ref_fn(params, data):
+        with torch.no_grad():
+            return per_person(params, data)
+
+    return types.SimpleNamespace(
+        spec=spec, names=names, vg=vg, step_with_noise=step_with_noise,
+        draw_noise=draw_noise, step=step, init=init_chain, map_run=map_run,
+        ll_ref_fn=ll_ref_fn)
+
+
+def _warmup_schedule(cfg: HMCConfig) -> tuple:
+    """(adapt, collect, switch) flags per iteration: a step-size-only
+    phase, then expanding memoryless variance windows (Stan's)."""
+    do_mass = cfg.adapt_mass and cfg.num_warmup >= 20
+    w = cfg.num_warmup
+    bounds = [int(0.15 * w), int(0.25 * w), int(0.45 * w), int(0.85 * w)]
+    total = cfg.num_warmup + cfg.num_samples
+    collect_f = np.zeros(total, np.float32)
+    switch_f = np.zeros(total, np.float32)
+    if do_mass:
+        collect_f[bounds[0]:bounds[3]] = 1.0
+        for b in bounds[1:]:
+            switch_f[b - 1] = 1.0   # the metric update fires AFTER that draw
+    adapt_f = (np.arange(total) < cfg.num_warmup).astype(np.float32)
+    return adapt_f, collect_f, switch_f
+
+
+def _resolve_packed(cfg: HMCConfig, dev: torch.device,
+                   deep_params=None) -> bool:
+    """use_packed_kernel=None: the one-pass kernels on the card for the
+    binary links; dense PyTorch for grm/gpcm/deep and on the CPU. An
+    explicit True on the deep link raises at a width the fused op does not
+    support (pallas_deep.supports) rather than run the dense potential."""
+    use_pk = cfg.use_packed_kernel
+    if use_pk is None:
+        use_pk = (dev.type == "cuda"
+                  and cfg.irt_model in ("1pl", "2pl", "3pl"))
+    if (use_pk and cfg.irt_model == "deep"
+            and not pallas_deep.supports(deep_params)):
+        raise ValueError(
+            f"use_packed_kernel=True: the fused deep potential needs a link "
+            f"width H that is a multiple of 128, got H = "
+            f"{int(deep_params['w_theta'].shape[1])}")
+    return bool(use_pk)
+
+
+def fisher_scale(mask_np: np.ndarray, spec: dict, dev) -> dict:
+    """The whitening's scale: q = center + scale * x, scale the Fisher
+    posterior sd of each coordinate (var ~ 1/(1 + count/4): a response
+    carries Bernoulli information <= 1/4, plus the unit prior). In f32 it
+    is what keeps the leapfrog's increments above a position's rounding at
+    large N x M."""
+    theta_sd = 1.0 / np.sqrt(1.0 + 0.25 * mask_np.sum(1))
+    item_sd = 1.0 / np.sqrt(1.0 + 0.25 * mask_np.sum(0))
+    scale = {}
+    for name, shape in spec.items():
+        sd = theta_sd if name == "theta" else item_sd
+        if len(shape) == 2:
+            sd = np.broadcast_to(sd[:, None], shape)
+        scale[name] = torch.from_numpy(np.array(sd, np.float32)).to(dev)
+    return scale
+
+
+def run_hmc(resp, mask, cfg: HMCConfig, deep_params=None, device=None):
+    """Run cfg.num_chains HMC chains (batched: one launch a chain of each
+    kernel) on the response matrix (numpy (N, M) response and mask).
+
+    deep_params: required when cfg.irt_model == "deep", the TRAINED decoder
+    (a VIBO params["deep_link"] tree, numpy or torch), fixed while (theta,
+    d) are sampled. device: None = the card (there is no fallback).
+
+    Returns {"samples": {name: (C*S, ...)} pooled draws (numpy),
+    "accept_rate", "step_size", "diagnostics"}, the JAX package's keys.
+    The chains run in chunks of scan_chunk iterations with one host fetch
+    a chunk; the draws come from a torch.Generator seeded with cfg.seed."""
+    dev = resolve_device(device)
+    return _run_hmc_impl(resp, mask, cfg, deep_params, dev)
+
+
+def _run_hmc_impl(resp, mask, cfg: HMCConfig, deep_params, dev):
+    resp_np = np.asarray(resp, np.float32)
+    mask_np = np.asarray(mask, np.float32)
+    n, m = resp_np.shape
+    if cfg.init_mode not in ("map", "prior"):
+        raise ValueError(f"init_mode must be 'map' or 'prior', got "
+                         f"{cfg.init_mode!r}")
+    if cfg.trajectory not in ("fixed", "nuts"):
+        raise ValueError(f"trajectory must be 'fixed' or 'nuts', got "
+                         f"{cfg.trajectory!r}")
+    if cfg.trajectory == "nuts":
+        raise NotImplementedError(NUTS_NOT_PORTED)
+    if cfg.irt_model == "deep":
+        if deep_params is None:
+            raise ValueError(
+                "irt_model='deep' samples under a TRAINED decoder: pass "
+                "deep_params (a VIBO params['deep_link'] tree)")
+        deep_params = _deep_on(deep_params, dev)
+        cfg = dataclasses.replace(
+            cfg,
+            deep_latent_dim=int(deep_params["w_item"].shape[0]),
+            deep_hidden_dim=int(deep_params["w_theta"].shape[1]))
+    use_pk = _resolve_packed(cfg, dev, deep_params)
+    if use_pk:
+        # the code is the only response-sized upload
+        base_data = {"pk": torch.from_numpy(
+            pack_responses(resp_np, mask_np)).to(dev)}
+    else:
+        base_data = {"resp": torch.from_numpy(resp_np).to(dev),
+                     "mask": torch.from_numpy(mask_np).to(dev)}
+    if cfg.irt_model == "deep":
+        base_data["deep"] = deep_params
+    cfg = dataclasses.replace(cfg, use_packed_kernel=use_pk)
+    programs = _chain_programs(cfg, n, m)
+    spec, names = programs.spec, programs.names
+    n_chains = max(1, cfg.num_chains)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    scale = fisher_scale(mask_np, spec, dev)
+    if cfg.init_mode == "map":
+        # every chain near the joint MAP (Adam on the same potential),
+        # over-dispersed by init_overdispersion posterior sds; the start is
+        # small-random, not zeros (theta = a = 0 is a saddle)
+        params0 = {k: 0.1 * normal(spec[k]) for k in names}
+        center = programs.map_run(params0, base_data)
+        positions = {k: cfg.init_overdispersion
+                     * normal((n_chains,) + spec[k]) for k in names}
+    else:
+        center = {k: torch.zeros(spec[k], device=dev) for k in names}
+        positions = {k: 0.5 * normal((n_chains,) + spec[k]) / scale[k]
+                     for k in names}
+
+    # the per-person reference loglik at the center (make_potential's
+    # ll_ref): f32 energy resolution at large N x M
+    ll_ref = programs.ll_ref_fn(center, base_data)
+    data = dict(base_data, center=center, scale=scale, ll_ref=ll_ref)
+
+    adapt_f, collect_f, switch_f = _warmup_schedule(cfg)
+    total = cfg.num_warmup + cfg.num_samples
+    state = programs.init(positions, data)
+    chunk = max(1, int(cfg.scan_chunk))
+    if cfg.num_leapfrog > 64:
+        # keep leapfrogs per chunk at the 64 * scan_chunk budget
+        chunk = max(1, (chunk * 64) // int(cfg.num_leapfrog))
+    keys = ("pos", "accept", "divergent", "eps", "dh")
+    outs = {k: [] for k in keys}
+    with torch.no_grad():
+        for i in range(0, total, chunk):
+            part = {k: [] for k in keys}
+            for it in range(i, min(total, i + chunk)):
+                state, o = programs.step(state, float(adapt_f[it]),
+                                         float(collect_f[it]),
+                                         float(switch_f[it]), data, gen)
+                for k in keys:
+                    part[k].append(o[k])
+            # one host fetch a chunk
+            outs["pos"].append({k: torch.stack([p[k] for p in part["pos"]],
+                                               1).cpu().numpy()
+                                for k in names})
+            for k in keys[1:]:
+                outs[k].append(torch.stack(part[k], 1).cpu().numpy())
+    out = {k: np.concatenate(v, axis=1) for k, v in outs.items()
+           if k != "pos"}
+    out["pos"] = {k: np.concatenate([p[k] for p in outs["pos"]], axis=1)
+                  for k in names}
+    sample_slice = slice(cfg.num_warmup, total, cfg.thin)
+    # (C, S', ...) per-chain stacks feed the diagnostics; the pooled
+    # (C*S', ...) stacks are the posterior. Draws leave x-space here.
+    center_np = {k: v.cpu().numpy() for k, v in center.items()}
+    scale_np = {k: v.cpu().numpy() for k, v in scale.items()}
+    chain_samples = {k: center_np[k] + scale_np[k] * v[:, sample_slice]
+                     for k, v in out["pos"].items()}
+    chain_samples = _align_chain_signs(chain_samples)
+    samples = {k: v.reshape((-1,) + v.shape[2:])
+               for k, v in chain_samples.items()}
+    accept_rate = float(out["accept"][:, cfg.num_warmup:].mean())
+    step_sizes = torch.exp(state["log_eps_bar"]).cpu().numpy()
+    divergences = int(out["divergent"][:, cfg.num_warmup:].sum())
+
+    rhat_by, ess_by = {}, {}
+    for name, v in chain_samples.items():
+        if n_chains >= 2 and v.shape[1] >= 4:
+            rhat_by[name] = float(np.nanmax(split_rhat(v)))
+        ess_by[name] = float(np.nanmin(effective_sample_size(v)))
+    # the self-reported noise ceiling of cross-method sd agreement: the
+    # Pearson of per-person theta sds between the two halves of the chains
+    sd_ceiling = float("nan")
+    th = chain_samples.get("theta")
+    if th is not None and n_chains >= 2:
+        half = n_chains // 2
+        sd_a = th[:half].reshape((-1,) + th.shape[2:]).std(0).ravel()
+        sd_b = th[half:2 * half].reshape((-1,) + th.shape[2:]).std(0).ravel()
+        if sd_a.std() > 0 and sd_b.std() > 0:
+            sd_ceiling = float(np.corrcoef(sd_a, sd_b)[0, 1])
+    diagnostics = {
+        "theta_sd_split_half_r": sd_ceiling,
+        "num_chains": n_chains,
+        "rhat": rhat_by,
+        "rhat_max": max(rhat_by.values()) if rhat_by else float("nan"),
+        "ess": ess_by,
+        "ess_min": min(ess_by.values()) if ess_by else float("nan"),
+        "divergences": divergences,
+        "step_sizes": step_sizes.tolist(),
+        # with init_mode="map" R-hat certifies mixing around the MAP's
+        # basin on gauge-fixed draws, not the absence of a distant mode
+        "init_mode": cfg.init_mode,
+        "trajectory": cfg.trajectory,
+        # leapfrog evaluations a draw: constant for fixed trajectories
+        "leapfrogs_per_draw": (float(cfg.num_leapfrog) if cfg.num_samples
+                               else float("nan")),
+        # per-iteration adaptation traces (chain-major), raw arrays
+        "_eps_trace": out["eps"],
+        "_dh_trace": out["dh"],
+    }
+    return {"samples": samples, "accept_rate": accept_rate,
+            "step_size": float(step_sizes.mean()),
+            "diagnostics": diagnostics}
+
+
+def _adam_map(u_fn, params: dict, steps: int) -> dict:
+    """Adam (0.05, optax.adam's form) for steps steps on the scalar
+    potential u_fn from params -> the end point, detached."""
+    from vibo_tpu_torch.train.trainer import make_optimizer
+    leaves = {k: params[k].detach().clone().requires_grad_()
+              for k in sorted(params)}
+    opt = make_optimizer(leaves, 0.05)
+    order = list(leaves.values())
+    for _ in range(steps):
+        with torch.enable_grad():
+            grads = torch.autograd.grad(u_fn(leaves), order)
+        for p, g in zip(order, grads):
+            p.grad = g
+        opt.step()
+    return {k: v.detach() for k, v in leaves.items()}
+
+
+def _find_mode(u_fn, spec, cfg: HMCConfig, generator: torch.Generator):
+    """Joint MAP by _adam_map on the potential u_fn for map_init_steps
+    steps, from a small random start drawn from the generator (theta = a =
+    0 is a saddle where both gradients vanish)."""
+    dev = generator.device
+    params = {k: 0.1 * torch.randn(spec[k], generator=generator, device=dev)
+              for k in sorted(spec)}
+    return _adam_map(u_fn, params, cfg.map_init_steps)
+
+
+def _align_chain_signs(chain_samples: dict) -> dict:
+    """Resolve the O(K) rotation/reflection non-identifiability of the
+    links with discriminations: align every draw by the orthogonal
+    Procrustes rotation of its a block onto a self-consistent reference
+    (chain 0's mean a, re-estimated from all aligned draws a few times),
+    rotating theta by the same R. Each aligned draw is still an exact
+    posterior draw. No 'a' (1PL, deep): unchanged."""
+    if "a" not in chain_samples:
+        return chain_samples
+    a = chain_samples["a"]            # (C, S, M, K)
+    theta = chain_samples["theta"]    # (C, S, N, K)
+    c, s, m, k = a.shape
+    flat_a = a.reshape(c * s, m, k)
+    ref = a[0].mean(0)                # (M, K)
+    for _ in range(3):
+        # Procrustes per draw: M_i = a_i^T ref = U S V^T  ->  R_i = U V^T
+        cross = np.einsum("bmk,ml->bkl", flat_a, ref)
+        u, _, vt = np.linalg.svd(cross)
+        rot = np.einsum("bkl,blj->bkj", u, vt)      # (B, K, K)
+        aligned_a = np.einsum("bmk,bkj->bmj", flat_a, rot)
+        new_ref = aligned_a.mean(0)
+        if np.allclose(new_ref, ref, atol=1e-6):
+            break
+        ref = new_ref
+    out = dict(chain_samples)
+    out["a"] = aligned_a.reshape(c, s, m, k)
+    n = theta.shape[2]
+    out["theta"] = np.einsum(
+        "bnk,bkj->bnj", theta.reshape(c * s, n, k), rot).reshape(c, s, n, k)
+    return out
+
+
+def split_rhat(x: np.ndarray) -> np.ndarray:
+    """Split-R-hat (Gelman et al., BDA3 11.4) per scalar parameter:
+    x (C, S, ...) per-chain stacks -> (...); > 1.05 is the conventional
+    failure threshold."""
+    x = np.asarray(x, np.float64)
+    c, s = x.shape[:2]
+    s2 = s // 2
+    x = x[:, :2 * s2].reshape((2 * c, s2) + x.shape[2:])
+    mean_c = x.mean(1)
+    var_c = x.var(1, ddof=1)
+    w = var_c.mean(0)
+    b = s2 * mean_c.var(0, ddof=1)
+    var_plus = (s2 - 1) / s2 * w + b / s2
+    return np.sqrt(var_plus / np.maximum(w, 1e-300))
+
+
+def effective_sample_size(x: np.ndarray) -> np.ndarray:
+    """Within-chain bulk ESS per scalar parameter (Geyer initial monotone
+    positive sequence on the chain-averaged autocorrelation): x (C, S, ...)
+    -> (...) effective draws out of C*S. The per-chain FFT runs in f32,
+    everything after the chain average in f64."""
+    x = np.asarray(x, np.float32)
+    c, s = x.shape[:2]
+    xc = x - x.mean(1, keepdims=True)
+    n_fft = 1 << (2 * s - 1).bit_length()
+    f = np.fft.rfft(xc, n=n_fft, axis=1)
+    acov = np.fft.irfft(f * np.conj(f), axis=1)[:, :s] / s   # (C, S, ...)
+    acov = acov.mean(0, dtype=np.float64)                    # (S, ...)
+    var0 = np.maximum(acov[0], 1e-300)
+    rho = acov / var0
+    # Geyer pairwise sums rho_{2t} + rho_{2t+1}; truncate at the first
+    # negative pair, enforce a monotone non-increasing envelope
+    t_max = (s - 1) // 2
+    pair = rho[1:2 * t_max + 1:2] + rho[2:2 * t_max + 2:2]   # (t_max, ...)
+    pair = np.minimum.accumulate(np.maximum(pair, 0.0), axis=0)
+    alive = np.cumprod(pair > 0, axis=0)
+    tau = 1.0 + 2.0 * (pair * alive).sum(0)
+    return c * s / np.maximum(tau, 1e-300)
+
+
+def posterior_mean_prob(samples: dict, irt_model: str,
+                        sample_chunk: int = 8,
+                        deep_params: dict | None = None,
+                        device=None) -> np.ndarray:
+    """Posterior-predictive response probabilities E_s[link(theta_s, d_s)]
+    over the draws (numpy (S, ...) stacks) -> numpy f32 (N, M), or (N, M,
+    C) category probabilities for grm/gpcm. The draws stream through in
+    chunks of sample_chunk (the (S, N, M) tensor never exists); each
+    chunk's f32 sum is added in f64. device: None = the card."""
+    dev = resolve_device(device)
+    n_samples = samples["theta"].shape[0]
+    if irt_model == "deep":
+        dp = _deep_on(deep_params, dev)
+
+        def chunk_prob(t, d):
+            return torch.sigmoid(networks.apply_deep_link(dp, t, d,
+                                                          item_chunk=256))
+        args = ("theta", "d")
+    elif irt_model == "1pl":
+        def chunk_prob(t, b):
+            return torch.sigmoid(links.logits_1pl(t, b))
+        args = ("theta", "b")
+    elif irt_model == "2pl":
+        def chunk_prob(t, a, b):
+            return torch.sigmoid(links.logits_2pl(t, a, b))
+        args = ("theta", "a", "b")
+    elif irt_model in ("grm", "gpcm"):
+        def chunk_prob(t, a, b):
+            return torch.exp(lik.categorical_logprob_all(
+                irt_model, links.grm_base(t, a),
+                links.categorical_table(irt_model, b)))
+        args = ("theta", "a", "b")
+    else:
+        chunk_prob = links.prob_3pl
+        args = ("theta", "a", "b", "g_hat")
+
+    total = None
+    with torch.no_grad():
+        for s in range(0, n_samples, sample_chunk):
+            chunk = [_f32(samples[k][s:s + sample_chunk], dev) for k in args]
+            part = chunk_prob(*chunk).sum(0).double()
+            total = part if total is None else total + part
+    return (total / n_samples).float().cpu().numpy()

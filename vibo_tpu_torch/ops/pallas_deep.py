@@ -24,7 +24,9 @@ f32 (the Pallas op's mode for HMC).
 
 On a CUDA tensor the op runs csrc/deep_link.cu (`deep_link_train`, bf16
 products; H = 128 and 256 have their own instantiations, every other width
-the kernel's wide variant, with W2 read from L2); on a CPU tensor the plain PyTorch version
+the kernel's wide variant, with W2 read from L2), or with f32_dots
+csrc/deep_link_f32.cu (`deep_link_f32_train`, f32 products on the CUDA
+cores, any H % 128 == 0); on a CPU tensor the plain PyTorch version
 `fused_deep_plain`, which repeats the kernel's arithmetic over item blocks
 without ever holding a (B, M, H) tensor. Nothing else falls back.
 """
@@ -43,6 +45,9 @@ from vibo_tpu_torch.ops.packing import decode_packed
 
 TRAIN = _build.register(_build.Kernel(
     "deep_link_train", "deep_link.cu", "deep_link_train",
+    [P, P, P, P, P, P, P, P, P, I, I, I, I, P]))
+TRAIN_F32 = _build.register(_build.Kernel(
+    "deep_link_f32_train", "deep_link_f32.cu", "deep_link_f32_train",
     [P, P, P, P, P, P, P, P, P, I, I, I, I, P]))
 _PLAN_ARGTYPES = [I, I, I, ctypes.POINTER(ctypes.c_int),
                   ctypes.POINTER(ctypes.c_longlong)]
@@ -102,33 +107,42 @@ def fused_deep_plain(t1, t2, w2, b2, wo, bo, packed, f32_dots: bool = False,
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(bsz: int, m: int, h: int, device_index: int) -> tuple[int, int]:
-    """(item splits, scratch floats) of csrc/deep_link.cu on the device."""
-    fn, lib = _build.bind(TRAIN.source, "deep_link_plan", _PLAN_ARGTYPES)
+def _plan(bsz: int, m: int, h: int, device_index: int,
+          f32_dots: bool = False) -> tuple[int, int]:
+    """(item splits, scratch floats) of csrc/deep_link.cu (or, f32_dots,
+    csrc/deep_link_f32.cu) on the device."""
+    kernel = TRAIN_F32 if f32_dots else TRAIN
+    symbol = "deep_link_f32_plan" if f32_dots else "deep_link_plan"
+    fn, lib = _build.bind(kernel.source, symbol, _PLAN_ARGTYPES)
     splits, floats = ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(device_index):
         rc = fn(bsz, m, h, ctypes.byref(splits), ctypes.byref(floats))
-    _build.check(rc, lib, "deep_link_plan")
+    _build.check(rc, lib, symbol)
     return splits.value, floats.value
 
 
-def train_cuda(t1, t2, w2, b2, wo, bo, packed):
-    """Launch csrc/deep_link.cu on contiguous f32 inputs (wo (H,), bo (1,))
-    -> the seven outputs of fused_deep_plain, views of one buffer."""
+def train_cuda(t1, t2, w2, b2, wo, bo, packed, f32_dots: bool = False):
+    """Launch csrc/deep_link.cu (f32_dots: csrc/deep_link_f32.cu, H a
+    multiple of 128) on contiguous f32 inputs (wo (H,), bo (1,)) -> the
+    seven outputs of fused_deep_plain, views of one buffer."""
     bsz, h = t1.shape
     m = t2.shape[0]
+    if f32_dots and (h < 128 or h % 128):
+        raise ValueError(f"the f32 deep-link kernel takes a link width that "
+                         f"is a multiple of 128, got H={h}")
     dev = t1.device
     splits, floats = _plan(bsz, m, h, dev.index
                            if dev.index is not None
-                           else torch.cuda.current_device())
+                           else torch.cuda.current_device(), f32_dots)
     sizes = (bsz, bsz * h, m * h, h * h, h, h, 1)
     out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     scratch = torch.empty((floats,), dtype=torch.float32, device=dev)
+    kernel = TRAIN_F32 if f32_dots else TRAIN
     with torch.cuda.device(dev):
-        TRAIN(t1.data_ptr(), t2.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-              wo.data_ptr(), bo.data_ptr(), packed.data_ptr(),
-              out.data_ptr(), scratch.data_ptr(), bsz, m, h, splits,
-              torch.cuda.current_stream(dev).cuda_stream)
+        kernel(t1.data_ptr(), t2.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+               wo.data_ptr(), bo.data_ptr(), packed.data_ptr(),
+               out.data_ptr(), scratch.data_ptr(), bsz, m, h, splits,
+               torch.cuda.current_stream(dev).cuda_stream)
     ll, sth, sd, dw2, db2, dwo, dbo = out.split(sizes)
     return (ll, sth.view(bsz, h), sd.view(m, h), dw2.view(h, h), db2, dwo,
             dbo)
@@ -142,12 +156,7 @@ class _Train(torch.autograd.Function):
         t2 = d @ w_item
         args = (t1, t2, w2, b2, wo.reshape(-1), bo.reshape(-1), packed)
         if theta.is_cuda:
-            if f32_dots:
-                raise NotImplementedError(
-                    "the CUDA deep-link kernel runs its products in bf16; "
-                    "f32_dots (the deep HMC potential's mode) comes with "
-                    "ROADMAP's 'Baselines'")
-            ll, sth, sd, *wgrads = train_cuda(*args)
+            ll, sth, sd, *wgrads = train_cuda(*args, f32_dots=f32_dots)
         else:
             ll, sth, sd, *wgrads = fused_deep_plain(*args, f32_dots=f32_dots)
         ctx.save_for_backward(theta, d, w_theta, w_item, sth, sd, *wgrads)
@@ -173,8 +182,8 @@ def masked_loglik_deep_packed_train(theta: torch.Tensor, d: torch.Tensor,
     "b1" (H,), "layer2": {"w" (H, H), "b" (H,)}, "out": {"w" (H, 1), "b"
     (1,)}}, packed (B, M) int8 code (0 = missing, 1 = wrong, 2 = right).
     Value == masked_loglik_per_person(apply_deep_link(...)) with the
-    products' operands in bf16 (module doc); gradients under the
-    uniform-cotangent contract."""
+    products' operands in bf16, or in f32 with f32_dots (module doc);
+    gradients under the uniform-cotangent contract."""
     if packed.dtype != torch.int8 or packed.ndim != 2:
         raise ValueError(f"packed must be a (B, M) int8 tensor, got "
                          f"{packed.dtype} {tuple(packed.shape)}")

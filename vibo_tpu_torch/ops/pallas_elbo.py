@@ -22,7 +22,9 @@ The training ELBO on the code only consumes ll.sum(), so the train ops take
 the value and all gradients from ONE pass over the code: the kernel emits
 (ll, dtheta, da, db[, dg_hat]) and the backward only rescales them. On a
 CUDA tensor both layouts run csrc/loglik_train.cu (theta addressed through
-its strides, so no transpose is copied).
+its strides, so no transpose is copied). The (B, K) train ops also take a
+leading chain axis (the HMC potentials: theta (C, B, K)), one launch a
+chain on the shared code.
 
 On a CPU tensor each op runs the plain PyTorch version beside its kernel.
 Nothing else falls back.
@@ -277,17 +279,75 @@ def masked_loglik_2pl_packed_train_t(thetaT: torch.Tensor, a: torch.Tensor,
     return _TrainT.apply(*_prepare(thetaT, a, b, None, packed, k_axis=0))
 
 
+class _TrainChains(torch.autograd.Function):
+    """The (B, K) op over a leading chain axis: theta (C, B, K), each item
+    parameter per chain ((C, M, K), (C, M)) or shared ((M, K), (M,)), one
+    launch a chain on the shared code (its dtheta written into a slice of
+    one (C, B, K) buffer). The backward is the single-chain one, chain by
+    chain: dtheta exact for any cotangent, the item gradients scaled by
+    each chain's first cotangent and summed over the chains where shared.
+    One autograd node for all chains."""
+
+    @staticmethod
+    def forward(ctx, theta, a, b, g_hat, packed):
+        chains = theta.shape[0]
+
+        def chain(x, c, lead_ndim):
+            return x if x is None or x.ndim == lead_ndim else x[c]
+        dth = (torch.empty(theta.shape, dtype=torch.float32,
+                           device=theta.device) if theta.is_cuda else None)
+        lls, dths, grads = [], [], []
+        for c in range(chains):
+            args = _prepare(theta[c], chain(a, c, 2), chain(b, c, 1),
+                            chain(g_hat, c, 1), packed, k_axis=1)
+            if theta.is_cuda:
+                ll, gr = loglik_train_cuda(*args, dth[c], per_person=True)
+            else:
+                ll, dth_c, *gr = loglik_train_plain(*args)
+                dths.append(dth_c)
+            lls.append(ll)
+            grads.append(gr)
+        if dth is None:
+            dth = torch.stack(dths)
+        items = [torch.stack(g) for g in zip(*grads)]
+        ctx.shared = [x is not None and x.ndim == nd for x, nd in
+                      ((a, 2), (b, 1), (g_hat, 1))][:len(items)]
+        ctx.save_for_backward(dth, *items)
+        return torch.stack(lls)
+
+    @staticmethod
+    def backward(ctx, g):
+        dth, *items = ctx.saved_tensors
+        g0 = g[:, 0]                    # each chain's first cotangent
+        out = []
+        for x, shared in zip(items, ctx.shared):
+            gx = g0.reshape((-1,) + (1,) * (x.ndim - 1)) * x
+            out.append(gx.sum(0) if shared else gx)
+        return (g[..., None] * dth, *_no_g_hat_grad(tuple(out)), None)
+
+
+def _train_chains(theta, a, b, g_hat, packed) -> torch.Tensor:
+    """The (B, K) one-pass op -> (B,), or (C, B) with a leading chain axis
+    on theta (C, B, K) (_TrainChains)."""
+    if theta.ndim != 3:
+        return _Train.apply(*_prepare(theta, a, b, g_hat, packed, k_axis=1))
+    return _TrainChains.apply(theta, a, b, g_hat, packed)
+
+
 def masked_loglik_2pl_packed_train(theta: torch.Tensor, a: torch.Tensor,
                                    b: torch.Tensor, packed: torch.Tensor
                                    ) -> torch.Tensor:
-    """One-pass training variant of the masked 2PL loglik -> (B,).
+    """One-pass training variant of the masked 2PL loglik -> (B,), or
+    (C, B) with a leading chain axis (theta (C, B, K), a (C, M, K) or
+    shared (M, K), b (C, M) or shared (M,); one launch a chain, the code
+    shared).
 
     Value-identical to the general op; gradients are precomputed in the same
     kernel pass under the UNIFORM-COTANGENT CONTRACT: the caller must only
     use this where every person's loglik gets the same weight (e.g. followed
-    by .sum() into a scalar loss, as in elbo_packed_sums).
+    by .sum() into a scalar loss, as in elbo_packed_sums), per chain.
     dtheta is exact for any cotangent; da/db assume uniformity."""
-    return _Train.apply(*_prepare(theta, a, b, None, packed, k_axis=1))
+    return _train_chains(theta, a, b, None, packed)
 
 
 def masked_loglik_3pl_packed_train_t(thetaT: torch.Tensor, a: torch.Tensor,
@@ -302,10 +362,11 @@ def masked_loglik_3pl_packed_train_t(thetaT: torch.Tensor, a: torch.Tensor,
 def masked_loglik_3pl_packed_train(theta: torch.Tensor, a: torch.Tensor,
                                    b: torch.Tensor, g_hat: torch.Tensor,
                                    packed: torch.Tensor) -> torch.Tensor:
-    """One-pass 3PL training variant -> (B,), under the uniform-cotangent
-    contract of masked_loglik_2pl_packed_train: dtheta is exact for any
+    """One-pass 3PL training variant -> (B,) (or (C, B) with a leading
+    chain axis, g_hat (C, M) or shared, as masked_loglik_2pl_packed_train),
+    under its uniform-cotangent contract: dtheta is exact for any
     cotangent; da, db and dg_hat assume uniformity."""
-    return _Train.apply(*_prepare(theta, a, b, g_hat, packed, k_axis=1))
+    return _train_chains(theta, a, b, g_hat, packed)
 
 
 # ----------------------------------------- general masked 2PL/3PL loglik
