@@ -14,9 +14,10 @@ run: its exit code and seconds, each kernel's time from its kernels line
 and GRM prologue apart, the (B, K) layout and the int8 reader where it has
 them; the deep
 link's kernel also at the 10,240 x 1,024 shape and at widths 256 and
-384), and the
-step median, device busy time and idle share of each training phase, by
-link; and last {"ok": ...}, true when all four runs exited 0.
+384, its f32 kernel, row 15f, at the deep gold's shape and at config 5),
+the step median, device busy time and idle share of each training phase,
+by link, and each probed HMC run's ms a potential evaluation and an
+iteration; and last {"ok": ...}, true when all four runs exited 0.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ def summarize(stdout: str) -> dict:
                         kernels[f"{e['name']}{tag} {part[:-3]}"] = r[part]
             for extra, tag in (("bk_layout", "bk"), ("int8_reader", "int8"),
                                ("table_shape", "10240x1024"),
+                               ("config5", "config5"),
                                ("h256", "H256"), ("h384_wide", "H384")):
                 if extra in e:
                     kernels[f"{e['name']} {tag}"] = e[extra].get("ms")
@@ -62,6 +64,10 @@ def summarize(stdout: str) -> dict:
         elif phase in PROFILE_PHASES:
             phases[key] = {"device_ms_per_step": obj["device_ms_per_step"],
                            "device_idle_share": obj["device_idle_share"]}
+        elif phase == "hmc" and "probe" in obj:
+            phases[f"hmc {obj['path']}"] = {
+                k: obj["probe"][k] for k in ("ms_per_potential_eval",
+                                             "ms_per_iteration")}
     return {"kernels_ms": kernels, "phases": phases}
 
 

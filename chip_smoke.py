@@ -51,10 +51,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      (|logit| > 30, rows with no observed cell, every cell right or wrong),
      and at widths 384 and 512 (the kernel's wide variant) on config 5;
      the deep link's f32 kernel (csrc/deep_link_f32.cu, row 15f, the deep
-     HMC potential's) against the plain f32 version at the deep gold's
-     2,000 x 200 with 4 chains on one code and at config 5 (both timed),
-     at 777 x 301 (K = 1, 8, empty rows), 40 students and widths 256 and
-     512, a second launch of each bitwise equal to the first;
+     HMC potential's: split-bf16 products on the tensor cores at H = 128,
+     whose SASS must hold HMMA lines) against the plain f32 version at the
+     deep gold's 2,000 x 200 with 4 chains on one code and at config 5
+     (both timed, beside the CUDA-core f32 bound and the split's), at 777 x
+     301 (K = 1, 8, empty rows), 40 students and widths 256 and 512, a
+     second launch of each bitwise equal to the first;
   4. small-shape checks of the packed ELBO, the decoded-data ELBO and the
      packed IWAE terms (S = 3, a fixed non-uniform cotangent a sample) and
      every gradient on the card against the CPU path, per link (deep: the
@@ -215,6 +217,18 @@ DEEP_PAIR_OPS = lambda h: 17 * h + 20   # noqa: E731
 # the special functions a pair of the deep link needs (exp, log1p and the
 # reciprocal of 1 + e): row 15f's bound
 DEEP_F32_PAIR_MUFU = 3
+# Row 15f's split at H = 128 (csrc/deep_link_f32.cu): each of the three
+# products as six bf16 part products on the tensor cores (36 H^2 operations
+# a pair), and outside them the split of h1 and dpre2 into three parts
+# (~5.5 operations a value, 2 H values a pair) and the f32 add of each
+# k-step's fresh product into its running sum (H^2 / 16 a pair for each
+# product)
+DEEP_SPLIT_PAIR_TC_OPS = lambda h: 36 * h * h   # noqa: E731
+DEEP_SPLIT_PAIR_OPS = lambda h: 11 * h + 3 * h * h // 16   # noqa: E731
+# row 15f's kernel at width h, as its SASS names it
+DEEP_F32_KERNEL = lambda h: (   # noqa: E731
+    "deep_link_f32_mma_kernel" if h == 128 else
+    "deep_link_f32_kernelILb1EE" if h <= 384 else "deep_link_f32_kernelILb0EE")
 # The HMC baseline (vibo_tpu_torch/models/hmc.py, fixed trajectories). The
 # golds under artifacts/gold were sampled by the JAX package with 800
 # warm-up and 1,600 draws a chain at 64 leapfrogs
@@ -295,7 +309,7 @@ DEVICE_KERNELS = {
     "loglik_grm_train": r"loglik_categorical_kernel<vibo::LinkGRM",
     "loglik_gpcm_train": r"loglik_categorical_kernel<vibo::LinkGPCM",
     "deep_link_train": r"deep_link_kernel<",
-    "deep_link_f32_train": r"deep_link_f32_kernel<",
+    "deep_link_f32_train": r"deep_link_f32_(mma_)?kernel[<(]",
     "first_layer_prep": r"prep_kernel<1>",
     "first_layer_prep_f32": r"prep_kernel<3>",
     "sum_rows": r"sum_rows_kernel",
@@ -569,8 +583,8 @@ class Roofline:
         self.counts[key] = {"per_cell": per_cell, "per_item": per_item}
         return per_cell, per_item
 
-    def mufu_lines(self, source: str, kernel: str) -> int:
-        """MUFU instructions of the one function of csrc/<source>'s SASS
+    def _lines(self, source: str, kernel: str, op: str) -> int:
+        """Instructions `op` of the one function of csrc/<source>'s SASS
         whose name holds `kernel`, up to its last EXIT (the division's
         slow-path subroutines after it are left out)."""
         found = [lines for name, lines in self._functions(source)
@@ -579,10 +593,18 @@ class Roofline:
             raise AssertionError(f"{len(found)} SASS functions match {kernel}"
                                  f" in {source}")
         exits = [i for i, ln in enumerate(found[0]) if "EXIT" in ln]
-        n = sum("MUFU." in ln for ln in found[0][:exits[-1] if exits
-                                                 else None])
+        return sum(op in ln for ln in found[0][:exits[-1] if exits
+                                               else None])
+
+    def mufu_lines(self, source: str, kernel: str) -> int:
+        """MUFU instructions of a kernel (_lines)."""
+        n = self._lines(source, kernel, "MUFU.")
         self.counts[kernel] = {"per_pair": n}
         return n
+
+    def hmma_lines(self, source: str, kernel: str) -> int:
+        """Tensor-core (HMMA) instructions of a kernel (_lines)."""
+        return self._lines(source, kernel, "HMMA.")
 
     def bound(self, nbytes: float, ops: float, peak: float,
               special: float = 0.0, f32_ops: float = 0.0,
@@ -1859,9 +1881,10 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
     csrc/deep_link_f32.cu, against the plain version's f32 mode, a second
     launch bitwise equal to the first) against its plain version on
     the code pk: ll, s_theta, s_d, dW2, db2, dwo and dbo. Both round the
-    same operands to bf16 (or neither does) and sum in different orders
-    (the tensor cores or CUDA-core fmaf chains against cuBLAS's f32
-    product), so ll, dwo and dbo must agree to 1e-5,
+    same operands to bf16 (or, f32_dots, neither does: at H = 128 the
+    kernel sums the six products of each operand's three bf16 parts, f32
+    accuracy, elsewhere CUDA-core fmaf chains) and sum in different orders
+    against cuBLAS's f32 product, so ll, dwo and dbo must agree to 1e-5,
     1e-4 and 1e-4 of their largest magnitude. The others also carry relu
     flips: a pre2 within that summation noise of 0 takes the other branch in
     one version, which moves its pair's dpre2_n by dlogit wo_n (|dlogit| <
@@ -1930,17 +1953,27 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
                                                           f32_dots=True))
         r["library_ms"] = None
         small = bsz * h + m * h + h * h + 2 * h + 1
+        nbytes = pairs + 4 * small + 4 * (small + bsz)
         # three f32 products (6 H^2 a pair) and the cell work outside them,
         # all on the CUDA cores' f32 rate; the function's special functions
         # (exp, log1p, the reciprocal) a pair, the SASS's lines beside it
         r["bound_ms"], r["bound_by"], r["bound_terms_ms"] = roof.bound(
-            pairs + 4 * small + 4 * (small + bsz),
-            (6 * h * h + DEEP_PAIR_OPS(h)) * pairs, F32_FLOPS,
+            nbytes, (6 * h * h + DEEP_PAIR_OPS(h)) * pairs, F32_FLOPS,
             DEEP_F32_PAIR_MUFU * pairs, terms=True)
-        r["sass_mufu_lines"] = roof.mufu_lines(
-            "deep_link_f32.cu", "deep_link_f32_kernelILb1ELb1E"
-            if h == 128 else "deep_link_f32_kernelILb0ELb1E"
-            if h <= 384 else "deep_link_f32_kernelILb0ELb0E")
+        # the same work as the H = 128 kernel does it: the split's six bf16
+        # products on the tensor cores, the split, the chunk adds and the
+        # cell work at the f32 rate
+        r["bound_split_ms"], r["bound_split_by"], r["bound_split_terms_ms"] = \
+            roof.bound(nbytes, DEEP_SPLIT_PAIR_TC_OPS(h) * pairs, BF16_FLOPS,
+                       DEEP_F32_PAIR_MUFU * pairs,
+                       f32_ops=(DEEP_PAIR_OPS(h) + DEEP_SPLIT_PAIR_OPS(h))
+                       * pairs, terms=True)
+        kernel = DEEP_F32_KERNEL(h)
+        r["sass_mufu_lines"] = roof.mufu_lines("deep_link_f32.cu", kernel)
+        r["sass_hmma_lines"] = roof.hmma_lines("deep_link_f32.cu", kernel)
+        if h == 128 and not r["sass_hmma_lines"]:
+            raise AssertionError(f"{kernel} has no HMMA line in its SASS: "
+                                 "row 15f does not run on the tensor cores")
         r["occupancy"] = deep_f32_occupancy(h)
     elif timed:
         r["ms"] = timer(lambda: pd.train_cuda(*args))

@@ -1,0 +1,165 @@
+"""The split-bf16 arithmetic of the deep link's f32 kernel at H = 128
+(csrc/deep_link_f32.cu, deep_link_f32_mma_kernel) against the JAX
+package's f32 mode, on the CPU.
+
+The kernel keeps its three pairwise products (pre2 = h1 W2, dW2 = h1^T
+dpre2, dh1 = dpre2 W2^T) at f32 accuracy on the bf16 tensor cores: each f32
+operand is split into three bf16 parts (hi = bf16(x), mid = bf16(x - hi),
+lo = bf16(x - hi - mid), round to nearest), each k-step of 16 takes the
+six part products hi.lo, mid.mid, lo.hi, hi.mid, mid.hi and hi.hi from a
+zero sum, and the k-steps add into the running f32 sum. `split_matmul`
+emulates that in PyTorch (bf16 casts round to nearest even; every product
+of two bf16 parts is exact in f32), and `fused_deep_split` puts it into the
+arithmetic of the plain version `pallas_deep.fused_deep_plain`. Through
+the port's op (the emulation in place of the plain version), the loglik
+and every gradient under a non-uniform cotangent must agree with JAX's
+`masked_loglik_deep_packed_train(..., f32_dots=True)` in interpret mode to
+1e-5 of each output's largest magnitude, the tolerance of the f32 mode in
+tests/test_torch_deep.py (both sides then differ only in the order of
+f32 sums and in the split's dropped terms, below 2^-24 of a product). One
+bf16 rounding of each operand (hi.hi alone, the bf16 kernel's arithmetic)
+misses that tolerance.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vibo_tpu.models import networks as jnet
+from vibo_tpu.ops import pallas_deep as jpd
+from vibo_tpu.ops.pallas_elbo import pack_responses as jpack
+from vibo_tpu_torch.convert import params_from_jax, tree_leaves
+from vibo_tpu_torch.ops import pallas_deep
+from vibo_tpu_torch.ops.packing import decode_packed
+
+D, H = 16, 128
+K_STEP = 16                           # the kernel's k-step
+# (a part, b part) of the split's products, in the kernel's order
+SPLIT = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
+ONE_ROUNDING = ((0, 0),)              # one bf16 rounding of each operand
+
+
+def split_parts(x):
+    """x as hi, mid, lo: bf16 values carried in f32, summing to x."""
+    parts = []
+    for _ in range(3):
+        p = x.to(torch.bfloat16).float()
+        parts.append(p)
+        x = x - p
+    return parts
+
+
+def split_matmul(a, b, products=SPLIT):
+    """a (..., n) @ b (n, m) as the kernel forms it: each k-step's part
+    products from zero, added to the running f32 sum."""
+    pa, pb = split_parts(a), split_parts(b)
+    out = a.new_zeros(a.shape[:-1] + b.shape[1:])
+    for k0 in range(0, a.shape[-1], K_STEP):
+        ks = slice(k0, k0 + K_STEP)
+        fresh = sum(pa[i][..., ks] @ pb[j][ks] for i, j in products)
+        out = out + fresh
+    return out
+
+
+def fused_deep_split(t1, t2, w2, b2, wo, bo, packed, f32_dots=True,
+                     products=SPLIT):
+    """fused_deep_plain's outputs with its three products through
+    split_matmul (one block of items)."""
+    assert f32_dots
+    with torch.no_grad():
+        h = t1.shape[1]
+        mask, resp = decode_packed(packed)
+        pre1 = t1[:, None, :] + t2[None, :, :]                 # (B, M, H)
+        h1 = pre1.clamp(min=0.0)
+        pre2 = split_matmul(h1, w2, products) + b2
+        h2 = pre2.clamp(min=0.0)
+        logit = (h2 * wo).sum(-1) + bo
+        ex = torch.exp(-logit.abs())
+        sp = torch.log1p(ex) + logit.clamp(min=0.0)
+        ll = (-mask * torch.where(resp > 0.5, sp - logit, sp)).sum(-1)
+        inv = 1.0 / (1.0 + ex)
+        dl = mask * (resp - torch.where(logit >= 0, inv, 1.0 - inv))
+        dpre2 = torch.where(pre2 > 0, dl[..., None] * wo, 0.0)
+        dw2 = split_matmul(h1.reshape(-1, h).T, dpre2.reshape(-1, h),
+                           products)
+        dpre1 = torch.where(pre1 > 0, split_matmul(dpre2, w2.T, products),
+                            0.0)
+        return (ll, dpre1.sum(1), dpre1.sum(0), dw2, dpre2.sum((0, 1)),
+                (h2 * dl[..., None]).sum((0, 1)), dl.sum().reshape(1))
+
+
+def _rel_errs(b, m, k, products, monkeypatch, seed=7):
+    """Max error of each output of the port's op (the emulation in place
+    of the plain version) against JAX's f32 mode, over its largest
+    magnitude: ll, dtheta, dd and the seven link gradients."""
+    rng = np.random.default_rng(seed)
+    link = jnet.init_deep_link(jax.random.key(seed), k, D, H)
+    link = jax.tree.map(lambda x: x + jnp.asarray(
+        0.05 * rng.standard_normal(x.shape).astype(np.float32)), link)
+    theta = rng.standard_normal((b, k)).astype(np.float32)
+    d = rng.standard_normal((m, D)).astype(np.float32)
+    resp = (rng.random((b, m)) < 0.5).astype(np.float32)
+    mask = (rng.random((b, m)) < 0.8).astype(np.float32)
+    mask[1] = 0.0                                        # an all-missing row
+    packed = jpack(resp, mask)
+    g = (2.0 * rng.random(b) - 0.5).astype(np.float32)
+
+    def jcall(th, dd, lk):
+        return jpd.masked_loglik_deep_packed_train(
+            th, dd, lk, jnp.asarray(packed), interpret=True, f32_dots=True)
+
+    jll, vjp = jax.vjp(jcall, jnp.asarray(theta), jnp.asarray(d), link)
+    jgrads = vjp(jnp.asarray(g))
+
+    monkeypatch.setattr(pallas_deep, "fused_deep_plain",
+                        lambda *a, f32_dots: fused_deep_split(
+                            *a, f32_dots=f32_dots, products=products))
+    params = params_from_jax(jax.tree.map(np.asarray, link), "cpu")
+    th = torch.tensor(theta, requires_grad=True)
+    dd = torch.tensor(d, requires_grad=True)
+    ll = pallas_deep.masked_loglik_deep_packed_train(
+        th, dd, params, torch.from_numpy(packed), f32_dots=True)
+    (ll * torch.from_numpy(g)).sum().backward()
+    assert float(ll[1].detach()) == 0.0 and not th.grad[1].any()
+    pairs = [(ll.detach(), jll), (th.grad, jgrads[0]), (dd.grad, jgrads[1])]
+    pairs += list(zip([p.grad for p in tree_leaves(params)],
+                      jax.tree.leaves(jgrads[2])))
+    assert len(pairs) == 10
+    errs = []
+    for got, want in pairs:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        assert got.shape == want.shape
+        errs.append(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    return errs
+
+
+@pytest.mark.parametrize("b,m,k", [
+    (24, 70, 2),
+    (37, 150, 2),                 # ragged: padded to JAX's blocks
+    (40, 70, 1),                  # more students than a kernel block
+])
+def test_split_products_match_pallas_f32(b, m, k, monkeypatch):
+    errs = _rel_errs(b, m, k, SPLIT, monkeypatch)
+    assert max(errs) <= 1e-5, errs
+
+
+def test_one_bf16_rounding_misses_the_f32_tolerance(monkeypatch):
+    """The test has teeth: the bf16 kernel's arithmetic (each operand
+    rounded to bf16 once) is 10x or more past the f32 mode's tolerance."""
+    errs = _rel_errs(24, 70, 2, ONE_ROUNDING, monkeypatch)
+    assert max(errs) > 1e-4, errs
+
+
+def test_split_parts_sum_to_the_operand():
+    """hi + mid + lo is x exactly (in f64) for f32 values across
+    magnitudes, and each part is a bf16 value."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(4096)
+                          * 10.0 ** rng.uniform(-6, 6, 4096)
+                          ).astype(np.float32))
+    parts = split_parts(x)
+    assert torch.equal(sum(p.double() for p in parts), x.double())
+    for p in parts:
+        assert torch.equal(p.to(torch.bfloat16).float(), p)

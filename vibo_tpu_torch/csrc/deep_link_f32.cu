@@ -1,6 +1,6 @@
 // One-pass training log-likelihood of the deep nonlinear link on the int8
-// response code, with every gradient, in true f32 (the deep HMC
-// potential's mode), on the CUDA cores.
+// response code, with every gradient, at f32 accuracy (the deep HMC
+// potential's mode).
 //
 // Replaces the TPU Pallas kernel of vibo_tpu/ops/pallas_deep.py in its
 // f32 mode:
@@ -16,46 +16,70 @@
 //   dpre1 = [h1 > 0] dh1
 // and the sums ll (B,), s_theta = sum_j dpre1 (B, H), s_d = sum_i dpre1
 // (M, H), dW2 = sum h1^T dpre2 (H, H), db2 = sum dpre2, dwo = sum h2
-// dlogit, dbo = sum dlogit. Every product takes f32 operands and sums in
-// f32 (fmaf chains), as the Pallas kernel's dots at HIGHEST precision do:
-// csrc/deep_link.cu rounds the operands to bf16, which the Metropolis test
-// of HMC cannot take (a dH noise floor of units at the gold shapes).
+// dlogit, dbo = sum dlogit. Every product keeps f32 accuracy, as the
+// Pallas kernel's dots at HIGHEST precision do: csrc/deep_link.cu rounds
+// the operands to bf16 once, which the Metropolis test of HMC cannot take
+// (a dH noise floor of units at the gold shapes). The relu masks use the
+// f32 pre-activations.
 //
-// What bounds it on an H100: three products of 2 H^2 operations a pair,
-// 6 H^2 f32 operations a pair at 67 TFLOP/s (0.59 ms at 2,000 x 200 and
-// H = 128), against ~17 H of elementwise work a pair and a few MB of
-// traffic: the f32 operations.
+// H = 128 (paper config 5, the deep gold), deep_link_f32_mma_kernel: the
+// three products on the bf16 tensor cores with split operands. Each f32
+// operand x is held as three bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo
+// = bf16(x - hi - mid) (round to nearest; their sum is x exactly), and a
+// product takes the six part products whose terms reach ~2^-24 of it: hi.lo,
+// mid.mid, lo.hi, hi.mid, mid.hi, hi.hi, in that order, each k-step of 16
+// from a zero accumulator, added to the running f32 sum with f32 adds (the
+// tensor cores truncate their f32 accumulation: the small terms go first so
+// they truncate at their own scale, and no chain runs past 16 terms of
+// hi.hi). That is f32's accuracy, not its rounding: a pre2 within f32
+// rounding of 0 could take the other relu branch than an f32 product would
+// (it moves the pair's dpre2 by dlogit wo, a whole term of the student's and
+// the item's gradient rows), so a pre2 within HINGE of 0 (a bound of the
+// split's error, from h1's row maximum and W2's column sums of |W2|) is
+// recomputed by the warp as an f64 sum of exact products, and the relu branch
+// is the exact sum's. What bounds it on an H100: six bf16 products of 6 H^2
+// operations a pair, 36 H^2 a pair at 989 TFLOP/s (0.239 ms at 2,000 x 200
+// and H = 128), against ~17 H of elementwise work, the operands' splits and
+// the chunk adds (~11 H + 3 H^2 / 16 a pair) at 67 TFLOP/s (0.04 ms) and a
+// few MB of traffic: the tensor-core operations. The layout is that of
+// csrc/deep_link.cu's H = 128 kernel: inline-PTX mma.sync m16n8k16 from
+// ldmatrix (.trans where an operand is read transposed: W2 for pre2, h1^T and
+// dpre2 for dW2). A block of 256 threads owns P = 32 students and walks a
+// contiguous run of items (grid y splits the items so the blocks fill the
+// SMs); warp w owns row tile w / 4 (16 of the item's 32 pairs) and column
+// group w % 4 (32 columns) of each (P x H) product, so pre2 and dh1 stay in
+// its accumulators: dlogit, dpre2, db2 and dwo are formed in registers, a
+// lane builds h1 and dpre2 at its own positions and splits them into the
+// three parts in shared memory, and h1's relu mask is a bit mask of the
+// lane's f32 pre-activations. W2's parts are split once a block into shared
+// memory (102 KB), h1's and dpre2's are double-buffered by item parity (an
+// item has one block-wide barrier, dpre2 ready, and two of its row tile's 128
+// threads: h1 ready, the logit partials). The block's dW2 (warp w: rows 32 (w
+// / 2) .. + 32, columns 64 (w % 2) .. + 64), s_theta and t1 stay in registers
+// for the whole run (217 KB of shared memory leave no room).
 //
-// Design: a block of 256 threads (8 warps) owns P = 32 students and walks a
-// contiguous run of items (grid y splits the items so that the blocks fill
-// the SMs, as csrc/deep_link.cu does). Warp w owns rows 4w..4w+3 of each
-// (P x H) product and a lane the columns l + 32 q of every 128-column
-// group, a 4 x 4 register tile a group: the forward's logit and the
-// dlogit of a row stay in its warp (shuffles), with no block barrier. Per
-// item: h1 is built transposed (h1T, H x P, rows of P + 4 floats, so a
-// warp's four rows are one float4); pre2 goes to a staging tile (P x H),
-// where each thread turns its own elements into dpre2 (also written
-// transposed, dpT); then dW2 += h1^T dpre2 (a thread owns an 8 x 8 tile of
-// each 128 x 128 block of dW2, rows a + 16 u, columns b + 16 v) and dh1 =
-// dpre2 W2^T, masked by h1 > 0 into s_theta and, summed over the warp's
-// rows, into the item's s_d (the warps' sums added in warp order). Three
-// block barriers an item.
+// Every other width (H % 128 == 0), deep_link_f32_kernel: f32 products on
+// the CUDA cores (6 H^2 f32 operations a pair at 67 TFLOP/s). A block of 256
+// threads (8 warps) owns P = 32 students and walks a run of items; warp w
+// owns rows 4w..4w+3 of each (P x H) product and a lane the columns l + 32 q
+// of every 128-column group. Per item: h1 is built transposed (h1T, H x P,
+// rows of P + 4 floats); pre2 goes to a staging tile (P x H), where each
+// thread turns its own elements into dpre2 (also written transposed, dpT);
+// then dW2 += h1^T dpre2 (a thread owns an 8 x 8 tile of each 128 x 128
+// block of dW2) and dh1 = dpre2 W2^T, masked by h1 > 0 into s_theta and,
+// summed over the warp's rows, into the item's s_d. Three block barriers an
+// item. It reads W2 and a transposed copy (a prologue kernel writes it into
+// the scratch) from L2, and adds dW2 and s_theta into the block's own
+// partials in device memory every item; its per-item buffers stay in shared
+// memory up to H = 384 and move to the block's own slice of the scratch
+// beyond (correct at every H % 128 == 0, built for it, not for speed).
 //
-// At H = 128 (paper config 5, the deep gold), RESIDENT: W2 is staged in
-// shared memory (rows of H + 1 floats: the forward reads a row across the
-// lanes, dh1 a column, both free of bank conflicts), and the block's dW2
-// (64 floats a thread) and s_theta (16) stay in registers for the whole
-// run. Wider links read W2 and a transposed copy (a prologue kernel writes
-// it into the scratch) from L2, and add dW2 and s_theta into the block's
-// own partials in device memory every item; their per-item buffers stay in
-// shared memory up to H = 384 and move to the block's own slice of the
-// scratch beyond (correct at every H % 128 == 0, built for it, not for
-// speed). Every sum across blocks (ll and s_theta over the item splits, s_d
-// over the student tiles, the weight gradients over all blocks) is a
-// per-block partial that a second kernel adds in block order: no atomics,
-// deterministic. A simple kernel on the CUDA cores; tensor cores (3 x bf16
-// or 3 x TF32 splits) are a later design.
+// Both kernels leave every sum across blocks (ll and s_theta over the item
+// splits, s_d over the student tiles, the weight gradients over all blocks)
+// as a per-block partial that a second kernel adds in block order: no
+// atomics, deterministic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,6 +99,10 @@ constexpr size_t SMEM_MAX = 232448;
 
 static_assert(ROWS == 4 && WARPS * ROWS == P, "a warp's rows are a float4");
 
+__host__ __device__ constexpr size_t align128(size_t n) {
+  return (n + 127) / 128 * 128;
+}
+
 // The per-item buffers of a block, in floats from its base: h1T (H x LDP),
 // dpT (H x LDP), st (P x H: pre2, then dpre2), red (WARPS x H: each warp's
 // s_d sum), db2w and dwow (WARPS x H: each warp's running db2 and dwo).
@@ -91,27 +119,25 @@ struct Buf {
   }
 };
 
-// Dynamic shared memory: [W2 (H x (H + 1)), resident only] [b2, wo (H
-// each)] [the buffers, when in shared memory] [the code tile (P x CHUNK)].
+// Dynamic shared memory of deep_link_f32_kernel: [b2, wo (H each)] [the
+// buffers, when in shared memory] [the code tile (P x CHUNK)].
 struct Smem {
-  size_t w2, b2, wo, buf, code, bytes;
-  __host__ __device__ Smem(int H, bool resident, bool shared_buf) {
+  size_t b2, wo, buf, code, bytes;
+  __host__ __device__ Smem(int H, bool shared_buf) {
     size_t o = 0;
-    w2 = o;
-    if (resident) o += sizeof(float) * static_cast<size_t>(H) * (H + 1);
     b2 = o; o += sizeof(float) * H;
     wo = o; o += sizeof(float) * H;
     buf = o;
     if (shared_buf) o += sizeof(float) * static_cast<size_t>(Buf(H).floats);
     code = o; o += P * CHUNK;
-    bytes = (o + 127) / 128 * 128;
+    bytes = align128(o);
   }
 };
 
 // Scratch layout (floats): dw2 (nblk, H, H) | s_theta (splits, B, H) | s_d
 // (tiles, M, H) | ll (splits, B) | db2 (nblk, H) | dwo (nblk, H) | dbo
-// (nblk) | W2^T (H, H; not resident) | the blocks' buffers (nblk x Buf;
-// only where they do not fit shared memory).
+// (nblk) | W2^T (H, H; deep_link_f32_kernel) | the blocks' buffers (nblk x
+// Buf; only where they do not fit shared memory).
 struct Parts {
   float *dw2, *sth, *sd, *ll, *db2, *dwo, *dbo, *w2t, *bufs;
   __host__ __device__ Parts(float* s, long long B, long long M, long long H,
@@ -139,9 +165,7 @@ struct Parts {
 
 // Where a width's buffers live: shared memory when they fit beside the
 // rest (H <= 384), else the scratch.
-inline bool shared_buf(int H) {
-  return Smem(H, H == GROUP, true).bytes <= SMEM_MAX;
-}
+inline bool shared_buf(int H) { return Smem(H, true).bytes <= SMEM_MAX; }
 
 __global__ void transpose_kernel(const float* __restrict__ x,
                                  float* __restrict__ y, int H) {
@@ -153,9 +177,10 @@ __global__ void transpose_kernel(const float* __restrict__ x,
   }
 }
 
-// RESIDENT (H == 128): W2 in shared memory, dW2 and s_theta in registers.
+// ---- H % 128 == 0 other than 128: f32 products on the CUDA cores ---------
+
 // SHARED_BUF: the per-item buffers in shared memory (else the scratch).
-template <bool RESIDENT, bool SHARED_BUF>
+template <bool SHARED_BUF>
 __global__ void __launch_bounds__(THREADS, 1)
 deep_link_f32_kernel(const float* __restrict__ t1,
                      const float* __restrict__ t2,
@@ -165,10 +190,9 @@ deep_link_f32_kernel(const float* __restrict__ t1,
                      const float* __restrict__ bo,
                      const int8_t* __restrict__ pk, float* scratch, int B,
                      int M, int H, int items_per_split) {
-  const Smem S(H, RESIDENT, SHARED_BUF);
+  const Smem S(H, SHARED_BUF);
   const Buf L(H);
   extern __shared__ __align__(128) unsigned char smem[];
-  float* w2_s = reinterpret_cast<float*>(smem + S.w2);
   float* b2_s = reinterpret_cast<float*>(smem + S.b2);
   float* wo_s = reinterpret_cast<float*>(smem + S.wo);
   int8_t* code_s = reinterpret_cast<int8_t*>(smem + S.code);
@@ -181,7 +205,6 @@ deep_link_f32_kernel(const float* __restrict__ t1,
   const int j0 = split * items_per_split;
   const int j1 = min(M, j0 + items_per_split);
   const int groups = H / GROUP;
-  const int LDW = RESIDENT ? H + 1 : H;
   Parts parts(scratch, B, M, H, tiles, splits);
   float* base = SHARED_BUF ? reinterpret_cast<float*>(smem + S.buf)
                            : parts.bufs + static_cast<size_t>(blk) * L.floats;
@@ -193,15 +216,10 @@ deep_link_f32_kernel(const float* __restrict__ t1,
   float* dwow = base + L.dwow;
   float* dw2_blk = parts.dw2 + static_cast<size_t>(blk) * H * H;
   float* sth = parts.sth + static_cast<size_t>(split) * B * H;
-  // the forward reads W2 by rows, dh1 by columns: W2 itself (shared,
-  // resident) or its transposed copy (L2)
-  const float* w2f = RESIDENT ? w2_s : w2;
-  const float* w2c = RESIDENT ? w2_s : parts.w2t;
+  // the forward reads W2 by rows, dh1 by columns: its transposed copy
+  const float* w2t = parts.w2t;
   const float bov = bo[0];
 
-  if (RESIDENT)
-    for (int i = tid; i < H * H; i += THREADS)
-      w2_s[(i / H) * LDW + i % H] = w2[i];
   for (int c = tid; c < H; c += THREADS) {
     b2_s[c] = b2[c];
     wo_s[c] = wo[c];
@@ -210,29 +228,14 @@ deep_link_f32_kernel(const float* __restrict__ t1,
     db2w[i] = 0.f;
     dwow[i] = 0.f;
   }
-  if (!RESIDENT) {
-    for (size_t i = tid; i < static_cast<size_t>(H) * H; i += THREADS)
-      dw2_blk[i] = 0.f;
-    for (int i = tid; i < P * H; i += THREADS) {
-      const int row = b0 + i / H;
-      if (row < B) sth[static_cast<size_t>(row) * H + i % H] = 0.f;
-    }
+  for (size_t i = tid; i < static_cast<size_t>(H) * H; i += THREADS)
+    dw2_blk[i] = 0.f;
+  for (int i = tid; i < P * H; i += THREADS) {
+    const int row = b0 + i / H;
+    if (row < B) sth[static_cast<size_t>(row) * H + i % H] = 0.f;
   }
-  // resident accumulators: dW2 rows a + 16 u, columns b + 16 v; s_theta of
-  // rows 4 warp + i, columns lane + 32 q
+  // a thread's dW2 tile: rows da + 16 u, columns db + 16 v
   const int da = tid / 16, db = tid % 16;
-  float dw2_acc[RESIDENT ? 8 : 1][RESIDENT ? 8 : 1];
-  float sth_acc[RESIDENT ? ROWS : 1][RESIDENT ? 4 : 1];
-  if (RESIDENT) {
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-#pragma unroll
-      for (int v = 0; v < 8; ++v) dw2_acc[u][v] = 0.f;
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sth_acc[i][q] = 0.f;
-  }
   float ll_acc[ROWS], dbo_acc[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) ll_acc[i] = dbo_acc[i] = 0.f;
@@ -270,7 +273,7 @@ deep_link_f32_kernel(const float* __restrict__ t1,
       for (int k = 0; k < H; ++k) {
         const float4 hv =
             *reinterpret_cast<const float4*>(h1t + k * LDP + warp * ROWS);
-        const float* wr = w2f + static_cast<size_t>(k) * LDW + c0;
+        const float* wr = w2 + static_cast<size_t>(k) * H + c0;
         float wv[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) wv[q] = wr[32 * q];
@@ -340,9 +343,7 @@ deep_link_f32_kernel(const float* __restrict__ t1,
 #pragma unroll
         for (int u = 0; u < 8; ++u)
 #pragma unroll
-          for (int v = 0; v < 8; ++v)
-            part[u][v] = RESIDENT ? dw2_acc[RESIDENT ? u : 0][RESIDENT ? v : 0]
-                                  : 0.f;
+          for (int v = 0; v < 8; ++v) part[u][v] = 0.f;
         const float* hr = h1t + (bi * GROUP + da) * LDP;
         const float* dr = st + bj * GROUP + db;
 #pragma unroll 2
@@ -358,23 +359,15 @@ deep_link_f32_kernel(const float* __restrict__ t1,
             for (int v = 0; v < 8; ++v)
               part[u][v] = fmaf(hv[u], dv[v], part[u][v]);
         }
-        if (RESIDENT) {
 #pragma unroll
-          for (int u = 0; u < 8; ++u)
+        for (int u = 0; u < 8; ++u)
 #pragma unroll
-            for (int v = 0; v < 8; ++v)
-              dw2_acc[RESIDENT ? u : 0][RESIDENT ? v : 0] = part[u][v];
-        } else {
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-#pragma unroll
-            for (int v = 0; v < 8; ++v) {
-              float* dst = dw2_blk +
-                           static_cast<size_t>(bi * GROUP + da + 16 * u) * H +
-                           bj * GROUP + db + 16 * v;
-              *dst += part[u][v];
-            }
-        }
+          for (int v = 0; v < 8; ++v) {
+            float* dst = dw2_blk +
+                         static_cast<size_t>(bi * GROUP + da + 16 * u) * H +
+                         bj * GROUP + db + 16 * v;
+            *dst += part[u][v];
+          }
       }
 
     // 5. dh1 = dpre2 W2^T, masked by h1 > 0: s_theta and the warp's s_d
@@ -392,8 +385,7 @@ deep_link_f32_kernel(const float* __restrict__ t1,
         float wv[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          wv[q] = RESIDENT ? w2c[static_cast<size_t>(k0 + 32 * q) * LDW + c]
-                           : w2c[static_cast<size_t>(c) * H + k0 + 32 * q];
+          wv[q] = w2t[static_cast<size_t>(c) * H + k0 + 32 * q];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           acc[0][q] = fmaf(dv.x, wv[q], acc[0][q]);
@@ -411,11 +403,7 @@ deep_link_f32_kernel(const float* __restrict__ t1,
           const int r = warp * ROWS + i, row = b0 + r;
           const float dp1 = h1t[k * LDP + r] > 0.f ? acc[i][q] : 0.f;
           col += dp1;
-          if (RESIDENT) {
-            sth_acc[RESIDENT ? i : 0][RESIDENT ? q : 0] += dp1;
-          } else if (row < B) {
-            sth[static_cast<size_t>(row) * H + k] += dp1;
-          }
+          if (row < B) sth[static_cast<size_t>(row) * H + k] += dp1;
         }
         red[warp * H + k] = col;
       }
@@ -433,23 +421,6 @@ deep_link_f32_kernel(const float* __restrict__ t1,
   __syncthreads();
 
   // the block's partials
-  if (RESIDENT) {
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-#pragma unroll
-      for (int v = 0; v < 8; ++v)
-        dw2_blk[static_cast<size_t>(da + 16 * u) * H + db + 16 * v] =
-            dw2_acc[RESIDENT ? u : 0][RESIDENT ? v : 0];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = b0 + warp * ROWS + i;
-      if (row < B)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          sth[static_cast<size_t>(row) * H + lane + 32 * q] =
-              sth_acc[RESIDENT ? i : 0][RESIDENT ? q : 0];
-    }
-  }
   if (lane == 0) {
     float s = 0.f;
 #pragma unroll
@@ -474,6 +445,593 @@ deep_link_f32_kernel(const float* __restrict__ t1,
   if (tid == 0) {
     float s = 0.f;
     for (int w = 0; w < WARPS; ++w) s += red[w];
+    parts.dbo[blk] = s;
+  }
+}
+
+// ---- H = 128: split-bf16 products on the tensor cores --------------------
+
+// The shared-memory address of p, for the PTX below.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory, lanes 8i .. 8i + 7 giving the
+// row addresses of matrix i; lane l gets row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each (with .trans: of each matrix transposed).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b on the tensor cores: a 16x16 (row), b 16x8 (col), bf16; d 16x8
+// f32. Lane l = 4 g + t holds d's rows g and g + 8, columns 2t and 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Barrier `id` (1..15) of the 128 threads of one row tile.
+__device__ __forceinline__ void row_tile_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Sums of v[0..8) over the warp's eight row groups (lane / 4), reduced and
+// scattered in three shuffle steps: lane 4 g + t returns the sum of v[g].
+__device__ __forceinline__ float sum_row_groups(const float (&v)[8],
+                                                int lane) {
+  const int g = lane / 4;
+  float w[4], x[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool up = g & 4;
+    w[i] = (up ? v[i + 4] : v[i]) +
+           __shfl_xor_sync(0xffffffffu, up ? v[i] : v[i + 4], 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool up = g & 2;
+    x[i] = (up ? w[i + 2] : w[i]) +
+           __shfl_xor_sync(0xffffffffu, up ? w[i] : w[i + 2], 8);
+  }
+  const bool up = g & 1;
+  return (up ? x[1] : x[0]) +
+         __shfl_xor_sync(0xffffffffu, up ? x[0] : x[1], 4);
+}
+
+constexpr int PARTS = 3;           // hi, mid, lo
+
+// (x0, x1) as three bf16x2 parts, p[0] = hi, p[1] = mid, p[2] = lo, each
+// rounded to nearest from what the parts before it leave: x - hi and
+// x - hi - mid are exact in f32 and lo takes the last 8 bits, so the parts
+// sum to x exactly.
+__device__ __forceinline__ void split3(float x0, float x1,
+                                       uint32_t (&p)[PARTS]) {
+#pragma unroll
+  for (int q = 0; q < PARTS; ++q) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    p[q] = *reinterpret_cast<const uint32_t*>(&v);
+    const float2 f = __bfloat1622float2(v);
+    x0 -= f.x;
+    x1 -= f.y;
+  }
+}
+
+// The six part products of a split product, smallest first: (a part, b
+// part) of step s = hi.lo, mid.mid, lo.hi, hi.mid, mid.hi, hi.hi. The
+// dropped ones (mid.lo, lo.mid, lo.lo) are below 2^-24 of |a| |b|.
+__device__ __forceinline__ constexpr int part_a(int s) {
+  return s < 3 ? s : s < 5 ? s - 3 : 0;
+}
+__device__ __forceinline__ constexpr int part_b(int s) {
+  return s < 3 ? 2 - s : s < 5 ? 4 - s : 0;
+}
+
+// Layout of deep_link_f32_mma_kernel (H = 128). Shared memory, each region
+// 128-byte aligned: W2's three parts (H x LD bf16 each), h1's and dpre2's
+// three parts (P x LD bf16 each) for two items, t2 for two items, b2, wo,
+// W2's column sums of |W2| (H), the logit partials and the h1 row maxima
+// (P x CG each), the row tiles' s_d partials for two items, their db2 and
+// dwo sums, ll and dbo a pair, the codes (P x CHUNK).
+struct Mma {
+  static constexpr int H = GROUP;
+  static constexpr int LD = H + 8;       // bf16 row stride: 272 B, ldmatrix
+                                         // and the parts' stores conflict-free
+  static constexpr int RT = P / 16;      // row tiles (2)
+  static constexpr int CG = WARPS / RT;  // column groups of 32 (4)
+  static constexpr size_t W2_PART = align128(sizeof(__nv_bfloat16) * H * LD);
+  static constexpr size_t ACT_PART = align128(sizeof(__nv_bfloat16) * P * LD);
+  static constexpr size_t ACT_BUF = PARTS * ACT_PART;   // one item's parts
+  static constexpr size_t W2_OFF = 0;
+  static constexpr size_t H1_OFF = W2_OFF + PARTS * W2_PART;
+  static constexpr size_t DP_OFF = H1_OFF + 2 * ACT_BUF;
+  static constexpr size_t T2_OFF = DP_OFF + 2 * ACT_BUF;
+  static constexpr size_t B2_OFF = T2_OFF + align128(sizeof(float) * 2 * H);
+  static constexpr size_t WO_OFF = B2_OFF + align128(sizeof(float) * H);
+  static constexpr size_t WC_OFF = WO_OFF + align128(sizeof(float) * H);
+  static constexpr size_t LG_OFF = WC_OFF + align128(sizeof(float) * H);
+  static constexpr size_t HM_OFF = LG_OFF + align128(sizeof(float) * P * CG);
+  static constexpr size_t SD_OFF = HM_OFF + align128(sizeof(float) * P * CG);
+  static constexpr size_t RED_OFF = SD_OFF + align128(sizeof(float) * 2 * RT * H);
+  static constexpr size_t LL_OFF = RED_OFF + align128(sizeof(float) * 2 * RT * H);
+  static constexpr size_t DBO_OFF = LL_OFF + align128(sizeof(float) * P);
+  static constexpr size_t CODE_OFF = DBO_OFF + align128(sizeof(float) * P);
+  static constexpr size_t SMEM = CODE_OFF + align128(P * CHUNK);
+  static_assert(RT * CG == WARPS && CG * 32 == H, "warp tiles");
+  static_assert(RT == 2 && CG == 4, "the row tiles' sums, the logit float4");
+  static_assert(SMEM <= SMEM_MAX, "shared memory of one block");
+};
+
+// The split's pre2 = h1 W2 + b2 lies within 2^-19.4 of sum_k h1_k |W2_kn|
+// of the exact sum (the dropped part products below 2^-23 of each term,
+// the tensor cores' truncation of each k-step's six products below 6
+// 2^-22 of its terms, eight f32 adds); HINGE = 2^-19 of the bound
+// max_k h1_k sum_k |W2_kn| (>= sum_k h1_k |W2_kn|) is past that. A pre2
+// within HINGE of 0 is recomputed by exact_dot, so the relu branch is the
+// exact sum's.
+constexpr float HINGE = 1.0f / 524288.0f;
+
+// (h1 W2)[r][c] of h1's row r (pairs of the item) as the f64 sum of the
+// exact products of h1's and W2's f32 values (each the sum of its three
+// parts, exact in f64), by the whole warp: lane l takes k = l + 32 i, then
+// a fixed shuffle tree; every lane returns the sum.
+__device__ __forceinline__ double exact_dot(const __nv_bfloat16* h1_s,
+                                            const __nv_bfloat16* w2_s, int r,
+                                            int c, int lane) {
+  constexpr int LD = Mma::LD;
+  constexpr size_t W2E = Mma::W2_PART / sizeof(__nv_bfloat16);
+  constexpr size_t ACTE = Mma::ACT_PART / sizeof(__nv_bfloat16);
+  static_assert(Mma::H == 4 * 32, "four k a lane");
+  double sum = 0.0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = lane + 32 * i;
+    double x = 0.0, y = 0.0;
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q) {
+      x += static_cast<double>(__bfloat162float(h1_s[q * ACTE + r * LD + k]));
+      y += static_cast<double>(__bfloat162float(w2_s[q * W2E + k * LD + c]));
+    }
+    sum = fma(x, y, sum);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  return sum;
+}
+
+// The split products of one k-step of a warp's 16 x 32 tile: fresh[n] = a
+// b[n] over the six part products (from zero), b[n2][q] holding n8 tiles
+// 2 n2 and 2 n2 + 1 of part q; then acc += fresh with f32 adds.
+__device__ __forceinline__ void tile_step(float (&acc)[4][4],
+                                          const uint32_t (&a)[PARTS][4],
+                                          const uint32_t (&b)[2][PARTS][4]) {
+  float fresh[4][4] = {};
+#pragma unroll
+  for (int s = 0; s < 6; ++s)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      mma_bf16(fresh[n], a[part_a(s)], b[n / 2][part_b(s)][2 * (n % 2)],
+               b[n / 2][part_b(s)][2 * (n % 2) + 1]);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += fresh[n][e];
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+deep_link_f32_mma_kernel(const float* __restrict__ t1,
+                         const float* __restrict__ t2,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const float* __restrict__ wo,
+                         const float* __restrict__ bo,
+                         const int8_t* __restrict__ pk,
+                         float* __restrict__ scratch, int B, int M,
+                         int items_per_split) {
+  using C = Mma;
+  constexpr int H = C::H, LD = C::LD, RT = C::RT, CG = C::CG;
+  constexpr size_t W2E = C::W2_PART / sizeof(__nv_bfloat16);
+  constexpr size_t ACTE = C::ACT_PART / sizeof(__nv_bfloat16);
+  constexpr size_t BUFE = C::ACT_BUF / sizeof(__nv_bfloat16);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* w2_s = reinterpret_cast<__nv_bfloat16*>(smem + C::W2_OFF);
+  __nv_bfloat16* h1_2 = reinterpret_cast<__nv_bfloat16*>(smem + C::H1_OFF);
+  __nv_bfloat16* dp_2 = reinterpret_cast<__nv_bfloat16*>(smem + C::DP_OFF);
+  float* t2_s = reinterpret_cast<float*>(smem + C::T2_OFF);
+  float* b2_s = reinterpret_cast<float*>(smem + C::B2_OFF);
+  float* wo_s = reinterpret_cast<float*>(smem + C::WO_OFF);
+  float* wc_s = reinterpret_cast<float*>(smem + C::WC_OFF);
+  float* lg_s = reinterpret_cast<float*>(smem + C::LG_OFF);
+  float* hm_s = reinterpret_cast<float*>(smem + C::HM_OFF);
+  float* sd_s = reinterpret_cast<float*>(smem + C::SD_OFF);
+  float* red_s = reinterpret_cast<float*>(smem + C::RED_OFF);
+  float* ll_s = reinterpret_cast<float*>(smem + C::LL_OFF);
+  float* dbo_s = reinterpret_cast<float*>(smem + C::DBO_OFF);
+  int8_t* code_s = reinterpret_cast<int8_t*>(smem + C::CODE_OFF);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rt = warp / CG, cg = warp % CG;
+  const int wr0 = rt * 16, wc0 = cg * 32;       // the warp's product tile
+  const int ra = wr0 + g, rb = ra + 8;           // this lane's two pairs
+  const int dr0 = (warp / 2) * 32, dc0 = (warp % 2) * 64;   // its dW2 tile
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int tiles = gridDim.x, splits = gridDim.y;
+  const int blk = tile * splits + split;
+  const int b0 = tile * P;
+  const int j0 = split * items_per_split;
+  const int j1 = min(M, j0 + items_per_split);
+
+  for (int i = tid; i < H * H / 2; i += THREADS) {
+    const int r = 2 * i / H, c = 2 * i % H;
+    const float2 v = reinterpret_cast<const float2*>(w2)[i];
+    uint32_t p[PARTS];
+    split3(v.x, v.y, p);
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q)
+      *reinterpret_cast<uint32_t*>(w2_s + q * W2E + r * LD + c) = p[q];
+  }
+  if (tid < H) {
+    b2_s[tid] = b2[tid];
+    wo_s[tid] = wo[tid];
+    t2_s[tid] = j0 < j1 ? t2[static_cast<size_t>(j0) * H + tid] : 0.f;
+    float wc = 0.f;
+    for (int k = 0; k < H; ++k) wc += fabsf(w2[k * H + tid]);
+    wc_s[tid] = wc;
+  }
+  if (tid < P) {
+    ll_s[tid] = 0.f;
+    dbo_s[tid] = 0.f;
+  }
+  const float bov = bo[0];
+  // Registers for the block's run. A lane's positions in a (P x H)
+  // product: element e of n8 tile n is row (e < 2 ? ra : rb), column
+  // wc0 + 8 n + 2 t + e % 2; t1 and s_theta there ([row half][2 n + e % 2]).
+  // dW2: element e of n8 tile n of m16 tile u is row dr0 + 16 u + g +
+  // 8 (e / 2), column dc0 + 8 n + 2 t + e % 2. db2 and dwo of the row tile's
+  // pairs in column cs, each item's summed over the warp's rows first.
+  float t1r[2][8], sth[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = b0 + (h ? rb : ra);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float2 v =
+          row < B ? *reinterpret_cast<const float2*>(
+                        t1 + static_cast<size_t>(row) * H + wc0 + 8 * n + 2 * t)
+                  : make_float2(0.f, 0.f);
+      t1r[h][2 * n] = v.x;
+      t1r[h][2 * n + 1] = v.y;
+      sth[h][2 * n] = sth[h][2 * n + 1] = 0.f;
+    }
+  }
+  float dw2[2][8][4] = {}, db2 = 0.f, dwo = 0.f;
+  const int cs = wc0 + (g / 2) * 8 + 2 * t + g % 2;
+  __syncthreads();
+
+  for (int j = j0; j < j1; ++j) {
+    const int jj = (j - j0) % CHUNK, buf = (j - j0) & 1;
+    __nv_bfloat16* h1_s = h1_2 + buf * BUFE;     // part q at + q * ACTE
+    __nv_bfloat16* dp_s = dp_2 + buf * BUFE;
+    if (jj == 0) {   // the row tile's codes of the next CHUNK items: thread
+      // q takes row wr0 + q / 8, items 2 (q % 8) and + 1
+      const int q = tid % 128, crow = wr0 + q / 8, ci = 2 * (q % 8);
+      const bool in = b0 + crow < B;
+      const int8_t* src = pk + static_cast<size_t>(b0 + crow) * M + j + ci;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        code_s[crow * CHUNK + ci + u] =
+            in && j + ci + u < j1 ? src[u] : int8_t(0);
+    }
+    float t2_next = 0.f;
+    if (tid < H && j + 1 < j1)
+      t2_next = t2[static_cast<size_t>(j + 1) * H + tid];
+
+    // 1. h1's parts at this lane's positions of the row tile, the relu
+    // mask of its f32 pre-activations (bit 4 n + e), and the row maxima of
+    // h1 over the warp's 32 columns
+    uint32_t live = 0;
+    float hmax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc0 + 8 * n + 2 * t;
+      const float2 u = *reinterpret_cast<const float2*>(t2_s + buf * H + c);
+      const float p[4] = {t1r[0][2 * n] + u.x, t1r[0][2 * n + 1] + u.y,
+                          t1r[1][2 * n] + u.x, t1r[1][2 * n + 1] + u.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        live |= (p[e] > 0.f ? 1u : 0u) << (4 * n + e);
+        hmax[e / 2] = fmaxf(hmax[e / 2], p[e]);
+      }
+      uint32_t pa[PARTS], pb[PARTS];
+      split3(fmaxf(p[0], 0.f), fmaxf(p[1], 0.f), pa);
+      split3(fmaxf(p[2], 0.f), fmaxf(p[3], 0.f), pb);
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q) {
+        *reinterpret_cast<uint32_t*>(h1_s + q * ACTE + ra * LD + c) = pa[q];
+        *reinterpret_cast<uint32_t*>(h1_s + q * ACTE + rb * LD + c) = pb[q];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      hmax[h] = fmaxf(hmax[h], __shfl_xor_sync(0xffffffffu, hmax[h], 1));
+      hmax[h] = fmaxf(hmax[h], __shfl_xor_sync(0xffffffffu, hmax[h], 2));
+    }
+    if (t == 0) {
+      hm_s[ra * CG + cg] = hmax[0];
+      hm_s[rb * CG + cg] = hmax[1];
+    }
+    row_tile_sync(1 + rt);
+
+    // 2. pre2 = h1 W2 + b2
+    float acc[4][4] = {};
+#pragma unroll 1
+    for (int k0 = 0; k0 < H; k0 += 16) {
+      uint32_t a[PARTS][4], b[2][PARTS][4];
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q) {
+        ldsm_x4(a[q], h1_s + q * ACTE + (wr0 + lane % 16) * LD + k0 +
+                          (lane / 16) * 8);
+#pragma unroll
+        for (int n2 = 0; n2 < 2; ++n2)
+          ldsm_x4_trans(b[n2][q], w2_s + q * W2E + (k0 + lane % 16) * LD +
+                                      wc0 + 16 * n2 + (lane / 16) * 8);
+      }
+      tile_step(acc, a, b);
+    }
+    // 3. pre2 within HINGE of 0 made exact (its relu branch the exact
+    // sum's); the logit: this lane's 8 columns, its quad's 32, then the
+    // row tile's four column groups in order (the same sum in every warp)
+    float hinge[2];   // HINGE times the row's h1 maximum
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 q =
+          *reinterpret_cast<const float4*>(hm_s + (h ? rb : ra) * CG);
+      hinge[h] = HINGE * fmaxf(fmaxf(q.x, q.y), fmaxf(q.z, q.w));
+    }
+    uint32_t near = 0;   // bit 4 n + e: pre2 within HINGE of 0
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc0 + 8 * n + 2 * t;
+      const float2 bb = *reinterpret_cast<const float2*>(b2_s + c);
+      const float2 wc = *reinterpret_cast<const float2*>(wc_s + c);
+      acc[n][0] += bb.x; acc[n][1] += bb.y;
+      acc[n][2] += bb.x; acc[n][3] += bb.y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        near |= (fabsf(acc[n][e]) <= hinge[e / 2] * (e % 2 ? wc.y : wc.x)
+                     ? 1u : 0u) << (4 * n + e);
+    }
+    if (__any_sync(0xffffffffu, near)) {   // rare: the warp recomputes each
+      for (int i = 0; i < 16; ++i) {        // flagged element in turn
+        for (uint32_t m = __ballot_sync(0xffffffffu, (near >> i) & 1u); m;
+             m &= m - 1) {
+          const int src = __ffs(m) - 1, n = i / 4, e = i % 4;
+          const int c = wc0 + 8 * n + 2 * (src % 4) + e % 2;
+          const float v = static_cast<float>(
+              exact_dot(h1_s, w2_s, wr0 + src / 4 + 8 * (e / 2), c, lane) +
+              static_cast<double>(b2_s[c]));
+          if (lane == src) {
+#pragma unroll
+            for (int q = 0; q < 16; ++q)
+              if (q == i) acc[q / 4][q % 4] = v;
+          }
+        }
+      }
+    }
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc0 + 8 * n + 2 * t;
+      const float2 ww = *reinterpret_cast<const float2*>(wo_s + c);
+      part[0] = fmaf(fmaxf(acc[n][0], 0.f), ww.x, part[0]);
+      part[0] = fmaf(fmaxf(acc[n][1], 0.f), ww.y, part[0]);
+      part[1] = fmaf(fmaxf(acc[n][2], 0.f), ww.x, part[1]);
+      part[1] = fmaf(fmaxf(acc[n][3], 0.f), ww.y, part[1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+    }
+    if (t == 0) {
+      lg_s[ra * CG + cg] = part[0];
+      lg_s[rb * CG + cg] = part[1];
+    }
+    row_tile_sync(1 + rt);
+    float dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? rb : ra;
+      const float4 q = *reinterpret_cast<const float4*>(lg_s + r * CG);
+      const float logit = (((q.x + q.y) + q.z) + q.w) + bov;
+      const float cf = static_cast<float>(code_s[r * CHUNK + jj]);
+      const float m = fminf(cf, 1.f), rr = fmaxf(cf - 1.f, 0.f);
+      const float e = expf(-fabsf(logit));
+      const float inv = 1.f / (1.f + e);
+      const float s = logit >= 0.f ? inv : 1.f - inv;   // sigmoid(logit)
+      dl[h] = m * (rr - s);
+      if (cg == 0 && t == 0) {   // one lane a pair sums ll and dbo
+        const float sp = log1pf(e) + fmaxf(logit, 0.f);   // softplus(logit)
+        ll_s[r] += -m * (rr > 0.5f ? sp - logit : sp);
+        dbo_s[r] += dl[h];
+      }
+    }
+    // 4. dpre2 = [pre2 > 0] dlogit wo (its parts to shared), db2 and dwo
+    float vdb[8], vdw[8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc0 + 8 * n + 2 * t;
+      const float2 ww = *reinterpret_cast<const float2*>(wo_s + c);
+      float dp[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[e] = acc[n][e] > 0.f ? dl[e / 2] * (e % 2 ? ww.y : ww.x) : 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        vdb[2 * n + e] = dp[e] + dp[e + 2];
+        vdw[2 * n + e] = fmaf(fmaxf(acc[n][e + 2], 0.f), dl[1],
+                              fmaxf(acc[n][e], 0.f) * dl[0]);
+      }
+      uint32_t pa[PARTS], pb[PARTS];
+      split3(dp[0], dp[1], pa);
+      split3(dp[2], dp[3], pb);
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q) {
+        *reinterpret_cast<uint32_t*>(dp_s + q * ACTE + ra * LD + c) = pa[q];
+        *reinterpret_cast<uint32_t*>(dp_s + q * ACTE + rb * LD + c) = pb[q];
+      }
+    }
+    db2 += sum_row_groups(vdb, lane);
+    dwo += sum_row_groups(vdw, lane);
+    if (tid < H && j + 1 < j1) t2_s[(buf ^ 1) * H + tid] = t2_next;
+    __syncthreads();   // the only block-wide barrier of an item
+
+    // 5. the previous item's s_d: its row tiles' partials, in order
+    if (j > j0 && tid < H) {
+      const float* s = sd_s + (buf ^ 1) * RT * H + tid;
+      Parts(scratch, B, M, H, tiles, splits)
+          .sd[(static_cast<size_t>(tile) * M + j - 1) * H + tid] = s[0] + s[H];
+    }
+
+    // 6. dW2 += h1^T dpre2: per k-step of 16 pairs, the split products of
+    // the warp's 32 x 64 tile from zero, added to the running sum with f32
+    // adds
+#pragma unroll 1
+    for (int p0 = 0; p0 < P; p0 += 16) {
+      uint32_t a[2][PARTS][4];   // h1^T: rows dr0 + 16 u.. by pairs p0..
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int q = 0; q < PARTS; ++q)
+          ldsm_x4_trans(a[u][q], h1_s + q * ACTE +
+                                     (p0 + lane % 8 + (lane / 16) * 8) * LD +
+                                     dr0 + 16 * u + ((lane / 8) % 2) * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t b[PARTS][4];    // dpre2: columns dc0 + 16 i.. by pairs p0..
+#pragma unroll
+        for (int q = 0; q < PARTS; ++q)
+          ldsm_x4_trans(b[q], dp_s + q * ACTE + (p0 + lane % 16) * LD + dc0 +
+                                  16 * i + (lane / 16) * 8);
+        float fresh[2][2][4] = {};
+#pragma unroll
+        for (int s = 0; s < 6; ++s)
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              mma_bf16(fresh[u][h], a[u][part_a(s)], b[part_b(s)][2 * h],
+                       b[part_b(s)][2 * h + 1]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dw2[u][2 * i + h][e] += fresh[u][h][e];
+      }
+    }
+
+    // 7. dh1 = dpre2 W2^T, the f32 h1 mask, s_theta, and the row tile's
+    // part of the item's s_d
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < H; k0 += 16) {
+      uint32_t a[PARTS][4], b[2][PARTS][4];
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q) {
+        ldsm_x4(a[q], dp_s + q * ACTE + (wr0 + lane % 16) * LD + k0 +
+                          (lane / 16) * 8);
+#pragma unroll
+        for (int n2 = 0; n2 < 2; ++n2)   // W2^T as a col operand: (k, n) at
+          // W2[n][k]
+          ldsm_x4(b[n2][q], w2_s + q * W2E +
+                                (wc0 + 16 * n2 + lane % 8 + (lane / 16) * 8) *
+                                    LD +
+                                k0 + ((lane / 8) % 2) * 8);
+      }
+      tile_step(acc, a, b);
+    }
+    float col[8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      float d1[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d1[e] = (live >> (4 * n + e)) & 1u ? acc[n][e] : 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sth[0][2 * n + e] += d1[e];
+        sth[1][2 * n + e] += d1[e + 2];
+        col[2 * n + e] = d1[e] + d1[e + 2];
+      }
+    }
+    sd_s[(buf * RT + rt) * H + cs] = sum_row_groups(col, lane);
+  }
+  __syncthreads();
+
+  // the last item's s_d, this split's ll and s_theta of the block's
+  // students, the block's dW2, db2, dwo and dbo
+  const Parts parts(scratch, B, M, H, tiles, splits);
+  if (j1 > j0 && tid < H) {
+    const float* s = sd_s + ((j1 - 1 - j0) & 1) * RT * H + tid;
+    parts.sd[(static_cast<size_t>(tile) * M + j1 - 1) * H + tid] =
+        s[0] + s[H];
+  }
+  if (tid < P && b0 + tid < B)
+    parts.ll[static_cast<size_t>(split) * B + b0 + tid] = ll_s[tid];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = b0 + (h ? rb : ra);
+    if (row >= B) continue;
+    float* dst = parts.sth + (static_cast<size_t>(split) * B + row) * H;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      *reinterpret_cast<float2*>(dst + wc0 + 8 * n + 2 * t) =
+          make_float2(sth[h][2 * n], sth[h][2 * n + 1]);
+  }
+  float* dw2_blk = parts.dw2 + static_cast<size_t>(blk) * H * H;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(
+            dw2_blk + static_cast<size_t>(dr0 + 16 * u + g + 8 * r) * H +
+            dc0 + 8 * n + 2 * t) =
+            make_float2(dw2[u][n][2 * r], dw2[u][n][2 * r + 1]);
+  red_s[rt * H + cs] = db2;
+  red_s[(RT + rt) * H + cs] = dwo;
+  __syncthreads();
+  if (tid < H) {
+    const float* s = red_s + tid;
+    parts.db2[static_cast<size_t>(blk) * H + tid] = s[0] + s[H];
+    s += RT * H;
+    parts.dwo[static_cast<size_t>(blk) * H + tid] = s[0] + s[H];
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int r = 0; r < P; ++r) s += dbo_s[r];
     parts.dbo[blk] = s;
   }
 }
@@ -513,29 +1071,43 @@ __global__ void deep_link_f32_reduce_kernel(const float* __restrict__ scratch,
   }
 }
 
-template <bool RESIDENT, bool SHARED_BUF>
-cudaError_t set_smem(int H) {
-  return cudaFuncSetAttribute(deep_link_f32_kernel<RESIDENT, SHARED_BUF>,
+// The kernel a width H runs and its dynamic shared memory: H = 128 the
+// tensor-core kernel, every other width the CUDA-core one.
+struct Variant {
+  const void* fn;
+  size_t smem;
+};
+
+Variant variant(int H) {
+  if (H == GROUP)
+    return {reinterpret_cast<const void*>(deep_link_f32_mma_kernel),
+            Mma::SMEM};
+  if (shared_buf(H))
+    return {reinterpret_cast<const void*>(deep_link_f32_kernel<true>),
+            Smem(H, true).bytes};
+  return {reinterpret_cast<const void*>(deep_link_f32_kernel<false>),
+          Smem(H, false).bytes};
+}
+
+cudaError_t set_smem(const Variant& v) {
+  return cudaFuncSetAttribute(v.fn,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(
-                                  Smem(H, RESIDENT, SHARED_BUF).bytes));
+                              static_cast<int>(v.smem));
 }
 
 // The item splits of the grid whose blocks fill the resident slots best
 // (the fewest among equals), as csrc/deep_link.cu fills its grid. Every
 // split gets at least one item.
-template <bool RESIDENT, bool SHARED_BUF>
 int fill_splits(int B, int M, int H, int* splits) {
-  const size_t smem = Smem(H, RESIDENT, SHARED_BUF).bytes;
-  cudaError_t err = set_smem<RESIDENT, SHARED_BUF>(H);
+  const Variant v = variant(H);
+  cudaError_t err = set_smem(v);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, occ = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, deep_link_f32_kernel<RESIDENT, SHARED_BUF>, THREADS,
-           smem)) != cudaSuccess)
+           &occ, v.fn, THREADS, v.smem)) != cudaSuccess)
     return static_cast<int>(err);
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long tiles = std::max(1, (B + P - 1) / P);
@@ -556,60 +1128,43 @@ int fill_splits(int B, int M, int H, int* splits) {
   return 0;
 }
 
-template <bool RESIDENT, bool SHARED_BUF>
-int launch(const void* t1, const void* t2, const void* w2, const void* b2,
-           const void* wo, const void* bo, const void* pk, void* out,
-           void* scratch, int B, int M, int H, int splits,
-           cudaStream_t stream) {
+int launch(const float* t1, const float* t2, const float* w2,
+           const float* b2, const float* wo, const float* bo,
+           const int8_t* pk, float* out, float* sc, int B, int M, int H,
+           int splits, cudaStream_t stream) {
   const int tiles = std::max(1, (B + P - 1) / P);
   const int per = (std::max(M, 1) + splits - 1) / splits;
   if (splits < 1 || (splits - 1) * per >= std::max(M, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = set_smem<RESIDENT, SHARED_BUF>(H);
+  const Variant v = variant(H);
+  cudaError_t err = set_smem(v);
   if (err != cudaSuccess) return static_cast<int>(err);
-  float* sc = static_cast<float*>(scratch);
-  if (!RESIDENT) {
+  const dim3 grid(tiles, splits);
+  if (H == GROUP) {
+    deep_link_f32_mma_kernel<<<grid, THREADS, v.smem, stream>>>(
+        t1, t2, w2, b2, wo, bo, pk, sc, B, M, per);
+  } else {
     Parts parts(sc, B, M, H, tiles, splits);
     const size_t hh = static_cast<size_t>(H) * H;
     transpose_kernel<<<static_cast<int>(std::min<size_t>((hh + 255) / 256,
                                                          1024)),
-                       256, 0, stream>>>(static_cast<const float*>(w2),
-                                         parts.w2t, H);
+                       256, 0, stream>>>(w2, parts.w2t, H);
+    if (shared_buf(H))
+      deep_link_f32_kernel<true><<<grid, THREADS, v.smem, stream>>>(
+          t1, t2, w2, b2, wo, bo, pk, sc, B, M, H, per);
+    else
+      deep_link_f32_kernel<false><<<grid, THREADS, v.smem, stream>>>(
+          t1, t2, w2, b2, wo, bo, pk, sc, B, M, H, per);
   }
-  deep_link_f32_kernel<RESIDENT, SHARED_BUF>
-      <<<dim3(tiles, splits), THREADS, Smem(H, RESIDENT, SHARED_BUF).bytes,
-         stream>>>(
-          static_cast<const float*>(t1), static_cast<const float*>(t2),
-          static_cast<const float*>(w2), static_cast<const float*>(b2),
-          static_cast<const float*>(wo), static_cast<const float*>(bo),
-          static_cast<const int8_t*>(pk), sc, B, M, H, per);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(B) * (H + 1) +
                        static_cast<size_t>(M) * H +
                        static_cast<size_t>(H) * (H + 2) + 1;
   const int blocks =
       static_cast<int>(std::min<size_t>((total + 255) / 256, 4096));
-  deep_link_f32_reduce_kernel<<<blocks, 256, 0, stream>>>(
-      sc, static_cast<float*>(out), B, M, H, tiles, splits);
+  deep_link_f32_reduce_kernel<<<blocks, 256, 0, stream>>>(sc, out, B, M, H,
+                                                          tiles, splits);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool RESIDENT, bool SHARED_BUF>
-int occupancy(int H, int* out) {
-  const void* fn =
-      reinterpret_cast<const void*>(deep_link_f32_kernel<RESIDENT, SHARED_BUF>);
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = set_smem<RESIDENT, SHARED_BUF>(H)) != cudaSuccess)
-    return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, THREADS, Smem(H, RESIDENT, SHARED_BUF).bytes);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = blocks;
-  return static_cast<int>(err);
 }
 
 inline bool valid(int B, int M, int H) {
@@ -629,17 +1184,10 @@ const char* vibo_error_string(int err) {
 int deep_link_f32_plan(int B, int M, int H, int* splits,
                        long long* scratch_floats) {
   if (!valid(B, M, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool sb = shared_buf(H);
-  int rc;
-  if (H == GROUP)
-    rc = fill_splits<true, true>(B, M, H, splits);
-  else if (sb)
-    rc = fill_splits<false, true>(B, M, H, splits);
-  else
-    rc = fill_splits<false, false>(B, M, H, splits);
+  const int rc = fill_splits(B, M, H, splits);
   if (rc != 0) return rc;
   const long long tiles = std::max(1, (B + P - 1) / P);
-  *scratch_floats = Parts::floats(B, M, H, tiles, *splits, sb);
+  *scratch_floats = Parts::floats(B, M, H, tiles, *splits, shared_buf(H));
   return 0;
 }
 
@@ -652,24 +1200,30 @@ int deep_link_f32_train(const void* t1, const void* t2, const void* w2,
                         const void* pk, void* out, void* scratch, int B,
                         int M, int H, int splits, void* stream) {
   if (!valid(B, M, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H == GROUP)
-    return launch<true, true>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
-                              H, splits, s);
-  if (shared_buf(H))
-    return launch<false, true>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B,
-                               M, H, splits, s);
-  return launch<false, false>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
-                              H, splits, s);
+  return launch(static_cast<const float*>(t1), static_cast<const float*>(t2),
+                static_cast<const float*>(w2), static_cast<const float*>(b2),
+                static_cast<const float*>(wo), static_cast<const float*>(bo),
+                static_cast<const int8_t*>(pk), static_cast<float*>(out),
+                static_cast<float*>(scratch), B, M, H, splits,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The kernel a width H runs: ptxas's registers a thread, its local (spill)
 // bytes and its resident blocks an SM, into out[0..3).
 int deep_link_f32_occupancy(int H, int* out) {
   if (!valid(0, 0, H)) return static_cast<int>(cudaErrorInvalidValue);
-  if (H == GROUP) return occupancy<true, true>(H, out);
-  if (shared_buf(H)) return occupancy<false, true>(H, out);
-  return occupancy<false, false>(H, out);
+  const Variant v = variant(H);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, v.fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = set_smem(v)) != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, v.fn, THREADS,
+                                                      v.smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

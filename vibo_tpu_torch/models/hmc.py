@@ -23,8 +23,9 @@ torch.Generator seeded from cfg.seed. The potentials: on the card the
 (B, K) one-pass kernels for 1pl/2pl/3pl (rows 4 and 9 of the kernel
 table); dense PyTorch for grm/gpcm/deep unless use_packed_kernel=True
 (then csrc/loglik_grm.cu, loglik_gpcm.cu and, for the deep link, the f32
-kernel csrc/deep_link_f32.cu); dense everywhere on the CPU, as JAX off its
-TPU. f32 products run at full precision (TF32 off, `resolve_device`), the
+kernel csrc/deep_link_f32.cu, split-bf16 products on the tensor cores at
+H = 128); dense everywhere on the CPU, as JAX off its TPU. f32 products
+run at full precision (TF32 off, `resolve_device`), the
 counterpart of JAX's matmul precision "highest". Dynamic trajectories
 (NUTS) are not ported yet.
 """

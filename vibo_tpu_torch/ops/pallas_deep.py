@@ -25,10 +25,12 @@ f32 (the Pallas op's mode for HMC).
 On a CUDA tensor the op runs csrc/deep_link.cu (`deep_link_train`, bf16
 products; H = 128 and 256 have their own instantiations, every other width
 the kernel's wide variant, with W2 read from L2), or with f32_dots
-csrc/deep_link_f32.cu (`deep_link_f32_train`, f32 products on the CUDA
-cores, any H % 128 == 0); on a CPU tensor the plain PyTorch version
-`fused_deep_plain`, which repeats the kernel's arithmetic over item blocks
-without ever holding a (B, M, H) tensor. Nothing else falls back.
+csrc/deep_link_f32.cu (`deep_link_f32_train`, any H % 128 == 0: at
+H = 128 each product's operands split into three bf16 parts on the tensor
+cores, at f32 accuracy; other widths f32 products on the CUDA cores); on a
+CPU tensor the plain PyTorch version `fused_deep_plain`, which repeats the
+kernel's arithmetic over item blocks without ever holding a (B, M, H)
+tensor. Nothing else falls back.
 """
 
 from __future__ import annotations
