@@ -103,9 +103,19 @@ kernel potential held against the dense one (value, per-person loglik
 and gradients, at the MAP and one sd off it, per-chain items); each with
 ms a potential
 evaluation, ms an iteration and a profiler window's busy and idle
-shares and kernel calls an iteration. Then the kernels summary line, the
-card's name and power limit, and the final status line {"ok": true,
-"device": {...}}.
+shares and kernel calls an iteration. Then NUTS (trajectory="nuts", tree
+depth 7, target 0.8) against the JAX package's NUTS golds at 2,000 x 200,
+50 + 50 iterations (their 800 + 1,200 cut): k2-nuts (2PL, K = 2, row 4
+through the chain axis, launched once a chain each evaluation its trees
+took) and grm-k2 (C = 5, the dense potential; grm-k4 runs in hmc_depth.py
+only, the smoke's time budget), each gated on the
+theta means, a's means after theta's rotation and b's means (grm: the
+threshold tables) at Pearson >= 0.99 and held-out accuracy within 0.01,
+and probed (evaluations and host syncs an iteration, busy and idle); and
+the MLE/MAP baseline (fit_mle, 500 Adam steps) on k2-nuts's data, its
+objective falling, with the card held against the CPU at 300 x 200. Then
+the kernels summary line, the card's name and power limit, and the final
+status line {"ok": true, "device": {...}}.
 
 Fused phases (`fused`): after its eager phase, each full-batch path (the
 2PL, 3PL, GRM and GPCM flagships, the 2PL at f32, config 5's one-pass
@@ -233,16 +243,37 @@ DEEP_F32_KERNEL = lambda h: (   # noqa: E731
 # golds under artifacts/gold were sampled by the JAX package with 800
 # warm-up and 1,600 draws a chain at 64 leapfrogs
 # (scripts/run_benchmark_configs.sh:43-50, :98-102); the smoke cuts each
-# gold's depth to HMC_GOLD_DEPTH (warm-up, draws, leapfrogs; the smallest
-# depth of hmc_depth.py's sweep that held both gates with margin), widths
-# and data unchanged. A short run: HMC_SHORT.
+# gold's depth to HMC_GOLD_DEPTH (warm-up, draws, leapfrogs; NUTS golds:
+# warm-up, draws; the smallest depth of hmc_depth.py's sweep that held
+# every gate with margin), widths and data unchanged. A short run:
+# HMC_SHORT.
+# The NUTS golds (k2-nuts, grm-k2, grm-k4: 2,000 x 200, 800 + 1,200
+# iterations at tree depth 7, target 0.8; run_benchmark_configs.sh:103-147)
+# are cut to (warm-up, draws) at their tree depth and target.
 GOLD_DIR = Path(__file__).resolve().parent / "artifacts" / "gold"
 HMC_CHAINS, HMC_TARGET = 4, 0.65
-HMC_GOLD_DEPTH = {"k4": (50, 50, 64), "grm": (50, 50, 32)}
+NUTS_TREE_DEPTH, NUTS_TARGET = 7, 0.8
+HMC_GOLD_DEPTH = {"k4": (50, 50, 64), "grm": (50, 50, 32),
+                  "k2-nuts": (50, 50), "grm-k2": (50, 50),
+                  "grm-k4": (50, 50)}
+NUTS_GOLDS = {"k2-nuts": ("2pl", 2), "grm-k2": ("grm", 2),
+              "grm-k4": ("grm", 4)}              # link, K at 2,000 x 200
+# the smoke's NUTS golds: grm-k4 runs in hmc_depth.py only (the smoke's
+# 600 s budget; it waits for ROADMAP B11)
+SMOKE_NUTS_GOLDS = ("k2-nuts", "grm-k2")
+NUTS_GOLD_SHAPE = (2000, 200)
 HMC_SHORT = (20, 20, 16)
-HMC_PEARSON_MIN = 0.99                    # theta posterior means vs a gold
-HMC_ACC_TOL = {"k4": 0.003, "grm": 0.01}  # held-out accuracy vs a gold's
+HMC_PEARSON_MIN = 0.99                    # posterior means vs a gold's
+HMC_ACC_TOL = {"k4": 0.003, "grm": 0.01,  # held-out accuracy vs a gold's
+               "k2-nuts": 0.01, "grm-k2": 0.01, "grm-k4": 0.01}
+# MLE/MAP on k2-nuts's data: the CLI's steps (cli.py:926); the card against
+# the CPU from one start at MLE_CPU_SHAPE for MLE_CPU_STEPS steps
+MLE_STEPS, MLE_CPU_SHAPE, MLE_CPU_STEPS, MLE_CPU_TOL = 500, (300, 200), 50, 1e-4
 HMC_PROFILE_ITERS = 3                     # iterations of a profiler window
+# NUTS's probe: warm-up, timed and profiled iterations (a saturated
+# depth-7 iteration holds 16,000-33,000 device records, more than 3 of the
+# k4 flagship's fixed ones)
+NUTS_PROBE_ITERS = (1, 2, 1)
 HMC_FLIP_BOUND = 4e-4                     # a relu flip's gradient row, of
                                           # the largest magnitude (4 x 1e-4)
 # the deep gold's shape (synthetic-nonlinear 2,000 x 200, K = 2; D = 16,
@@ -2194,9 +2225,11 @@ def deep_f32_checks(timer, roof, deep: dict, gen) -> dict:
 
 def load_gold(name: str) -> dict:
     """artifacts/gold/<name>/baseline_hmc.npz: the JAX package's posterior
-    summary (theta_hat, theta_sd) and its summary line."""
+    summary (theta_hat, theta_sd; a_hat and b_hat, the item posterior
+    means, where it has them) and its summary line."""
     z = np.load(GOLD_DIR / name / "baseline_hmc.npz")
     return {"theta_hat": z["theta_hat"], "theta_sd": z["theta_sd"],
+            **{k: z[k] for k in ("a_hat", "b_hat") if k in z.files},
             "summary": json.loads(str(z["summary_json"])),
             "shape": [int(v) for v in z["shape"]], "seed": int(z["seed"])}
 
@@ -2213,16 +2246,26 @@ def heldout_accuracy(prob: np.ndarray, ds) -> float:
 def hmc_cfg(model: str, k: int, c: int = 2, depth: tuple = HMC_SHORT,
             **kw):
     """The smoke's HMCConfig: depth (warm-up, draws, leapfrogs), HMC_CHAINS
-    chains at HMC_TARGET, seed 0."""
+    chains at HMC_TARGET, seed 0; or depth (warm-up, draws), NUTS at
+    NUTS_TREE_DEPTH and NUTS_TARGET, as the NUTS golds."""
     from vibo_tpu_torch.models import hmc
+    if len(depth) == 2:
+        kw = dict(trajectory="nuts", max_tree_depth=NUTS_TREE_DEPTH,
+                  target_accept=NUTS_TARGET, **kw)
+        depth = (*depth, hmc.HMCConfig.num_leapfrog)
     warm, draws, leap = depth
+    kw.setdefault("target_accept", HMC_TARGET)
     return hmc.HMCConfig(irt_model=model, ability_dim=k, num_categories=c,
                          num_warmup=warm, num_samples=draws,
-                         num_leapfrog=leap, num_chains=HMC_CHAINS,
-                         target_accept=HMC_TARGET, seed=0, **kw)
+                         num_leapfrog=leap, num_chains=HMC_CHAINS, seed=0,
+                         **kw)
 
 
 def depth_cut(depth: tuple, gold: bool = False) -> str:
+    if len(depth) == 2:
+        return (f"{depth[0]} warm-up + {depth[1]} draws a chain, NUTS at "
+                f"tree depth {NUTS_TREE_DEPTH} (the gold: 800 + 1,200 at "
+                f"depth 7); widths and data the gold's")
     warm, draws, leap = depth
     return (f"{warm} warm-up + {draws} draws a chain at {leap} leapfrogs"
             + (" (the gold: 800 + 1,600 at 64); widths and data the gold's"
@@ -2230,8 +2273,9 @@ def depth_cut(depth: tuple, gold: bool = False) -> str:
 
 
 def hmc_evals_per_iter(cfg) -> int:
-    """Potential evaluations an iteration: the trajectory's leapfrogs and
-    the refresh after the ridge or rotation moves."""
+    """Potential evaluations an iteration of a fixed trajectory: its
+    leapfrogs and the refresh after the ridge or rotation moves (NUTS's
+    are counted, `hmc.counts`)."""
     ridge = cfg.ridge_moves > 0 and cfg.irt_model != "deep"
     rot = cfg.ability_dim > 1 and cfg.irt_model in ("2pl", "3pl", "grm",
                                                     "gpcm")
@@ -2239,15 +2283,17 @@ def hmc_evals_per_iter(cfg) -> int:
 
 
 def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
-              deep_params=None) -> dict:
+              deep_params=None, step_size: float | None = None) -> dict:
     """Timing and a profiler window of the chain programs at the run's
     posterior mean (the run's own MAP stays inside run_hmc): ms a potential
     evaluation of all chains (CUDA events, L2 flushed), ms an iteration
     (sampling flags; host clock over a synchronized run), and a profiler
-    window of HMC_PROFILE_ITERS iterations: busy and idle shares, and each
+    window of HMC_PROFILE_ITERS iterations (NUTS: NUTS_PROBE_ITERS' warm-up,
+    timed and window iterations): busy and idle shares, and each
     loglik kernel's device calls an iteration, which must be C times the
     evaluations for the path's kernel (its helpers beside it) and 0 for
-    every other."""
+    every other. NUTS: at the run's step (step_size), its evaluations and
+    host syncs counted in each window (`hmc.counts`)."""
     import dataclasses
     from vibo_tpu_torch.models import hmc
     from vibo_tpu_torch.ops.packing import pack_responses
@@ -2274,29 +2320,41 @@ def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
                 ll_ref=prog.ll_ref_fn(center, base))
     state = prog.init({k: torch.zeros((HMC_CHAINS,) + v, device="cuda")
                        for k, v in prog.spec.items()}, data)
+    nuts = cfg.trajectory == "nuts"
+    if nuts:
+        state["log_eps"] = state["log_eps_bar"] = torch.full_like(
+            state["log_eps"], float(np.log(step_size)))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     holder = [state]
+    warm, reps, window_iters = (NUTS_PROBE_ITERS if nuts
+                                else (2, 5, HMC_PROFILE_ITERS))
 
     def iteration():
         holder[0], _ = prog.step(holder[0], 0.0, 0.0, 0.0, data, gen)
 
     vg_ms = Timer()(lambda: prog.vg(holder[0]["pos"], data), reps=10)
-    for _ in range(2):
+    for _ in range(warm):
         iteration()
     torch.cuda.synchronize()
+    hmc.reset_counts()
     t0 = time.perf_counter()
-    for _ in range(5):
+    for _ in range(reps):
         iteration()
     torch.cuda.synchronize()
-    iter_ms = (time.perf_counter() - t0) * 1e3 / 5
-    evals = hmc_evals_per_iter(run_cfg)
+    iter_ms = (time.perf_counter() - t0) * 1e3 / reps
+    timed = {k: v / reps for k, v in hmc.counts().items()}
+    evals = timed["evaluations"] if nuts else hmc_evals_per_iter(run_cfg)
     for _ in range(PROFILER_TRIES):
-        prof = profile_steps(iteration, HMC_PROFILE_ITERS, iter_ms, smi,
+        hmc.reset_counts()
+        prof = profile_steps(iteration, window_iters, iter_ms, smi,
                              counts=True)
+        window = hmc.counts()
         dev = device_counts(prof["counts"])
         calls = {n: dev[n] for n in LOGLIK_DEVICE_KERNELS}
-        want = {n: (HMC_CHAINS * evals if n == kernel else 0)
+        want = {n: (HMC_CHAINS * (window["evaluations"] if nuts else
+                                  evals * window_iters)
+                    / window_iters if n == kernel else 0)
                 for n in LOGLIK_DEVICE_KERNELS}
         if calls == want:
             break
@@ -2304,12 +2362,20 @@ def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
         raise AssertionError(f"{tag}: loglik kernels an iteration in the "
                              f"profiler window {calls}, want {want}")
     prof.pop("counts")
-    return {"ms_per_potential_eval": vg_ms, "ms_per_iteration": iter_ms,
-            "evals_per_iteration": evals,
-            "ms_per_eval_in_iteration": iter_ms / evals,
-            "device_calls_per_iteration": {n: v for n, v in dev.items()
-                                           if v},
-            "profile": prof}
+    out = {"ms_per_potential_eval": vg_ms, "ms_per_iteration": iter_ms,
+           "evals_per_iteration": evals,
+           "ms_per_eval_in_iteration": iter_ms / evals,
+           "device_calls_per_iteration": {n: v for n, v in dev.items()
+                                          if v},
+           "profile": prof}
+    if nuts:
+        out.update(step_size=step_size,
+                   host_syncs_per_iteration=timed["syncs"],
+                   window_evals_per_iteration=window["evaluations"]
+                   / window_iters,
+                   window_syncs_per_iteration=window["syncs"]
+                   / window_iters)
+    return out
 
 
 def gold_agreement(samples: dict, heldout_acc: float, gold: str) -> dict:
@@ -2317,7 +2383,10 @@ def gold_agreement(samples: dict, heldout_acc: float, gold: str) -> dict:
     Procrustes-aligned Pearson of the theta means (gated at
     HMC_PEARSON_MIN), the held-out accuracy's distance (gated at
     HMC_ACC_TOL) and the theta sds' Pearson after rotate_diag_sigma
-    (reported)."""
+    (reported); where the gold keeps item means, also the Pearson of b's
+    mean (grm: its threshold table, flattened) and of a's after the theta
+    means' Procrustes rotation, both gated at HMC_PEARSON_MIN (the CLI's
+    b_vs_hmc and a_vs_hmc, vibo_tpu/cli.py:662-688)."""
     from vibo_tpu_torch import evaluation
     g = load_gold(gold)
     mean = samples["theta"].mean(0)
@@ -2330,10 +2399,36 @@ def gold_agreement(samples: dict, heldout_acc: float, gold: str) -> dict:
          "theta_sd_pearson_vs_gold": evaluation.correlation(
              sd, g["theta_sd"], align_sign=False)["pearson"],
          "heldout_acc_minus_gold": heldout_acc - g["summary"]["heldout_acc"]}
+    r.update(item_agreement(samples["a"].mean(0) if "a" in samples else None,
+                            samples["b"].mean(0), rot, g))
     r["gold_gates_hold"] = (
         r["theta_mean_pearson_vs_gold"] >= HMC_PEARSON_MIN
-        and abs(r["heldout_acc_minus_gold"]) <= HMC_ACC_TOL[gold])
+        and abs(r["heldout_acc_minus_gold"]) <= HMC_ACC_TOL[gold]
+        and all(r[k] >= HMC_PEARSON_MIN for k in ("b_pearson_vs_gold",
+                                                  "a_pearson_vs_gold")
+                if k in r))
     return r
+
+
+def item_agreement(a, b, rot, g: dict) -> dict:
+    """Item means a (M, K) and b ((M,), or grm's (M, C-1) unconstrained
+    coordinates) against a gold's a_hat and b_hat: b's Pearson (grm: the
+    threshold tables, flattened) and a's after rot, the theta means'
+    Procrustes rotation onto the gold's (the links' O(K) gauge)."""
+    from vibo_tpu_torch import evaluation
+    from vibo_tpu_torch.ops import links
+    out = {}
+    if "b_hat" in g:
+        b, b_ref = np.asarray(b, np.float32), g["b_hat"].astype(np.float32)
+        if b.ndim == 2:
+            b, b_ref = (links.grm_thresholds(torch.from_numpy(x)).numpy()
+                        for x in (b, b_ref))
+        out["b_pearson_vs_gold"] = evaluation.correlation(
+            b.ravel(), b_ref.ravel())["pearson"]
+    if "a_hat" in g and a is not None:
+        out["a_pearson_vs_gold"] = evaluation.correlation(
+            (np.asarray(a) @ rot).ravel(), g["a_hat"].ravel())["pearson"]
+    return out
 
 
 def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
@@ -2346,11 +2441,15 @@ def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
     finite; the accept rate in (0, 1]. With a gold: the Procrustes-aligned
     Pearson of the posterior theta means against the gold's >=
     HMC_PEARSON_MIN and the held-out accuracy of posterior_mean_prob within
-    HMC_ACC_TOL of the gold's; the sd agreement after rotate_diag_sigma is
-    reported."""
+    HMC_ACC_TOL of the gold's (and the item means where the gold has them,
+    gold_agreement); the sd agreement after rotate_diag_sigma is reported.
+    NUTS: its evaluations and host syncs counted (`hmc.counts`), its
+    leapfrogs a draw measured."""
     from vibo_tpu_torch.models import hmc
     from vibo_tpu_torch.ops import _build
+    nuts = cfg.trajectory == "nuts"
     _build.reset_launches()
+    hmc.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = hmc.run_hmc(ds.response, ds.train_mask, cfg,
@@ -2358,14 +2457,20 @@ def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
+    counted = hmc.counts()
     iters = cfg.num_warmup + cfg.num_samples
-    evals = hmc_evals_per_iter(cfg)
+    if nuts:
+        # the chains' first evaluation (init) and those of every iteration
+        evals_run = counted["evaluations"]
+        evals = (evals_run - 1) / iters
+    else:
+        evals = hmc_evals_per_iter(cfg)
+        evals_run = 1 + iters * evals
     if kernel is None:
         check_path(f"{tag} HMC path", launches, ())
         expected = 0
     else:
-        expected = (cfg.map_init_steps + 1
-                    + HMC_CHAINS * (1 + iters * evals))
+        expected = cfg.map_init_steps + 1 + HMC_CHAINS * evals_run
         check_path(f"{tag} HMC path", launches, (kernel,), (kernel,),
                    expected)
     samples = out["samples"]
@@ -2380,11 +2485,14 @@ def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
     r = {"phase": "hmc", "path": tag, "model": cfg.irt_model,
          "shape": list(ds.response.shape), "K": cfg.ability_dim,
          "chains": cfg.num_chains, "warmup": cfg.num_warmup,
-         "samples": cfg.num_samples, "leapfrog": cfg.num_leapfrog,
+         "samples": cfg.num_samples, "trajectory": cfg.trajectory,
+         **({"max_tree_depth": cfg.max_tree_depth} if nuts
+            else {"leapfrog": cfg.num_leapfrog}),
          "target_accept": cfg.target_accept, "depth_cut": cut,
          "potential": kernel or "dense PyTorch (no kernel)",
          "kernel_launches": launches.get(kernel, 0) if kernel else 0,
          "launches_expected": expected, "evals_per_iteration": evals,
+         "leapfrogs_per_draw": d["leapfrogs_per_draw"],
          "seconds": seconds, "posterior_mean_prob_seconds":
          time.perf_counter() - t1,
          "seconds_per_iteration": seconds / iters,
@@ -2393,14 +2501,20 @@ def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
          "divergences": d["divergences"],
          "theta_sd_split_half_r": d["theta_sd_split_half_r"],
          "heldout_acc": heldout_accuracy(prob, ds), "card": smi}
+    if nuts:
+        r.update(host_syncs_per_iteration=counted["syncs"] / iters,
+                 kernel_launches_per_iteration=(
+                     HMC_CHAINS * evals if kernel else 0))
     if gold is not None:
         r.update(gold_agreement(samples, r["heldout_acc"], gold))
         if not r["gold_gates_hold"]:
             raise AssertionError(f"{tag}: the posterior does not reproduce "
                                  f"the gold: {r}")
     if probe:
+        t1 = time.perf_counter()
         r["probe"] = hmc_probe(tag, cfg, ds, samples, kernel, smi,
-                               deep_params)
+                               deep_params, out["step_size"])
+        r["probe"]["seconds"] = time.perf_counter() - t1
     emit(r)
     r["samples"] = samples
     return r
@@ -2540,16 +2654,21 @@ def potentials_agree(tag: str, cfg, ds, deep_params=None) -> dict:
 
 
 def gold_data(gold: str):
-    """A gold's data as its command made it (vibo_tpu/cli.py defaults):
-    k4, simulate_irt("2pl", 10,240, 1,024, K = 4); grm, ("grm", 2,000, 100,
-    K = 1, C = 5); seed 0, 10 % held out with seed 0."""
+    """A gold's data as its command made it (vibo_tpu/cli.py:67-78
+    defaults): k4, simulate_irt("2pl", 10,240, 1,024, K = 4); grm, ("grm",
+    2,000, 100, K = 1, C = 5); k2-nuts, ("2pl", 2,000, 200, K = 2);
+    grm-k2 and grm-k4, ("grm", 2,000, 200, K = 2 or 4, C = 5); missing rate
+    0, seed 0, 10 % held out with seed 0."""
     from vibo_tpu_torch.data import holdout_split, simulate_irt
-    if gold == "k4":
-        sim = simulate_irt("2pl", B, M, ability_dim=K, seed=0,
+    if gold in ("k4", "k2-nuts"):
+        shape, k = ((B, M), K) if gold == "k4" else (NUTS_GOLD_SHAPE, 2)
+        sim = simulate_irt("2pl", *shape, ability_dim=k, seed=0,
                            missing_rate=0.0)
         return holdout_split(sim.response, sim.mask, 0.1, seed=0)
-    sim = simulate_irt("grm", *GRM_GOLD, ability_dim=1, seed=0,
-                       num_categories=C)
+    shape, k = ((GRM_GOLD, 1) if gold == "grm"
+                else (NUTS_GOLD_SHAPE, NUTS_GOLDS[gold][1]))
+    sim = simulate_irt("grm", *shape, ability_dim=k, seed=0,
+                       missing_rate=0.0, num_categories=C)
     return holdout_split(sim.response, sim.mask, 0.1, seed=0,
                          num_categories=C)
 
@@ -2611,6 +2730,99 @@ def hmc_phases(smi: str) -> dict:
         cut=short)
     potentials_agree("hmc_deep_f32", hmc_cfg("deep", DEEP_K), ds, decoder)
     return runs
+
+
+def nuts_phases(smi: str, golds: tuple = SMOKE_NUTS_GOLDS) -> dict:
+    """NUTS on the card against the JAX package's NUTS golds, each at its
+    link, K, tree depth and target with HMC_GOLD_DEPTH's iterations: k2-nuts
+    (2PL, K = 2) on row 4 through the chain axis, the binary links' default
+    on the card; grm-k2 (and, given, grm-k4; C = 5) on the dense potential,
+    JAX's default. Every run is probed (NUTS's evaluations and host syncs an
+    iteration, busy ms and the idle share). Returns each path's result."""
+    runs = {}
+    for gold in golds:
+        t0 = time.perf_counter()
+        ds = gold_data(gold)
+        model, k = NUTS_GOLDS[gold]
+        tag = f"hmc_nuts_{gold.split('-nuts')[0].replace('-', '_')}"
+        emit({"phase": "hmc_data", "path": tag,
+              "shape": list(NUTS_GOLD_SHAPE),
+              "seconds": time.perf_counter() - t0})
+        runs[tag] = hmc_phase(
+            tag, hmc_cfg(model, k, C if model == "grm" else 2,
+                         depth=HMC_GOLD_DEPTH[gold]), ds, smi,
+            "loglik_2pl_train" if model == "2pl" else None, gold=gold,
+            probe=True, cut=depth_cut(HMC_GOLD_DEPTH[gold], gold=True))
+    return runs
+
+
+def mle_phase(smi: str) -> dict:
+    """The MLE/MAP baseline (`fit_mle`, plain PyTorch as JAX's is plain
+    XLA) on k2-nuts's data, MLE_STEPS Adam steps from the seed's start,
+    without and with the prior: seconds, the final objective (finite, below
+    the start's), held-out accuracy (in [0, 1]), and theta, a and b against
+    the gold's posterior means (theta's Pearson after Procrustes, a's after
+    theta's rotation). Then MLE_CPU_STEPS steps at MLE_CPU_SHAPE on the
+    card and on the CPU from one start: every parameter within
+    MLE_CPU_TOL."""
+    from vibo_tpu_torch import evaluation
+    from vibo_tpu_torch.models import mle
+    ds = gold_data("k2-nuts")
+    g = load_gold("k2-nuts")
+    t_phase = time.perf_counter()
+    out = {"phase": "mle_k2", "shape": list(NUTS_GOLD_SHAPE), "K": 2,
+           "steps": MLE_STEPS, "card": smi}
+    for map_prior in (False, True):
+        cfg = mle.MLEConfig(irt_model="2pl", ability_dim=2,
+                            map_prior=map_prior, steps=MLE_STEPS, seed=0)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cfg.seed)
+        start = mle.init_point_params(gen, *ds.response.shape, cfg)
+        start_loss = float(mle.neg_log_posterior(
+            start, torch.from_numpy(ds.response).cuda(),
+            torch.from_numpy(ds.train_mask).cuda(), cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = mle.fit_mle(ds.response, ds.train_mask, cfg,
+                                   params0=start)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        acc = heldout_accuracy(mle.response_prob(params, cfg).cpu().numpy(),
+                               ds)
+        p = {k: v.cpu().numpy() for k, v in params.items()}
+        rot = evaluation.procrustes_rotation(p["theta"], g["theta_hat"])
+        r = {"seconds": seconds, "ms_per_step": seconds * 1e3 / MLE_STEPS,
+             "start_loss": start_loss, "final_loss": loss,
+             "heldout_acc": acc,
+             "gold_heldout_acc": g["summary"]["heldout_acc"],
+             "theta_pearson_vs_gold": evaluation.correlation(
+                 p["theta"], g["theta_hat"], align_rotation=True)["pearson"],
+             **item_agreement(p["a"], p["b"], rot, g)}
+        out["map" if map_prior else "mle"] = r
+        if not (np.isfinite(loss) and loss < start_loss and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"mle_k2: the objective did not fall or "
+                                 f"the accuracy is out of range: {out}")
+    cfg = mle.MLEConfig(irt_model="2pl", ability_dim=2,
+                        steps=MLE_CPU_STEPS, seed=0)
+    resp, mask = (x[:MLE_CPU_SHAPE[0], :MLE_CPU_SHAPE[1]]
+                  for x in (ds.response, ds.train_mask))
+    start = mle.init_point_params(torch.Generator().manual_seed(1),
+                                  *resp.shape, cfg)
+    card, card_loss = mle.fit_mle(resp, mask, cfg, params0=start)
+    cpu, cpu_loss = mle.fit_mle(resp, mask, cfg, params0=start,
+                                device="cpu")
+    # within MLE_CPU_TOL absolutely, or of the largest magnitude past 1
+    errs = {k: max_abs(card[k].cpu(), cpu[k])
+            / max(1.0, float(cpu[k].abs().max())) for k in cpu}
+    errs["loss"] = abs(card_loss - cpu_loss) / max(1.0, abs(cpu_loss))
+    out["card_vs_cpu"] = {"shape": list(MLE_CPU_SHAPE),
+                          "steps": MLE_CPU_STEPS, "max_err": errs,
+                          "tol": MLE_CPU_TOL}
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if max(errs.values()) > MLE_CPU_TOL:
+        raise AssertionError(f"mle_k2: the card and the CPU part: {out}")
+    return out
 
 
 def deep_config(fused: bool = True, width: int = DEEP_H):
@@ -2864,9 +3076,12 @@ def main() -> None:
     emit({"phase": "fused_paths", "card": smi, "paths": fused})
     full = {k: v["launches"] for k, v in full.items()}
     hmc_runs = hmc_phases(smi)
+    hmc_runs.update(nuts_phases(smi))
+    mle_phase(smi)
     hmc_launches = {
         name: {tag: hmc_runs[tag]["kernel_launches"] for tag in tags}
-        for name, tags in (("loglik_2pl_train", ("hmc_2pl_k4", "hmc_1pl")),
+        for name, tags in (("loglik_2pl_train", ("hmc_2pl_k4", "hmc_1pl",
+                                                 "hmc_nuts_k2")),
                            ("loglik_3pl_train", ("hmc_3pl",)),
                            ("loglik_grm_train", ("hmc_grm_packed",)),
                            ("loglik_gpcm_train", ("hmc_gpcm_packed",)))}
@@ -2900,7 +3115,9 @@ def main() -> None:
             hmc_launches=hmc_launches[name],
             hmc_note=f"HMC: the (B, K) layout (:{bk}), {HMC_CHAINS} "
             "launches (one a chain) a potential evaluation, once for the "
-            "MAP's Adam steps and for ll_ref"))
+            "MAP's Adam steps and for ll_ref"
+            + ("; hmc_nuts_k2: NUTS, the evaluations its trees took"
+               if link == "2pl" else "")))
     for fam, line in (("grm", 198), ("gpcm", 148)):
         name = LINK_KERNELS[fam]["train"]
         kernels.append(kernel_entry(

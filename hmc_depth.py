@@ -1,15 +1,19 @@
-"""Depth sweep of chip_smoke.py's two HMC gold comparisons on one card.
+"""Depth sweep of chip_smoke.py's HMC gold comparisons on one card.
 
-    python3 hmc_depth.py
+    python3 hmc_depth.py [gold ...]
 
 Runs the port's `run_hmc` on the data of artifacts/gold/k4 (2PL, 10,240 x
 1,024, K = 4, the (B, K) one-pass kernel) and of artifacts/gold/grm (2,000 x
 100, C = 5, the dense potential) at each (warm-up, draws, leapfrogs) of
-DEPTHS, with chip_smoke.py's chains, accept target and seed, and prints one
-JSON line a run: its seconds, accept rate, R-hat, and the agreement with the
-gold and whether its gates hold (`chip_smoke.gold_agreement`). Then the
-card's name and power limit, and last {"ok": true} when every run held its
-gates. chip_smoke.py's HMC_GOLD_DEPTH is taken from such a sweep.
+DEPTHS, and on the data of the NUTS golds k2-nuts (2PL, 2,000 x 200, K = 2,
+the one-pass kernel), grm-k2 and grm-k4 (2,000 x 200, K = 2 and 4, C = 5,
+dense) at each (warm-up, draws), NUTS at the golds' tree depth 7 and target
+0.8; with chip_smoke.py's chains and seed (the fixed runs at its accept
+target). Prints one JSON line a run: its seconds, accept rate, R-hat,
+leapfrogs a draw, and the agreement with the gold and whether its gates
+hold (`chip_smoke.gold_agreement`). Then the card's name and power limit,
+and last {"ok": true} when every run held its gates. Arguments: only those
+golds. chip_smoke.py's HMC_GOLD_DEPTH is taken from such a sweep.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import chip_smoke as cs
 
 DEPTHS = {"k4": [(50, 50, 64), (75, 75, 64), (100, 100, 64)],
           "grm": [(50, 50, 64), (100, 100, 64), (50, 50, 32), (75, 75, 32),
-                  (100, 100, 32)]}
+                  (100, 100, 32)],
+          **{gold: [(50, 50), (75, 75), (100, 100)]
+             for gold in cs.NUTS_GOLDS}}
 
 
 def main() -> None:
@@ -36,8 +42,12 @@ def main() -> None:
     smi = cs.nvidia_smi("name,power.limit")
     ok = True
     for gold, depths in DEPTHS.items():
+        if sys.argv[1:] and gold not in sys.argv[1:]:
+            continue
         ds = cs.gold_data(gold)
-        model, k, c = ("2pl", cs.K, 2) if gold == "k4" else ("grm", 1, cs.C)
+        model, k = {"k4": ("2pl", cs.K), "grm": ("grm", 1),
+                    **cs.NUTS_GOLDS}[gold]
+        c = cs.C if model == "grm" else 2
         for depth in depths:
             cfg = cs.hmc_cfg(model, k, c, depth=depth)
             torch.cuda.synchronize()
@@ -48,7 +58,11 @@ def main() -> None:
             prob = hmc.posterior_mean_prob(out["samples"], model)
             r = {"gold": gold, "depth": list(depth), "seconds": seconds,
                  "accept_rate": out["accept_rate"],
+                 "step_size": out["step_size"],
                  "rhat_max": out["diagnostics"]["rhat_max"],
+                 "leapfrogs_per_draw": out["diagnostics"][
+                     "leapfrogs_per_draw"],
+                 "divergences": out["diagnostics"]["divergences"],
                  **cs.gold_agreement(out["samples"],
                                      cs.heldout_accuracy(prob, ds), gold)}
             ok = ok and r["gold_gates_hold"]

@@ -16,9 +16,9 @@ at small shapes on the CPU:
   mass, and every accept decision;
 - split-R-hat, ESS, the chain alignment, `posterior_mean_prob` and the
   latent-space comparisons of `evaluation` on the same numpy inputs;
-- the refusals of an invalid trajectory or init mode (and NUTS, not ported
-  yet), and one small `run_hmc` whose output and diagnostics keys are
-  JAX's.
+- the refusals of an invalid trajectory, init mode or deep call, and one
+  small `run_hmc` whose output and diagnostics keys are JAX's (NUTS:
+  tests/test_torch_nuts.py).
 
 Tolerances: 1e-5 relative and 1e-4 absolute where both sides compute the
 same f32 arithmetic in different orders; 1e-4 on the chain states after 5
@@ -153,9 +153,9 @@ def _programs(model, packed=False, **extra):
     """(port programs, JAX programs, port data, JAX data, cfg kwargs,
     spec) with center, scale and ll_ref set (JAX's ll_ref for both)."""
     kw, resp, mask, deep = _setup(model)
-    kw.update(num_warmup=20, num_samples=0, num_leapfrog=3, ridge_moves=2,
-              init_step_size=0.01, target_accept=0.9, map_init_steps=10,
-              **extra)
+    kw.update(dict(dict(num_warmup=20, num_samples=0, num_leapfrog=3,
+                        ridge_moves=2, init_step_size=0.01,
+                        target_accept=0.9, map_init_steps=10), **extra))
     cfg = hmc.HMCConfig(use_packed_kernel=packed, **kw)
     jcfg = jhmc._programs_key(jhmc.HMCConfig(**kw), packed)
     prog = hmc._chain_programs(cfg, N, M)
@@ -368,9 +368,7 @@ def test_invalid_config_raises():
     sim = jsim("1pl", 8, 4, ability_dim=1, seed=0, missing_rate=0.0)
     for cfg, err, match in (
             (hmc.HMCConfig(trajectory="nuts2"), ValueError, "trajectory"),
-            (hmc.HMCConfig(init_mode="zero"), ValueError, "init_mode"),
-            (hmc.HMCConfig(trajectory="nuts"), NotImplementedError,
-             "ROADMAP")):
+            (hmc.HMCConfig(init_mode="zero"), ValueError, "init_mode")):
         with pytest.raises(err, match=match):
             hmc.run_hmc(sim.response, sim.mask, cfg, device="cpu")
     with pytest.raises(ValueError, match="deep_params"):

@@ -11,7 +11,7 @@ import textwrap
 import pytest
 import torch
 
-from vibo_tpu_torch.models import VIBO, VIBOConfig, hmc
+from vibo_tpu_torch.models import VIBO, VIBOConfig, hmc, mle
 from vibo_tpu_torch.ops import (_build, pallas_deep, pallas_elbo,
                                 pallas_encoder, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.serve import AbilityScorer
@@ -61,6 +61,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         hmc.posterior_mean_prob({"theta": resp[None, :, :1],
                                  "b": resp[None, 0]}, "1pl")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mle.fit_mle(resp, resp, mle.MLEConfig(steps=1))
 
 
 def test_out_of_scope_config_raises():

@@ -1,12 +1,15 @@
-"""HMC baseline with fixed trajectories: the gold posterior over abilities
-and item parameters (counterpart of `vibo_tpu.models.hmc`, same names).
+"""HMC baseline, fixed trajectories and NUTS: the gold posterior over
+abilities and item parameters (counterpart of `vibo_tpu.models.hmc`, same
+names).
 
 The sampler of arXiv:2002.00276 sections 6.4-6.5, as the JAX package builds
 it: the joint potential U(theta, items) = -[masked loglik + N(0, I)
 log-priors], referenced per person to the MAP loglik and evaluated in
 whitened coordinates q = MAP + Fisher_sd * x; leapfrog with the (U, grad)
 pair cached across Metropolis steps (num_leapfrog evaluations a
-trajectory); step-size jitter; dual averaging pooled over the chains;
+trajectory) and step-size jitter, or dynamic-length NUTS
+(`trajectory="nuts"`: iterative multinomial trees with the checkpoints of
+Phan & Pradhan, arXiv:1912.11554); dual averaging pooled over the chains;
 Stan-style expanding variance windows pooled over the chains;
 Metropolis-within-Gibbs sweeps along the link's likelihood-null ridges and
 a Haar rotation move for K > 1; per-draw Procrustes alignment, split-R-hat
@@ -16,18 +19,24 @@ decoder with its weights fixed.
 Every state tensor carries a leading chain axis C: the chains run batched
 (one launch a chain of each kernel). A chain program is a function on
 tensors; `step_with_noise` takes its draws as tensors (the momentum z per
-name in sorted order, the jitter and accept uniforms, the ridge draws
-(R, K, 4): normal, uniform, normal, uniform per move and dimension, and the
-rotation's (K, K) Gaussian), and `step` draws them from an explicit
-torch.Generator seeded from cfg.seed. The potentials: on the card the
+name in sorted order; the jitter and accept uniforms, or NUTS's fixed-size
+table of uniforms; the ridge draws (R, K, 4): normal, uniform, normal,
+uniform per move and dimension, and the rotation's (K, K) Gaussian), and
+`step` draws them from an explicit torch.Generator seeded from cfg.seed. The potentials: on the card the
 (B, K) one-pass kernels for 1pl/2pl/3pl (rows 4 and 9 of the kernel
 table); dense PyTorch for grm/gpcm/deep unless use_packed_kernel=True
 (then csrc/loglik_grm.cu, loglik_gpcm.cu and, for the deep link, the f32
 kernel csrc/deep_link_f32.cu, split-bf16 products on the tensor cores at
 H = 128); dense everywhere on the CPU, as JAX off its TPU. f32 products
 run at full precision (TF32 off, `resolve_device`), the
-counterpart of JAX's matmul precision "highest". Dynamic trajectories
-(NUTS) are not ported yet.
+counterpart of JAX's matmul precision "highest".
+
+NUTS runs the chains batched as JAX's vmap of its while loops does: the
+host loops over the tree depths while any chain is still doubling and,
+within a depth, over the subtree's leaves while any chain's subtree is
+still growing (one host sync a leaf); a chain that has stopped keeps its
+state through torch.where. Each leaf is one potential evaluation of every
+chain and a function of fixed shape (state, draws, depth, leaf index).
 """
 
 from __future__ import annotations
@@ -45,8 +54,18 @@ from vibo_tpu_torch.ops import (likelihood as lik, links, pallas_deep,
                                 pallas_elbo, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.ops.packing import pack_responses
 
-NUTS_NOT_PORTED = ("trajectory='nuts' (dynamic-length NUTS) is not ported "
-                   "yet: ROADMAP.md A8, the next baselines slice")
+# potential evaluations (each of every chain at once) and host syncs of the
+# NUTS loops since reset_counts(): the launch and sync accounting of a run
+_COUNTS = {"evaluations": 0, "syncs": 0}
+
+
+def reset_counts() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
+
+
+def counts() -> dict:
+    return dict(_COUNTS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +80,9 @@ class HMCConfig:
     num_warmup: int = 300
     num_samples: int = 300
     num_leapfrog: int = 20             # trajectory="fixed" only
-    trajectory: str = "fixed"          # "fixed" | "nuts" (not ported yet)
-    max_tree_depth: int = 8            # nuts only
+    trajectory: str = "fixed"          # "fixed" | "nuts"
+    max_tree_depth: int = 8            # nuts: doublings a draw (at most
+                                       # 2^depth - 1 evaluations)
     target_accept: float = 0.8
     init_step_size: float = 0.05
     seed: int = 0
@@ -238,8 +258,6 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
     chain axis) and "ll_ref" (N,). A chain state is a dict of tensors with
     a leading chain axis: pos, u, g, log_eps, log_eps_bar, h_bar, t, mu,
     inv_mass, w_mean, w_m2, w_cnt (the JAX carry's fields, in its order)."""
-    if cfg.trajectory != "fixed":
-        raise NotImplementedError(NUTS_NOT_PORTED)
     use_pk = bool(cfg.use_packed_kernel)
     spec = _flatten_spec(n, m, cfg)
     names = sorted(spec)
@@ -266,6 +284,7 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
     def vg(x, data):
         """(U, {name: dU/dx}) of the whitened potential at x: U (C,) for x
         with a chain axis (the chains' gradients apart), else a scalar."""
+        _COUNTS["evaluations"] += 1
         with torch.enable_grad():
             xs = {k: x[k].detach().requires_grad_() for k in names}
             u = u_x(xs, data)
@@ -289,6 +308,172 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
     def kinetic(mom, inv_mass):
         return sum(0.5 * (mom[k].square() * inv_mass[k]).flatten(1).sum(-1)
                    for k in names)
+
+    # ---- NUTS (cfg.trajectory == "nuts") -----------------------------------
+    # JAX's iterative multinomial NUTS on the flat state (names sorted, each
+    # leaf row-major), every chain batched: a chain that has stopped keeps
+    # its state through torch.where (never a 0/1 product: a diverged leaf
+    # may hold NaN or inf)
+    offs = np.cumsum([0] + [int(np.prod(spec[k])) for k in names])
+    max_d = max(1, int(cfg.max_tree_depth))
+    push_np, check_np = nuts_leaf_masks(max_d)
+    tables = {}
+
+    def ravel(tree):
+        return torch.cat([tree[k].flatten(1) for k in names], 1)
+
+    def unravel(z):
+        return {k: z[:, offs[i]:offs[i + 1]].reshape(
+            (z.shape[0],) + spec[k]).contiguous()
+            for i, k in enumerate(names)}
+
+    def leaf_tables(dev):
+        if dev not in tables:
+            tables[dev] = (torch.from_numpy(push_np).to(dev),
+                           torch.from_numpy(check_np).to(dev))
+        return tables[dev]
+
+    def chains_on(flags) -> int:
+        """How many chains' flags hold: the host sync of a loop step."""
+        _COUNTS["syncs"] += 1
+        return int(flags.sum())
+
+    def nuts_leaf(sub, going, every, step, log_u, push, check, data):
+        """One leaf of every chain's subtree: a leapfrog from the subtree's
+        end, its multinomial weight and progressive sample (log_u: the log
+        of its uniform), the checkpoint push (push: (max_d,) the slot of an
+        even leaf, None for an odd one) and the U-turn checks of the
+        subtrees it closes (check: (max_d,) their slots, None for an even
+        leaf); chains not `going` keep their state (every: all are going,
+        so nothing is kept). step: the subtree's constants, h0, im and
+        half_im (the kinetic energy's 0.5 M^-1), half_e and e_im (0.5 eps
+        and eps M^-1 in the subtree's direction). -> (sub, going)."""
+        r = sub["r"] - step["half_e"] * sub["g"]
+        z = sub["z"] + step["e_im"] * r
+        u, g = vg(unravel(z), data)
+        g = ravel(g)
+        r = r - step["half_e"] * g
+        dh = (u + (r.square() * step["half_im"]).sum(-1)) - step["h0"]
+        ok = torch.isfinite(dh)
+        diverging = ~ok | (dh > 1000.0)
+        log_w = torch.where(ok, -dh, -torch.inf)
+        acc = torch.where(ok, torch.clamp(torch.exp(-dh), max=1.0), 0.0)
+        # progressive sampling within the subtree: the first leaf (log_w
+        # -inf before it) is taken with probability 1, a divergent one never
+        lse = torch.logaddexp(sub["log_w"], log_w)
+        take = log_u < (log_w - lse)
+        rho = sub["rho"] + r
+        ck_r, ck_s = sub["ck_r"], sub["ck_s"]
+        if push is not None:
+            ck_r = torch.where(push[:, None], r[:, None, :], ck_r)
+            ck_s = torch.where(push[:, None], rho[:, None, :], ck_s)
+        # an even leaf closes no subtree: a going chain has not turned
+        turning = sub["turning"]
+        if check is not None:
+            im = step["im"]
+            rho_k = rho[:, None, :] - ck_s + ck_r
+            turn_k = (((rho_k * (im[:, None, :] * ck_r)).sum(-1) <= 0.0)
+                      | ((rho_k * (im * r)[:, None, :]).sum(-1) <= 0.0))
+            turning = (check & turn_k).any(-1)
+        new = {"z": z, "r": r, "g": g, "prop_z": _pick(take, z, sub["prop_z"]),
+               "prop_u": torch.where(take, u, sub["prop_u"]),
+               "prop_g": _pick(take, g, sub["prop_g"]),
+               "prop_dh": torch.where(take, dh, sub["prop_dh"]),
+               "log_w": lse, "rho": rho, "ck_r": ck_r, "ck_s": ck_s,
+               "turning": turning, "diverging": diverging,
+               "sum_acc": sub["sum_acc"] + acc, "n_lf": sub["n_lf"] + 1.0}
+        if not every:
+            new = {k: _pick(going, new[k], sub[k]) for k in sub}
+        return new, going & ~(turning | diverging)
+
+    def nuts_subtree(depth, active, every, z, r, g, eps_d, kin, log_leaf,
+                     data):
+        """2^depth new leaves outward from one end of every active chain's
+        tree (every: all chains are), each chain stopping at its first
+        turning or diverging leaf. kin: h0, im and half_im of the draw;
+        log_leaf: the log of its leaf uniforms."""
+        push_tab, check_tab = leaf_tables(z.device)
+        e = eps_d[:, None]
+        step = dict(kin, half_e=0.5 * e, e_im=e * kin["im"])
+        zero = torch.zeros_like(kin["h0"])
+        ck = z.new_zeros((z.shape[0], max_d, z.shape[1]))
+        sub = {"z": z, "r": r, "g": g, "prop_z": z, "prop_u": zero,
+               "prop_g": g, "prop_dh": zero,
+               "log_w": torch.full_like(zero, -torch.inf),
+               "rho": torch.zeros_like(z), "ck_r": ck, "ck_s": ck,
+               "turning": torch.zeros_like(active),
+               "diverging": torch.zeros_like(active), "sum_acc": zero,
+               "n_lf": zero}
+        going = active
+        for i in range(1 << depth):
+            if i:
+                n_going = chains_on(going)
+                if not n_going:
+                    break
+                every = n_going == going.shape[0]
+            sub, going = nuts_leaf(
+                sub, going, every, step, log_leaf[:, (1 << depth) - 1 + i],
+                push_tab[i] if push_np[i].any() else None,
+                check_tab[i] if check_np[i].any() else None, data)
+        return sub
+
+    def nuts_draw(pos, u_cur, g_cur, mom, eps, inv_mass, noise, data):
+        """One dynamic-length draw of every chain -> (pos, u, grad,
+        accept statistic, divergent, leapfrogs, dh of the selected
+        proposal, tree depth), each with the chain axis."""
+        z0, r0, g0, im = (ravel(t) for t in (pos, mom, g_cur, inv_mass))
+        half_im = 0.5 * im
+        kin = {"h0": u_cur + (r0.square() * half_im).sum(-1), "im": im,
+               "half_im": half_im}
+        log_leaf = torch.log(noise["nuts_leaf"])
+        log_take = torch.log(noise["nuts_take"])
+        zero = torch.zeros_like(u_cur)
+        no = torch.zeros(u_cur.shape, dtype=torch.bool, device=u_cur.device)
+        st = {"z_l": z0, "r_l": r0, "g_l": g0, "z_r": z0, "r_r": r0,
+              "g_r": g0, "prop_z": z0, "prop_u": u_cur, "prop_g": g0,
+              "prop_dh": zero, "log_w": zero, "rho": r0, "turning": no,
+              "diverging": no, "sum_acc": zero, "n_lf": zero,
+              "depth": zero}
+        for depth in range(max_d):
+            active = ~(st["turning"] | st["diverging"])
+            n_active = chains_on(active)
+            if not n_active:
+                break
+            every = n_active == active.shape[0]
+            right = noise["nuts_dir"][:, depth] < 0.5
+            eps_d = torch.where(right, eps, -eps)
+            ends = [_pick(right, st[k + "_r"], st[k + "_l"])
+                    for k in ("z", "r", "g")]
+            sub = nuts_subtree(depth, active, every, *ends, eps_d, kin,
+                               log_leaf, data)
+            # a turning or diverging subtree is discarded whole (its
+            # leapfrogs still count); the merge is biased toward the new
+            # subtree (Betancourt 2017)
+            ok = active & ~(sub["turning"] | sub["diverging"])
+            take = ok & (log_take[:, depth] < (sub["log_w"] - st["log_w"]))
+            new = dict(st)
+            for k in ("z", "r", "g"):
+                new[k + "_r"] = _pick(ok & right, sub[k], st[k + "_r"])
+                new[k + "_l"] = _pick(ok & ~right, sub[k], st[k + "_l"])
+            new["rho"] = _pick(ok, st["rho"] + sub["rho"], st["rho"])
+            new["log_w"] = torch.where(
+                ok, torch.logaddexp(st["log_w"], sub["log_w"]), st["log_w"])
+            for k in ("prop_z", "prop_u", "prop_g", "prop_dh"):
+                new[k] = _pick(take, sub[k], st[k])
+            rho, r_l, r_r = new["rho"], new["r_l"], new["r_r"]
+            turn = (((rho * im * r_l).sum(-1) <= 0.0)
+                    | ((rho * im * r_r).sum(-1) <= 0.0))
+            new["turning"] = sub["turning"] | (ok & turn)
+            new["diverging"] = st["diverging"] | sub["diverging"]
+            new["sum_acc"] = st["sum_acc"] + sub["sum_acc"]
+            new["n_lf"] = st["n_lf"] + sub["n_lf"]
+            new["depth"] = st["depth"] + 1.0
+            st = new if every else {k: _pick(active, new[k], st[k])
+                                    for k in st}
+        accept = st["sum_acc"] / torch.clamp(st["n_lf"], min=1.0)
+        return (unravel(st["prop_z"]), st["prop_u"], unravel(st["prop_g"]),
+                accept, st["diverging"].float(), st["n_lf"], st["prop_dh"],
+                st["depth"])
 
     gamma, t0, kappa = 0.05, 10.0, 0.75
     log10 = math.log(10.0)
@@ -349,9 +534,13 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
 
     def step_with_noise(state, noise, adapt, collect, switch, data):
         """One iteration of every chain on exogenous draws -> (state, out).
-        noise: {"z": {name: (C, ...)}, "jitter": (C,), "accept": (C,),
-        "ridge": (C, ridge_moves, K, 4), "rotation": (C, K, K)}; adapt,
-        collect, switch: this iteration's warm-up flags (floats)."""
+        noise: {"z": {name: (C, ...)}, "ridge": (C, ridge_moves, K, 4),
+        "rotation": (C, K, K)} and, fixed trajectories, "jitter" (C,) and
+        "accept" (C,); NUTS, uniforms "nuts_dir" (C, max_d) (right where
+        < 0.5), "nuts_take" (C, max_d) (each doubling's merge) and
+        "nuts_leaf" (C, 2^max_d - 1) (leaf l of the depth-d subtree at
+        2^d - 1 + l); adapt, collect, switch: this iteration's warm-up
+        flags (floats)."""
         pos, u_cur, g_cur = state["pos"], state["u"], state["g"]
         log_eps, log_eps_bar = state["log_eps"], state["log_eps_bar"]
         h_bar, t, mu = state["h_bar"], state["t"], state["mu"]
@@ -360,26 +549,33 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
         # p ~ N(0, M) with M = 1/inv_mass  =>  p = z / sqrt(inv_mass)
         mom = {k: noise["z"][k] * torch.rsqrt(inv_mass[k]) for k in names}
         eps = torch.exp(log_eps if adapt else log_eps_bar)
-        # jitter the trajectory length through the step (state-independent:
-        # detailed balance holds): a fixed eps L resonates
-        eps = eps * (1.0 - noise["jitter"] / 3.0)
-        u0 = u_cur + kinetic(mom, inv_mass)
-        new_pos, new_mom, u_pot, g_new = leapfrog(pos, mom, eps, inv_mass,
-                                                  g_cur, data)
-        u1 = u_pot + kinetic(new_mom, inv_mass)
-        log_accept = torch.clamp(u0 - u1, max=0.0)
-        # a NaN trajectory (divergence) is rejected
-        log_accept = torch.where(torch.isfinite(log_accept), log_accept,
-                                 -torch.inf)
-        divergent = 1.0 - torch.isfinite(u1 - u0).float()
-        accept = torch.log(noise["accept"]) < log_accept
-        pos = {k: torch.where(_bc(accept, pos[k]), new_pos[k], pos[k])
-               for k in names}
-        u_cur = torch.where(accept, u_pot, u_cur)
-        g_cur = {k: torch.where(_bc(accept, g_cur[k]), g_new[k], g_cur[k])
-                 for k in names}
-        accept_prob = torch.exp(log_accept)
-        dh_rep = u1 - u0
+        extra = {}
+        if cfg.trajectory == "nuts":
+            # dynamic lengths: no jitter (the random doubling directions and
+            # the multinomial selection break resonances)
+            (pos, u_cur, g_cur, accept_prob, divergent, steps, dh_rep,
+             extra["depth"]) = nuts_draw(pos, u_cur, g_cur, mom, eps,
+                                         inv_mass, noise, data)
+        else:
+            # jitter the trajectory length through the step (state-
+            # independent: detailed balance holds): a fixed eps L resonates
+            eps = eps * (1.0 - noise["jitter"] / 3.0)
+            u0 = u_cur + kinetic(mom, inv_mass)
+            new_pos, new_mom, u_pot, g_new = leapfrog(pos, mom, eps,
+                                                      inv_mass, g_cur, data)
+            u1 = u_pot + kinetic(new_mom, inv_mass)
+            log_accept = torch.clamp(u0 - u1, max=0.0)
+            # a NaN trajectory (divergence) is rejected
+            log_accept = torch.where(torch.isfinite(log_accept), log_accept,
+                                     -torch.inf)
+            divergent = 1.0 - torch.isfinite(u1 - u0).float()
+            accept = torch.log(noise["accept"]) < log_accept
+            pos = {k: _pick(accept, new_pos[k], pos[k]) for k in names}
+            u_cur = torch.where(accept, u_pot, u_cur)
+            g_cur = {k: _pick(accept, g_new[k], g_cur[k]) for k in names}
+            accept_prob = torch.exp(log_accept)
+            dh_rep = u1 - u0
+            steps = torch.full_like(u_cur, float(cfg.num_leapfrog))
         if do_ridge or do_rot:
             # Metropolis-within-Gibbs along the likelihood-null ridges (the
             # accepts cost prior ratios only), then the exact O(K) rotation
@@ -455,7 +651,7 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
                  "mu": mu, "inv_mass": inv_mass, "w_mean": w_mean,
                  "w_m2": w_m2, "w_cnt": w_cnt}
         out = {"pos": pos, "accept": accept_prob, "divergent": divergent,
-               "eps": eps, "dh": dh_rep}
+               "eps": eps, "dh": dh_rep, "steps": steps, **extra}
         return state, out
 
     def draw_noise(generator, chains: int) -> dict:
@@ -472,6 +668,11 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
                              uniform((chains, cfg.ridge_moves, kdim)),
                              normal((chains, cfg.ridge_moves, kdim)),
                              uniform((chains, cfg.ridge_moves, kdim))], -1)
+        if cfg.trajectory == "nuts":
+            return {"z": z, "nuts_dir": uniform((chains, max_d)),
+                    "nuts_take": uniform((chains, max_d)),
+                    "nuts_leaf": uniform((chains, (1 << max_d) - 1)),
+                    "ridge": ridge, "rotation": normal((chains, kdim, kdim))}
         return {"z": z, "jitter": uniform((chains,)),
                 "accept": uniform((chains,)), "ridge": ridge,
                 "rotation": normal((chains, kdim, kdim))}
@@ -513,6 +714,33 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
         spec=spec, names=names, vg=vg, step_with_noise=step_with_noise,
         draw_noise=draw_noise, step=step, init=init_chain, map_run=map_run,
         ll_ref_fn=ll_ref_fn)
+
+
+def _pick(flag: torch.Tensor, new: torch.Tensor, old: torch.Tensor
+          ) -> torch.Tensor:
+    """new where the per-chain flag (C,) holds, else old (C, ...)."""
+    return torch.where(_bc(flag, new), new, old)
+
+
+def nuts_leaf_masks(max_d: int) -> tuple:
+    """The checkpoint slots of NUTS's leaves 0 .. 2^max_d - 1 of a subtree,
+    as (2^max_d, max_d) bool tables: push[i, s], even leaf i pushes its
+    (momentum, inclusive momentum sum) at slot s = popcount(i); check[i, s],
+    odd leaf i, with t trailing one bits, closes the t balanced subtrees
+    that end at it, whose left edges sit at slots popcount(i) - t ..
+    popcount(i) - 1 (JAX's build_subtree; its out-of-bounds push of an odd
+    leaf, which JAX drops, is no push here)."""
+    n = 1 << max_d
+    push = np.zeros((n, max_d), bool)
+    check = np.zeros((n, max_d), bool)
+    for i in range(n):
+        pc = bin(i).count("1")
+        if i % 2 == 0:
+            push[i, pc] = True
+        else:
+            t = ((i + 1) & -(i + 1)).bit_length() - 1
+            check[i, pc - t:pc] = True
+    return push, check
 
 
 def _warmup_schedule(cfg: HMCConfig) -> tuple:
@@ -594,8 +822,6 @@ def _run_hmc_impl(resp, mask, cfg: HMCConfig, deep_params, dev):
     if cfg.trajectory not in ("fixed", "nuts"):
         raise ValueError(f"trajectory must be 'fixed' or 'nuts', got "
                          f"{cfg.trajectory!r}")
-    if cfg.trajectory == "nuts":
-        raise NotImplementedError(NUTS_NOT_PORTED)
     if cfg.irt_model == "deep":
         if deep_params is None:
             raise ValueError(
@@ -649,10 +875,10 @@ def _run_hmc_impl(resp, mask, cfg: HMCConfig, deep_params, dev):
     total = cfg.num_warmup + cfg.num_samples
     state = programs.init(positions, data)
     chunk = max(1, int(cfg.scan_chunk))
-    if cfg.num_leapfrog > 64:
+    if cfg.trajectory == "fixed" and cfg.num_leapfrog > 64:
         # keep leapfrogs per chunk at the 64 * scan_chunk budget
         chunk = max(1, (chunk * 64) // int(cfg.num_leapfrog))
-    keys = ("pos", "accept", "divergent", "eps", "dh")
+    keys = ("pos", "accept", "divergent", "eps", "dh", "steps")
     outs = {k: [] for k in keys}
     with torch.no_grad():
         for i in range(0, total, chunk):
@@ -715,9 +941,10 @@ def _run_hmc_impl(resp, mask, cfg: HMCConfig, deep_params, dev):
         # basin on gauge-fixed draws, not the absence of a distant mode
         "init_mode": cfg.init_mode,
         "trajectory": cfg.trajectory,
-        # leapfrog evaluations a draw: constant for fixed trajectories
-        "leapfrogs_per_draw": (float(cfg.num_leapfrog) if cfg.num_samples
-                               else float("nan")),
+        # leapfrog evaluations a draw, measured over the draws (constant
+        # for fixed trajectories, NUTS's dynamic lengths)
+        "leapfrogs_per_draw": (float(out["steps"][:, cfg.num_warmup:].mean())
+                               if cfg.num_samples else float("nan")),
         # per-iteration adaptation traces (chain-major), raw arrays
         "_eps_trace": out["eps"],
         "_dh_trace": out["dh"],

@@ -52,6 +52,11 @@ def masked_loglik_per_person(logits, response, mask, g_hat=None):
     return cells.sum(-1)
 
 
+def masked_loglik_total(logits, response, mask, g_hat=None):
+    """Scalar masked log-likelihood over all cells."""
+    return masked_loglik_per_person(logits, response, mask, g_hat).sum()
+
+
 _GRM_BIG = 50.0     # boundary-category sentinel threshold
 _GRM_CLAMP = 30.0   # base saturation, keeps |base| far from the sentinels
 
