@@ -269,6 +269,34 @@ HMC_ACC_TOL = {"k4": 0.003, "grm": 0.01,  # held-out accuracy vs a gold's
 # MLE/MAP on k2-nuts's data: the CLI's steps (cli.py:926); the card against
 # the CPU from one start at MLE_CPU_SHAPE for MLE_CPU_STEPS steps
 MLE_STEPS, MLE_CPU_SHAPE, MLE_CPU_STEPS, MLE_CPU_TOL = 500, (300, 200), 50, 1e-4
+# The EM baseline (vibo_tpu_torch/models/em.py). em_flagship: the CLI's
+# `baseline synthetic-2pl --num-persons 10240 --num-items 1024 --method em`
+# data, held against the JAX package's fit_em on the CPU (EM_REFERENCE,
+# tests/em_reference.py; a, b and theta_eap within EM_REF_TOL of the larger
+# of 1 and the reference's largest magnitude, the log marginal within
+# EM_LL_RTOL, the iterations within 1) and, like em_grm and em_k2, against
+# the JAX package's recorded runs (RESULTS.md:185, :693, :838): held-out
+# accuracy within EM_ACC_TOL; theta against the truth within EM_ACC_TOL of
+# its Pearson, or against the gold at least EM_GOLD_MIN. em_k4: finite, the
+# log marginal never falling by more than EM_RISE_SLACK of itself.
+# em_card_vs_cpu: EM_CPU_ITERS iterations at EM_CPU_SHAPE on the card and
+# on the CPU, every output within EM_CPU_TOL of the larger of 1 and its
+# largest magnitude, the iterations equal.
+EM_REFERENCE = (Path(__file__).resolve().parent / "artifacts" / "em"
+                / "flagship_2pl_k1.npz")
+EM_REF_TOL, EM_LL_RTOL, EM_ACC_TOL, EM_RISE_SLACK = 1e-3, 1e-5, 0.005, 1e-6
+EM_RESULTS = {"em_flagship": {"heldout_acc": 0.6842, "theta_pearson": 0.9783},
+              "em_grm": {"heldout_acc": 0.4527},
+              "em_k2": {"heldout_acc": 0.7195}}
+EM_GOLD_MIN = {"em_grm": {"theta": 0.999},
+               "em_k2": {"theta": 0.995, "b": 0.999, "a": 0.995}}
+EM_CPU_SHAPE, EM_CPU_ITERS, EM_CPU_TOL = (300, 200), 10, 1e-4
+EM_CPU_CASES = (("1pl", 1), ("2pl", 1), ("2pl", 2), ("2pl", 4), ("3pl", 1),
+                ("grm", 1), ("gpcm", 1))
+# checkpoint_resume: the 2PL flagship fitted RESUME_EPOCHS, saved, resumed
+# for RESUME_EPOCHS more, against one fit of twice as many (eval_every
+# FUSED_EVAL_EVERY)
+RESUME_EPOCHS = 20
 HMC_PROFILE_ITERS = 3                     # iterations of a profiler window
 # NUTS's probe: warm-up, timed and profiled iterations (a saturated
 # depth-7 iteration holds 16,000-33,000 device records, more than 3 of the
@@ -1566,7 +1594,7 @@ def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
     model = VIBO(cfg)
     trainer = Trainer(model, TrainConfig(
         lr=5e-3, epochs=epochs, eval_every=eval_every, objective=objective,
-        num_mc_samples=samples))
+        num_mc_samples=samples, log_every=1))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = trainer.fit(ds)
@@ -1671,7 +1699,7 @@ def minibatch_phase(link: str, ds, smi: str, cfg=None, masked=None,
     t0 = time.perf_counter()
     res = Trainer(model, TrainConfig(lr=5e-3, epochs=EPOCHS,
                                      batch_size=BATCH, eval_every=EPOCHS,
-                                     seed=0)).fit(ds)
+                                     seed=0, log_every=1)).fit(ds)
     fit_s = time.perf_counter() - t0
     fit_launches, fit_readers = launch_counts(), reader_counts(masked)
     steps = EPOCHS * -(-n // BATCH)
@@ -2825,6 +2853,330 @@ def mle_phase(smi: str) -> dict:
     return out
 
 
+def em_fit(cfg, resp, mask) -> tuple:
+    """fit_em on the card with its time: (result, timing: seconds,
+    iterations, the iterations computed (a chunk runs to its end), ms an
+    iteration computed (the final E-step and the result's copy included),
+    host fetches) and every computed iteration's marginal log-lik."""
+    from vibo_tpu_torch.models import em
+    em.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = em.fit_em(resp, mask, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = em.stats()
+    computed = len(st["log_liks"])
+    return res, {"seconds": seconds, "iterations": res["iterations"],
+                 "iterations_computed": computed,
+                 "ms_per_iteration": seconds * 1e3 / max(computed, 1),
+                 "host_fetches": st["host_fetches"]}, st["log_liks"]
+
+
+def em_finite(tag: str, res: dict, lls: list) -> dict:
+    """Every output finite and the marginal log-lik never falling by more
+    than EM_RISE_SLACK of itself from one iteration to the next."""
+    falls = [b - a for a, b in zip(lls, lls[1:])
+             if b < a - EM_RISE_SLACK * abs(a)]
+    finite = all(np.isfinite(v).all() for v in res.values()
+                 if isinstance(v, (np.ndarray, float)))
+    out = {"finite": bool(finite), "log_lik_falls": falls,
+           "log_lik_first": lls[0], "log_lik_last": lls[-1]}
+    if not finite or falls:
+        raise AssertionError(f"{tag}: not finite or the marginal log-lik "
+                             f"fell: {out}")
+    return out
+
+
+def em_recorded(tag: str, r: dict) -> None:
+    """Gate r's numbers on the JAX package's recorded run (EM_RESULTS,
+    within EM_ACC_TOL) and on a gold (EM_GOLD_MIN)."""
+    bad = {k: r[k] for k, v in EM_RESULTS.get(tag, {}).items()
+           if not abs(r[k] - v) <= EM_ACC_TOL}
+    bad.update({k: r[f"{k}_pearson_vs_gold"]
+                for k, v in EM_GOLD_MIN.get(tag, {}).items()
+                if not r[f"{k}_pearson_vs_gold"] >= v})
+    if bad:
+        raise AssertionError(f"{tag}: off the recorded run or the gold "
+                             f"{bad}: {r}")
+
+
+def em_card_vs_cpu(smi: str) -> dict:
+    """EM_CPU_ITERS iterations of every family (2PL at K = 1, 2, 4) at
+    EM_CPU_SHAPE from the same data on the card and on the CPU: every
+    output within EM_CPU_TOL of the larger of 1 and its largest magnitude
+    (the log marginal of its own), the iterations equal. Runs first, so
+    the timed phases after it find cuSOLVER and the kernels of torch.func
+    loaded."""
+    from vibo_tpu_torch.data import simulate_irt
+    from vibo_tpu_torch.models import em
+    out = {}
+    for model, k in EM_CPU_CASES:
+        cats = C if model in FAMILIES else 2
+        sim = simulate_irt(model, *EM_CPU_SHAPE, ability_dim=k, seed=0,
+                           missing_rate=0.1, num_categories=cats)
+        cfg = em.EMConfig(irt_model=model, ability_dim=k,
+                          num_categories=cats, max_iters=EM_CPU_ITERS)
+        card, timing, _ = em_fit(cfg, sim.response, sim.mask)
+        cpu = em.fit_em(sim.response, sim.mask, cfg, device="cpu")
+        errs = {key: max_abs(torch.as_tensor(card[key]),
+                             torch.as_tensor(v))
+                / max(1.0, float(np.abs(v).max()))
+                for key, v in cpu.items() if isinstance(v, np.ndarray)}
+        errs["log_marginal"] = (abs(card["log_marginal"] - cpu["log_marginal"])
+                                / max(1.0, abs(cpu["log_marginal"])))
+        out[f"{model}_k{k}"] = {**timing, "max_err": max(errs.values()),
+                                "worst": max(errs, key=errs.get),
+                                "iterations": [card["iterations"],
+                                               cpu["iterations"]]}
+        if model == "3pl":
+            out["3pl_k1"]["one_iteration"] = em_3pl_iterations(sim, cfg)
+    line = {"phase": "em_card_vs_cpu", "shape": list(EM_CPU_SHAPE),
+            "max_iters": EM_CPU_ITERS, "C": C, "tol": EM_CPU_TOL,
+            "cases": out, "card": smi,
+            "note_3pl": "f32 end to end not gated: the f32 M-step is "
+            "ill-conditioned at some iterates (one iteration from the same "
+            "state ~1e-2 off the f64 one on either device) and one item's "
+            "Fisher scoring then bifurcates (a to the clip at 10 or at "
+            "0.05), the JAX package's and the port's CPU runs parting the "
+            "same way; gated instead: each iteration from the CPU's "
+            "iterates in f64, card against CPU"}
+    emit(line)
+    bad = [case for case, r in out.items()
+           if (r["one_iteration"]["f64_card_vs_cpu"] if case == "3pl_k1"
+               else r["max_err"]) > EM_CPU_TOL
+           or (case != "3pl_k1"
+               and r["iterations"][0] != r["iterations"][1])]
+    if bad:
+        raise AssertionError(f"em_card_vs_cpu: the card and the CPU part "
+                             f"in {bad}")
+    return line
+
+
+def em_3pl_iterations(sim, cfg) -> dict:
+    """3PL EM one iteration at a time: from each of the CPU's first
+    EM_CPU_ITERS iterates (fit_em with max_iters i, one iteration a chunk),
+    one e_step and m_step_3pl on the card and on the CPU, in f64 and in
+    f32. Returns the largest error (of the larger of 1 and each output's
+    largest magnitude; a, b, g_hat and the E-step's log-lik) of the card's
+    f64 iteration against the CPU's (gated), and of each device's f32
+    iteration against the CPU's f64 one (reported: the f32 iteration is
+    ill-conditioned at some iterates, up to ~1e-2 off the f64 one)."""
+    import dataclasses
+    from vibo_tpu_torch.models import em
+    step_cfg = dataclasses.replace(cfg, host_chunk=1, tol=0.0)
+
+    def one(start: dict, dev: str, dtype) -> dict:
+        resp, mask = (torch.from_numpy(x).to(dev, dtype)
+                      for x in (sim.response, sim.mask))
+        nodes, w = (t.to(dtype) for t in
+                    em.gauss_hermite_nodes(cfg.num_quadrature, dev))
+        a, b, g = (torch.from_numpy(start[k]).to(dev, dtype)
+                   for k in ("a", "b", "g_hat"))
+        post, ll = em.e_step(resp, mask, nodes, torch.log(w), a, b, g)
+        out = em.m_step_3pl(resp, mask, post, nodes, a, b, g,
+                            cfg.newton_steps, cfg.g_prior_mean,
+                            cfg.g_prior_var)
+        return {"a": out[0], "b": out[1], "g_hat": out[2], "log_lik": ll}
+
+    def err(got: dict, ref: dict) -> float:
+        return max(max_abs(got[k].cpu().double(), ref[k].double())
+                   / max(1.0, float(ref[k].abs().max())) for k in ref)
+
+    worst = {"f64_card_vs_cpu": 0.0, "f32_card_vs_f64": 0.0,
+             "f32_cpu_vs_f64": 0.0}
+    for i in range(EM_CPU_ITERS):
+        start = em.fit_em(sim.response, sim.mask,
+                          dataclasses.replace(step_cfg, max_iters=i),
+                          device="cpu")
+        ref = one(start, "cpu", torch.float64)
+        for key, dev, dtype in (("f64_card_vs_cpu", "cuda", torch.float64),
+                                ("f32_card_vs_f64", "cuda", torch.float32),
+                                ("f32_cpu_vs_f64", "cpu", torch.float32)):
+            worst[key] = max(worst[key], err(one(start, dev, dtype), ref))
+    return worst
+
+
+def em_phases(smi: str) -> dict:
+    """The EM baseline on the card (fit_em, plain PyTorch as JAX's is plain
+    XLA): em_card_vs_cpu, then em_flagship (the CLI's synthetic-2pl at K =
+    1) against the JAX package's fit_em (EM_REFERENCE) and RESULTS.md:185;
+    em_grm (the GRM gold's data, C = 5) and em_k2 (k2-nuts's, K = 2, 21^2
+    nodes) against their recorded runs and golds; em_k4 (the k4 gold's
+    data, 9^4 nodes), finite and its marginal log-lik never falling, with
+    its accuracy and theta beside the gold's. Each with its timing."""
+    from vibo_tpu_torch import evaluation
+    from vibo_tpu_torch.data import holdout_split, simulate_irt
+    from vibo_tpu_torch.models import em
+    runs = {"em_card_vs_cpu": em_card_vs_cpu(smi)}
+
+    t0 = time.perf_counter()
+    sim = simulate_irt("2pl", B, M, ability_dim=1, seed=0, missing_rate=0.0)
+    ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
+    data_s = time.perf_counter() - t0
+    res, timing, lls = em_fit(em.EMConfig(), ds.response, ds.train_mask)
+    ref = np.load(EM_REFERENCE)
+    errs = {k: float(np.abs(res[k] - ref[k]).max()
+                     / max(1.0, float(np.abs(ref[k]).max())))
+            for k in ("a", "b", "theta_eap")}
+    ll_ref = float(ref["log_marginal"])
+    r = {"phase": "em_flagship", "shape": [B, M], "K": 1, "nodes": 61,
+         "data_seconds": data_s, **timing,
+         "reference": "artifacts/em/flagship_2pl_k1.npz",
+         "reference_iterations": int(ref["iterations"]),
+         "max_err_vs_reference": errs,
+         "log_marginal": res["log_marginal"],
+         "reference_log_marginal": ll_ref,
+         "log_marginal_rel_err": abs(res["log_marginal"] - ll_ref)
+         / abs(ll_ref),
+         "heldout_acc": heldout_accuracy(em.response_prob(res), ds),
+         "theta_pearson": evaluation.correlation(
+             res["theta_eap"], sim.theta[:, 0])["pearson"],
+         "recorded": EM_RESULTS["em_flagship"],
+         **em_finite("em_flagship", res, lls), "card": smi}
+    emit(r)
+    if (max(errs.values()) > EM_REF_TOL
+            or r["log_marginal_rel_err"] > EM_LL_RTOL
+            or abs(res["iterations"] - r["reference_iterations"]) > 1):
+        raise AssertionError(f"em_flagship: off the JAX reference: {r}")
+    em_recorded("em_flagship", r)
+    runs["em_flagship"] = r
+
+    for tag, gold, k in (("em_grm", "grm", 1), ("em_k2", "k2-nuts", 2),
+                         ("em_k4", "k4", K)):
+        ds = gold_data(gold)
+        g = load_gold(gold)
+        model = "grm" if gold == "grm" else "2pl"
+        cfg = em.EMConfig(irt_model=model, ability_dim=k,
+                          num_categories=C if model == "grm" else 2)
+        res, timing, lls = em_fit(cfg, ds.response, ds.train_mask)
+        theta = res["theta_eap"].reshape(ds.shape[0], -1)
+        rot = evaluation.procrustes_rotation(theta, g["theta_hat"])
+        a = res["a"].reshape(ds.shape[1], -1)
+        r = {"phase": tag, "shape": list(ds.shape), "K": k,
+             "nodes": int(res["nodes"].shape[0]), **timing,
+             "log_marginal": res["log_marginal"],
+             "heldout_acc": heldout_accuracy(em.response_prob(res), ds),
+             "gold": f"artifacts/gold/{gold}",
+             "gold_heldout_acc": g["summary"]["heldout_acc"],
+             "theta_pearson_vs_gold": evaluation.correlation(
+                 theta, g["theta_hat"], align_rotation=True)["pearson"],
+             **item_agreement(a, res["b"], rot, g),
+             "recorded": EM_RESULTS.get(tag),
+             **em_finite(tag, res, lls), "card": smi}
+        emit(r)
+        em_recorded(tag, r)
+        runs[tag] = r
+    return runs
+
+
+def checkpoint_resume(smi: str, data: dict) -> dict:
+    """fit with checkpoints and exact resume on the card: the 2PL flagship
+    (bf16, use_pallas, fused, eval_every FUSED_EVAL_EVERY) fitted
+    RESUME_EPOCHS with out_dir (best.npz and metrics.jsonl must exist),
+    its state saved; a new Trainer resumes it for RESUME_EPOCHS more in a
+    profiler window, in which rows 1-3 (the first layer's two kernels and
+    the 2PL one-pass loglik) run once a step (the replayed steps and the
+    capture's WARMUP_STEPS eager ones; their wrappers count only the
+    eager); its params, Adam's state, generator and final ELBO bitwise
+    equal to one fit of 2 x RESUME_EPOCHS; AbilityScorer.from_checkpoint
+    on a checkpoint of the result scores 256 new students bitwise equal to
+    AbilityScorer on the result's params."""
+    import tempfile
+    from vibo_tpu_torch.convert import tree_leaves
+    from vibo_tpu_torch.data import simulate_irt
+    from vibo_tpu_torch.models import VIBO
+    from vibo_tpu_torch.ops import _build
+    from vibo_tpu_torch.serve import AbilityScorer
+    from vibo_tpu_torch.train import Trainer, TrainConfig
+    from vibo_tpu_torch.train import checkpoint as ckpt
+    from vibo_tpu_torch.train.trainer import WARMUP_STEPS
+
+    ds = data["ds"]
+    model = VIBO(flagship_config("2pl"))
+    path_kernels = ("first_layer_fwd", "first_layer_bwd", "loglik_2pl_train")
+    out = {"phase": "checkpoint_resume", "epochs": [RESUME_EPOCHS] * 2,
+           "eval_every": FUSED_EVAL_EVERY, "card": smi}
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        def cfg(epochs, **kw):
+            return TrainConfig(lr=5e-3, epochs=epochs,
+                               eval_every=FUSED_EVAL_EVERY, **kw)
+
+        t0 = time.perf_counter()
+        full = Trainer(model, cfg(2 * RESUME_EPOCHS)).fit(ds)
+        out["full_fit_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = Trainer(model, cfg(RESUME_EPOCHS, out_dir=tmp)).fit(ds)
+        out["first_fit_seconds"] = time.perf_counter() - t0
+        out["out_dir_files"] = sorted(p.name for p in Path(tmp).iterdir())
+        mid = str(Path(tmp) / "mid.npz")
+        ckpt.save_checkpoint(mid, ckpt.train_state(first["params"],
+                                                   first["optimizer"]),
+                             first["generator"], RESUME_EPOCHS)
+        box = {}
+
+        def resumed():
+            box["res"] = Trainer(model, cfg(RESUME_EPOCHS)).fit(ds,
+                                                                resume=mid)
+
+        for _ in range(PROFILER_TRIES):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            # only the window's device calls are read (no idle share)
+            prof = profile_steps(resumed, 1, 1.0, smi, counts=True)
+            out["resumed_fit_seconds"] = time.perf_counter() - t0
+            launches = launch_counts()
+            check_path("checkpoint_resume", launches, path_kernels,
+                       path_kernels, WARMUP_STEPS)
+            dev = device_counts(prof["counts"])
+            out["device_calls"] = {k: dev[k] for k in path_kernels}
+            if all(dev[k] == RESUME_EPOCHS + WARMUP_STEPS
+                   for k in path_kernels):
+                break
+        else:
+            raise AssertionError(f"checkpoint_resume: rows 1-3 not once a "
+                                 f"step: {out}")
+        res = box["res"]
+        out["wrapper_launches"] = {k: launches[k] for k in path_kernels}
+        pairs = list(zip(
+            tree_leaves(ckpt.train_state(res["params"], res["optimizer"])),
+            tree_leaves(ckpt.train_state(full["params"], full["optimizer"]))))
+        out["state_leaves"] = len(pairs)
+        out["state_max_abs"] = max(max_abs(a.detach(), b.detach())
+                                   for a, b in pairs)
+        out["bitwise"] = bool(
+            all(torch.equal(a.detach(), b.detach()) for a, b in pairs)
+            and res["final_elbo"] == full["final_elbo"]
+            and torch.equal(res["generator"].get_state(),
+                            full["generator"].get_state()))
+        out["final_elbo"] = [res["final_elbo"], full["final_elbo"]]
+
+        end = str(Path(tmp) / "end.npz")
+        trainer = Trainer(model, cfg(1))
+        ckpt.save_checkpoint(end, ckpt.train_state(res["params"],
+                                                   res["optimizer"]),
+                             res["generator"], 2 * RESUME_EPOCHS,
+                             extra={"model_cfg": trainer._cfg_json(),
+                                    "opt_cfg": trainer._opt_cfg_json()})
+        fresh = simulate_irt("2pl", 256, M, ability_dim=K, seed=1,
+                             missing_rate=0.1)
+        t0 = time.perf_counter()
+        loaded = AbilityScorer.from_checkpoint(end)
+        out["from_checkpoint_seconds"] = time.perf_counter() - t0
+        got = loaded.score(fresh.response, fresh.mask)
+        want = AbilityScorer(model, res["params"]).score(fresh.response,
+                                                         fresh.mask)
+        out["from_checkpoint_bitwise"] = all(
+            np.array_equal(got[k], want[k]) for k in want)
+    emit(out)
+    if not (out["bitwise"] and out["from_checkpoint_bitwise"]
+            and {"best.npz", "metrics.jsonl"} <= set(out["out_dir_files"])):
+        raise AssertionError(f"checkpoint_resume: {out}")
+    return out
+
+
 def deep_config(fused: bool = True, width: int = DEEP_H):
     """Paper config 5 (`train wordbank --irt-model deep --ability-dim 2`)
     with the CLI's widths: encoder hidden 256, item latent 16, link width
@@ -3078,6 +3430,8 @@ def main() -> None:
     hmc_runs = hmc_phases(smi)
     hmc_runs.update(nuts_phases(smi))
     mle_phase(smi)
+    em_phases(smi)
+    checkpoint_resume(smi, data["2pl"])
     hmc_launches = {
         name: {tag: hmc_runs[tag]["kernel_launches"] for tag in tags}
         for name, tags in (("loglik_2pl_train", ("hmc_2pl_k4", "hmc_1pl",

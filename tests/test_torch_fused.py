@@ -169,11 +169,17 @@ def test_fused_fit_equals_per_epoch_fit(objective, irt_model):
     runs = [Trainer(model, TrainConfig(epochs=5, eval_every=2, lr=1e-2,
                                        objective=objective,
                                        num_mc_samples=2,
-                                       fuse_epochs=fuse),
+                                       fuse_epochs=fuse, log_every=1),
                     device="cpu").fit(ds)
             for fuse in (True, False)]
     fused, eager = runs
-    assert fused["history"] == eager["history"]
+    # every record but its wall-clock throughput
+    assert [{k: v for k, v in h.items() if k != "cells_per_sec"}
+            for h in fused["history"]] == [
+        {k: v for k, v in h.items() if k != "cells_per_sec"}
+        for h in eager["history"]]
+    assert [h["epoch"] for h in fused["history"] if h["event"] == "train"
+            ] == [0, 1, 2, 3, 4]
     assert [h["epoch"] for h in fused["history"] if h["event"] == "eval"
             ] == [1, 3, 4]
     assert fused["final_elbo"] == eager["final_elbo"]

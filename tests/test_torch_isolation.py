@@ -11,7 +11,7 @@ import textwrap
 import pytest
 import torch
 
-from vibo_tpu_torch.models import VIBO, VIBOConfig, hmc, mle
+from vibo_tpu_torch.models import VIBO, VIBOConfig, em, hmc, mle
 from vibo_tpu_torch.ops import (_build, pallas_deep, pallas_elbo,
                                 pallas_encoder, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.serve import AbilityScorer
@@ -35,12 +35,14 @@ def test_import_loads_no_jax_or_reference_package():
         from vibo_tpu_torch.ops import _build
         assert all(k._fn is None for k in _build.KERNELS.values())
         assert "vibo_tpu_torch.models.hmc" in sys.modules
+        assert {"vibo_tpu_torch.models.em", "vibo_tpu_torch.train.checkpoint",
+                "vibo_tpu_torch.utils.metrics"} <= set(sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 20
     assert bad.strip() == "[]"
 
 
@@ -63,6 +65,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                  "b": resp[None, 0]}, "1pl")
     with pytest.raises(RuntimeError, match="CUDA"):
         mle.fit_mle(resp, resp, mle.MLEConfig(steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        em.fit_em(resp, resp, em.EMConfig(max_iters=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        em.response_prob({"a": resp[0], "b": resp[0],
+                          "posterior_node_weights": resp})
 
 
 def test_out_of_scope_config_raises():

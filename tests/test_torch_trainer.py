@@ -300,7 +300,8 @@ def test_fit_runs_both_paths_and_checks_options():
     for extra in ({}, {"batch_size": 8}, {"batch_size": 8,
                                           "objective": "iwae",
                                           "num_mc_samples": 2}):
-        res = Trainer(model, TrainConfig(epochs=3, eval_every=2, **extra),
+        res = Trainer(model, TrainConfig(epochs=3, eval_every=2,
+                                         log_every=1, **extra),
                       device="cpu").fit(ds)
         assert [h["epoch"] for h in res["history"]
                 if h["event"] == "train"] == [0, 1, 2]

@@ -1,6 +1,7 @@
-"""Held-out imputation accuracy and the IWAE test log-likelihood
-(counterpart of `vibo_tpu.evaluation.imputation_accuracy`, `full_item_dist`
-and `iwae_loglik`), and the latent-space comparisons of recovery and of
+"""Held-out imputation accuracy, the posterior means and the IWAE test
+log-likelihood (counterpart of `vibo_tpu.evaluation.imputation_accuracy`,
+`full_item_dist`, `full_item_mean`, `infer_posterior_means` and
+`iwae_loglik`), and the latent-space comparisons of recovery and of
 posteriors across methods (`procrustes_rotation`, `procrustes_align`,
 `rotate_diag_sigma`, `correlation`: numpy and scipy, as in JAX's module).
 
@@ -21,6 +22,7 @@ import torch
 
 from vibo_tpu_torch.data.masking import Dataset
 from vibo_tpu_torch.models.vibo import VIBO
+from vibo_tpu_torch.ops import distributions as dist
 from vibo_tpu_torch.ops import objectives
 from vibo_tpu_torch.ops.links import CATEGORICAL_MODELS
 
@@ -77,6 +79,49 @@ def full_item_dist(model: VIBO, params) -> dict:
     pools the dataset's columns comes with ROADMAP's "Posterior and
     conditioning families"."""
     return model.item_dist(params)
+
+
+def full_item_mean(model: VIBO, params) -> dict:
+    """The item posterior's means (full_item_dist's "mu" of each item
+    parameter)."""
+    return {name: p["mu"] for name, p in full_item_dist(model,
+                                                        params).items()}
+
+
+@torch.no_grad()
+def infer_posterior_means(model: VIBO, params, ds: Dataset,
+                          block_size: int = 4096, return_sigma: bool = False,
+                          return_scale_tril: bool = False):
+    """Posterior-mean abilities (N, K) and the item-parameter means (a dict
+    of numpy), the encoder conditioned on each person's train-visible
+    responses and the item means, in person blocks of block_size (the last
+    zero-padded, its padded rows dropped). return_sigma also returns the
+    (N, K) posterior standard deviations; return_scale_tril (implies
+    return_sigma) also the (N, K, K) Cholesky factor of the posterior
+    covariance, diag(sigma) for the diagonal family."""
+    item_mean = full_item_mean(model, params)
+    dev = model.device
+    n = ds.response.shape[0]
+    rows = min(n, block_size)
+    return_sigma = return_sigma or return_scale_tril
+    thetas, sigmas = [], []
+    for s in range(0, n, rows):
+        e = min(s + rows, n)
+        resp, tmask = (_rows_f32(x, s, e, rows, dev)
+                       for x in (ds.response, ds.train_mask))
+        mu, logvar, off = model.encode(params, resp, tmask, item_mean)
+        thetas.append(mu.cpu().numpy())
+        if return_sigma:
+            sigmas.append(dist.tril_marginal_sigma(logvar, off).cpu().numpy())
+    out = (np.concatenate(thetas, 0)[:n],
+           {k: v.detach().cpu().numpy() for k, v in item_mean.items()})
+    if return_sigma:
+        out = out + (np.concatenate(sigmas, 0)[:n],)
+    if return_scale_tril:
+        sigma = out[2]
+        out = out + (sigma[:, :, None] * np.eye(sigma.shape[1],
+                                                dtype=sigma.dtype),)
+    return out
 
 
 @torch.no_grad()

@@ -9,8 +9,10 @@
                              # (deep: through the link MLP);
                              # grm/gpcm: (B, M, C) category probabilities
 
-Loading a trained checkpoint (`from_checkpoint`) comes with the port's
-checkpoint module (ROADMAP's "Trainer and checkpoint, the rest").
+    scorer = AbilityScorer.from_checkpoint("runs/pisa/best.npz")
+
+loads a Trainer checkpoint of this package or of the JAX package by its
+embedded model config.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from vibo_tpu_torch.convert import tree_map
 from vibo_tpu_torch.models.vibo import VIBO
 from vibo_tpu_torch.ops import distributions as dist
 from vibo_tpu_torch.ops.links import CATEGORICAL_MODELS
+from vibo_tpu_torch.train import checkpoint as ckpt
 
 
 class AbilityScorer:
@@ -40,6 +43,24 @@ class AbilityScorer:
                           {k: torch.as_tensor(v, dtype=torch.float32,
                                               device=self.device)
                            for k, v in item_mean.items()})
+
+    @classmethod
+    def from_checkpoint(cls, path: str, model: VIBO | None = None,
+                        device=None, **kw) -> "AbilityScorer":
+        """A scorer of the params in a Trainer checkpoint (train/checkpoint.py;
+        the JAX package's Trainer checkpoints too, by their params). model:
+        optional; by default rebuilt from the embedded model config on
+        `device` (None: the card; with a model given, the model's).
+        kw: AbilityScorer's own (pad_multiple, item_mean)."""
+        if model is None:
+            extra = ckpt.peek_extra(path)
+            if "model_cfg" not in extra:
+                raise ValueError(
+                    f"{path} has no embedded model config; pass model=")
+            model = VIBO(ckpt.config_from_json(extra["model_cfg"]),
+                         device=device)
+        return cls(model, ckpt.load_params(path, model),
+                   device=model.device if device is None else device, **kw)
 
     @torch.no_grad()
     def score(self, response, mask) -> dict:

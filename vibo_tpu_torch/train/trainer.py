@@ -28,6 +28,9 @@ adam(lr))`:
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
 import time
 
 import numpy as np
@@ -40,6 +43,8 @@ from vibo_tpu_torch.data.masking import Dataset, batch_iterator
 from vibo_tpu_torch.models.vibo import VIBO
 from vibo_tpu_torch.ops import objectives
 from vibo_tpu_torch.ops.packing import packed_on_device
+from vibo_tpu_torch.train import checkpoint as ckpt
+from vibo_tpu_torch.utils.metrics import AverageMeter, MetricsLogger
 
 # the per-step aux a chunk returns, in its columns' order
 AUX_KEYS = ("elbo", "loglik", "kl_theta", "kl_items")
@@ -61,6 +66,15 @@ class TrainConfig:
     fuse_epochs: bool = True           # full batch: each eval interval's
                                        # steps as one FusedSteps call (on
                                        # the card a CUDA graph)
+    out_dir: str | None = None         # best.npz + metrics.jsonl
+    log_every: int = 10                # epochs between train records
+    restarts: int = 1                  # independent fits (seed, seed + 1,
+                                       # ...); fit keeps the best final
+                                       # training bound
+    warm_start: str | None = None      # checkpoint whose params are
+                                       # transplanted into the init (a
+                                       # narrower family's: zero-filled
+                                       # appended slots); Adam starts fresh
 
 
 def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
@@ -214,6 +228,8 @@ class Trainer:
         if cfg.objective not in ("elbo", "iwae"):
             raise ValueError(f"objective must be elbo|iwae, got "
                              f"{cfg.objective!r}")
+        if cfg.restarts < 1:
+            raise ValueError(f"restarts must be >= 1, got {cfg.restarts}")
         self.model = model
         self.cfg = cfg
 
@@ -306,32 +322,123 @@ class Trainer:
             out = model.iwae(params, response, mask, s, item_scale, generator)
         return self._bound_update(params, optimizer, out)
 
-    def fit(self, ds: Dataset) -> dict:
+    def _cfg_json(self) -> str:
+        """The model config as JSON, embedded in checkpoints so they are
+        self-describing (AbilityScorer.from_checkpoint needs no model)."""
+        return json.dumps(dataclasses.asdict(self.model.cfg))
+
+    def _opt_cfg_json(self) -> str:
+        """The optimizer config embedded in checkpoints."""
+        return json.dumps({"lr": self.cfg.lr,
+                           "max_grad_norm": self.cfg.max_grad_norm})
+
+    @staticmethod
+    def _vocab_extra(ds) -> dict:
+        """The item-id vocabulary for the checkpoint, where the dataset
+        carries one."""
+        if getattr(ds, "item_ids", None) is None:
+            return {}
+        return {"item_ids": json.dumps(list(map(str, ds.item_ids)))}
+
+    def fit(self, ds: Dataset, truth=None, resume: str | None = None) -> dict:
         """Train on ds.train_mask: full batch on the int8 code, or person
         minibatches of cfg.batch_size decoded rows (batch_iterator, the last
         one zero-padded), in chunks of eval_every epochs, each ended by one
         host fetch of its per-epoch aux, the check_finite check and the
         held-out imputation accuracy. A full-batch chunk is one make_scan
-        call under fuse_epochs, else one step an epoch. Returns params,
-        optimizer, history (one train record per epoch, its ELBO the mean
-        over the epoch's steps), best accuracy, final ELBO (the last
-        epoch's), train seconds, warm train seconds (the first chunk, which
-        captures the graph, counted at the median of the others, as in JAX)
-        and throughput in true response cells (N * M an epoch, padding not
-        counted) per second."""
+        call under fuse_epochs (a new FusedSteps each fit, on this fit's
+        objects), else one step an epoch.
+
+        truth: a SyntheticIRT whose theta gives each eval record its
+        theta_pearson. resume: a checkpoint of this package
+        (train/checkpoint.py) whose params, Adam state and generator state
+        are restored, then cfg.epochs FURTHER epochs trained (bitwise the
+        same as one uninterrupted fit). cfg.warm_start: a checkpoint of
+        either package whose params are transplanted into the fresh init
+        (check_transplant_compat, transplant_params); Adam starts fresh.
+        cfg.out_dir: metrics.jsonl (every record of the history) and
+        best.npz at each new best held-out accuracy. cfg.restarts > 1: that
+        many fits from seeds seed, seed + 1, ..., the best final training
+        bound kept.
+
+        Returns params, optimizer, generator, history (a train record every
+        log_every epochs and at the last, its ELBO the mean over the
+        epoch's steps; an eval record each chunk), best accuracy, final
+        ELBO (the last epoch's), train seconds, warm train seconds (the
+        first chunk, which captures the graph, counted at the median of the
+        others, as in JAX) and throughput in true response cells (N * M an
+        epoch, padding not counted) per second."""
+        if self.cfg.restarts > 1:
+            return self._fit_restarts(ds, truth, resume)
+        return self._fit_single(ds, truth, resume)
+
+    def _fit_restarts(self, ds: Dataset, truth, resume) -> dict:
+        """cfg.restarts independent fits (seed + r, under out_dir/restart{r});
+        the best FINAL training bound wins (held-out data never selects),
+        and its best.npz is promoted to out_dir."""
+        if resume:
+            raise ValueError(
+                "restarts > 1 cannot be combined with resume=; resume the "
+                "selected run's checkpoint with restarts=1")
+        base = self.cfg
+        runs = []
+        for r in range(base.restarts):
+            sub_cfg = dataclasses.replace(
+                base, restarts=1, seed=base.seed + r,
+                out_dir=(os.path.join(base.out_dir, f"restart{r}")
+                         if base.out_dir else None))
+            runs.append(Trainer(self.model, sub_cfg, device=self.device
+                                )._fit_single(ds, truth, None))
+        scores = np.asarray([run["final_elbo"] for run in runs], np.float64)
+        selected = 0 if np.all(np.isnan(scores)) else int(np.nanargmax(scores))
+        res = runs[selected]
+        res["selected_restart"] = selected
+        res["restarts"] = [
+            {"restart": r, "seed": base.seed + r,
+             "final_elbo": run["final_elbo"],
+             "best_heldout_acc": run["best"]["heldout_acc"]}
+            for r, run in enumerate(runs)]
+        if base.out_dir:
+            src = os.path.join(base.out_dir, f"restart{selected}", "best.npz")
+            if os.path.exists(src):
+                shutil.copy2(src, os.path.join(base.out_dir, "best.npz"))
+        return res
+
+    def _fit_single(self, ds: Dataset, truth, resume) -> dict:
         cfg = self.cfg
         n, m = ds.response.shape
         batch_size = min(cfg.batch_size or n, n)
         item_scale = batch_size / n
         full_batch = batch_size >= n      # trains on the int8 code
+        steps_per_epoch = 1 if full_batch else -(-n // batch_size)
         dev = self.device
+        if cfg.warm_start and resume:
+            raise ValueError("warm_start and resume are mutually exclusive: "
+                             "resume restores exact state; warm_start "
+                             "transplants params into a fresh run")
         if full_batch:
             packed, row_valid = packed_on_device(ds.response, ds.train_mask,
                                                  dev)
         params = self.model.init_params(cfg.seed)
+        if cfg.warm_start:
+            extra = ckpt.peek_extra(cfg.warm_start)
+            if "model_cfg" in extra:
+                ckpt.check_transplant_compat(
+                    json.loads(str(extra["model_cfg"])), self.model.cfg)
+            params = ckpt.transplant_params(
+                ckpt.load_params_self_describing(cfg.warm_start, dev), params)
         optimizer = make_optimizer(params, cfg.lr)
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.seed + 1)
+        if resume:
+            state, gen_state, _, _ = ckpt.load_checkpoint(
+                resume, ckpt.train_state(params, optimizer))
+            ckpt.restore_train_state(state, params, optimizer)
+            gen.set_state(gen_state)
+        if cfg.out_dir:
+            os.makedirs(cfg.out_dir, exist_ok=True)
+        logger = MetricsLogger(os.path.join(cfg.out_dir, "metrics.jsonl")
+                               if cfg.out_dir else None)
 
         def run_epoch(epoch: int):
             """One epoch's steps -> its aux row (the ELBO's mean over the
@@ -361,8 +468,13 @@ class Trainer:
                                                cfg.num_mc_samples, length)
             return scans[length](params, optimizer, packed, row_valid, gen)
 
+        def log(rec: dict) -> None:
+            logger.log(**rec)
+            history.append(rec)
+
         chunk = max(1, min(cfg.eval_every, cfg.epochs))
         history, chunk_dts = [], []
+        cells = AverageMeter()
         final_elbo = float("nan")
         best = {"heldout_acc": -1.0, "epoch": -1}
         epoch = 0
@@ -371,6 +483,7 @@ class Trainer:
             t0 = time.perf_counter()
             auxs = run_chunk(epoch, n_run).cpu().numpy()  # completion barrier
             chunk_dts.append(time.perf_counter() - t0)
+            cells.update(n * m * n_run / chunk_dts[-1])
             elbos = auxs[:, 0]
             if cfg.check_finite and not np.isfinite(elbos).all():
                 bad = int(np.argmax(~np.isfinite(elbos)))
@@ -379,19 +492,42 @@ class Trainer:
                     f"loglik={float(auxs[bad, 1])} "
                     f"kl_theta={float(auxs[bad, 2])} "
                     f"kl_items={float(auxs[bad, 3])} — check lr/grad-clip")
-            history.extend({"event": "train", "epoch": epoch + i,
-                            "elbo": float(v)} for i, v in enumerate(elbos))
+            for i, row in enumerate(auxs):
+                e = epoch + i
+                if (e + 1) % cfg.log_every == 0 or e == cfg.epochs - 1:
+                    log({"event": "train", "epoch": e,
+                         "step": (e + 1) * steps_per_epoch,
+                         **{k: float(v) for k, v in zip(AUX_KEYS, row)},
+                         "cells_per_sec": cells.avg})
             epoch += n_run
             final_elbo = float(elbos[-1])
             if ds.heldout_mask.sum() > 0:
                 ev = evaluation.imputation_accuracy(self.model, params, ds)
-                history.append({"event": "eval", "epoch": epoch - 1, **ev})
+                rec = {"event": "eval", "epoch": epoch - 1, **ev}
+                if truth is not None:
+                    theta_hat, _ = evaluation.infer_posterior_means(
+                        self.model, params, ds)
+                    rec["theta_pearson"] = evaluation.correlation(
+                        theta_hat[:truth.theta.shape[0]], truth.theta,
+                        align_rotation=True)["pearson"]
+                log(rec)
                 if ev["acc"] > best["heldout_acc"]:
                     best = {"heldout_acc": ev["acc"], "epoch": epoch - 1}
+                    if cfg.out_dir:
+                        ckpt.save_checkpoint(
+                            os.path.join(cfg.out_dir, "best.npz"),
+                            ckpt.train_state(params, optimizer), gen,
+                            epoch * steps_per_epoch,
+                            extra={"epoch": epoch - 1,
+                                   "heldout_acc": ev["acc"],
+                                   "model_cfg": self._cfg_json(),
+                                   "opt_cfg": self._opt_cfg_json(),
+                                   **self._vocab_extra(ds)})
+        logger.close()
         t_train = sum(chunk_dts)
         warm = (t_train - chunk_dts[0] + float(np.median(chunk_dts[1:]))
                 if len(chunk_dts) > 1 else t_train)
-        return {"params": params, "optimizer": optimizer,
+        return {"params": params, "optimizer": optimizer, "generator": gen,
                 "history": history, "best": best, "final_elbo": final_elbo,
                 "train_seconds": t_train, "warm_train_seconds": warm,
                 "cells_per_sec": n * m * cfg.epochs / t_train}
