@@ -1,6 +1,6 @@
 """Depth sweep of chip_smoke.py's HMC gold comparisons on one card.
 
-    python3 hmc_depth.py [gold ...]
+    python3 hmc_depth.py [--smoke] [gold ...]
 
 Runs the port's `run_hmc` on the data of artifacts/gold/k4 (2PL, 10,240 x
 1,024, K = 4, the (B, K) one-pass kernel) and of artifacts/gold/grm (2,000 x
@@ -13,7 +13,8 @@ target). Prints one JSON line a run: its seconds, accept rate, R-hat,
 leapfrogs a draw, and the agreement with the gold and whether its gates
 hold (`chip_smoke.gold_agreement`). Then the card's name and power limit,
 and last {"ok": true} when every run held its gates. Arguments: only those
-golds. chip_smoke.py's HMC_GOLD_DEPTH is taken from such a sweep.
+golds; --smoke: each gold at chip_smoke.py's HMC_GOLD_DEPTH only.
+chip_smoke.py's HMC_GOLD_DEPTH is taken from such a sweep.
 """
 
 from __future__ import annotations
@@ -26,10 +27,10 @@ import torch
 
 import chip_smoke as cs
 
-DEPTHS = {"k4": [(50, 50, 64), (75, 75, 64), (100, 100, 64)],
-          "grm": [(50, 50, 64), (100, 100, 64), (50, 50, 32), (75, 75, 32),
-                  (100, 100, 32)],
-          **{gold: [(50, 50), (75, 75), (100, 100)]
+DEPTHS = {"k4": [(30, 30, 64), (50, 50, 64), (75, 75, 64), (100, 100, 64)],
+          "grm": [(50, 50, 64), (100, 100, 64), (30, 30, 32), (50, 50, 32),
+                  (75, 75, 32), (100, 100, 32)],
+          **{gold: [(30, 30), (40, 40), (50, 50), (75, 75), (100, 100)]
              for gold in cs.NUTS_GOLDS}}
 
 
@@ -40,10 +41,15 @@ def main() -> None:
     from vibo_tpu_torch.models import hmc
     resolve_device(None)
     smi = cs.nvidia_smi("name,power.limit")
+    args = sys.argv[1:]
+    smoke = "--smoke" in args
+    golds = [a for a in args if a != "--smoke"]
     ok = True
     for gold, depths in DEPTHS.items():
-        if sys.argv[1:] and gold not in sys.argv[1:]:
+        if golds and gold not in golds:
             continue
+        if smoke:
+            depths = [cs.HMC_GOLD_DEPTH[gold]]
         ds = cs.gold_data(gold)
         model, k = {"k4": ("2pl", cs.K), "grm": ("grm", 1),
                     **cs.NUTS_GOLDS}[gold]

@@ -1,7 +1,8 @@
-"""The port stands alone: importing every module of vibo_tpu_torch loads no
-JAX, optax or vibo_tpu module (and builds nothing); entry points default to
-the card and raise where there is none; a kernel wrapper given CPU tensors
-runs its plain version and launches nothing."""
+"""The port stands alone: importing every module of vibo_tpu_torch (the CLI,
+the data loaders and the native CSV parser's bindings, the profiler among
+them) loads no JAX, optax or vibo_tpu module (and builds nothing); entry
+points default to the card and raise where there is none; a kernel wrapper
+given CPU tensors runs its plain version and launches nothing."""
 
 import os
 import subprocess
@@ -36,7 +37,12 @@ def test_import_loads_no_jax_or_reference_package():
         assert all(k._fn is None for k in _build.KERNELS.values())
         assert "vibo_tpu_torch.models.hmc" in sys.modules
         assert {"vibo_tpu_torch.models.em", "vibo_tpu_torch.train.checkpoint",
-                "vibo_tpu_torch.utils.metrics"} <= set(sys.modules)
+                "vibo_tpu_torch.utils.metrics", "vibo_tpu_torch.cli",
+                "vibo_tpu_torch.data.loaders", "vibo_tpu_torch.data.native",
+                "vibo_tpu_torch.utils.prof",
+                "vibo_tpu_torch.utils.hostmem"} <= set(sys.modules)
+        from vibo_tpu_torch.data import native
+        assert native._lib is None      # the CSV parser builds on first use
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -68,3 +68,47 @@ def test_score_rejects_mismatched_shapes():
     scorer = AbilityScorer(model, model.init_params(0), device="cpu")
     with pytest.raises(ValueError, match="matching"):
         scorer.score(np.zeros((3, 5)), np.zeros((3, 4)))
+
+
+@pytest.mark.parametrize("irt_model", ["2pl", "3pl", "grm", "deep"])
+def test_laplace_sigma_and_refine_match_jax(irt_model):
+    """AbilityScorer.laplace_sigma (closed form; deep: the Gauss-Newton
+    widths) at 1e-5 and refine on JAX's replayed draws (the scorer's key,
+    split over the steps, fold_in(steps + 1) for the paired bound) at 1e-4,
+    on a batch padded to the scorer's multiple."""
+    import torch
+
+    c = 5 if irt_model == "grm" else 2
+    sim = jsim("nonlinear" if irt_model == "deep" else irt_model, 40, 18,
+               ability_dim=2, seed=6, missing_rate=0.2, num_categories=c)
+    kw = dict(num_items=18, irt_model=irt_model, ability_dim=2,
+              hidden_dim=16, num_categories=c)
+    if irt_model == "deep":
+        kw.update(item_latent_dim=3, deep_hidden_dim=32, deep_item_chunk=8)
+    jmodel = JVIBO(JConfig(**kw))
+    jparams = jmodel.init_params(jax.random.key(2))
+    model = VIBO(VIBOConfig(**kw), device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    jscorer = JScorer(jmodel, jparams, pad_multiple=16)
+    scorer = AbilityScorer(model, params, pad_multiple=16, device="cpu")
+    resp, mask = sim.response[:21], sim.mask[:21]
+    _close(scorer.laplace_sigma(resp, mask),
+           jscorer.laplace_sigma(resp, mask))
+    steps, s, seed = 5, 3, 7
+    want = jscorer.refine(resp, mask, steps=steps, num_samples=s, seed=seed)
+    key = jax.random.key(seed)
+    shape = (s, 32, 2)
+    step_eps = np.stack([np.asarray(jax.random.normal(k, shape))
+                         for k in jax.random.split(key, steps)])
+    last = np.asarray(jax.random.normal(jax.random.fold_in(key, steps + 1),
+                                        shape))
+    got = scorer.refine(resp, mask, steps=steps, num_samples=s,
+                        noise=(torch.from_numpy(step_eps),
+                               torch.from_numpy(last)))
+    for k in ("theta_mu", "theta_sigma", "theta_tril"):
+        assert got[k].shape == want[k].shape
+        _close(got[k], want[k], 1e-4)
+    assert got["elbo_gain_per_person"] == pytest.approx(
+        want["elbo_gain_per_person"], rel=1e-4, abs=1e-5)
+    drawn = scorer.refine(resp, mask, steps=steps, num_samples=s, seed=seed)
+    assert np.isfinite(drawn["theta_mu"]).all()

@@ -1,6 +1,7 @@
-"""Hold-out masking, the Dataset container and person minibatches (numpy
-copy of `vibo_tpu.data.masking`'s `Dataset`, `holdout_split` and
-`batch_iterator`).
+"""Hold-out masking, the Dataset container, splits and person minibatches
+(numpy copy of `vibo_tpu.data.masking`: `Dataset`, `holdout_split`,
+`split_persons`, `split_items`, `pad_to_multiple` and `batch_iterator`; the
+same seed gives byte-identical arrays).
 
 Protocol (arXiv:2002.00276 section 6.3): hide a fraction of the OBSERVED
 cells; train on the rest; the hidden cells are the imputation test set.
@@ -77,6 +78,71 @@ def holdout_split(response: np.ndarray, mask: np.ndarray,
                    train_mask=train_mask, heldout_mask=heldout_mask, name=name,
                    person_ids=person_ids, item_ids=item_ids,
                    num_categories=num_categories)
+
+
+def split_persons(ds: Dataset, test_frac: float = 0.1, seed: int = 0
+                  ) -> tuple[Dataset, Dataset]:
+    """Split persons into train/test groups (amortized inference on new
+    students, arXiv:2002.00276 section 6): a permutation from
+    default_rng(seed + 202), its first round(N * test_frac) (at least one)
+    persons the test group, both groups in row order."""
+    rng = np.random.default_rng(seed + 202)
+    n = ds.response.shape[0]
+    perm = rng.permutation(n)
+    n_test = max(1, int(round(n * test_frac)))
+    test_idx, train_idx = np.sort(perm[:n_test]), np.sort(perm[n_test:])
+
+    def take(idx, tag):
+        pids = ([ds.person_ids[k] for k in idx]
+                if ds.person_ids is not None else None)
+        return Dataset(response=ds.response[idx],
+                       train_mask=ds.train_mask[idx],
+                       heldout_mask=ds.heldout_mask[idx],
+                       name=f"{ds.name}/{tag}", person_ids=pids,
+                       item_ids=ds.item_ids, num_categories=ds.num_categories)
+    return take(train_idx, "train"), take(test_idx, "test")
+
+
+def split_items(ds: Dataset, test_frac: float = 0.1, seed: int = 0
+                ) -> tuple[Dataset, Dataset]:
+    """Split ITEMS into train/test column groups (cold-start items), a
+    permutation from default_rng(seed + 808) as split_persons does for
+    rows. Scoring unseen items needs the amortized item posterior
+    (ROADMAP's "Posterior and conditioning families")."""
+    rng = np.random.default_rng(seed + 808)
+    m = ds.response.shape[1]
+    perm = rng.permutation(m)
+    m_test = max(1, int(round(m * test_frac)))
+    test_idx, train_idx = np.sort(perm[:m_test]), np.sort(perm[m_test:])
+
+    def take(idx, tag):
+        iids = ([ds.item_ids[k] for k in idx]
+                if ds.item_ids is not None else None)
+        return Dataset(response=ds.response[:, idx],
+                       train_mask=ds.train_mask[:, idx],
+                       heldout_mask=ds.heldout_mask[:, idx],
+                       name=f"{ds.name}/{tag}", person_ids=ds.person_ids,
+                       item_ids=iids, num_categories=ds.num_categories)
+    return take(train_idx, "train-items"), take(test_idx, "test-items")
+
+
+def pad_to_multiple(ds: Dataset, person_multiple: int = 8,
+                    item_multiple: int = 128) -> Dataset:
+    """Zero-pad persons/items up to the given multiples. Padded cells have
+    mask 0 everywhere, so objectives and metrics are unchanged exactly;
+    num_persons/num_items keep the true sizes."""
+    n, m = ds.response.shape
+    np_pad = (-n) % person_multiple
+    mi_pad = (-m) % item_multiple
+    if np_pad == 0 and mi_pad == 0:
+        return ds
+    pad = ((0, np_pad), (0, mi_pad))
+    return Dataset(
+        response=np.pad(ds.response, pad),
+        train_mask=np.pad(ds.train_mask, pad),
+        heldout_mask=np.pad(ds.heldout_mask, pad), name=ds.name,
+        num_persons=n, num_items=m, person_ids=ds.person_ids,
+        item_ids=ds.item_ids, num_categories=ds.num_categories)
 
 
 def batch_iterator(ds: Dataset, batch_size: int, seed: int, epoch: int):

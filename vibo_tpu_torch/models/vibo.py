@@ -394,6 +394,31 @@ class VIBO:
         return self.iwae_eps(params, response, mask, item_eps, theta_eps,
                              item_scale)
 
+    def iwae_per_person(self, params: dict, response, mask,
+                        num_samples: int = 100,
+                        num_persons_total: int | None = None,
+                        generator: torch.Generator | None = None,
+                        noise: tuple | None = None) -> torch.Tensor:
+        """Per-person IWAE-S bounds on log p(r_i) -> (B,). The shared item
+        terms enter apportioned 1/N a person (N = num_persons_total, default
+        B), the ELBO's item-KL convention; rows with no observed cell drop
+        their theta terms. noise: (item_eps, theta_eps) as sample_noise
+        gives them (the tests replay JAX's keys through it), else
+        num_samples draws from `generator`."""
+        n_total = num_persons_total or response.shape[-2]
+        if noise is None:
+            noise = self.sample_noise(response.shape[-2], num_samples,
+                                      generator=generator)
+        post, item_sample, mu, logvar, theta = self._draw(
+            params, response, mask, *noise)
+        ll = self.loglik_per_person(params, theta, item_sample, response,
+                                    mask)                         # (S, B)
+        valid = (mask.sum(-1) > 0).to(mu.dtype)
+        lp = dist.standard_normal_log_prob(theta).sum(-1) * valid
+        lq = self.theta_logq(theta, mu, logvar) * valid
+        ratio = self.item_log_ratio_from(post, item_sample) / n_total
+        return objectives.iwae_bound(ll + lp - lq + ratio[:, None])
+
     def sample_noise(self, batch: int, num_samples: int,
                      transposed: bool = False,
                      generator: torch.Generator | None = None):
@@ -558,6 +583,13 @@ class VIBO:
         if "g_hat" in item_sample:
             lp["g_hat"] = item_sample["g_hat"][..., 0]
         return links.response_prob(self.cfg.irt_model, theta, lp)
+
+    def impute_prob(self, params: dict, response, mask):
+        """Predicted response probabilities (B, M) from the posterior means:
+        the item-posterior means condition the encoder and, with its mean
+        ability, go through the link (impute_prob_with_items)."""
+        return self.impute_prob_with_items(params, response, mask,
+                                           self.item_posterior_mean(params))
 
     def impute_prob_with_items(self, params: dict, response, mask,
                                item_mean: dict):

@@ -1,5 +1,6 @@
 """Serving API: amortized ability scoring for new students (counterpart of
-`vibo_tpu.serve.AbilityScorer.score`).
+`vibo_tpu.serve.AbilityScorer`: score, laplace_sigma, refine,
+from_checkpoint).
 
     scorer = AbilityScorer(model, params)
     out = scorer.score(responses, masks)     # (B, M) float arrays
@@ -8,6 +9,9 @@
     out["prob"]              # (B, M) predicted correctness probabilities
                              # (deep: through the link MLP);
                              # grm/gpcm: (B, M, C) category probabilities
+
+    scorer.laplace_sigma(responses, masks)  # (B, K) Fisher widths
+    scorer.refine(responses, masks, steps=50)  # per-person SVI of q(theta)
 
     scorer = AbilityScorer.from_checkpoint("runs/pisa/best.npz")
 
@@ -92,3 +96,79 @@ class AbilityScorer:
         return {"theta_mu": mu.cpu().numpy()[:b],
                 "theta_sigma": sigma.cpu().numpy()[:b],
                 "prob": prob.cpu().numpy()[:b]}
+
+    def _item_means(self) -> dict:
+        """The item means the scorer conditions on (detached tensors)."""
+        items = (self.item_mean if self.item_mean is not None
+                 else self.model.item_posterior_mean(self.params))
+        return {k: v.detach() for k, v in items.items()}
+
+    def laplace_sigma(self, response, mask, theta_mu=None) -> np.ndarray:
+        """(B, K) Laplace (Fisher) posterior widths at the amortized mean:
+        closed form for the linear and polytomous links, the Gauss-Newton
+        information through the link's Jacobian for the deep link
+        (evaluation.laplace_theta_sigma). theta_mu defaults to score()'s."""
+        from vibo_tpu_torch import evaluation
+        if theta_mu is None:
+            theta_mu = self.score(response, mask)["theta_mu"]
+        items = {k: v.cpu().numpy() for k, v in self._item_means().items()}
+        if self.model.cfg.irt_model == "deep":
+            return evaluation.laplace_sigma_deep(
+                self.params["deep_link"], items["d"], mask, theta_mu,
+                device=self.device)
+        return evaluation.laplace_sigma_from_items(
+            items, self.model.cfg.irt_model, mask, theta_mu)
+
+    def refine(self, response, mask, steps: int = 300, lr: float = 0.05,
+               num_samples: int = 8, seed: int = 0,
+               noise: tuple | None = None) -> dict:
+        """Semi-amortized scoring: per-person SVI refinement of q(theta)
+        from the amortized posterior (evaluation.refine_block), the batch
+        zero-padded to pad_multiple rows as in score. The serving arrays go
+        through the evaluation's bit-code (binary: bit 0 the response, bit
+        1 the mask; polytomous: bits 0-4 the category, bit 5 the mask) and
+        back, as the JAX scorer feeds its refinement. noise: (step_eps
+        (steps, S, rows, K), eval_eps (S, rows, K)) for the padded rows,
+        else draws from a generator seeded with `seed` on the scorer's
+        device. Returns {"theta_mu", "theta_sigma", "theta_tril",
+        "elbo_gain_per_person"}."""
+        from vibo_tpu_torch import evaluation
+        response = np.asarray(response, np.float32)
+        mask = np.asarray(mask, np.float32)
+        if response.ndim != 2 or response.shape != mask.shape:
+            raise ValueError(
+                f"expected matching (B, M) response/mask, got "
+                f"{response.shape} vs {mask.shape}")
+        b = response.shape[0]
+        pad = (-b) % self.pad_multiple
+        if pad:
+            response = np.pad(response, ((0, pad), (0, 0)))
+            mask = np.pad(mask, ((0, pad), (0, 0)))
+        if self.model.cfg.num_categories > 2:
+            code = (response.astype(np.uint8) & 31) \
+                | ((mask > 0).astype(np.uint8) << 5)
+            resp_c, mask_c = code & 31, (code >> 5) & 1
+        else:
+            code = (response.astype(np.uint8) & 1) \
+                | ((mask > 0).astype(np.uint8) << 1)
+            resp_c, mask_c = code & 1, (code >> 1) & 1
+        dev = self.device
+        items = self._item_means()
+        with torch.no_grad():
+            mu0, logvar0, _ = self.model.encode(
+                self.params, torch.from_numpy(response).to(dev),
+                torch.from_numpy(mask).to(dev), items)
+        resp_t = torch.from_numpy(resp_c.astype(np.float32)).to(dev)
+        mask_t = torch.from_numpy(mask_c.astype(np.float32)).to(dev)
+        deep = (self.params["deep_link"]
+                if self.model.cfg.irt_model == "deep" else None)
+        generator = (None if noise is not None
+                     else torch.Generator(device=dev).manual_seed(seed))
+        mu, sigma, tril, per0, per1 = evaluation.refine_block(
+            self.model.cfg.irt_model, items, deep, resp_t, mask_t, mu0,
+            logvar0, steps, lr, num_samples, noise, generator)
+        gain = (per1 - per0).cpu().numpy()[:b].mean()
+        return {"theta_mu": mu.cpu().numpy()[:b],
+                "theta_sigma": sigma.cpu().numpy()[:b],
+                "theta_tril": tril.cpu().numpy()[:b],
+                "elbo_gain_per_person": float(gain)}

@@ -1,5 +1,5 @@
-"""Utilities (counterpart of `vibo_tpu.utils`): meters, timers and the
-JSONL metrics logger."""
+"""Utilities (counterpart of `vibo_tpu.utils`): meters, timers, the JSONL
+metrics logger, host-memory advice and the profiler."""
 
 from vibo_tpu_torch.utils.metrics import AverageMeter, MetricsLogger, Timer
 
