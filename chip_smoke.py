@@ -92,7 +92,7 @@ baseline (vibo_tpu_torch/models/hmc.py, fixed trajectories, 4 chains,
 target accept 0.65), each run through run_hmc with its kernel launched
 once a chain each potential evaluation and no other kernel: the flagship
 gold (simulate_irt("2pl", 10,240, 1,024, K = 4, seed 0), 10 % held out,
-row 4; 30 + 30 iterations at 64 leapfrogs) and the GRM gold (2,000 x
+row 4; 20 + 20 iterations at 64 leapfrogs) and the GRM gold (2,000 x
 100, K = 1, C = 5, the dense potential; 30 + 30 at 32) held against the
 JAX package's posteriors in artifacts/gold (theta-mean Pearson after
 Procrustes >= 0.99, held-out accuracy within 0.003 / 0.01), short runs
@@ -105,7 +105,7 @@ ms a potential
 evaluation, ms an iteration and a profiler window's busy and idle
 shares and kernel calls an iteration. Then NUTS (trajectory="nuts", tree
 depth 7, target 0.8) against the JAX package's NUTS golds at 2,000 x 200,
-30 + 30 iterations (their 800 + 1,200 cut): k2-nuts (2PL, K = 2, row 4
+20 + 20 iterations (their 800 + 1,200 cut): k2-nuts (2PL, K = 2, row 4
 through the chain axis, launched once a chain each evaluation its trees
 took) and grm-k2 (C = 5, the dense potential; grm-k4 runs in hmc_depth.py
 only, the smoke's time budget), each gated on the
@@ -126,10 +126,18 @@ cli_compare_grm, the GRM parity sweep in process (VIBO with rows 1f, 2f
 and 13, MLE, EM, the HMC row a hit of the committed artifacts/gold/grm
 cache that changes nothing there), each row gated against the JAX
 package's recorded run; cli_deep, the deep command (plain link, no kernel;
-IWAE-100 and the Laplace widths through the link's Jacobian). Then the
-kernels summary line (each entry with its launches in the in-process CLI
-phases and its device calls in cfg 1's trace), the card's name and power
-limit, and the final status line {"ok": true, "device": {...}}.
+IWAE-100 and the Laplace widths through the link's Jacobian); cli_items,
+`train synthetic-2pl ... --item-encoder --eval-new-items 0.1` in process
+(rows 1f, 2f and 3; held-out and new_item_acc gated on the JAX CLI's seed
+spread, tests/cli_reference.jsonl) and `score --items` of its held-out
+columns from its best.npz (bitwise equal to AbilityScorer.score_items, no
+kernel); cli_k2nuts, the k2-nuts sweep (run_benchmark_configs.sh:104-111:
+stats + laplace-w, rows 1f, 2f and 4; MLE, EM, the HMC row from the
+committed artifacts/gold/k2-nuts), every VIBO key gated on the JAX CLI's
+seed spread. Then the kernels summary line (each entry with its launches
+in the in-process CLI phases and its device calls in cfg 1's trace), the
+card's name and power limit, and the final status line {"ok": true,
+"device": {...}}.
 
 Fused phases (`fused`): after its eager phase, each full-batch path (the
 2PL, 3PL, GRM and GPCM flagships, the 2PL at f32, config 5's one-pass
@@ -150,6 +158,16 @@ The profile windows also give the device records' union on the timeline
 beside their sum. Each link's flagship and config 5 run it
 again with the IWAE bound (S = 5, 10 epochs at 5). Before them the card's
 capturable Adam is held against the plain form.
+
+The posterior families (`family` lines, after the fused paths): the K = 4
+commands' width (10,240 x 1,024, K = 4, hidden 512, S = 5, f32 first
+layer) on the 2PL flagship's data under stats + chol, stats + laplace,
+stats + laplace-w and the item encoder (diagonal): the packed objectives
+with the kernels against the dense ones on the card at 300 x 200 (1e-4),
+then fused_phase at 20 epochs of chunks of 2 (its profiler window one
+chunk), and the one-pass op's launches by layout: row 4 (theta (B, K))
+only under chol and laplace, row 3 (theta (K, B)) only under the item
+encoder.
 
 Bounds: the largest of three times, each at the H100 SXM's published peak:
 the bytes the function must move over 3.35 TB/s of HBM; its operations
@@ -267,10 +285,13 @@ DEEP_F32_KERNEL = lambda h: (   # noqa: E731
 GOLD_DIR = Path(__file__).resolve().parent / "artifacts" / "gold"
 HMC_CHAINS, HMC_TARGET = 4, 0.65
 NUTS_TREE_DEPTH, NUTS_TARGET = 7, 0.8
-# the smoke's depths (30 + 30 since the CLI phases joined the 600 s budget;
-# hmc_depth.py held every gate there on the card), grm-k4's hmc_depth.py's
-HMC_GOLD_DEPTH = {"k4": (30, 30, 64), "grm": (30, 30, 32),
-                  "k2-nuts": (30, 30), "grm-k2": (30, 30),
+# the smoke's depths (k4, k2-nuts and grm-k2 at 20 + 20 since the
+# families and the k2-nuts and item-encoder CLI phases joined the 600 s
+# budget, 30 + 30 before; hmc_depth.py held every gate there on the card;
+# grm stays at 30 + 30: at 20 + 20 its chains barely moved, accept 0.013,
+# theta 0.9949 against the 0.99 gate), grm-k4's hmc_depth.py's
+HMC_GOLD_DEPTH = {"k4": (20, 20, 64), "grm": (30, 30, 32),
+                  "k2-nuts": (20, 20), "grm-k2": (20, 20),
                   "grm-k4": (50, 50)}
 NUTS_GOLDS = {"k2-nuts": ("2pl", 2), "grm-k2": ("grm", 2),
               "grm-k4": ("grm", 4)}              # link, K at 2,000 x 200
@@ -313,11 +334,13 @@ EM_CPU_CASES = (("1pl", 1), ("2pl", 1), ("2pl", 2), ("2pl", 4), ("3pl", 1),
 # for RESUME_EPOCHS more, against one fit of twice as many (eval_every
 # FUSED_EVAL_EVERY)
 RESUME_EPOCHS = 20
-HMC_PROFILE_ITERS = 3                     # iterations of a profiler window
+# the fixed-trajectory probe: warm-up, timed and profiled iterations (2,
+# 5, 3 until the PR 19 phases joined the 600 s budget)
+HMC_PROBE_ITERS = (1, 2, 2)
 # NUTS's probe: warm-up, timed and profiled iterations (a saturated
 # depth-7 iteration holds 16,000-33,000 device records, more than 3 of the
-# k4 flagship's fixed ones)
-NUTS_PROBE_ITERS = (1, 2, 1)
+# k4 flagship's fixed ones; 1, 2, 1 until PR 19)
+NUTS_PROBE_ITERS = (1, 1, 1)
 HMC_FLIP_BOUND = 4e-4                     # a relu flip's gradient row, of
                                           # the largest magnitude (4 x 1e-4)
 # the deep gold's shape (synthetic-nonlinear 2,000 x 200, K = 2; D = 16,
@@ -430,7 +453,14 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets t_s, the seconds since this
+    module was imported (where the smoke's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1590,15 +1620,16 @@ def eager_counts(tag: str, trainer, params, optimizer, packed, row_valid,
 def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
                 epochs: int, eval_every: int, objective: str = "elbo",
                 samples: int = 1, must_rise: bool = True,
-                eager=None) -> dict:
+                eager=None, profile_chunks: int = 3) -> dict:
     """The fused full-batch path for one model: Trainer.fit with
     fuse_epochs (each chunk of eval_every steps one CUDA graph) for
     `epochs` at `objective`, every eval's held-out accuracy in [0, 1],
     the bound finite and, where must_rise, rising; graph_matches_eager;
     a chunk's replays timed by CUDA events; and a profiler window of
-    replays, in which every kernel of DEVICE_KERNELS runs as many times a
-    step as in eager steps of the same model (eager_counts), so every
-    kernel of `ran` once a step where its wrapper launches it once a step.
+    `profile_chunks` chunks of replays, in which every kernel of
+    DEVICE_KERNELS runs as many times a step as in eager steps of the same
+    model (eager_counts), so every kernel of `ran` once a step where its
+    wrapper launches it once a step.
     `eager`: full_batch_phase's result for the same
     model, whose steps (same init, seed and noise) the fit's first epochs
     repeat: their ELBOs' max difference is reported beside its step
@@ -1651,8 +1682,8 @@ def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
     torch.cuda.synchronize()
     replay_ms = start.elapsed_time(end) / (FUSED_TIMED_REPLAYS * eval_every)
     for _ in range(PROFILER_TRIES):
-        prof = profile_steps(chunk, 3, replay_ms, smi, per_call=eval_every,
-                             counts=True)
+        prof = profile_steps(chunk, profile_chunks, replay_ms, smi,
+                             per_call=eval_every, counts=True)
         replay = device_counts(prof["counts"])
         if replay == eager_dev:
             break
@@ -2332,8 +2363,8 @@ def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
     posterior mean (the run's own MAP stays inside run_hmc): ms a potential
     evaluation of all chains (CUDA events, L2 flushed), ms an iteration
     (sampling flags; host clock over a synchronized run), and a profiler
-    window of HMC_PROFILE_ITERS iterations (NUTS: NUTS_PROBE_ITERS' warm-up,
-    timed and window iterations): busy and idle shares, and each
+    window (HMC_PROBE_ITERS' warm-up, timed and window iterations; NUTS:
+    NUTS_PROBE_ITERS'): busy and idle shares, and each
     loglik kernel's device calls an iteration, which must be C times the
     evaluations for the path's kernel (its helpers beside it) and 0 for
     every other. NUTS: at the run's step (step_size), its evaluations and
@@ -2372,7 +2403,7 @@ def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
     gen.manual_seed(5)
     holder = [state]
     warm, reps, window_iters = (NUTS_PROBE_ITERS if nuts
-                                else (2, 5, HMC_PROFILE_ITERS))
+                                else HMC_PROBE_ITERS)
 
     def iteration():
         holder[0], _ = prog.step(holder[0], 0.0, 0.0, 0.0, data, gen)
@@ -3193,6 +3224,130 @@ def checkpoint_resume(smi: str, data: dict) -> dict:
     return out
 
 
+# ------------------------------------------------- the posterior families
+
+# the K = 4 commands' families at their width (run_benchmark_configs.sh
+# :34-65: 10,240 x 1,024, K = 4, hidden 512, S = 5, 2PL, the CLI's f32
+# compute): the tag, the config's family fields, and the one-pass op the
+# step must run: "bk" the per-person op on theta (B, K) (row 4), "kb" the
+# scalar op on theta (K, B) (row 3); one device kernel serves both, so the
+# wrapper's launches_by tells them apart
+FAMILY_RUNS = (("stats_chol", {"condition_on": "stats",
+                               "theta_posterior": "chol"}, "bk"),
+               ("stats_laplace", {"condition_on": "stats",
+                                  "theta_posterior": "laplace"}, "bk"),
+               ("stats_laplace_w", {"condition_on": "stats",
+                                    "theta_posterior": "laplace-w"}, "bk"),
+               ("item_encoder", {"item_encoder": True}, "kb"))
+FAMILY_H, FAMILY_S = 512, 5
+FAMILY_FUSED = (20, 2)                    # epochs, eval_every (40, 10 cut for
+                                          # the 600 s budget: a chunk's
+                                          # capture and profile scale with
+                                          # its steps)
+FAMILY_PATH = (*FIRST_LAYER_F32, "loglik_2pl_train")
+# a window of one chunk: a laplace step is ~5,400 device records, whose
+# processing the profiler takes its time over
+FAMILY_PROFILE_CHUNKS = 1
+FAMILY_ROWS = {"bk": "row 4 (vibo_tpu/ops/pallas_elbo.py:613 "
+                     "_fused_train_fwd)",
+               "kb": "row 3 (vibo_tpu/ops/pallas_elbo.py:1244 "
+                     "_fused_train_fwd_t)"}
+
+
+def family_config(extra: dict, use_pallas: bool = True, m: int = M,
+                  hidden: int = FAMILY_H):
+    from vibo_tpu_torch.models import VIBOConfig
+    return VIBOConfig(num_items=m, irt_model="2pl", ability_dim=K,
+                      hidden_dim=hidden, use_pallas=use_pallas,
+                      compute_dtype="float32", **extra)
+
+
+def family_packed_matches_dense(extra: dict) -> dict:
+    """A family's packed objectives on the card with the kernels
+    (use_pallas: the f32 first layer and the link's one-pass op) against
+    the same objectives on the decoded code without them (use_pallas off:
+    plain PyTorch on the card), at 300 x 200, hidden 64, S = 3, same params
+    and noise: the ELBO terms and the IWAE (local, ratio), and the
+    gradients of the ELBO and of sum_s w_s (local_s + ratio_s) at w =
+    IWAE_COTANGENT, each within 1e-4 of its largest magnitude (f32)."""
+    from vibo_tpu_torch.convert import (params_from_jax, params_to_numpy,
+                                        tree_leaves)
+    from vibo_tpu_torch.models import VIBO
+    from vibo_tpu_torch.ops import objectives
+    from vibo_tpu_torch.ops.packing import packed_on_device
+    n, m, s = 300, 200, len(IWAE_COTANGENT)
+    rng = np.random.default_rng(8)
+    resp = (rng.random((n, m)) < 0.6).astype(np.float32)
+    mask = (rng.random((n, m)) < 0.9).astype(np.float32)
+    mask[7] = 0.0
+    fused = VIBO(family_config(extra, True, m, 64))
+    params_np = params_to_numpy(fused.init_params(7))
+    item_eps = {name: torch.from_numpy(rng.standard_normal(
+        (s, m, d)).astype(np.float32)).cuda()
+        for name, d in sorted(fused._head_spec.items())}
+    theta_eps = torch.from_numpy(rng.standard_normal(
+        (s, n, K)).astype(np.float32)).cuda()
+    packed, rv = packed_on_device(resp, mask)
+    results = []
+    for use_pallas in (True, False):
+        model = VIBO(family_config(extra, use_pallas, m, 64))
+        tp = model.wants_transposed_theta()
+        te = theta_eps.transpose(1, 2).contiguous() if tp else theta_eps
+        out = []
+        for objective in ("elbo", "iwae"):
+            params = params_from_jax(params_np, "cuda")
+            if objective == "elbo":
+                terms = model.elbo_packed_sums(params, packed, item_eps, te,
+                                               rv, transposed=tp)
+                bound = objectives.elbo(*terms)
+            else:
+                terms = model.iwae_packed_terms(params, packed, item_eps, te,
+                                                rv, transposed=tp)
+                w = torch.tensor(IWAE_COTANGENT, device="cuda")
+                bound = (w * (terms[0] + terms[1])).sum()
+            bound.backward()
+            out += [t.detach() for t in terms]
+            out += [p.grad for p in tree_leaves(params)]
+        results.append(out)
+    worst = max(rel_err(a, b) for a, b in zip(*results))
+    if not worst <= 1e-4:
+        raise AssertionError(f"family {extra}: the packed objectives with "
+                             f"the kernels are {worst} from the dense ones")
+    return {"shape": [n, m], "samples": s, "max_rel_err": worst}
+
+
+def families_phase(smi: str, data: dict) -> dict:
+    """The posterior and conditioning families of the K = 4 commands
+    (FAMILY_RUNS) at their width on the 2PL flagship's data: for each, the
+    packed objectives with the kernels against the dense ones at 300 x 200
+    (family_packed_matches_dense), then fused_phase: FAMILY_FUSED[0] steps
+    through Trainer.fit at S = FAMILY_S (the ELBO finite and rising), the
+    graph replays bitwise equal to eager steps, the replay step's ms and
+    the device's busy and idle time, and a profiler window of one chunk in
+    which the first layer's f32 kernels and the 2PL one-pass kernel run as
+    many times a step as in eager steps (S each). The eager steps'
+    launches by layout must be the run's row only: row 4 under chol and
+    laplace, row 3 under the item encoder (diagonal)."""
+    from vibo_tpu_torch.ops import _build
+    out = {}
+    for tag, extra, layout in FAMILY_RUNS:
+        agree = family_packed_matches_dense(extra)
+        res = fused_phase(f"family_{tag}", family_config(extra), data, smi,
+                          FAMILY_PATH, *FAMILY_FUSED, samples=FAMILY_S,
+                          profile_chunks=FAMILY_PROFILE_CHUNKS)
+        by = dict(_build.KERNELS["loglik_2pl_train"].launches_by)
+        row = {"phase": "family", "family": tag, "config": extra,
+               "packed_vs_dense": agree, "hidden": FAMILY_H,
+               "samples": FAMILY_S, "loglik_launches_by_layout": by,
+               "row": FAMILY_ROWS[layout], **res, "card": smi}
+        emit(row)
+        if set(by) != {layout}:
+            raise AssertionError(f"family {tag} launched the one-pass op in "
+                                 f"the layouts {by}, not {layout} only")
+        out[tag] = row
+    return out
+
+
 # ------------------------------------------------------------ the CLI phases
 
 REPO_DIR = Path(__file__).resolve().parent
@@ -3219,6 +3374,24 @@ CLI_DEEP = ("train", "synthetic-nonlinear", "--num-persons", "2000",
             "deep", "--epochs", "300", "--eval-every", "100",
             "--iwae-samples", "100", "--restarts", "2",
             "--num-posterior-samples", "5")   # run_benchmark_configs.sh:77-79
+CLI_K2NUTS = ("compare", "synthetic-2pl", "--num-persons", "2000",
+              "--num-items", "200", "--ability-dim", "2", "--epochs", "500",
+              "--num-posterior-samples", "5", "--restarts", "2",
+              "--condition-on", "stats", "--theta-posterior", "laplace-w",
+              "--methods", "mle,em,hmc", "--hmc-warmup", "800",
+              "--hmc-samples", "1200", "--hmc-chains", "4",
+              "--hmc-trajectory", "nuts", "--hmc-tree-depth", "7",
+              "--hmc-target-accept", "0.8", "--hmc-cache",
+              str(REPO_DIR / "artifacts" / "gold" / "k2-nuts"))
+                                          # run_benchmark_configs.sh:104-111
+# laplace-w at K = 2 runs theta (B, K): the 2PL one-pass kernel of row 4
+CLI_K2NUTS_KERNELS = ("first_layer_fwd_f32", "first_layer_bwd_f32",
+                      "loglik_2pl_train")
+CLI_ITEMS = ("train", "synthetic-2pl", "--num-persons", "2000",
+             "--num-items", "200", "--item-encoder", "--eval-new-items",
+             "0.1")
+CLI_ITEMS_KERNELS = ("first_layer_fwd_f32", "first_layer_bwd_f32",
+                     "loglik_2pl_train")
 # the JAX package's values and the allowed distance (the port draws other
 # random streams): a tuple holds the JAX CLI's own runs of the command on
 # the CPU at training seeds 0-3 (tests/cli_reference.jsonl, written by
@@ -3473,17 +3646,162 @@ def cli_deep(smi: str) -> dict:
     return out
 
 
+def reference_spread(name: str) -> dict:
+    """{key: (values, ...)} of the JAX CLI's runs of the reference `name`
+    at training seeds 0-3 (tests/cli_reference.jsonl)."""
+    with open(REPO_DIR / "tests" / "cli_reference.jsonl") as f:
+        line = next(x for x in map(json.loads, f) if x["reference"] == name)
+    runs = list(line["by_training_seed"].values())
+    return {k: tuple(r[k] for r in runs) for k in runs[0]}
+
+
+# the tolerance each key of a reference's seed spread is widened by
+CLI_K2NUTS_TOL = {"heldout_acc": 0.01, "theta_vs_hmc": 0.005,
+                  "sigma_vs_hmc": 0.03, "laplace_sigma_vs_hmc": 0.02,
+                  "b_vs_hmc": 0.01, "a_vs_hmc": 0.01}
+CLI_ITEMS_TOL = {"heldout_acc": 0.01, "new_item_acc": 0.02,
+                 "new_item_base_rate": 0.0}
+# the k2-nuts baselines, JAX's own run of the command (the port's MLE and
+# EM are plain PyTorch, the HMC row the cached gold)
+CLI_K2NUTS_BASELINES = {
+    "mle": {"heldout_acc": (0.7194, 0.005), "theta_vs_hmc_min": 0.995},
+    "em": {"heldout_acc": (0.7197, 0.002), "theta_vs_hmc_min": 0.997},
+    "hmc": {"heldout_acc": (0.71965, 0.00001)}}
+
+
+def spread_gates(name: str, tol: dict) -> dict:
+    return {k: (v, tol[k]) for k, v in reference_spread(name).items()}
+
+
+def cli_k2nuts(smi: str) -> dict:
+    """The k2-nuts sweep (run_benchmark_configs.sh:104-111) in process:
+    VIBO under stats + laplace-w (2 restarts, S = 5; use_pallas: the f32
+    first layer and the 2PL one-pass op on theta (B, K), row 4), MLE, EM,
+    and the HMC row from the committed artifacts/gold/k2-nuts cache, which
+    must be a hit that writes nothing. Every VIBO key is gated on the JAX
+    CLI's seed spread widened by CLI_K2NUTS_TOL."""
+    from vibo_tpu_torch import cli
+    from vibo_tpu_torch.ops import _build
+
+    artifacts = REPO_DIR / "artifacts"
+    before = files_digest(artifacts)
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    table = cli.main(list(CLI_K2NUTS))
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    by = dict(_build.KERNELS["loglik_2pl_train"].launches_by)
+    rows = {r["method"]: r for r in table}
+    out = {"phase": "cli_k2nuts", "command": " ".join(CLI_K2NUTS),
+           "seconds": seconds, "rows": table,
+           "row_seconds": {m: r["seconds"] for m, r in rows.items()},
+           "artifacts_unchanged": files_digest(artifacts) == before,
+           "launches": {k: v for k, v in launches.items() if v},
+           "loglik_launches_by_layout": by, "card": smi}
+    out["gates"] = {"vibo": gate(rows["vibo"],
+                                 spread_gates("k2nuts", CLI_K2NUTS_TOL)),
+                    **{m: gate(rows[m], g)
+                       for m, g in CLI_K2NUTS_BASELINES.items()}}
+    emit(out)
+    check_path("cli_k2nuts", launches, CLI_K2NUTS_KERNELS)
+    if not (gates_hold(out["gates"]) and rows["hmc"].get("cached") is True
+            and out["artifacts_unchanged"] and set(by) == {"bk"}
+            and [r["method"] for r in table] == ["vibo", "mle", "em",
+                                                 "hmc"]):
+        raise AssertionError(f"cli_k2nuts: {out}")
+    return out
+
+
+def cli_items(smi: str, tmp: Path) -> dict:
+    """The item encoder's cold start through the command line, in process:
+    CLI_ITEMS with --out-dir (10 % of the items held out by split_items,
+    the rest trained on with the item encoder: use_pallas, the f32 first
+    layer and the 2PL one-pass op on theta (K, B), row 3), its held-out and
+    new_item_acc gated on the JAX CLI's seed spread; then `score --items`
+    of the held-out columns (their train-visible cells) from its best.npz,
+    bitwise equal to AbilityScorer.from_checkpoint(best).score_items,
+    finite, with positive sds and no kernel launched."""
+    import argparse
+
+    from vibo_tpu_torch import cli
+    from vibo_tpu_torch.data.masking import split_items
+    from vibo_tpu_torch.ops import _build
+    from vibo_tpu_torch.serve import AbilityScorer
+
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.main([*CLI_ITEMS, "--out-dir", str(tmp / "items")])
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    by = dict(_build.KERNELS["loglik_2pl_train"].launches_by)
+    check_path("cli_items train", launches, CLI_ITEMS_KERNELS)
+    # the held-out columns, as cmd_train split them
+    ns = argparse.Namespace(dataset="synthetic-2pl", num_persons=2000,
+                            num_items=200, ability_dim=1, num_categories=5,
+                            artificial_missing_perc=0.1, missing_rate=0.0,
+                            data_dir=None, seed=0, irt_model="2pl")
+    _, new_ds = split_items(cli._load(ns)[0], test_frac=0.1, seed=0)
+    np.savez(tmp / "new_items.npz", response=new_ds.response,
+             mask=new_ds.train_mask)
+    ckpt = str(tmp / "items" / "best.npz")
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    score = cli.main(["score", "--checkpoint", ckpt, "--input",
+                      str(tmp / "new_items.npz"), "--items", "--output",
+                      str(tmp / "items_scored.npz")])
+    score_s = time.perf_counter() - t1
+    score_launches = launch_counts()
+    with np.load(tmp / "items_scored.npz") as z:
+        got = {k: z[k] for k in z.files}
+    direct = AbilityScorer.from_checkpoint(ckpt).score_items(
+        new_ds.response, new_ds.train_mask)
+    out = {"phase": "cli_items", "command": " ".join(CLI_ITEMS),
+           "seconds": seconds, "summary": cli._public(summary),
+           "launches": {k: v for k, v in launches.items() if v},
+           "loglik_launches_by_layout": by,
+           "score_items": {"summary": score, "seconds": score_s,
+                           "shapes": {k: list(v.shape)
+                                      for k, v in got.items()},
+                           "bitwise_vs_scorer": sorted(got) == sorted(direct)
+                           and all(np.array_equal(got[k], direct[k])
+                                   for k in direct),
+                           "finite": all(np.isfinite(v).all()
+                                         for v in got.values()),
+                           "sigma_min": float(min(got[k].min() for k in got
+                                                  if k.endswith("_sigma"))),
+                           "launches": {k: v for k, v in
+                                        score_launches.items() if v}},
+           "card": smi}
+    out["gates"] = gate(summary, spread_gates("items", CLI_ITEMS_TOL))
+    emit(out)
+    check_path("cli_items score", score_launches, ())
+    si = out["score_items"]
+    if not (gates_hold(out["gates"]) and set(by) == {"kb"}
+            and si["bitwise_vs_scorer"] and si["finite"]
+            and si["sigma_min"] > 0
+            and si["shapes"] == {"a_mu": [new_ds.shape[1], 1],
+                                 "a_sigma": [new_ds.shape[1], 1],
+                                 "b_mu": [new_ds.shape[1], 1],
+                                 "b_sigma": [new_ds.shape[1], 1]}):
+        raise AssertionError(f"cli_items: {out}")
+    return out
+
+
 def cli_phases(smi: str) -> dict:
-    """The four CLI phases, in a temporary directory under build/."""
+    """The six CLI phases, in a temporary directory under build/."""
     import tempfile
     scratch = REPO_DIR / "build"
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         tmp = Path(tmp)
         runs = {"cli_cfg1": cli_cfg1(smi, tmp),
-                "cli_score": cli_score(smi, tmp)}
+                "cli_score": cli_score(smi, tmp),
+                "cli_items": cli_items(smi, tmp)}
     runs["cli_compare_grm"] = cli_compare_grm(smi)
     runs["cli_deep"] = cli_deep(smi)
+    runs["cli_k2nuts"] = cli_k2nuts(smi)
     return runs
 
 
@@ -3736,6 +4054,7 @@ def main() -> None:
     minibatch_phase("deep", deep["ds"], smi, deep_config(True), (),
                     must_rise=False)
     emit({"phase": "fused_paths", "card": smi, "paths": fused})
+    families = families_phase(smi, data["2pl"])
     full = {k: v["launches"] for k, v in full.items()}
     hmc_runs = hmc_phases(smi)
     hmc_runs.update(nuts_phases(smi))
@@ -3782,7 +4101,14 @@ def main() -> None:
             "launches (one a chain) a potential evaluation, once for the "
             "MAP's Adam steps and for ll_ref"
             + ("; hmc_nuts_k2: NUTS, the evaluations its trees took"
-               if link == "2pl" else "")))
+               if link == "2pl" else ""),
+            **({"family_launches_by_layout": {
+                tag: r["loglik_launches_by_layout"]
+                for tag, r in families.items()},
+                "family_note": f"the families phase's eager steps (its "
+                "counting window and the capture's warm-up): bk the (B, "
+                f"K) layout (:{bk}, row 4), kb the (K, B) one (:{kb}, "
+                f"row 3), {FAMILY_S} a step"} if link == "2pl" else {})))
     for fam, line in (("grm", 198), ("gpcm", 148)):
         name = LINK_KERNELS[fam]["train"]
         kernels.append(kernel_entry(

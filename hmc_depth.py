@@ -27,10 +27,12 @@ import torch
 
 import chip_smoke as cs
 
-DEPTHS = {"k4": [(30, 30, 64), (50, 50, 64), (75, 75, 64), (100, 100, 64)],
-          "grm": [(50, 50, 64), (100, 100, 64), (30, 30, 32), (50, 50, 32),
-                  (75, 75, 32), (100, 100, 32)],
-          **{gold: [(30, 30), (40, 40), (50, 50), (75, 75), (100, 100)]
+DEPTHS = {"k4": [(20, 20, 64), (30, 30, 64), (50, 50, 64), (75, 75, 64),
+                 (100, 100, 64)],
+          "grm": [(50, 50, 64), (100, 100, 64), (20, 20, 32), (30, 30, 32),
+                  (50, 50, 32), (75, 75, 32), (100, 100, 32)],
+          **{gold: [(20, 20), (30, 30), (40, 40), (50, 50), (75, 75),
+                    (100, 100)]
              for gold in cs.NUTS_GOLDS}}
 
 

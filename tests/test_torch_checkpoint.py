@@ -362,3 +362,68 @@ def test_from_checkpoint_matches_jax(tmp_path, irt_model):
     with pytest.raises(ValueError, match="cannot be resumed"):
         Trainer(model, TrainConfig(epochs=1), device="cpu").fit(ds,
                                                                 resume=jpath)
+
+
+@pytest.mark.parametrize("family", [
+    dict(theta_posterior="chol", condition_on="stats"),
+    dict(theta_posterior="laplace-w", condition_on="stats"),
+    dict(theta_posterior="laplace", condition_on="mean"),
+    dict(theta_posterior="chol", item_encoder=True, item_encoder_hidden=8)])
+def test_from_checkpoint_families_match_jax(tmp_path, family):
+    """A JAX Trainer checkpoint of each posterior and conditioning family
+    (K = 2) loads in the port's from_checkpoint by its embedded config
+    and scores new students as JAX's scorer does (the marginal sds of the
+    full covariance; the item encoder's posterior from each padded
+    scoring batch), at 1e-5."""
+    _, ds = _data(64, M, k=2, seed=6)
+    jcfg = JConfig(num_items=M, hidden_dim=16, ability_dim=2, **family)
+    JTrainer(JVIBO(jcfg), JTrainConfig(lr=1e-2, epochs=4, eval_every=2,
+                                       out_dir=str(tmp_path))).fit(ds)
+    jpath = str(tmp_path / "best.npz")
+    rng = np.random.default_rng(1)
+    resp = (rng.random((30, M)) < 0.5).astype(np.float32)
+    mask = (rng.random((30, M)) < 0.8).astype(np.float32)
+    want = JScorer.from_checkpoint(jpath, pad_multiple=16).score(resp, mask)
+    scorer = AbilityScorer.from_checkpoint(jpath, device="cpu",
+                                           pad_multiple=16)
+    assert dataclasses.asdict(scorer.model.cfg) == dataclasses.asdict(jcfg)
+    got = scorer.score(resp, mask)
+    for key in ("theta_mu", "theta_sigma", "prob"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_warm_start_diag_to_chol_matches_jax():
+    """The diag -> chol widening: the port's transplant of a diagonal
+    family's params into a chol init equals JAX's transplant of the same
+    params into the same init (the head's Cholesky columns zero-filled),
+    and the widened model's encoder output has off == 0 and the source's
+    (mu, logvar)."""
+    from vibo_tpu.train import checkpoint as jckpt
+    kw = dict(num_items=M, hidden_dim=16, ability_dim=3,
+              condition_on="stats")
+    src_j = JVIBO(JConfig(**kw)).init_params(jax.random.key(3))
+    dst_j = JVIBO(JConfig(theta_posterior="chol", **kw)).init_params(
+        jax.random.key(4))
+    jckpt.check_transplant_compat(dataclasses.asdict(JConfig(**kw)),
+                                  JConfig(theta_posterior="chol", **kw))
+    ckpt.check_transplant_compat(dataclasses.asdict(VIBOConfig(**kw)),
+                                 VIBOConfig(theta_posterior="chol", **kw))
+    want = jckpt.transplant_params(src_j, dst_j)
+    src = params_from_jax(jax.tree.map(np.asarray, src_j), "cpu")
+    got = ckpt.transplant_params(
+        src, params_from_jax(jax.tree.map(np.asarray, dst_j), "cpu"))
+    gl, wl = tree_leaves(got), jax.tree.leaves(want)
+    assert len(gl) == len(wl)
+    for g, w in zip(gl, wl):
+        np.testing.assert_array_equal(g.detach().numpy(), np.asarray(w))
+    _, ds = _data(40, M, k=3, seed=7)
+    mu_s, lv_s, off_s = _encode(VIBO(VIBOConfig(**kw), device="cpu"), src, ds)
+    mu_d, lv_d, off_d = _encode(
+        VIBO(VIBOConfig(theta_posterior="chol", **kw), device="cpu"), got, ds)
+    assert off_s is None and off_d.shape == (40, 3)
+    assert torch.equal(off_d, torch.zeros_like(off_d))
+    np.testing.assert_allclose(mu_d.detach().numpy(), mu_s.detach().numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(lv_d.detach().numpy(), lv_s.detach().numpy(),
+                               atol=1e-6)

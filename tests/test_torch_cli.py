@@ -11,8 +11,11 @@ package's `baseline --method hmc --out-dir` is read by the other's
 b_vs_hmc and a_vs_hmc on a cached row, JAX does not); a dataset, shape,
 seed or deep-decoder mismatch refuses the cache. `score` from a JAX-written
 checkpoint (a CSV dataset, so with a vocabulary) equals JAX's from a long
-CSV and from an .npz. `--profile` writes a trace; the posterior families
-not ported yet raise NotImplementedError."""
+CSV and from an .npz. `--profile` writes a trace. The posterior and
+conditioning families (--theta-posterior chol/laplace/laplace-w,
+--condition-on stats, --item-encoder with --eval-new-items) give JAX's
+train summaries, and `score --items` JAX's cold-start posteriors from a
+checkpoint of either package."""
 
 import argparse
 import csv
@@ -111,8 +114,8 @@ def _port_fit_from(monkeypatch, res):
 def _replay_eval(monkeypatch, seed, jparams, k, steps=None):
     """Feed the port's IWAE (key seed + 1, split per block) and refinement
     (key(0), fold_in per block) JAX's draws."""
-    shapes = {name: tuple(np.shape(p["mu"]))
-              for name, p in jparams["item_post"].items()}
+    items = jparams.get("item_post") or jparams["item_resid"]
+    shapes = {name: tuple(np.shape(p["mu"])) for name, p in items.items()}
     orig_iwae = evaluation.iwae_loglik
     orig_refine = evaluation.refine_theta_posterior
 
@@ -395,23 +398,111 @@ def test_timer_and_throughput_match_jax():
     assert prof.peak_hbm_bytes("cpu") is None
 
 
-@pytest.mark.parametrize("flags,error", [
-    (["--theta-posterior", "chol"], NotImplementedError),
-    (["--condition-on", "stats"], NotImplementedError),
-    (["--item-encoder"], NotImplementedError),
-    (["--eval-new-items", "0.2"], SystemExit),
+@pytest.mark.parametrize("flags,k", [
+    (["--theta-posterior", "chol", "--iwae-samples", "4",
+      "--refine-theta", "3"], 2),
+    (["--condition-on", "stats", "--theta-posterior", "laplace-w"], 2),
+    (["--condition-on", "stats", "--theta-posterior", "laplace",
+      "--irt-model", "3pl"], 2),
+    (["--item-encoder", "--iwae-samples", "4"], 2),
+    (["--item-encoder", "--theta-posterior", "chol", "--eval-new-items",
+      "0.25"], 2),
 ])
-def test_unported_flags_raise(flags, error):
-    with pytest.raises(error):
+def test_family_flags_match_jax(flags, k, monkeypatch):
+    """Each family flag through both command lines on the CPU: JAX trains,
+    the port scores JAX's params (every summary key and underscore array,
+    _theta_scale_tril among them where the family has one)."""
+    argv = ["train", "synthetic-2pl", *SMALL, "--ability-dim", str(k),
+            *flags]
+    fits = []
+    want = _jax_run(argv, monkeypatch, fits)
+    _port_fit_from(monkeypatch, fits[-1])
+    _replay_eval(monkeypatch, 0, fits[0]["params"], k)
+    got = cli.main([*argv, "--cpu"])
+    _summaries_agree(got, want)
+    split = "--eval-new-items" in flags     # no whole-matrix summaries
+    assert ("_theta_scale_tril" in got) == ("--theta-posterior" in flags
+                                            and not split)
+    assert ("new_item_acc" in got) == split
+
+
+def test_unported_flags_raise():
+    with pytest.raises(SystemExit):
         cli.main(["train", "synthetic-2pl", "--num-persons", "40",
-                  "--num-items", "8", "--epochs", "1", *flags, "--cpu"])
+                  "--num-items", "8", "--epochs", "1", "--eval-new-items",
+                  "0.2", "--cpu"])
+
+
+@pytest.fixture(scope="module")
+def item_checkpoints(tmp_path_factory):
+    """An item-encoder run's best.npz written by each package's `train
+    --out-dir`, and a matrix of new items' columns."""
+    tmp = tmp_path_factory.mktemp("items")
+    argv = ["train", "synthetic-2pl", "--num-persons", "80", "--num-items",
+            "12", "--epochs", "4", "--eval-every", "2", "--hidden-dim", "16",
+            "--ability-dim", "2", "--item-encoder"]
+    jcli.main([*argv, "--out-dir", str(tmp / "jax"), "--cpu"])
+    cli.main([*argv, "--out-dir", str(tmp / "port"), "--cpu"])
+    rng = np.random.default_rng(5)
+    resp = (rng.random((37, 5)) < 0.6).astype(np.float32)
+    mask = (rng.random((37, 5)) < 0.85).astype(np.float32)
+    np.savez(tmp / "new_items.npz", response=resp, mask=mask)
+    return tmp
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_score_items_matches_jax(item_checkpoints, side):
+    """`score --items` from each package's checkpoint: the port's output
+    against JAX's own command (a JAX checkpoint) or JAX's item encoder on
+    the port's params (a port checkpoint, which JAX cannot load)."""
+    from vibo_tpu.models import VIBO as JVIBO, VIBOConfig as JConfig
+    from vibo_tpu_torch.convert import params_to_numpy
+    from vibo_tpu_torch.serve import AbilityScorer
+    tmp = item_checkpoints
+    ckpt = str(tmp / side / "best.npz")
+    inp = str(tmp / "new_items.npz")
+    out = str(tmp / f"{side}_port_items.npz")
+    summary = cli.main(["score", "--checkpoint", ckpt, "--input", inp,
+                        "--items", "--output", out, "--cpu"])
+    assert summary["mode"] == "items" and summary["num_new_items"] == 5
+    with np.load(out) as z:
+        got = {k: z[k] for k in z.files}
+    if side == "jax":
+        jout = str(tmp / "jax_jax_items.npz")
+        want = jcli.main(["score", "--checkpoint", ckpt, "--input", inp,
+                          "--items", "--output", jout])
+        assert want["params"] == summary["params"]
+        with np.load(jout) as z:
+            want = {k: z[k] for k in z.files}
+    else:
+        scorer = AbilityScorer.from_checkpoint(ckpt, device="cpu")
+        cfg = scorer.model.cfg
+        jm = JVIBO(JConfig(**{f: getattr(cfg, f) for f in (
+            "num_items", "irt_model", "ability_dim", "hidden_dim",
+            "item_encoder", "item_encoder_hidden")}))
+        with np.load(inp) as z:
+            post = jm.item_dist(params_to_numpy(scorer.params),
+                                jax.numpy.asarray(z["response"]),
+                                jax.numpy.asarray(z["mask"]), new_items=True)
+        want = {}
+        for name, p in post.items():
+            want[f"{name}_mu"] = np.asarray(p["mu"])
+            want[f"{name}_sigma"] = np.exp(0.5 * np.asarray(p["logvar"]))
+    assert sorted(got) == sorted(want) == ["a_mu", "a_sigma", "b_mu",
+                                           "b_sigma"]
+    for key in want:
+        assert got[key].shape == want[key].shape
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_score_items_and_the_card_raise(jax_checkpoint):
     tmp, _ = jax_checkpoint
-    with pytest.raises(NotImplementedError, match="item encoder"):
+    # the free-form item posterior has no parameters for unseen items
+    np.savez(tmp / "cols.npz", response=np.zeros((3, 2), np.float32))
+    with pytest.raises(ValueError, match="item_encoder"):
         cli.main(["score", "--checkpoint", str(tmp / "run" / "best.npz"),
-                  "--input", "x.npz", "--items", "--cpu"])
+                  "--input", str(tmp / "cols.npz"), "--items", "--cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["train", "synthetic-2pl", "--num-persons", "40",

@@ -96,8 +96,12 @@ def test_out_of_scope_config_raises():
                              deep_fused_kernel=True, deep_hidden_dim=96),
                   device="cpu")
     assert not narrow._use_packed_kernel(narrow.init_params(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VIBOConfig(num_items=4, theta_posterior="chol")
+    # every family of the JAX config is accepted; an unknown one raises
+    for fam in ("chol", "laplace", "laplace-w"):
+        VIBOConfig(num_items=4, theta_posterior=fam, condition_on="stats")
+    VIBOConfig(num_items=4, item_encoder=True)
+    with pytest.raises(ValueError, match="theta_posterior"):
+        VIBOConfig(num_items=4, theta_posterior="full")
     # a field the JAX config does not have is refused
     with pytest.raises(TypeError):
         VIBOConfig(num_items=4, deep_kernel=True)

@@ -60,13 +60,16 @@ def test_split_plan_fills_a_large_matrix_and_keeps_runs_for_small_ones():
 
 
 class _Recorder:
-    """Stands in for a C entry point: keeps its integer arguments."""
+    """Stands in for a C entry point: keeps its arguments and the launch
+    counter's variant."""
 
     def __init__(self):
         self.args = None
+        self.variant = None
 
-    def __call__(self, *args):
+    def __call__(self, *args, variant=None):
         self.args = args
+        self.variant = variant
 
 
 @pytest.fixture
@@ -101,6 +104,8 @@ def test_binary_wrapper_sizes_its_scratch_from_the_plan(link, per_person,
                                   g_hat, torch.zeros((bsz, m), dtype=torch.int8),
                                   torch.zeros((bsz, k)), per_person)
     assert rec.args[-7:-1] == (bsz, m, k, *plan)
+    # the launch is counted by the op it serves: theta (B, K) or (K, B)
+    assert rec.variant == ("bk" if per_person else "kb")
     want = {(plan.splits, bsz, k), (plan.blocks, m, k), (plan.blocks, m),
             (plan.splits, plan.blocks)}
     if per_person:

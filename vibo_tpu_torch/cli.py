@@ -1,7 +1,7 @@
 """Command line of the port (counterpart of `vibo_tpu.cli`, the same
 subcommands, flags, defaults and summary keys): train and evaluate VIBO, run
 the MLE/MAP, EM and HMC baselines, compare them on one split, and score new
-students from a checkpoint.
+students (or new items) from a checkpoint.
 
   python -m vibo_tpu_torch.cli train synthetic-1pl --irt-model 1pl \\
       --num-persons 1000 --num-items 100 --epochs 200 --eval-every 100
@@ -144,9 +144,6 @@ def cmd_train(args):
             f"dataset has {ds.num_categories} response categories but "
             f"--irt-model {args.irt_model}: polytomous data needs grm/gpcm, "
             f"binary data a binary link (1pl/2pl/3pl/deep)")
-    # raises NotImplementedError for the posterior and conditioning
-    # families the port does not have yet (chol, laplace, laplace-w,
-    # condition_on="stats", the item encoder)
     model = VIBO(VIBOConfig(
         num_items=m, irt_model=args.irt_model, ability_dim=args.ability_dim,
         num_categories=ds.num_categories,
@@ -191,7 +188,7 @@ def cmd_train(args):
     hbm = peak_hbm_bytes(dev)
     if hbm is not None:
         summary["peak_hbm_mb"] = round(hbm / 2**20, 1)
-    item_mean = evaluation.full_item_mean(model, params)
+    item_mean = evaluation.full_item_mean(model, params, ds)
     ev = evaluation.imputation_accuracy(model, params, ds,
                                         item_mean=item_mean)
     summary["heldout_acc"] = round(ev["acc"], 4)
@@ -214,17 +211,29 @@ def cmd_train(args):
         summary["new_person_acc"] = round(ev_new["acc"], 4)
         summary["new_person_base_rate"] = round(ev_new["base_rate"], 4)
         summary["new_persons_per_sec"] = round(ev_new["persons_per_sec"], 1)
+    if test_items_ds is not None:
+        ev_ni = evaluation.amortized_new_item_eval(model, params, ds,
+                                                   test_items_ds)
+        summary["new_item_acc"] = round(ev_ni["acc"], 4)
+        summary["new_item_base_rate"] = round(ev_ni["base_rate"], 4)
+        summary["num_new_items"] = ev_ni["num_new_items"]
     if args.irt_model == "deep":
         # the trained decoder, for the deep HMC gold posterior (compare
         # hands it to baseline --method hmc); underscore keys are kept out
         # of the printed summary
         summary["_deep_link"] = params_to_numpy(params["deep_link"])
     if test_ds is None and test_items_ds is None:
-        # sim-truth and cross-method agreement only on the unsplit matrix
-        theta_hat, items, theta_sigma = evaluation.infer_posterior_means(
-            model, params, ds, return_sigma=True)
+        # sim-truth and cross-method agreement only on the unsplit matrix;
+        # a full-covariance family (chol or laplace at K > 1) also hands
+        # on its scale tril for sigma_vs_hmc's frame transport
+        chol = model.cfg.theta_posterior != "diag" and args.ability_dim > 1
+        out_means = evaluation.infer_posterior_means(
+            model, params, ds, return_sigma=True, return_scale_tril=chol)
+        theta_hat, items, theta_sigma = out_means[:3]
         summary["_theta_hat"] = theta_hat
         summary["_theta_sigma"] = theta_sigma
+        if chol:
+            summary["_theta_scale_tril"] = out_means[3]
         if "b" in items:
             summary["_b_hat"] = np.asarray(items["b"])
         if "a" in items:
@@ -599,10 +608,14 @@ def _agreement_vs_hmc(args, rows: list) -> None:
         if "_theta_sigma" in r and "_theta_sd" in hmc_row:
             sig = np.asarray(r["_theta_sigma"])
             if sig.ndim == 2 and sig.shape[1] == ref.shape[1] > 1:
-                # the diagonal family's covariance, transported into the
-                # HMC frame by the means' rotation
-                sig = evaluation.rotate_diag_sigma(
-                    sig, evaluation.procrustes_rotation(r_hat, ref))
+                # the covariance transported into the HMC frame by the
+                # means' rotation: a full-covariance family's whole factor,
+                # the diagonal family's diagonal
+                w = evaluation.procrustes_rotation(r_hat, ref)
+                sig = (evaluation.rotate_tril_sigma(
+                    np.asarray(r["_theta_scale_tril"]), w)
+                    if "_theta_scale_tril" in r
+                    else evaluation.rotate_diag_sigma(sig, w))
             r["sigma_vs_hmc"] = round(evaluation.correlation(
                 sig, hmc_row["_theta_sd"])["pearson"], 4)
         if "_theta_laplace_tril" in r and "_theta_sd" in hmc_row:
@@ -713,6 +726,27 @@ def _read_score_input(args, num_items, vocab):
     return pids, response, mask, unknown
 
 
+def _score_items(args, scorer) -> dict:
+    """score --items: the item encoder's cold-start posteriors of the
+    unseen items in --input (an .npz of response and, optionally, mask;
+    its columns are the new items), as the JAX CLI gives them."""
+    with np.load(args.input) as data:
+        response = np.asarray(data["response"], np.float32)
+        mask = (np.asarray(data["mask"], np.float32) if "mask" in data
+                else np.ones_like(response))
+    t0 = time.perf_counter()
+    out = scorer.score_items(response, mask)
+    summary = {"checkpoint": args.checkpoint, "mode": "items",
+               "num_new_items": int(response.shape[1]),
+               "seconds": round(time.perf_counter() - t0, 3),
+               "params": sorted(out)}
+    if args.output:
+        np.savez(args.output, **out)
+        summary["output"] = args.output
+    print(json.dumps(summary))
+    return summary
+
+
 def cmd_score(args):
     """Serving: batched amortized scoring of new students from a trained
     checkpoint (either package's; serve.AbilityScorer), in batches of
@@ -720,13 +754,10 @@ def cmd_score(args):
     from vibo_tpu_torch.serve import AbilityScorer
     from vibo_tpu_torch.train import checkpoint as ckpt_mod
 
-    if args.items:
-        raise NotImplementedError(
-            "score --items (new-item cold start) needs the amortized item "
-            "encoder, not ported yet (ROADMAP's 'Posterior and "
-            "conditioning families')")
     scorer = AbilityScorer.from_checkpoint(args.checkpoint,
                                            device=_device(args))
+    if args.items:
+        return _score_items(args, scorer)
     num_items = scorer.model.cfg.num_items
     extra = ckpt_mod.peek_extra(args.checkpoint)
     vocab = None
@@ -808,16 +839,20 @@ def main(argv=None):
     t.add_argument("--theta-posterior", default="diag",
                    choices=["diag", "chol", "laplace", "laplace-w"],
                    dest="theta_posterior",
-                   help="ability-posterior covariance family (the port has "
-                        "diag; the others raise NotImplementedError)")
+                   help="ability-posterior covariance family: independent "
+                        "per-dim Gaussians, full covariance by a Cholesky "
+                        "head, or the Fisher-anchored covariance "
+                        "(unweighted, or weighted by the expected Fisher "
+                        "weight at the head's mean)")
     t.add_argument("--condition-on", default="sample",
                    choices=["sample", "mean", "stats"], dest="condition_on",
                    help="conditional posterior input: the item draw, the "
-                        "item-posterior means, or (not ported yet) the "
-                        "draw's sufficient statistics")
+                        "item-posterior means, or the draw's sufficient "
+                        "statistics")
     t.add_argument("--item-encoder", action="store_true",
-                   help="amortized item posterior (not ported yet: raises "
-                        "NotImplementedError)")
+                   help="amortize q(d_j|r_col) from column statistics "
+                        "(enables new-item cold start) instead of free "
+                        "per-item Gaussians")
     t.add_argument("--eval-new-items", type=float, default=0.0,
                    help="hold out this fraction of ITEMS and score them "
                         "cold-start (requires --item-encoder)")
@@ -929,8 +964,9 @@ def main(argv=None):
                    help="write person_ids + theta_mu/theta_sigma/prob to "
                         "this .npz")
     s.add_argument("--items", action="store_true",
-                   help="new-ITEM cold start (needs the item encoder, not "
-                        "ported yet: raises NotImplementedError)")
+                   help="new-ITEM cold start: input columns (an .npz of "
+                        "response and mask) are unseen items; needs a model "
+                        "trained with --item-encoder")
     s.add_argument("--batch-size", type=int, default=4096)
     s.add_argument("--refine-theta", type=int, default=0, metavar="STEPS",
                    dest="refine_theta",

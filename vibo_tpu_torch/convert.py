@@ -15,6 +15,17 @@ adds the link's own tree
                    "layer2": {"w": (H, H), "b": (H,)},
                    "out": {"w": (H, 1), "b": (1,)}}),
 
+With the amortized item encoder (item_encoder=True) "item_post" gives way
+to the encoder's layers and the training items' residuals,
+
+     "item_enc":   [{"w": (6, Hi), "b": (Hi,)}, {"w": (Hi, Hi), ...},
+                    {"w": (Hi, 2 D), "b": (2 D,)}],   D = sum of the widths
+     "item_resid": {"a": {"mu": (M, K), "logvar": (M, K)}, "b": ...},
+
+and the encoder's first layer has 2M + F input rows, F the conditioning's
+width (M times the item widths under condition_on "sample"/"mean", Fr + Fm
+under "stats", 0 under mean-field); its head 2K outputs, 2K + K(K-1)/2 under
+theta_posterior "chol" at K > 1. The walk below carries every such tree,
 so a tree of numpy arrays (`jax.tree.map(np.asarray, params)`) crosses in
 either direction unchanged. Leaves are float32 tensors that require grad.
 """

@@ -1,9 +1,9 @@
 """Evaluation suite (counterpart of `vibo_tpu.evaluation`, single device):
 held-out imputation accuracy and calibration, the posterior means, the IWAE
-test log-likelihood, the amortized new-person eval, the Laplace (Fisher)
-widths of theta, per-person SVI refinement of q(theta), and the latent-space
-comparisons of recovery and of posteriors across methods (numpy and scipy,
-as in JAX's module).
+test log-likelihood, the amortized new-person and new-item evals, the
+Laplace (Fisher) widths of theta, per-person SVI refinement of q(theta),
+and the latent-space comparisons of recovery and of posteriors across
+methods (numpy and scipy, as in JAX's module).
 
 Protocol (arXiv:2002.00276 sections 6.3-6.4): encode each person's
 train-visible responses; push the posterior-mean ability and the
@@ -54,9 +54,9 @@ def imputation_accuracy(model: VIBO, params, ds: Dataset,
     categories), "num_heldout"} over ds.heldout_mask, in person blocks of
     block_size on the model's device; grm/gpcm accuracy is the exact
     category match. item_mean: optional precomputed item means (default:
-    the posterior's)."""
+    full_item_mean on this dataset's train-visible matrix)."""
     if item_mean is None:
-        item_mean = model.item_posterior_mean(params)
+        item_mean = full_item_mean(model, params, ds)
     dev = model.device
     cats = model.cfg.num_categories
     correct, total = 0.0, 0.0
@@ -83,19 +83,26 @@ def imputation_accuracy(model: VIBO, params, ds: Dataset,
             "num_heldout": int(total)}
 
 
-def full_item_dist(model: VIBO, params) -> dict:
-    """The item posterior every evaluation shares. Free-form (the port's
-    scope) it does not depend on the data; the amortized item encoder that
-    pools the dataset's columns comes with ROADMAP's "Posterior and
-    conditioning families"."""
-    return model.item_dist(params)
+@torch.no_grad()
+def full_item_dist(model: VIBO, params, ds: Dataset) -> dict:
+    """The item posterior every evaluation shares: free-form, the params'
+    own; amortized (item_encoder), the encoder on the column statistics of
+    ds's whole train-visible matrix (every training person, whatever the
+    person blocking)."""
+    if not model.cfg.item_encoder:
+        return model.item_dist(params)
+    dev = model.device
+    resp, tmask = (torch.from_numpy(np.ascontiguousarray(x, np.float32)
+                                    ).to(dev)
+                   for x in (ds.response, ds.train_mask))
+    return model.item_dist(params, resp, tmask)
 
 
-def full_item_mean(model: VIBO, params) -> dict:
+def full_item_mean(model: VIBO, params, ds: Dataset) -> dict:
     """The item posterior's means (full_item_dist's "mu" of each item
     parameter)."""
-    return {name: p["mu"] for name, p in full_item_dist(model,
-                                                        params).items()}
+    return {name: p["mu"]
+            for name, p in full_item_dist(model, params, ds).items()}
 
 
 @torch.no_grad()
@@ -106,15 +113,16 @@ def infer_posterior_means(model: VIBO, params, ds: Dataset,
     of numpy), the encoder conditioned on each person's train-visible
     responses and the item means, in person blocks of block_size (the last
     zero-padded, its padded rows dropped). return_sigma also returns the
-    (N, K) posterior standard deviations; return_scale_tril (implies
-    return_sigma) also the (N, K, K) Cholesky factor of the posterior
-    covariance, diag(sigma) for the diagonal family."""
-    item_mean = full_item_mean(model, params)
+    (N, K) marginal posterior standard deviations (the row norms of the
+    covariance's Cholesky factor); return_scale_tril (implies
+    return_sigma) also the (N, K, K) Cholesky factor itself
+    (dist.tril_matrix), diag(sigma) for the diagonal family."""
+    item_mean = full_item_mean(model, params, ds)
     dev = model.device
     n = ds.response.shape[0]
     rows = min(n, block_size)
     return_sigma = return_sigma or return_scale_tril
-    thetas, sigmas = [], []
+    thetas, sigmas, trils = [], [], []
     for s in range(0, n, rows):
         e = min(s + rows, n)
         resp, tmask = (_rows_f32(x, s, e, rows, dev)
@@ -123,14 +131,14 @@ def infer_posterior_means(model: VIBO, params, ds: Dataset,
         thetas.append(mu.cpu().numpy())
         if return_sigma:
             sigmas.append(dist.tril_marginal_sigma(logvar, off).cpu().numpy())
+        if return_scale_tril:
+            trils.append(dist.tril_matrix(logvar, off).cpu().numpy())
     out = (np.concatenate(thetas, 0)[:n],
            {k: v.detach().cpu().numpy() for k, v in item_mean.items()})
     if return_sigma:
         out = out + (np.concatenate(sigmas, 0)[:n],)
     if return_scale_tril:
-        sigma = out[2]
-        out = out + (sigma[:, :, None] * np.eye(sigma.shape[1],
-                                                dtype=sigma.dtype),)
+        out = out + (np.concatenate(trils, 0)[:n],)
     return out
 
 
@@ -149,20 +157,27 @@ def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
     rows have no evaluated cell and drop out of every term. Each block's
     bound counts the shared item terms with item_scale = real rows / N, so
     they sum to exactly one count over the dataset. The model runs with
-    use_pallas=False, as the JAX evaluator does; samples run in chunks of
-    at most 10 to bound the (chunk, B, M) logits, and for the deep link of
-    as many as keep one (chunk, B, deep_item_chunk, H) f32 activation of the
-    plain link within _DEEP_CHUNK_BYTES (the bound's value does not depend
-    on the chunking).
+    use_pallas=False and its encoder conditioned on each sample's item
+    draw (condition_on "mean" too), as the JAX evaluator does; samples run
+    in chunks of at most 10 to bound the (chunk, B, M) logits, and for the
+    deep link of as many as keep one (chunk, B, deep_item_chunk, H) f32
+    activation of the plain link within _DEEP_CHUNK_BYTES (the bound's
+    value does not depend on the chunking).
 
     Noise: noise(block_index, rows) -> (item_eps {name: (S, M, D)},
     theta_eps (S, rows, K)) when given (the tests replay the JAX keys
     through it), else model.sample_noise drawn from `generator`."""
     if on not in ("heldout", "train"):
         raise ValueError(f"on must be 'heldout' or 'train', got {on!r}")
-    if model.cfg.use_pallas:
-        model = VIBO(dataclasses.replace(model.cfg, use_pallas=False),
-                     device=model.device)
+    cfg = model.cfg
+    if cfg.use_pallas or cfg.condition_on == "mean":
+        # JAX's evaluator conditions the encoder on each sample's item draw
+        # whatever condition_on says (vibo_tpu/evaluation.py:272), so
+        # "mean" is scored as "sample" (the same params)
+        model = VIBO(dataclasses.replace(
+            cfg, use_pallas=False,
+            condition_on=("sample" if cfg.condition_on == "mean"
+                          else cfg.condition_on)), device=model.device)
     dev = model.device
     n = ds.response.shape[0]
     rows = n if n <= block_size else block_size
@@ -174,7 +189,7 @@ def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
     chunk = max(d for d in range(1, min(num_samples, cap) + 1)
                 if num_samples % d == 0)
     emask_host = ds.train_mask if on == "train" else ds.heldout_mask
-    post = full_item_dist(model, params)
+    post = full_item_dist(model, params, ds)
     total, cells = 0.0, 0.0
     for bi, s in enumerate(range(0, n, rows)):
         e = min(s + rows, n)
@@ -217,6 +232,47 @@ def amortized_new_person_eval(model: VIBO, params, test_ds: Dataset,
     out["warm_seconds"] = time.perf_counter() - t0
     out["warm_persons_per_sec"] = n / max(out["warm_seconds"], 1e-9)
     return out
+
+
+@torch.no_grad()
+def amortized_new_item_eval(model: VIBO, params, train_ds: Dataset,
+                            test_ds: Dataset, block_size: int = 4096) -> dict:
+    """Cold start on NEW items (the dual of amortized_new_person_eval):
+    the item encoder alone (new_items=True, no residuals) infers the
+    posteriors of test_ds's columns from their train-visible cells, and
+    those items' held-out cells are predicted (p > 0.5) from the abilities
+    inferred on the TRAIN items (infer_posterior_means on train_ds). Needs
+    item_encoder=True; train_ds / test_ds are data.masking.split_items'
+    column split (same persons, disjoint items). Returns acc, base_rate
+    (majority class), num_heldout, num_new_items, seconds, items_per_sec."""
+    if not model.cfg.item_encoder:
+        raise ValueError(
+            "amortized_new_item_eval needs item_encoder=True: the free-form "
+            "item posterior has no parameters for unseen items")
+    dev = model.device
+    t0 = time.perf_counter()
+    resp, tmask, hmask = (
+        torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+        for x in (test_ds.response, test_ds.train_mask,
+                  test_ds.heldout_mask))
+    post = model.item_dist(params, resp, tmask, new_items=True)
+    item_mean = {name: p["mu"] for name, p in post.items()}
+    theta = torch.from_numpy(np.asarray(infer_posterior_means(
+        model, params, train_ds, block_size)[0], np.float32)).to(dev)
+    correct = total = ones = 0.0
+    for s, e in _person_blocks(test_ds.response.shape[0], block_size):
+        prob = model.response_prob(params, theta[s:e], item_mean)
+        pred = (prob > 0.5).float()
+        h = hmask[s:e]
+        correct += float((h * (pred == resp[s:e])).sum())
+        total += float(h.sum())
+        ones += float((h * resp[s:e]).sum())
+    seconds = time.perf_counter() - t0
+    return {"acc": correct / max(total, 1.0),
+            "base_rate": max(ones, total - ones) / max(total, 1.0),
+            "num_heldout": int(total), "num_new_items": test_ds.shape[1],
+            "seconds": seconds,
+            "items_per_sec": test_ds.shape[1] / max(seconds, 1e-9)}
 
 
 # ---------------------------------------------------------------- calibration
@@ -266,7 +322,7 @@ def calibration(model: VIBO, params, ds: Dataset, bins: int = 10,
     3 bins + 1 numbers (_calib_stats); the probabilities stay on the
     device."""
     if item_mean is None:
-        item_mean = model.item_posterior_mean(params)
+        item_mean = full_item_mean(model, params, ds)
     dev = model.device
     total = np.zeros(3 * bins + 1)
     for s in range(0, ds.response.shape[0], block_size):
@@ -299,7 +355,7 @@ def laplace_theta_sigma(model: VIBO, params, ds: Dataset,
         raise ValueError(
             f"laplace_theta_sigma: unknown link {cfg.irt_model!r}")
     items = {k: v.detach().cpu().numpy()
-             for k, v in full_item_mean(model, params).items()}
+             for k, v in full_item_mean(model, params, ds).items()}
     if theta is None:
         theta = infer_posterior_means(model, params, ds,
                                       block_size=block_size)[0]
@@ -482,10 +538,12 @@ def _refine_loglik(irt_model: str, items: dict, deep, theta, resp, tmask):
 def refine_block(irt_model: str, items: dict, deep, resp, tmask, mu0,
                  logvar0, steps: int, lr: float, num_samples: int,
                  noise: tuple | None = None,
-                 generator: torch.Generator | None = None):
-    """Per-person SVI of q(theta) = N(mu, diag(exp(logvar))) for one block,
-    from (mu0, logvar0): `steps` Adam steps (optax.adam(lr)'s form: betas
-    0.9, 0.999, eps 1e-8, no clipping) over the (B, K) block on each
+                 generator: torch.Generator | None = None, off0=None):
+    """Per-person SVI of q(theta) = N(mu, L L^T) for one block, from (mu0,
+    logvar0, off0) (off0 None: the diagonal family, L = diag(exp(logvar /
+    2)); else the Cholesky entries, refined too): `steps` Adam steps
+    (optax.adam(lr)'s form: betas 0.9, 0.999, eps 1e-8, no clipping) over
+    the (B, K) block on each
     person's own ELBO, E_eps[loglik] - KL(q || N(0, I)), the item means
     and the decoder fixed; then the paired before/after bounds on one
     shared draw. Draws: noise = (step_eps (steps, S, B, K), eval_eps (S,
@@ -497,28 +555,30 @@ def refine_block(irt_model: str, items: dict, deep, resp, tmask, mu0,
         return torch.randn((num_samples,) + tuple(mu0.shape),
                            generator=generator, device=mu0.device)
 
-    def neg_elbo(mu, logvar, eps):
-        theta = dist.reparameterize_eps(eps, mu, logvar)
+    def neg_elbo(q, eps):
+        theta = dist.tril_reparameterize_eps(eps, *q)
         ll = _refine_loglik(irt_model, items, deep, theta, resp,
                             tmask).mean(0)
-        per = ll - dist.kl_standard_normal(mu, logvar).sum(-1)
+        per = ll - dist.kl_standard_normal_tril(*q)
         return -per.sum(), per
 
-    mu = mu0.detach().clone().requires_grad_(True)
-    logvar = logvar0.detach().clone().requires_grad_(True)
-    opt = torch.optim.Adam([logvar, mu], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    q0 = (mu0, logvar0, off0)
+    q = tuple(None if t is None else t.detach().clone().requires_grad_(True)
+              for t in q0)
+    opt = torch.optim.Adam([t for t in q if t is not None], lr=lr,
+                           betas=(0.9, 0.999), eps=1e-8)
     with torch.enable_grad():
         for i in range(steps):
             opt.zero_grad(set_to_none=True)
-            neg_elbo(mu, logvar, draw(i))[0].backward()
+            neg_elbo(q, draw(i))[0].backward()
             opt.step()
     with torch.no_grad():
         eps = draw(steps)
-        per0 = neg_elbo(mu0, logvar0, eps)[1]
-        per1 = neg_elbo(mu, logvar, eps)[1]
-        sigma = dist.tril_marginal_sigma(logvar)
-        tril = torch.diag_embed(torch.exp(0.5 * logvar))
-    return mu.detach(), sigma, tril, per0, per1
+        per0 = neg_elbo(q0, eps)[1]
+        per1 = neg_elbo(q, eps)[1]
+        sigma = dist.tril_marginal_sigma(q[1], q[2])
+        tril = dist.tril_matrix(q[1], q[2])
+    return q[0].detach(), sigma, tril, per0, per1
 
 
 def refine_theta_posterior(model: VIBO, params, ds: Dataset,
@@ -532,8 +592,9 @@ def refine_theta_posterior(model: VIBO, params, ds: Dataset,
     means (and the trained deep decoder), all persons of a block at once
     (refine_block). Blocks: one of N rows when N <= block_size, else blocks
     of block_size rows over the data zero-padded to a multiple of it (the
-    padded rows dropped from every output). The diagonal family (the
-    port's).
+    padded rows dropped from every output). The family follows
+    cfg.theta_posterior: the Cholesky entries of chol and the laplace
+    families are refined with mu and logvar.
 
     Noise: noise(block_index, rows) -> (step_eps (steps, S, rows, K),
     eval_eps (S, rows, K)) when given (the tests replay JAX's keys through
@@ -545,7 +606,8 @@ def refine_theta_posterior(model: VIBO, params, ds: Dataset,
     persons_worse (gain below -1e-3), steps, num_samples."""
     cfg = model.cfg
     dev = model.device
-    items = {k: v.detach() for k, v in full_item_mean(model, params).items()}
+    items = {k: v.detach()
+             for k, v in full_item_mean(model, params, ds).items()}
     deep = (tree_map(lambda t: t.detach(), params["deep_link"])
             if cfg.irt_model == "deep" else None)
     generator = (None if noise is not None
@@ -559,11 +621,11 @@ def refine_theta_posterior(model: VIBO, params, ds: Dataset,
         resp, tmask = (_rows_f32(x, s, e, rows, dev)
                        for x in (ds.response, ds.train_mask))
         with torch.no_grad():
-            mu0, logvar0, _ = model.encode(params, resp, tmask, items)
+            mu0, logvar0, off0 = model.encode(params, resp, tmask, items)
         mu, sigma, tril, per0, per1 = refine_block(
             cfg.irt_model, items, deep, resp, tmask, mu0, logvar0, steps,
             lr, num_samples, None if noise is None else noise(bi, rows),
-            generator)
+            generator, off0)
         take = e - s
         mus.append(mu.cpu().numpy()[:take])
         sigmas.append(sigma.cpu().numpy()[:take])

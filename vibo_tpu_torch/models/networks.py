@@ -1,5 +1,6 @@
-"""Ability encoder, item posteriors and the deep link (counterpart of
-`vibo_tpu.models.networks`, the parts the port's models run).
+"""Ability encoder, item posteriors, the conditioning statistics, the
+amortized item encoder and the deep link (counterpart of
+`vibo_tpu.models.networks`, single device).
 
 Parameters are plain trees of tensors in the JAX layout (`w` is (in, out),
 `x @ w + b`), so `convert.params_from_jax` carries them over unchanged.
@@ -24,7 +25,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vibo_tpu_torch._device import as_dtype, cast_through
-from vibo_tpu_torch.ops import pallas_encoder
+from vibo_tpu_torch.ops import links, pallas_encoder
+from vibo_tpu_torch.ops.packing import decode_packed
 
 # ---------------------------------------------------------------- MLP core
 
@@ -52,11 +54,37 @@ def _mm(x, w, cd):
 # ------------------------------------------------------- ability encoder
 
 
-def split_ability_head(out, axis: int = -1):
-    """Head output -> (mu, logvar clipped to [-8, 8], None): the diagonal
-    family's (mu, logvar) halves along `axis` (0 for the (2K, B) head)."""
-    mu, logvar = torch.chunk(out, 2, dim=axis)
-    return mu, logvar.clamp(-8.0, 8.0), None
+def ability_head_dim(ability_dim: int, chol: bool = False) -> int:
+    """Encoder-head width: (mu, logvar), plus the K(K-1)/2 strict-lower
+    Cholesky entries for the full-covariance family."""
+    extra = (ability_dim * (ability_dim - 1)) // 2 if chol else 0
+    return 2 * ability_dim + extra
+
+
+def init_ability_encoder(num_items: int, item_feat_dim: int,
+                         ability_dim: int, hidden_dim: int,
+                         generator: torch.Generator, device,
+                         chol: bool = False) -> list:
+    """q(theta_i | r_i, d): MLP([r_i * m_i, m_i, conditioning]) -> (mu,
+    logvar[, off]); item_feat_dim 0 is the mean-field encoder, chol=True
+    widens the head by the Cholesky entries (zero bias: training starts in
+    the diagonal family)."""
+    return init_mlp([2 * num_items + item_feat_dim, hidden_dim, hidden_dim,
+                     ability_head_dim(ability_dim, chol)], generator, device)
+
+
+def split_ability_head(out, ability_dim: int | None = None, axis: int = -1):
+    """Head output -> (mu, logvar clipped to [-8, 8], off or None).
+    ability_dim None: the (mu, logvar) halves along `axis` (0 for the
+    (2K, B) head), off None; else [mu (K), logvar (K), off (K(K-1)/2)]."""
+    if ability_dim is None:
+        mu, logvar = torch.chunk(out, 2, dim=axis)
+        return mu, logvar.clamp(-8.0, 8.0), None
+    k = ability_dim
+    mu = out.narrow(axis, 0, k)
+    logvar = out.narrow(axis, k, k)
+    off = out.narrow(axis, 2 * k, out.shape[axis] - 2 * k)
+    return mu, logvar.clamp(-8.0, 8.0), (off if off.shape[axis] else None)
 
 
 def _hidden_layers(w1, rest, h, m, item_feats, cd):
@@ -72,23 +100,38 @@ def _hidden_layers(w1, rest, h, m, item_feats, cd):
 
 
 def apply_ability_encoder(params, response, mask, item_feats=None,
-                          compute_dtype="float32"):
+                          compute_dtype="float32",
+                          ability_dim: int | None = None, cond_mats=None):
     """Dense encoder on response/mask (B, M): MLP([r*m, m, item_feats]) with
-    the concat split into per-block matmuls -> (mu, logvar, None), (B, K)."""
+    the concat split into per-block matmuls -> (mu, logvar, off), (B, K)
+    each (split_ability_head). cond_mats: (A_r, A_m) of
+    condition_stat_mats (condition_on="stats"), which modulate the first
+    layer's weight blocks (modulated_first_layer) instead of a flat
+    item_feats; with a leading sample axis (S, M, F) the output gets it
+    too."""
     cd = as_dtype(compute_dtype)
     w1, rest = params[0], params[1:]
     m = response.shape[-1]
-    h = (_mm(response * mask, w1["w"][:m], cd)
-         + _mm(mask, w1["w"][m:2 * m], cd))
+    w_r, w_m = modulated_first_layer(w1, cond_mats, m)
+    h = _mm(response * mask, w_r, cd) + _mm(mask, w_m, cd)
     x = _hidden_layers(w1, rest, h, m, item_feats, cd)
-    return split_ability_head(x @ rest[-1]["w"] + rest[-1]["b"])
+    return split_ability_head(x @ rest[-1]["w"] + rest[-1]["b"], ability_dim)
 
 
 def apply_ability_encoder_packed(params, packed, item_feats=None,
                                  compute_dtype="float32",
-                                 transposed_head: bool = False):
+                                 transposed_head: bool = False,
+                                 ability_dim: int | None = None,
+                                 cond_mats=None, decoded=None):
     """apply_ability_encoder on the int8 code: the first layer runs the
-    fused decode + dual matmul (`pallas_encoder.packed_first_layer`).
+    fused decode + dual matmul (`pallas_encoder.packed_first_layer`) on the
+    raw weight blocks.
+
+    cond_mats (condition_on="stats"): the kernel's output gets the
+    conditioning as the narrow correction (rm @ A_r) @ Wf_r + (m @ A_m) @
+    Wf_m (== rm @ (A_r Wf_r) + m @ (A_m Wf_m)), plain products on the
+    decoded code, as JAX adds it outside its Pallas kernel; decoded: the
+    (mask, resp) of decode_packed(packed) where the caller has them.
 
     transposed_head=True returns (mu, logvar) as (K, B) from W^T @ x^T,
     the layout the transposed loglik consumes."""
@@ -97,11 +140,18 @@ def apply_ability_encoder_packed(params, packed, item_feats=None,
     m = packed.shape[-1]
     h = pallas_encoder.packed_first_layer(packed, w1["w"][:m],
                                           w1["w"][m:2 * m], cd)
+    if cond_mats is not None:
+        a_r, a_m = cond_mats
+        fr = a_r.shape[-1]
+        wf = w1["w"][2 * m:]
+        mk, rm = decoded if decoded is not None else decode_packed(packed)
+        h = (h + _mm(_mm(rm, a_r, cd), wf[:fr], cd)
+             + _mm(_mm(mk, a_m, cd), wf[fr:], cd))
     x = _hidden_layers(w1, rest, h, m, item_feats, cd)
     if transposed_head:
         out_t = rest[-1]["w"].T @ x.T + rest[-1]["b"][:, None]
-        return split_ability_head(out_t, axis=0)
-    return split_ability_head(x @ rest[-1]["w"] + rest[-1]["b"])
+        return split_ability_head(out_t, ability_dim, axis=0)
+    return split_ability_head(x @ rest[-1]["w"] + rest[-1]["b"], ability_dim)
 
 
 # ------------------------------------------------------ item posteriors
@@ -153,6 +203,170 @@ def flatten_item_sample(sample: dict) -> torch.Tensor:
     item-major, the JAX package's order."""
     return torch.cat([sample[k].reshape(sample[k].shape[:-2] + (-1,))
                       for k in sorted(sample)], dim=-1)
+
+
+# ---------------------------- compressed (sufficient-statistic) conditioning
+
+
+def condition_stat_dim(irt_model: str, ability_dim: int,
+                       item_latent_dim: int = 0) -> tuple[int, int]:
+    """(Fr, Fm): widths of condition_stat_mats' r-path and m-path
+    statistics; the encoder's input under condition_on="stats" is 2M + Fr
+    + Fm wide (25 at K = 4 2PL)."""
+    k = ability_dim
+    if irt_model == "deep":
+        return item_latent_dim, item_latent_dim
+    if irt_model == "1pl":
+        return 1, 2                            # [b] | [b, b^2]
+    fr = k + 1 + (1 if irt_model == "3pl" else 0)
+    fm = (k + 1) + k + 1 + (k * (k + 1)) // 2 \
+        + (1 if irt_model == "3pl" else 0)
+    return fr, fm
+
+
+def condition_stat_mats(item_sample: dict, num_items: int, irt_model: str):
+    """Per-item (A_r (..., M, Fr), A_m (..., M, Fm)) such that [(r*m) @
+    A_r, m @ A_m] are the 2PL pseudo-posterior's sufficient statistics of
+    the item draw: sum_j m r a_j, sum_j m a_j, sum_j m a_j b_j, the pair
+    terms sum_j m a_j a_j^T and so on (3PL adds g_hat; grm/gpcm reduce b to
+    the mean ordered cutpoint / mean step; deep uses d), scaled by
+    1/sqrt(M). They enter as a modulation of the first layer's weights
+    (modulated_first_layer); gradients flow to the item posterior through
+    them."""
+    s = float(1.0 / torch.sqrt(torch.tensor(float(num_items))))  # f32
+    if irt_model == "deep":
+        d = item_sample["d"]
+        return s * d, s * d
+    b = item_sample["b"]                                       # (..., M, 1)
+    if b.shape[-1] > 1:
+        b = (links.grm_thresholds(b).mean(-1, keepdim=True)
+             if irt_model == "grm" else b.mean(-1, keepdim=True))
+    if irt_model == "1pl":
+        return s * b, s * torch.cat([b, b * b], -1)
+    a = item_sample["a"]                                       # (..., M, K)
+    k = a.shape[-1]
+    pairs = [a[..., i:i + 1] * a[..., j:j + 1]
+             for i in range(k) for j in range(i, k)]
+    r_parts = [a, b]
+    m_parts = [a, b, a * b, b * b] + pairs
+    if irt_model == "3pl":
+        g = item_sample["g_hat"]
+        r_parts.append(g)
+        m_parts.append(g)
+    return s * torch.cat(r_parts, -1), s * torch.cat(m_parts, -1)
+
+
+def modulated_first_layer(w1: dict, cond_mats, num_items: int):
+    """(W_r + A_r @ Wf_r, W_m + A_m @ Wf_m), each (..., M, H): the
+    conditioning statistics composed into the first layer's weight blocks
+    (f32 products, as in JAX); cond_mats None gives the raw blocks."""
+    m = num_items
+    w_r, w_m = w1["w"][:m], w1["w"][m:2 * m]
+    if cond_mats is None:
+        return w_r, w_m
+    a_r, a_m = cond_mats
+    fr = a_r.shape[-1]
+    wf = w1["w"][2 * m:]
+    return w_r + a_r @ wf[:fr], w_m + a_m @ wf[fr:]
+
+
+# ------------------------------------------------ amortized item encoder
+
+ITEM_STAT_DIM = 6
+
+
+def item_stats(response, mask, num_persons=None):
+    """Permutation-invariant per-item column statistics (M, 6) of a (B, M)
+    masked response matrix, in f32: the item p-value, the respondents' mean
+    raw score, the item-total covariance and point-biserial correlation,
+    the observed fraction (of num_persons, default B) and log(1 + count).
+    The amortized item encoder's input; any number of persons or items."""
+    m = mask.float()
+    r = response.float() * m
+    row_cnt = m.sum(-1, keepdim=True)
+    row_sum = r.sum(-1, keepdim=True)
+    s = row_sum / torch.clamp_min(row_cnt, 1.0)                 # (B, 1)
+    succ, cnt = r.sum(-2), m.sum(-2)
+    s_sum, rs_sum = (s * m).sum(-2), (s * r).sum(-2)
+    ss_sum = (s * s * m).sum(-2)
+    if num_persons is None:
+        num_persons = float(mask.shape[-2])
+    denom = torch.clamp_min(cnt, 1.0)
+    p = succ / denom
+    ms = s_sum / denom
+    rs = rs_sum / denom
+    ss = ss_sum / denom
+    cov = rs - p * ms
+    var_s = torch.clamp_min(ss - ms * ms, 0.0)
+    corr = cov * torch.rsqrt(var_s * torch.clamp_min(p * (1.0 - p), 1e-6)
+                             + 1e-6)
+    frac = cnt / max(float(num_persons), 1.0)
+    return torch.stack([p, ms, cov, corr, frac, torch.log1p(cnt)], -1)
+
+
+def init_item_encoder(irt_model: str, ability_dim: int,
+                      generator: torch.Generator, device,
+                      item_latent_dim: int = 0, hidden_dim: int = 64,
+                      num_categories: int = 2) -> list:
+    """q(d_j | r_:,j): MLP from an item's column statistics to (mu, logvar)
+    of every item parameter. The output bias starts a's mu at 1.0 and every
+    logvar at -2 (init_item_posterior's), so theta is identified from the
+    first step."""
+    spec = item_head_spec(irt_model, ability_dim, item_latent_dim,
+                          num_categories)
+    total = sum(spec.values())
+    params = init_mlp([ITEM_STAT_DIM, hidden_dim, hidden_dim, 2 * total],
+                      generator, device)
+    bias = torch.zeros((2 * total,), device=device)
+    off = 0
+    for name in sorted(spec):
+        d = spec[name]
+        if name == "a":
+            bias[off:off + d] = 1.0
+        bias[total + off:total + off + d] = -2.0
+        off += d
+    params[-1]["b"] = bias
+    return params
+
+
+def init_item_residual(num_items: int, irt_model: str, ability_dim: int,
+                       generator: torch.Generator, device,
+                       item_latent_dim: int = 0,
+                       num_categories: int = 2) -> dict:
+    """Free per-item residuals added to the amortized posterior of the
+    TRAINING items (semi-amortized: a shared encoder alone cannot break the
+    theta-a symmetry); mu ~ 0.1 N(0, 1), logvar 0. New items have none."""
+    spec = item_head_spec(irt_model, ability_dim, item_latent_dim,
+                          num_categories)
+    return {name: {"mu": 0.1 * torch.randn((num_items, spec[name]),
+                                           generator=generator,
+                                           device=device),
+                   "logvar": torch.zeros((num_items, spec[name]),
+                                         device=device)}
+            for name in sorted(spec)}
+
+
+def apply_item_encoder(params, stats, spec: dict, residual: dict | None = None
+                       ) -> dict:
+    """stats (M, 6) -> {name: {'mu', 'logvar': (M, D)}} in sorted-key
+    order, f32; residual (the training items') added, logvar clipped to
+    [-8, 8]; residual None scores new items by the shared encoder alone."""
+    x = stats
+    for layer in params[:-1]:
+        x = torch.relu(x @ layer["w"] + layer["b"])
+    out = x @ params[-1]["w"] + params[-1]["b"]            # (M, 2 * total)
+    total = out.shape[-1] // 2
+    post, off = {}, 0
+    for name in sorted(spec):
+        d = spec[name]
+        mu = out[..., off:off + d]
+        logvar = out[..., total + off:total + off + d]
+        if residual is not None:
+            mu = mu + residual[name]["mu"]
+            logvar = logvar + residual[name]["logvar"]
+        post[name] = {"mu": mu, "logvar": logvar.clamp(-8.0, 8.0)}
+        off += d
+    return post
 
 
 # ------------------------------------------------------------ deep link

@@ -1,7 +1,7 @@
 """VIBO: amortized variational inference for IRT (counterpart of
-`vibo_tpu.models.vibo`: the binary 1PL/2PL/3PL links, the polytomous
-GRM/GPCM families and the deep nonlinear link, with free-form item
-posteriors and the diagonal ability posterior).
+`vibo_tpu.models.vibo` on one device: the binary 1PL/2PL/3PL links, the
+polytomous GRM/GPCM families and the deep nonlinear link, with every
+posterior and conditioning family of the JAX config).
 
 Generative model: theta_i ~ N(0, I_K), item d_j ~ N(0, I), r_ij ~
 Bernoulli(sigmoid(a_j . theta_i - b_j)) on observed cells; under 3PL
@@ -10,10 +10,15 @@ sigmoid(g_hat_j), the guess logit a third item parameter; under grm/gpcm
 r_ij is one of C ordered categories, with b_j the C-1 unconstrained
 coordinates of the family's table (`links.categorical_table`); under deep
 Bernoulli(sigmoid(MLP(theta_i, d_j))) with d_j an item latent vector and
-the MLP's weights (`networks.apply_deep_link`) point-estimated. Posterior:
-q(d) per-item diagonal Gaussians; q(theta_i | d, r_i) an MLP encoder on the
-response row, conditioned on a flattened item draw ("sample") or on the
-item-posterior means ("mean").
+the MLP's weights (`networks.apply_deep_link`) point-estimated.
+
+Posterior: q(d) per-item diagonal Gaussians, or amortized from the
+columns' statistics (item_encoder); q(theta_i | d, r_i) an MLP encoder on
+the response row, conditioned on a flattened item draw ("sample"), the
+item-posterior means ("mean") or the draw's sufficient statistics
+("stats"), with a diagonal, Cholesky ("chol") or Fisher-anchored
+("laplace", "laplace-w") covariance: every family hands on (mu, logvar,
+off), off None for the diagonal one (`ops.distributions` tril_*).
 
 Objectives: the packed full-batch ELBO and IWAE bound on the int8 code
 (`elbo_packed_sums`, `iwae_packed_terms`, one per-sample body), and the
@@ -23,14 +28,15 @@ ELBO and IWAE bounds on decoded (response, mask) minibatches (`elbo`,
 outside (`elbo_eps`, `iwae_eps`, `elbo_packed_sums`, `iwae_packed_terms`),
 so the tests feed the JAX package and the port the same numbers;
 `sample_noise` draws that noise from a torch.Generator, and `elbo` /
-`iwae` / `iwae_packed` wrap it around the cores. Samples run
-batched along a leading axis. Everything outside this scope raises NotImplementedError naming the
-ROADMAP item that ports it.
+`iwae` / `iwae_packed` wrap it around the cores. Samples run batched along
+a leading axis on decoded data and one at a time on the code; the item
+posterior is computed once an objective.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -50,9 +56,17 @@ _PACKED_TRAIN = {"3pl": pallas_elbo.masked_loglik_3pl_packed_train,
 
 @dataclasses.dataclass(frozen=True)
 class VIBOConfig:
-    """The JAX config's fields that the port reads; values outside the
-    port's scope raise. The item encoder's own fields come with the ROADMAP
-    item that ports it."""
+    """The JAX config's fields (single device). theta_posterior: "diag"
+    (independent per-dim Gaussians), "chol" (full covariance, the head
+    widened by K(K-1)/2 Cholesky entries), "laplace" (the head's second
+    block a per-dim log correction c of the closed-form Fisher structure
+    (I + D S D)^-1, S_i = sum_j m_ij a_j a_j^T at the item means) or
+    "laplace-w" (each item's term also weighted by the expected Fisher
+    weight at the head's own mean). condition_on: the item draw
+    ("sample"), the item means ("mean") or the draw's sufficient
+    statistics ("stats", networks.condition_stat_mats). item_encoder:
+    q(d_j | r_:,j) amortized from column statistics plus free residuals of
+    the training items (new-item cold start)."""
     num_items: int
     irt_model: str = "2pl"
     num_categories: int = 2
@@ -62,6 +76,7 @@ class VIBOConfig:
     condition_on: str = "sample"
     theta_posterior: str = "diag"
     item_encoder: bool = False
+    item_encoder_hidden: int = 64      # the item encoder's MLP width
     use_pallas: bool = False
     compute_dtype: str = "float32"
     item_latent_dim: int = 16          # deep: item latent d_j's dimension
@@ -81,6 +96,19 @@ class VIBOConfig:
                                         "laplace-w"):
             raise ValueError(f"unknown theta_posterior "
                              f"{self.theta_posterior!r}")
+        if self.theta_posterior.startswith("laplace"):
+            if self.irt_model == "deep":
+                raise ValueError(
+                    "theta_posterior='laplace' anchors on the linear-link "
+                    "pair statistics sum_j m_ij a_j a_j^T; the deep link has "
+                    "no per-item loading vector (its Gauss-Newton width is "
+                    "evaluation.laplace_sigma_deep)")
+            if self.item_encoder:
+                raise ValueError(
+                    "theta_posterior='laplace' + item_encoder is not "
+                    "supported: the anchor uses the free-form item "
+                    "posterior's means (use theta_posterior='chol' with the "
+                    "item encoder)")
         if self.irt_model in links.CATEGORICAL_MODELS:
             if not 3 <= self.num_categories <= 32:
                 raise ValueError(
@@ -92,17 +120,6 @@ class VIBOConfig:
                 f"num_categories={self.num_categories} only applies to the "
                 f"polytomous families {links.CATEGORICAL_MODELS} (binary "
                 f"links are 2-category)")
-        gaps = []
-        if self.theta_posterior != "diag":
-            gaps.append(f"theta_posterior={self.theta_posterior!r}")
-        if self.conditional_posterior and self.condition_on == "stats":
-            gaps.append("condition_on='stats'")
-        if self.item_encoder:
-            gaps.append("item_encoder=True")
-        if gaps:
-            raise NotImplementedError(
-                "not ported yet (ROADMAP's 'Posterior and conditioning "
-                "families'): " + "; ".join(gaps))
 
 
 class VIBO:
@@ -117,27 +134,53 @@ class VIBO:
         self._head_spec = networks.item_head_spec(
             cfg.irt_model, cfg.ability_dim, cfg.item_latent_dim,
             cfg.num_categories)
-        self._item_feat_dim = (
-            networks.item_feat_dim(cfg.num_items, cfg.irt_model,
-                                   cfg.ability_dim, cfg.item_latent_dim,
-                                   cfg.num_categories)
-            if cfg.conditional_posterior else 0)
+        self._stats = (cfg.conditional_posterior
+                       and cfg.condition_on == "stats")
+        if not cfg.conditional_posterior:
+            self._item_feat_dim = 0
+        elif self._stats:
+            self._item_feat_dim = sum(networks.condition_stat_dim(
+                cfg.irt_model, cfg.ability_dim, cfg.item_latent_dim))
+        else:
+            self._item_feat_dim = networks.item_feat_dim(
+                cfg.num_items, cfg.irt_model, cfg.ability_dim,
+                cfg.item_latent_dim, cfg.num_categories)
+        # the head carries Cholesky entries (chol at K > 1): its split
+        # takes the ability dim; laplace heads are diag-shaped (mu, c), the
+        # Cholesky token coming from the Fisher anchor
+        self._chol = cfg.theta_posterior == "chol" and cfg.ability_dim > 1
+        self._enc_k = cfg.ability_dim if self._chol else None
+        self._laplace = cfg.theta_posterior.startswith("laplace")
+        self._laplace_weighted = cfg.theta_posterior == "laplace-w"
 
     # ------------------------------------------------------------- params
 
     def init_params(self, seed: int = 0) -> dict:
-        """Fresh trainable params from a seeded generator on the device."""
+        """Fresh trainable params from a seeded generator on the device.
+        laplace (unweighted) starts the head's c block at log 0.15, near
+        the Bernoulli Fisher weight's typical scale; laplace-w keeps c = 0,
+        the closed-form Laplace covariance."""
         cfg = self.cfg
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
-        dims = [2 * cfg.num_items + self._item_feat_dim, cfg.hidden_dim,
-                cfg.hidden_dim, 2 * cfg.ability_dim]
-        params = {
-            "item_post": networks.init_item_posterior(
+        if cfg.item_encoder:
+            items = {
+                "item_enc": networks.init_item_encoder(
+                    cfg.irt_model, cfg.ability_dim, g, self.device,
+                    cfg.item_latent_dim, cfg.item_encoder_hidden,
+                    cfg.num_categories),
+                "item_resid": networks.init_item_residual(
+                    cfg.num_items, cfg.irt_model, cfg.ability_dim, g,
+                    self.device, cfg.item_latent_dim, cfg.num_categories)}
+        else:
+            items = {"item_post": networks.init_item_posterior(
                 cfg.num_items, cfg.irt_model, cfg.ability_dim, g,
-                self.device, cfg.item_latent_dim, cfg.num_categories),
-            "encoder": networks.init_mlp(dims, g, self.device),
-        }
+                self.device, cfg.item_latent_dim, cfg.num_categories)}
+        params = {**items, "encoder": networks.init_ability_encoder(
+            cfg.num_items, self._item_feat_dim, cfg.ability_dim,
+            cfg.hidden_dim, g, self.device, chol=self._chol)}
+        if self._laplace and not self._laplace_weighted:
+            params["encoder"][-1]["b"][cfg.ability_dim:] += math.log(0.15)
         if self._deep:
             params["deep_link"] = networks.init_deep_link(
                 cfg.ability_dim, cfg.item_latent_dim, cfg.deep_hidden_dim, g,
@@ -148,12 +191,37 @@ class VIBO:
 
     # ------------------------------------------------------ item posterior
 
-    def item_dist(self, params: dict) -> dict:
-        """The free-form item posterior {name: {'mu', 'logvar': (M, D)}}."""
-        return params["item_post"]
+    def item_dist(self, params: dict, response=None, mask=None,
+                  new_items: bool = False) -> dict:
+        """The item posterior {name: {'mu', 'logvar': (M, D)}}: free-form,
+        the per-item Gaussians in params; with item_encoder the shared
+        encoder on the columns' statistics of (response, mask) (B, M) plus
+        the training items' residuals, or without them for new_items
+        (cold start; any column count). Deterministic given (params, data):
+        each objective computes it once."""
+        if not self.cfg.item_encoder:
+            return params["item_post"]
+        if response is None or mask is None:
+            raise ValueError(
+                "item_encoder=True amortizes q(d | r) from data: pass the "
+                "(response, mask) the posterior should condition on")
+        stats = networks.item_stats(response, mask)
+        residual = None if new_items else params["item_resid"]
+        return networks.apply_item_encoder(params["item_enc"], stats,
+                                           self._head_spec, residual)
 
-    def item_posterior_mean(self, params: dict) -> dict:
-        return {name: p["mu"] for name, p in self.item_dist(params).items()}
+    def item_posterior_mean(self, params: dict, response=None,
+                            mask=None) -> dict:
+        return {name: p["mu"] for name, p in
+                self.item_dist(params, response, mask).items()}
+
+    def sample_items_from(self, post: dict,
+                          generator: torch.Generator | None = None) -> dict:
+        """One reparameterized draw {name: (M, D)} from an item_dist, the
+        names in sorted order."""
+        return {name: dist.reparameterize(post[name]["mu"],
+                                          post[name]["logvar"], generator)
+                for name in sorted(post)}
 
     def item_kl_from(self, post: dict) -> torch.Tensor:
         """Analytic sum_j KL(q(d_j) || N(0, I)) over all items and params."""
@@ -172,23 +240,39 @@ class VIBO:
                 - dist.gaussian_log_prob(z, p["mu"], p["logvar"]).sum(items))
         return total
 
-    def theta_logq(self, theta, mu, logvar) -> torch.Tensor:
-        """Per-person log q(theta_i) (IWAE weights), the diagonal family."""
-        return dist.gaussian_log_prob(theta, mu, logvar).sum(-1)
+    # ---------------------------------------------- theta-posterior family
+
+    def theta_kl(self, mu, logvar, off) -> torch.Tensor:
+        """Per-person KL(q(theta_i) || N(0, I)), the last axis reduced."""
+        return dist.kl_standard_normal_tril(mu, logvar, off)
+
+    def theta_logq(self, theta, eps, mu, logvar, off) -> torch.Tensor:
+        """Per-person log q(theta_i) at theta = mu + L eps (IWAE weights):
+        the diagonal family's formula in theta, the full-covariance
+        families' solve-free form in eps."""
+        if off is None:
+            return dist.gaussian_log_prob(theta, mu, logvar).sum(-1)
+        return dist.tril_log_prob_from_eps(eps, logvar)
 
     def _encoder_conditioning(self, post: dict, item_sample: dict):
-        """What q(theta | r, .) conditions on: the item draw ("sample"), the
-        item-posterior means ("mean"), or None (mean-field)."""
+        """What q(theta | r, .) conditions on: the item draw ("sample",
+        "stats"), the item-posterior means ("mean"), or None (mean-field)."""
         if not self.cfg.conditional_posterior:
             return None
         if self.cfg.condition_on == "mean":
             return {name: p["mu"] for name, p in post.items()}
         return item_sample
 
-    def _item_feats(self, post: dict, item_sample: dict):
-        """_encoder_conditioning, flattened (None under mean-field)."""
-        cond = self._encoder_conditioning(post, item_sample)
-        return None if cond is None else networks.flatten_item_sample(cond)
+    def _cond_args(self, conditioning: dict | None):
+        """_encoder_conditioning's output -> (item_feats, cond_mats): the
+        flat item vector ("sample"/"mean") or the sufficient-statistic
+        matrices ("stats")."""
+        if conditioning is None:
+            return None, None
+        if self._stats:
+            return None, networks.condition_stat_mats(
+                conditioning, self.cfg.num_items, self.cfg.irt_model)
+        return networks.flatten_item_sample(conditioning), None
 
     def _link_params(self, item_sample: dict, num_items: int):
         """Item sample -> (a (..., M, K), b (..., M), g_hat (..., M) or
@@ -206,39 +290,95 @@ class VIBO:
 
     # ---------------------------------------------------- ability encoder
 
+    def _anchor_theta_head(self, params: dict, head, mask):
+        """laplace / laplace-w: the head's second block is the per-dim log
+        correction c, and (mu, logvar, off) the Cholesky token of (I + D S
+        D)^-1 (dist.laplace_anchor_parts), S_i = sum_j m_ij [w_ij] a_j
+        a_j^T over the item-posterior means, w the expected Fisher weight
+        at the head's own mean under laplace-w. mask (B, M) (any float
+        dtype); the head may carry a leading sample axis. Other families:
+        the head unchanged."""
+        if not self._laplace:
+            return head
+        mu, c, _ = head
+        cfg = self.cfg
+        k = cfg.ability_dim
+        post = params["item_post"]
+        mask = mask.float()
+        if cfg.irt_model == "1pl":
+            a = torch.ones((mask.shape[-1], k), device=mask.device)
+        else:
+            a = post["a"]["mu"]
+        a2 = torch.stack([a[:, i] * a[:, j]
+                          for i, j in dist.triu_flat_index(k)], -1)
+        if self._laplace_weighted:
+            mu32 = mu.float()
+            b_mu = post["b"]["mu"]
+            if self._categorical:
+                w = likelihood.categorical_fisher_weight(
+                    cfg.irt_model, links.grm_base(mu32, a),
+                    links.categorical_table(cfg.irt_model, b_mu))
+            elif cfg.irt_model == "3pl":
+                w = likelihood.fisher_weight_3pl(
+                    links.logits_2pl(mu32, a, b_mu[:, 0]),
+                    post["g_hat"]["mu"][:, 0])
+            else:   # 1pl: the Bernoulli weight with unit loadings
+                w = likelihood.bernoulli_fisher_weight(
+                    links.logits_2pl(mu32, a, b_mu[:, 0]))
+            mask = mask * w
+        logvar, off = dist.laplace_anchor_parts(c, mask @ a2)
+        return mu, logvar, off
+
     def encode(self, params: dict, response, mask, item_sample):
-        """Dense encoder -> (mu, logvar, None), each (B, K). item_sample is
-        what the encoder conditions on (a draw or the means); None under
-        mean-field."""
+        """Dense encoder -> (mu, logvar, off), each (B, K) (off: (B,
+        K(K-1)/2) for chol at K > 1 and the laplace families at K > 1, else
+        None). item_sample is what the encoder conditions on (a draw or the
+        means; None under mean-field); a draw with a leading sample axis
+        gives the outputs that axis."""
         if response.shape[-1] != self.cfg.num_items:
             raise ValueError(
                 f"response has {response.shape[-1]} items but the model was "
                 f"configured with num_items={self.cfg.num_items}")
-        feats = (networks.flatten_item_sample(item_sample)
-                 if self.cfg.conditional_posterior else None)
-        return networks.apply_ability_encoder(
+        feats, cond = self._cond_args(
+            item_sample if self.cfg.conditional_posterior else None)
+        head = networks.apply_ability_encoder(
             params["encoder"], response, mask, feats,
-            compute_dtype=self.cfg.compute_dtype)
+            compute_dtype=self.cfg.compute_dtype, ability_dim=self._enc_k,
+            cond_mats=cond)
+        return self._anchor_theta_head(params, head, mask)
 
-    def _encode_packed(self, params: dict, packed, item_feats,
-                       transposed: bool = False):
-        """Encoder on the int8 code (fused first layer); transposed=True
-        returns (muT, logvarT, None) as (K, B)."""
+    def _encode_packed(self, params: dict, packed, conditioning,
+                       decoded=None, transposed: bool = False):
+        """Encoder on the int8 code (fused first layer) -> (mu, logvar,
+        off); transposed=True returns (muT, logvarT, None) as (K, B), the
+        diagonal family only. decoded: the code's (mask, resp)
+        (_decode_if_needed), which the stats correction and the Fisher
+        anchor read."""
         if packed.shape[-1] != self.cfg.num_items:
             raise ValueError(
                 f"packed has {packed.shape[-1]} items but the model was "
                 f"configured with num_items={self.cfg.num_items}")
-        return networks.apply_ability_encoder_packed(
-            params["encoder"], packed, item_feats,
+        if transposed and (self._chol or self._laplace):
+            raise ValueError("the transposed (K, B) theta pipeline does not "
+                             "carry the full-covariance families "
+                             "(wants_transposed_theta)")
+        feats, cond = self._cond_args(conditioning)
+        head = networks.apply_ability_encoder_packed(
+            params["encoder"], packed, feats,
             compute_dtype=self.cfg.compute_dtype,
-            transposed_head=transposed)
+            transposed_head=transposed, ability_dim=self._enc_k,
+            cond_mats=cond, decoded=decoded)
+        if not self._laplace:
+            return head
+        return self._anchor_theta_head(params, head, decoded[0])
 
     def wants_transposed_theta(self) -> bool:
         """True when the packed train path runs theta as (K, B): the fused
-        kernels are on and the link is 1pl/2pl/3pl (the posterior is
-        diagonal always, in the port's scope); grm/gpcm and deep run theta
-        as (B, K), as in JAX."""
-        return (self.cfg.use_pallas
+        kernels are on, the link is 1pl/2pl/3pl and the posterior is
+        diagonal (the chol and laplace families run theta as (B, K), their
+        Cholesky mixing a per-person recurrence, as in JAX); grm/gpcm and
+        deep run theta as (B, K) too."""
+        return (self.cfg.use_pallas and not self._chol and not self._laplace
                 and self.cfg.irt_model in ("1pl", "2pl", "3pl"))
 
     def _use_packed_kernel(self, params: dict) -> bool:
@@ -253,6 +393,17 @@ class VIBO:
             return (self.cfg.deep_fused_kernel
                     and pallas_deep.supports(params["deep_link"]))
         return True
+
+    def _decode_if_needed(self, params: dict, packed):
+        """The code's (mask, resp) in f32 where a consumer on the packed
+        path reads them (the plain deep link, the item encoder's column
+        statistics, the stats correction, the Fisher anchor), else None
+        (JAX's rule, with the stats correction's decode hoisted here from
+        the encoder)."""
+        if (self.cfg.item_encoder or self._laplace or self._stats
+                or not self._use_packed_kernel(params)):
+            return decode_packed(packed)
+        return None
 
     # ------------------------------------------------------------ decoder
 
@@ -300,20 +451,20 @@ class VIBO:
     def _draw(self, params: dict, response, mask, item_eps: dict, theta_eps,
               post: dict | None = None):
         """What elbo and iwae share, all S samples at once: the item draws
-        (S, M, D) from `post` (None = item_dist), the encoder on (response,
-        mask) conditioned on them, and theta (S, B, K). Returns (post,
-        item_sample, mu, logvar, theta)."""
+        (S, M, D) from `post` (None = item_dist on (response, mask)), the
+        encoder on (response, mask) conditioned on them, and theta (S, B,
+        K) = mu + L eps. Returns (post, item_sample, (mu, logvar, off),
+        theta)."""
         if post is None:
-            post = self.item_dist(params)
+            post = self.item_dist(params, response, mask)
         item_sample = {
             name: dist.reparameterize_eps(item_eps[name], post[name]["mu"],
                                           post[name]["logvar"])
             for name in item_eps}
-        mu, logvar, _ = self.encode(
-            params, response, mask,
-            self._encoder_conditioning(post, item_sample))
-        theta = dist.reparameterize_eps(theta_eps, mu, logvar)
-        return post, item_sample, mu, logvar, theta
+        q = self.encode(params, response, mask,
+                        self._encoder_conditioning(post, item_sample))
+        theta = dist.tril_reparameterize_eps(theta_eps, *q)
+        return post, item_sample, q, theta
 
     def elbo_sums(self, params: dict, response, mask, item_eps: dict,
                   theta_eps, row_weight=None):
@@ -322,13 +473,13 @@ class VIBO:
         sample axis. Rows with no observed cell (the zero padding of a last
         minibatch) are inert: their loglik is 0 by the mask and row_weight
         ((B,), None = derived from the mask) drops their KL."""
-        post, item_sample, mu, logvar, theta = self._draw(
+        post, item_sample, q, theta = self._draw(
             params, response, mask, item_eps, theta_eps)
         ll = self.loglik_per_person(params, theta, item_sample, response,
                                     mask)
-        valid = ((mask.sum(-1) > 0).to(mu.dtype) if row_weight is None
+        valid = ((mask.sum(-1) > 0).to(q[0].dtype) if row_weight is None
                  else row_weight)
-        kl = (dist.kl_standard_normal(mu, logvar).sum(-1) * valid).sum(-1)
+        kl = (self.theta_kl(*q) * valid).sum(-1)
         return ll.sum(-1).mean(), kl.mean(), self.item_kl_from(post)
 
     def elbo_eps(self, params: dict, response, mask, item_eps: dict,
@@ -349,6 +500,13 @@ class VIBO:
         return self.elbo_eps(params, response, mask, item_eps, theta_eps,
                              item_scale)
 
+    def _theta_log_ratio(self, theta, eps, q, valid):
+        """(log p(theta) summed over valid rows, log q(theta) likewise),
+        each (..., ) over the leading sample axes."""
+        lp = (dist.standard_normal_log_prob(theta).sum(-1) * valid).sum(-1)
+        lq = (self.theta_logq(theta, eps, *q) * valid).sum(-1)
+        return lp, lq
+
     def iwae_terms(self, params: dict, response, mask, item_eps: dict,
                    theta_eps, eval_mask=None, post: dict | None = None,
                    row_weight=None):
@@ -357,16 +515,16 @@ class VIBO:
         rows, ratio_s = log p(d_s) - log q(d_s). The encoder conditions on
         (response, mask); the loglik and the valid rows (any evaluated cell,
         or row_weight where given) use eval_mask (None = mask). post: the
-        item posterior to draw from (None = item_dist)."""
+        item posterior to draw from (None = item_dist on (response,
+        mask))."""
         emask = mask if eval_mask is None else eval_mask
-        post, item_sample, mu, logvar, theta = self._draw(
+        post, item_sample, q, theta = self._draw(
             params, response, mask, item_eps, theta_eps, post)
         ll = self.loglik_per_person(params, theta, item_sample, response,
                                     emask).sum(-1)
-        valid = ((emask.sum(-1) > 0).to(mu.dtype) if row_weight is None
+        valid = ((emask.sum(-1) > 0).to(q[0].dtype) if row_weight is None
                  else row_weight)
-        lp = (dist.standard_normal_log_prob(theta).sum(-1) * valid).sum(-1)
-        lq = (self.theta_logq(theta, mu, logvar) * valid).sum(-1)
+        lp, lq = self._theta_log_ratio(theta, theta_eps, q, valid)
         return ll + lp - lq, self.item_log_ratio_from(post, item_sample)
 
     def iwae_log_weights(self, params: dict, response, mask, item_eps: dict,
@@ -409,13 +567,13 @@ class VIBO:
         if noise is None:
             noise = self.sample_noise(response.shape[-2], num_samples,
                                       generator=generator)
-        post, item_sample, mu, logvar, theta = self._draw(
+        post, item_sample, q, theta = self._draw(
             params, response, mask, *noise)
         ll = self.loglik_per_person(params, theta, item_sample, response,
                                     mask)                         # (S, B)
-        valid = (mask.sum(-1) > 0).to(mu.dtype)
+        valid = (mask.sum(-1) > 0).to(q[0].dtype)
         lp = dist.standard_normal_log_prob(theta).sum(-1) * valid
-        lq = self.theta_logq(theta, mu, logvar) * valid
+        lq = self.theta_logq(theta, noise[1], *q) * valid
         ratio = self.item_log_ratio_from(post, item_sample) / n_total
         return objectives.iwae_bound(ll + lp - lq + ratio[:, None])
 
@@ -443,36 +601,35 @@ class VIBO:
                              "(use_pallas=True)")
 
     def _packed_samples(self, params: dict, packed, item_eps: dict,
-                        theta_eps, transposed: bool):
+                        theta_eps, transposed: bool, post: dict, decoded):
         """What the packed objectives share under use_pallas, one sample at
-        a time: yields (ll_s, item_sample, mu, logvar, theta) with ll_s the
-        loglik summed over persons. The encoder's first layer runs the fused
-        kernel, the loglik the link's one-pass op where _use_packed_kernel
-        holds (each sample's sum sees one scalar cotangent: the ELBO's 1/S,
-        the IWAE's weight w_s, so the ops' uniform-cotangent contract
-        holds); otherwise (deep without deep_fused_kernel) the code is
-        decoded for the plain link."""
-        post = self.item_dist(params)
+        a time: yields (ll_s, item_sample, (mu, logvar, off), theta) with
+        ll_s the loglik summed over persons. The item posterior `post` and
+        the decoded code are the objective's, computed once. The encoder's
+        first layer runs the fused kernel, the loglik the link's one-pass
+        op where _use_packed_kernel holds (each sample's sum sees one
+        scalar cotangent: the ELBO's 1/S, the IWAE's weight w_s, so the
+        ops' uniform-cotangent contract holds); otherwise (deep without
+        deep_fused_kernel) the plain link on the decoded code."""
         m = packed.shape[-1]
         fused = self._use_packed_kernel(params)
-        if not fused:                      # deep on the plain link
-            mask, response = decode_packed(packed)
         for s in range(theta_eps.shape[0]):
             item_sample = {
                 name: dist.reparameterize_eps(item_eps[name][s],
                                               post[name]["mu"],
                                               post[name]["logvar"])
                 for name in item_eps}
-            mu, logvar, _ = self._encode_packed(
-                params, packed, self._item_feats(post, item_sample),
-                transposed=transposed)
-            theta = dist.reparameterize_eps(theta_eps[s], mu, logvar)
+            q = self._encode_packed(
+                params, packed, self._encoder_conditioning(post, item_sample),
+                decoded, transposed=transposed)
+            theta = dist.tril_reparameterize_eps(theta_eps[s], *q)
             if self._deep:
                 ll = (pallas_deep.masked_loglik_deep_packed_train(
                     theta, item_sample["d"], params["deep_link"], packed)
                     if fused else self.loglik_per_person(
-                        params, theta, item_sample, response, mask)).sum()
-                yield ll, item_sample, mu, logvar, theta
+                        params, theta, item_sample, decoded[1],
+                        decoded[0])).sum()
+                yield ll, item_sample, q, theta
                 continue
             a, b, g_hat = self._link_params(item_sample, m)
             if self._categorical:
@@ -489,7 +646,15 @@ class VIBO:
                     self.cfg.irt_model,
                     pallas_elbo.masked_loglik_2pl_packed_train)
                 ll = train(theta, *items, packed).sum()
-            yield ll, item_sample, mu, logvar, theta
+            yield ll, item_sample, q, theta
+
+    def _packed_post(self, params: dict, packed):
+        """(item posterior, decoded code or None) of a packed objective:
+        the item encoder's posterior conditions on the whole code."""
+        decoded = self._decode_if_needed(params, packed)
+        post = (self.item_dist(params, decoded[1], decoded[0])
+                if self.cfg.item_encoder else self.item_dist(params))
+        return post, decoded
 
     def elbo_packed_sums(self, params: dict, packed, item_eps: dict,
                          theta_eps, row_weight=None,
@@ -503,9 +668,9 @@ class VIBO:
         0/1) masks the theta-KL of rows with no observed cell; None derives
         it from the code. transposed: theta in (K, B), theta_eps from
         sample_noise(..., transposed=True), fused kernels of the 1pl/2pl/3pl
-        links only (grm/gpcm run their one-pass op on theta (B, K), the
-        table reparameterized outside it; deep its op or the plain link on
-        theta (B, K)). Same math either way."""
+        links and the diagonal family only (grm/gpcm run their one-pass op
+        on theta (B, K), the table reparameterized outside it; deep its op
+        or the plain link on theta (B, K)). Same math either way."""
         valid = (packed_row_valid(packed) if row_weight is None
                  else row_weight)
         self._check_packed_layout(transposed)
@@ -513,15 +678,17 @@ class VIBO:
             mask, response = decode_packed(packed)
             return self.elbo_sums(params, response, mask, item_eps,
                                   theta_eps, valid)
+        post, decoded = self._packed_post(params, packed)
         lls, klts = [], []
-        for ll, _, mu, logvar, _ in self._packed_samples(
-                params, packed, item_eps, theta_eps, transposed):
-            kl = dist.kl_standard_normal(mu, logvar).sum(0 if transposed
-                                                         else -1)
+        for ll, _, q, _ in self._packed_samples(
+                params, packed, item_eps, theta_eps, transposed, post,
+                decoded):
+            kl = (dist.kl_standard_normal(q[0], q[1]).sum(0) if transposed
+                  else self.theta_kl(*q))
             klts.append((kl * valid).sum())
             lls.append(ll)
         return (torch.stack(lls).mean(), torch.stack(klts).mean(),
-                self.item_kl_from(self.item_dist(params)))
+                self.item_kl_from(post))
 
     def iwae_packed_terms(self, params: dict, packed, item_eps: dict,
                           theta_eps, row_weight=None,
@@ -539,15 +706,18 @@ class VIBO:
             mask, response = decode_packed(packed)
             return self.iwae_terms(params, response, mask, item_eps,
                                    theta_eps, row_weight=valid)
-        post = self.item_dist(params)
-        kdim = 0 if transposed else -1
+        post, decoded = self._packed_post(params, packed)
         local, ratio = [], []
-        for ll, item_sample, mu, logvar, theta in self._packed_samples(
-                params, packed, item_eps, theta_eps, transposed):
-            lp = (dist.standard_normal_log_prob(theta).sum(kdim)
-                  * valid).sum()
-            lq = (dist.gaussian_log_prob(theta, mu, logvar).sum(kdim)
-                  * valid).sum()
+        for s, (ll, item_sample, q, theta) in enumerate(self._packed_samples(
+                params, packed, item_eps, theta_eps, transposed, post,
+                decoded)):
+            if transposed:
+                lp = (dist.standard_normal_log_prob(theta).sum(0)
+                      * valid).sum()
+                lq = (dist.gaussian_log_prob(theta, q[0], q[1]).sum(0)
+                      * valid).sum()
+            else:
+                lp, lq = self._theta_log_ratio(theta, theta_eps[s], q, valid)
             local.append(ll + lp - lq)
             ratio.append(self.item_log_ratio_from(post, item_sample))
         return torch.stack(local), torch.stack(ratio)
@@ -586,10 +756,12 @@ class VIBO:
 
     def impute_prob(self, params: dict, response, mask):
         """Predicted response probabilities (B, M) from the posterior means:
-        the item-posterior means condition the encoder and, with its mean
-        ability, go through the link (impute_prob_with_items)."""
-        return self.impute_prob_with_items(params, response, mask,
-                                           self.item_posterior_mean(params))
+        the item-posterior means (the item encoder's on this batch's
+        columns) condition the encoder and, with its mean ability, go
+        through the link (impute_prob_with_items)."""
+        return self.impute_prob_with_items(
+            params, response, mask,
+            self.item_posterior_mean(params, response, mask))
 
     def impute_prob_with_items(self, params: dict, response, mask,
                                item_mean: dict):

@@ -1,6 +1,7 @@
 """Masked log-likelihoods of the binary links and the polytomous families
-(counterpart of `vibo_tpu.ops.likelihood`; the Fisher weights come with the
-Laplace family).
+(counterpart of `vibo_tpu.ops.likelihood`), and the expected Fisher
+weights of the linear predictor that the Laplace-anchored posterior
+weights its pair statistics by.
 
 log Bernoulli(r | sigmoid(l)) = r*l - softplus(l), never forming
 probabilities. 3PL, pi = g + (1-g) sigmoid(l) with g = sigmoid(g~):
@@ -24,6 +25,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from vibo_tpu_torch.ops.distributions import floor_at
 
 
 def bernoulli_loglik_from_logits(logits, response, mask):
@@ -143,3 +146,57 @@ def categorical_logprob_all(irt_model: str, base, table):
     if irt_model == "gpcm":
         return gpcm_logprob_all(base, table)
     raise ValueError(f"not a categorical irt_model: {irt_model!r}")
+
+
+def categorical_fisher_weight(irt_model: str, base, table):
+    if irt_model == "grm":
+        return graded_fisher_weight(base, table)
+    if irt_model == "gpcm":
+        return gpcm_fisher_weight(base, table)
+    raise ValueError(f"not a categorical irt_model: {irt_model!r}")
+
+
+# ------------------------------------------------- expected Fisher weights
+#
+# Per-cell expected information of the linear predictor eta: the w_ij of
+# the closed-form Laplace covariance (I + sum_j m_ij w_ij a_j a_j^T)^-1
+# (evaluation.laplace_sigma_from_items has the numpy twins).
+
+
+def bernoulli_fisher_weight(logits):
+    """w = p(1-p) for the 1PL/2PL Bernoulli likelihood."""
+    s = torch.sigmoid(logits)
+    return s * (1.0 - s)
+
+
+def fisher_weight_3pl(logits, g_hat):
+    """3PL: w = ((1-g) s(1-s))^2 / (p(1-p)), g = sigmoid(g_hat) (..., M)."""
+    g = torch.sigmoid(g_hat)[..., None, :]
+    s = torch.sigmoid(logits)
+    p = g + (1.0 - g) * s
+    num = torch.square((1.0 - g) * s * (1.0 - s))
+    return num / floor_at(p * (1.0 - p), 1e-12)
+
+
+def graded_fisher_weight(base, kappa):
+    """GRM: w = sum_c (s'_c - s'_{c+1})^2 / P_c, s_c = sigmoid(base -
+    kappa_c), the boundary derivatives 0. Forms the (..., B, M, C) axis."""
+    sc = torch.sigmoid(base[..., None] - kappa[..., None, :, :])
+    z = torch.zeros(sc.shape[:-1] + (1,), dtype=sc.dtype, device=sc.device)
+    s_lo = torch.cat([torch.ones_like(z), sc], -1)          # P(>= c)
+    s_hi = torch.cat([sc, z], -1)                           # P(>= c+1)
+    pcat = floor_at(s_lo - s_hi, 1e-12)
+    d = sc * (1.0 - sc)
+    d_lo = torch.cat([z, d], -1)
+    d_hi = torch.cat([d, z], -1)
+    return (torch.square(d_lo - d_hi) / pcat).sum(-1)
+
+
+def gpcm_fisher_weight(base, kap):
+    """GPCM: w = Var[c] under the category softmax (the expected
+    information of base). Forms the (..., B, M, C) axis."""
+    p = torch.exp(gpcm_logprob_all(base, kap))
+    cats = torch.arange(p.shape[-1], dtype=p.dtype, device=p.device)
+    e1 = (p * cats).sum(-1)
+    e2 = (p * cats * cats).sum(-1)
+    return e2 - e1 * e1

@@ -173,16 +173,20 @@ def loglik_train_cuda(theta, a, b, g_hat, packed, dtheta, per_person: bool):
            None if part_llp is None else part_llp.data_ptr(),
            part_da.data_ptr(), part_db.data_ptr())
     tail = (bsz, m, k, *plan, torch.cuda.current_stream(dev).cuda_stream)
+    # the launch counted by the op it serves: "kb" the scalar op on theta
+    # (K, B) (rows 3 and 10), "bk" the per-person op on theta (B, K) (rows
+    # 4 and 9); one device kernel for both
+    variant = "bk" if per_person else "kb"
     if g_hat is None:
         TRAIN(*head, *mid, part_ll.data_ptr(), da.data_ptr(), db.data_ptr(),
-              ll.data_ptr(), *tail)
+              ll.data_ptr(), *tail, variant=variant)
         grads = (da, db)
     else:
         part_dg = torch.empty((nblk, m), **f32)
         dg = torch.empty((m,), **f32)
         TRAIN_3PL(*head, g_hat.data_ptr(), *mid, part_dg.data_ptr(),
                   part_ll.data_ptr(), da.data_ptr(), db.data_ptr(),
-                  dg.data_ptr(), ll.data_ptr(), *tail)
+                  dg.data_ptr(), ll.data_ptr(), *tail, variant=variant)
         grads = (da, db, dg)
     return (ll_person if per_person else ll[0]), grads
 

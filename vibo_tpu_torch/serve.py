@@ -1,6 +1,6 @@
-"""Serving API: amortized ability scoring for new students (counterpart of
-`vibo_tpu.serve.AbilityScorer`: score, laplace_sigma, refine,
-from_checkpoint).
+"""Serving API: amortized ability scoring for new students and cold-start
+scoring of new items (counterpart of `vibo_tpu.serve.AbilityScorer`:
+score, laplace_sigma, refine, score_items, from_checkpoint).
 
     scorer = AbilityScorer(model, params)
     out = scorer.score(responses, masks)     # (B, M) float arrays
@@ -12,6 +12,8 @@ from_checkpoint).
 
     scorer.laplace_sigma(responses, masks)  # (B, K) Fisher widths
     scorer.refine(responses, masks, steps=50)  # per-person SVI of q(theta)
+    scorer.score_items(responses, masks)   # new items' posteriors (the
+                                           # item encoder's cold start)
 
     scorer = AbilityScorer.from_checkpoint("runs/pisa/best.npz")
 
@@ -35,7 +37,11 @@ from vibo_tpu_torch.train import checkpoint as ckpt
 class AbilityScorer:
     """Deterministic batched inference: the item-posterior MEANS condition
     the encoder (no sampling). Batches are zero-padded to `pad_multiple`
-    rows, as in the JAX scorer, so the device sees few distinct shapes."""
+    rows, as in the JAX scorer, so the device sees few distinct shapes.
+    item_mean: frozen item means (e.g. evaluation.full_item_mean of the
+    training matrix); without them an amortized item posterior
+    (item_encoder) conditions on each scoring batch's own columns, as in
+    JAX. theta_sigma is the marginal sd of every posterior family."""
 
     def __init__(self, model: VIBO, params: dict, pad_multiple: int = 256,
                  item_mean: dict | None = None, device=None):
@@ -83,8 +89,7 @@ class AbilityScorer:
             mask = np.pad(mask, ((0, pad), (0, 0)))
         resp_t = torch.from_numpy(response).to(self.device)
         mask_t = torch.from_numpy(mask).to(self.device)
-        item_mean = (self.item_mean if self.item_mean is not None
-                     else self.model.item_posterior_mean(self.params))
+        item_mean = self._item_means(resp_t, mask_t)
         mu, logvar, off = self.model.encode(self.params, resp_t, mask_t,
                                             item_mean)
         if self.model.cfg.irt_model in CATEGORICAL_MODELS:
@@ -97,11 +102,18 @@ class AbilityScorer:
                 "theta_sigma": sigma.cpu().numpy()[:b],
                 "prob": prob.cpu().numpy()[:b]}
 
-    def _item_means(self) -> dict:
-        """The item means the scorer conditions on (detached tensors)."""
+    def _item_means(self, response, mask) -> dict:
+        """The item means the scorer conditions on (detached tensors): the
+        frozen ones, else the posterior's (an amortized one's on this
+        (response, mask) batch)."""
         items = (self.item_mean if self.item_mean is not None
-                 else self.model.item_posterior_mean(self.params))
+                 else self.model.item_posterior_mean(self.params, response,
+                                                     mask))
         return {k: v.detach() for k, v in items.items()}
+
+    def _tensors(self, response, mask):
+        return tuple(torch.from_numpy(np.asarray(x, np.float32)).to(
+            self.device) for x in (response, mask))
 
     def laplace_sigma(self, response, mask, theta_mu=None) -> np.ndarray:
         """(B, K) Laplace (Fisher) posterior widths at the amortized mean:
@@ -111,7 +123,9 @@ class AbilityScorer:
         from vibo_tpu_torch import evaluation
         if theta_mu is None:
             theta_mu = self.score(response, mask)["theta_mu"]
-        items = {k: v.cpu().numpy() for k, v in self._item_means().items()}
+        with torch.no_grad():
+            items = {k: v.cpu().numpy() for k, v in
+                     self._item_means(*self._tensors(response, mask)).items()}
         if self.model.cfg.irt_model == "deep":
             return evaluation.laplace_sigma_deep(
                 self.params["deep_link"], items["d"], mask, theta_mu,
@@ -153,22 +167,49 @@ class AbilityScorer:
                 | ((mask > 0).astype(np.uint8) << 1)
             resp_c, mask_c = code & 1, (code >> 1) & 1
         dev = self.device
-        items = self._item_means()
         with torch.no_grad():
-            mu0, logvar0, _ = self.model.encode(
-                self.params, torch.from_numpy(response).to(dev),
-                torch.from_numpy(mask).to(dev), items)
-        resp_t = torch.from_numpy(resp_c.astype(np.float32)).to(dev)
-        mask_t = torch.from_numpy(mask_c.astype(np.float32)).to(dev)
+            resp_t, mask_t = self._tensors(response, mask)
+            items = self._item_means(resp_t, mask_t)
+            mu0, logvar0, off0 = self.model.encode(self.params, resp_t,
+                                                   mask_t, items)
+        resp_c, mask_c = self._tensors(resp_c, mask_c)
         deep = (self.params["deep_link"]
                 if self.model.cfg.irt_model == "deep" else None)
         generator = (None if noise is not None
                      else torch.Generator(device=dev).manual_seed(seed))
         mu, sigma, tril, per0, per1 = evaluation.refine_block(
-            self.model.cfg.irt_model, items, deep, resp_t, mask_t, mu0,
-            logvar0, steps, lr, num_samples, noise, generator)
+            self.model.cfg.irt_model, items, deep, resp_c, mask_c, mu0,
+            logvar0, steps, lr, num_samples, noise, generator, off0)
         gain = (per1 - per0).cpu().numpy()[:b].mean()
         return {"theta_mu": mu.cpu().numpy()[:b],
                 "theta_sigma": sigma.cpu().numpy()[:b],
                 "theta_tril": tril.cpu().numpy()[:b],
                 "elbo_gain_per_person": float(gain)}
+
+    @torch.no_grad()
+    def score_items(self, response, mask) -> dict:
+        """New-item cold start: the item encoder alone (no residuals) infers
+        the posteriors of unseen items from their response columns in one
+        pass. response/mask: (B, M_new), rows any respondents, columns the
+        new items. Returns {"<param>_mu": (M_new, D), "<param>_sigma":
+        (M_new, D)} for each item parameter (a, b, ...). Needs a model
+        trained with item_encoder=True."""
+        if not self.model.cfg.item_encoder:
+            raise ValueError(
+                "score_items needs an amortized item posterior: train with "
+                "VIBOConfig(item_encoder=True); the free-form per-item "
+                "posterior cannot score unseen items")
+        response = np.asarray(response, np.float32)
+        mask = np.asarray(mask, np.float32)
+        if response.ndim != 2 or response.shape != mask.shape:
+            raise ValueError(
+                f"expected matching (B, M_new) response/mask, got "
+                f"{response.shape} vs {mask.shape}")
+        post = self.model.item_dist(self.params,
+                                    *self._tensors(response, mask),
+                                    new_items=True)
+        out = {}
+        for name, p in post.items():
+            out[f"{name}_mu"] = p["mu"].cpu().numpy()
+            out[f"{name}_sigma"] = torch.exp(0.5 * p["logvar"]).cpu().numpy()
+        return out

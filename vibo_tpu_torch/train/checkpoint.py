@@ -145,13 +145,9 @@ def peek_extra(path: str) -> dict:
 
 def config_from_json(model_cfg) -> "VIBOConfig":
     """The VIBOConfig of a checkpoint's embedded model config (either
-    package's): JAX's item_encoder_hidden is dropped where item_encoder is
-    off; with it on, VIBOConfig raises as it does for the item encoder."""
+    package's: the two configs have the same fields)."""
     from vibo_tpu_torch.models.vibo import VIBOConfig
-    cfg = json.loads(str(model_cfg))
-    if not cfg.get("item_encoder", False):
-        cfg.pop("item_encoder_hidden", None)
-    return VIBOConfig(**cfg)
+    return VIBOConfig(**json.loads(str(model_cfg)))
 
 
 def load_params(path: str, model) -> dict:
