@@ -105,7 +105,7 @@ ms a potential
 evaluation, ms an iteration and a profiler window's busy and idle
 shares and kernel calls an iteration. Then NUTS (trajectory="nuts", tree
 depth 7, target 0.8) against the JAX package's NUTS golds at 2,000 x 200,
-20 + 20 iterations (their 800 + 1,200 cut): k2-nuts (2PL, K = 2, row 4
+15 + 15 iterations (their 800 + 1,200 cut): k2-nuts (2PL, K = 2, row 4
 through the chain axis, launched once a chain each evaluation its trees
 took) and grm-k2 (C = 5, the dense potential; grm-k4 runs in hmc_depth.py
 only, the smoke's time budget), each gated on the
@@ -168,6 +168,27 @@ then fused_phase at 20 epochs of chunks of 2 (its profiler window one
 chunk), and the one-pass op's launches by layout: row 4 (theta (B, K))
 only under chol and laplace, row 3 (theta (K, B)) only under the item
 encoder.
+
+The decoded full batch and the mesh: `decoded_fused` (after the
+fused paths) is fused_phase on fit(packed=False) at the 2PL flagship: each
+chunk one CUDA graph of the decoded steps (rows 5-6, the dense reader,
+once a step, no first-layer kernel), graph against eager bitwise. After
+checkpoint_resume, `mesh_nccl`: a world of one NCCL rank in process
+(a FileStore under build/), make_mesh, a 20-epoch fit of the 2PL flagship
+through the mesh (eager steps) against the same fit without it (ELBOs and
+params within 1e-6; bitwise reported), rows 1-3 once a step in a profiler
+window of mesh steps (a window that lost a record opened again, each
+window's records in the order they ran). `mesh_gloo2`: two ranks spawned
+on the card over gloo (NCCL takes one rank a card), each holding only its
+tile: the 2PL flagship's students-only step (2 x 1) and 2D step (1 x 2),
+at f32 and at bf16, and the GRM flagship's 2D step at f32, from the state
+after MESH_GLOO_WARMUP one-rank steps, held against the ordinary packed
+step on one rank (no mesh, no tile code): the ELBO within 5e-5; at f32 the
+params after the Adam steps within rtol 5e-4 and atol 5e-6; at bf16 one
+step's raw gradient and the params after the steps, leaf by leaf, no
+further from the one-rank run than the one-rank run at bf16 is from the
+same run at f32 (MESH_BF16_GRAD_SHARE, MESH_BF16_PARAM_SHARE); the two
+ranks' params identical, each rank's launches a step counted.
 
 Bounds: the largest of three times, each at the H100 SXM's published peak:
 the bytes the function must move over 3.35 TB/s of HBM; its operations
@@ -285,13 +306,14 @@ DEEP_F32_KERNEL = lambda h: (   # noqa: E731
 GOLD_DIR = Path(__file__).resolve().parent / "artifacts" / "gold"
 HMC_CHAINS, HMC_TARGET = 4, 0.65
 NUTS_TREE_DEPTH, NUTS_TARGET = 7, 0.8
-# the smoke's depths (k4, k2-nuts and grm-k2 at 20 + 20 since the
-# families and the k2-nuts and item-encoder CLI phases joined the 600 s
-# budget, 30 + 30 before; hmc_depth.py held every gate there on the card;
-# grm stays at 30 + 30: at 20 + 20 its chains barely moved, accept 0.013,
-# theta 0.9949 against the 0.99 gate), grm-k4's hmc_depth.py's
+# the smoke's depths (k2-nuts and grm-k2 at 15 + 15 since the mesh and
+# decoded phases joined the 600 s budget; k4 at 20 + 20 since the
+# families and the k2-nuts and item-encoder CLI phases joined it, all
+# three 30 + 30 before; hmc_depth.py held every gate at 20 + 20 on the
+# card; grm stays at 30 + 30: at 20 + 20 its chains barely moved, accept
+# 0.013, theta 0.9949 against the 0.99 gate), grm-k4's hmc_depth.py's
 HMC_GOLD_DEPTH = {"k4": (20, 20, 64), "grm": (30, 30, 32),
-                  "k2-nuts": (20, 20), "grm-k2": (20, 20),
+                  "k2-nuts": (15, 15), "grm-k2": (15, 15),
                   "grm-k4": (50, 50)}
 NUTS_GOLDS = {"k2-nuts": ("2pl", 2), "grm-k2": ("grm", 2),
               "grm-k4": ("grm", 4)}              # link, K at 2,000 x 200
@@ -408,6 +430,8 @@ DEVICE_KERNELS = {
     "loglik_gpcm_train": r"loglik_categorical_kernel<vibo::LinkGPCM",
     "deep_link_train": r"deep_link_kernel<",
     "deep_link_f32_train": r"deep_link_f32_(mma_)?kernel[<(]",
+    "masked_loglik_2pl_fwd": r"masked_fwd_kernel<vibo::Link2PL",
+    "masked_loglik_2pl_bwd": r"masked_bwd_kernel<vibo::Link2PL",
     "first_layer_prep": r"prep_kernel<1>",
     "first_layer_prep_f32": r"prep_kernel<3>",
     "sum_rows": r"sum_rows_kernel",
@@ -1349,7 +1373,8 @@ def check_path(phase: str, launches: dict, ran: tuple,
 
 
 def profile_steps(step, steps: int, med_ms: float, smi: str,
-                  per_call: int = 1, counts: bool = False) -> dict:
+                  per_call: int = 1, counts: bool = False,
+                  sequence: bool = False) -> dict:
     """Device time by kernel a training step over `steps` calls of step()
     (per_call training steps each: a graph replay of a chunk) in a
     torch.profiler window (padded as in profiled), the device records
@@ -1359,7 +1384,9 @@ def profile_steps(step, steps: int, med_ms: float, smi: str,
     as measured). The records' union on the device's timeline beside their
     sum (equal unless a record is counted twice or two overlap) and the
     idle share within the window's own wall time; counts: also every
-    device record's name with its calls a step."""
+    device record's name with its calls a step; sequence: also the
+    DEVICE_KERNELS records in the order they ran (a record the window lost
+    shows where in the window it is missing)."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1416,6 +1443,11 @@ def profile_steps(step, steps: int, med_ms: float, smi: str,
                     "calls": c} for t, n, c in rows[:14]], "card": smi}
     if counts:
         out["counts"] = {n: c / n_steps for _, n, c in rows}
+    if sequence:
+        out["sequence"] = [k for _, k in sorted(
+            (e.time_range.start, k) for e in prof.events()
+            if device_record(e, host)
+            for k, rx in DEVICE_KERNELS.items() if re.search(rx, e.name))]
     return out
 
 
@@ -1530,11 +1562,13 @@ def adam_capturable_matches_plain() -> float:
     return err
 
 
-def graph_matches_eager(tag: str, trainer, params, optimizer, packed,
-                        row_valid, samples: int) -> dict:
-    """FUSED_REPLAYS replays of a FUSED_CHECK_LEN-step graph (make_scan),
+def graph_matches_eager(tag: str, trainer, params, optimizer, x, y,
+                        samples: int, decoded: bool = False) -> dict:
+    """FUSED_REPLAYS replays of a FUSED_CHECK_LEN-step graph (make_scan;
+    on (x, y) = (packed, row_valid), or (response, mask) when decoded),
     each replay's noise cloned from the graph's static buffers and fed to
-    eager step_with_noise on a copy of the params and Adam's state taken
+    eager step_with_noise (minibatch_step_with_noise at item_scale 1 when
+    decoded) on a copy of the params and Adam's state taken
     before: max |graph - eager| / max |eager| of the per-step aux, the
     params and Adam's moments and step count after all of them, which
     must all be bitwise equal, every replay's noise new (each step's
@@ -1549,19 +1583,22 @@ def graph_matches_eager(tag: str, trainer, params, optimizer, packed,
     for p, q in zip(tree_leaves(params), tree_leaves(copy)):
         copy_opt.state[q] = {k: v.clone()
                              for k, v in optimizer.state[p].items()}
-    scan = trainer.make_scan(1.0, samples, FUSED_CHECK_LEN)
+    scan = trainer.make_scan(1.0, samples, FUSED_CHECK_LEN, decoded=decoded)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     graph_aux, noises = [], []
     for _ in range(FUSED_REPLAYS):
-        graph_aux.append(scan(params, optimizer, packed, row_valid, gen))
+        graph_aux.append(scan(params, optimizer, x, y, gen))
         noises.extend(tree_map(torch.clone, n) for n in scan.noise)
     stale = sum(torch.equal(a[1], b[1]) for a, b in zip(noises, noises[1:]))
     eager_aux, eager_ms = [], []
     for item_eps, theta_eps in noises:
         t0 = time.perf_counter()
-        aux = trainer.step_with_noise(copy, copy_opt, packed, row_valid,
-                                      item_eps, theta_eps)
+        aux = (trainer.minibatch_step_with_noise(copy, copy_opt, x, y,
+                                                 item_eps, theta_eps, 1.0)
+               if decoded else
+               trainer.step_with_noise(copy, copy_opt, x, y, item_eps,
+                                       theta_eps))
         torch.cuda.synchronize()
         eager_ms.append((time.perf_counter() - t0) * 1e3)
         eager_aux.append(torch.stack([aux[k] for k in AUX_KEYS]))
@@ -1591,8 +1628,8 @@ def device_counts(counts: dict) -> dict:
             for k, rx in DEVICE_KERNELS.items()}
 
 
-def eager_counts(tag: str, trainer, params, optimizer, packed, row_valid,
-                 ran: tuple, med_ms: float, smi: str) -> tuple:
+def eager_counts(tag: str, trainer, params, optimizer, x, y, ran: tuple,
+                 med_ms: float, smi: str, decoded: bool = False) -> tuple:
     """EAGER_COUNT_STEPS eager steps of a fused phase's model in a profiler
     window: (each kernel wrapper's launches a step, each DEVICE_KERNELS
     kernel's device calls a step). The steps launch every kernel of `ran`
@@ -1604,7 +1641,9 @@ def eager_counts(tag: str, trainer, params, optimizer, packed, row_valid,
     for _ in range(PROFILER_TRIES):
         _build.reset_launches()
         prof = profile_steps(
-            lambda: trainer.step(params, optimizer, packed, row_valid, gen),
+            (lambda: trainer.minibatch_step(params, optimizer, x, y, 1.0,
+                                            gen)) if decoded else
+            (lambda: trainer.step(params, optimizer, x, y, gen)),
             EAGER_COUNT_STEPS, med_ms, smi, counts=True)
         launches = launch_counts()
         check_path(f"{tag} eager counting window", launches, ran)
@@ -1620,7 +1659,8 @@ def eager_counts(tag: str, trainer, params, optimizer, packed, row_valid,
 def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
                 epochs: int, eval_every: int, objective: str = "elbo",
                 samples: int = 1, must_rise: bool = True,
-                eager=None, profile_chunks: int = 3) -> dict:
+                eager=None, profile_chunks: int = 3,
+                decoded: bool = False) -> dict:
     """The fused full-batch path for one model: Trainer.fit with
     fuse_epochs (each chunk of eval_every steps one CUDA graph) for
     `epochs` at `objective`, every eval's held-out accuracy in [0, 1],
@@ -1633,15 +1673,19 @@ def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
     `eager`: full_batch_phase's result for the same
     model, whose steps (same init, seed and noise) the fit's first epochs
     repeat: their ELBOs' max difference is reported beside its step
-    median."""
+    median. `decoded`: the decoded full batch (TrainConfig.packed=False,
+    every step on data["decoded"], the (response, mask) on the card)."""
     from vibo_tpu_torch.models import VIBO
     from vibo_tpu_torch.train import Trainer, TrainConfig
 
-    ds, packed, row_valid = data["ds"], data["packed"], data["row_valid"]
+    ds = data["ds"]
+    x, y = (data["decoded"] if decoded
+            else (data["packed"], data["row_valid"]))
     model = VIBO(cfg)
     trainer = Trainer(model, TrainConfig(
         lr=5e-3, epochs=epochs, eval_every=eval_every, objective=objective,
-        num_mc_samples=samples, log_every=1))
+        num_mc_samples=samples, log_every=1,
+        packed=False if decoded else None))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = trainer.fit(ds)
@@ -1658,18 +1702,18 @@ def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
         raise AssertionError(f"{tag} fused {objective} did not rise: "
                              f"{bounds}")
     params, optimizer = res["params"], res["optimizer"]
-    equal = graph_matches_eager(tag, trainer, params, optimizer, packed,
-                                row_valid, samples)
-    wrapper, eager_dev = eager_counts(tag, trainer, params, optimizer,
-                                      packed, row_valid, ran,
-                                      equal["eager_step_ms_median"], smi)
+    equal = graph_matches_eager(tag, trainer, params, optimizer, x, y,
+                                samples, decoded)
+    wrapper, eager_dev = eager_counts(tag, trainer, params, optimizer, x, y,
+                                      ran, equal["eager_step_ms_median"],
+                                      smi, decoded)
 
-    scan = trainer.make_scan(1.0, samples, eval_every)
+    scan = trainer.make_scan(1.0, samples, eval_every, decoded=decoded)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
 
     def chunk():
-        return scan(params, optimizer, packed, row_valid, gen)
+        return scan(params, optimizer, x, y, gen)
 
     chunk()                                   # capture and a first replay
     torch.cuda.synchronize()
@@ -1698,6 +1742,7 @@ def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
                     **({"wrapper": wrapper[k]} if k in wrapper else {})}
                 for k in DEVICE_KERNELS if replay[k] or eager_dev[k]}
     emit({"phase": "fused", "link": tag, "objective": objective,
+          "decoded": decoded,
           "samples": samples, "epochs": epochs, "eval_every": eval_every,
           "fit_seconds": fit_s, "train_seconds": res["train_seconds"],
           "warm_train_seconds": res["warm_train_seconds"],
@@ -1717,7 +1762,8 @@ def fused_phase(tag: str, cfg, data: dict, smi: str, ran: tuple,
     return {"replay_step_ms": replay_ms,
             "eager_step_ms_median": equal["eager_step_ms_median"],
             "device_ms_per_step": prof["device_ms_per_step"],
-            "device_idle_share": prof["device_idle_share"]}
+            "device_idle_share": prof["device_idle_share"],
+            "launches_per_step": launches}
 
 
 def minibatch_phase(link: str, ds, smi: str, cfg=None, masked=None,
@@ -3348,6 +3394,585 @@ def families_phase(smi: str, data: dict) -> dict:
     return out
 
 
+# ------------------------------------- the decoded full batch and the mesh
+
+# the decoded full batch (TrainConfig.packed=False): epochs, eval_every, and
+# its path, the masked 2PL loglik's two kernels (rows 5-6, dense reader)
+DECODED_FUSED = (20, 10)
+DECODED_PATH = ("masked_loglik_2pl_fwd", "masked_loglik_2pl_bwd")
+# mesh_nccl: a students-only fit over a world of one NCCL rank against the
+# fit without a mesh (ELBOs and params), and the eager mesh steps timed and
+# profiled; its path, rows 1-3 once a step
+MESH_NCCL_FIT = (20, 10)                  # epochs, eval_every
+MESH_NCCL_TOL = 1e-6
+MESH_DP_PATH = (*FIRST_LAYER, "loglik_2pl_train")
+MESH_TIMED_STEPS = 5
+# mesh_gloo2: two spawned ranks on the card, gloo on CUDA tensors: (tag,
+# link, item_axis, steps, compute dtype); each run held against one rank's
+# run of the same step on the card (Trainer.step_with_noise without a mesh,
+# theta (K, B) on a 2 x 1 mesh where the link takes it, (B, K) on a 2D
+# tile as the tile runs it), so the reference runs none of the tile's code
+MESH_GLOO_RUNS = (("2pl_2x1", "2pl", 1, 10, "float32"),
+                  ("2pl_1x2", "2pl", 2, 10, "float32"),
+                  ("grm_1x2", "grm", 2, 5, "float32"),
+                  ("2pl_2x1_bf16", "2pl", 1, 10, "bfloat16"),
+                  ("2pl_1x2_bf16", "2pl", 2, 10, "bfloat16"))
+# the f32 runs at JAX's test_train_step_sharded_equals_replicated
+# tolerances (an f32 test's)
+MESH_ELBO_RTOL = 5e-5
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-4, 5e-6
+# the bf16 runs (the flagship's own dtype): the ELBO at MESH_ELBO_RTOL, and
+# one step's raw gradient (no clipping) and the params after the Adam
+# steps, leaf by leaf, against what bf16 itself does to them: the L2 norm
+# of (two ranks - one rank) at most this share of the norm of (one rank at
+# bf16 - one rank at f32) on the same params and noise. JAX's f32
+# tolerances do not apply there: every product at bf16 rounds its
+# operands, the cotangent of a weight read through a bf16 cast is rounded
+# to bf16 where each rank's partial sum ends (two roundings of two halves
+# where one rank rounds their total once), and a last-bit difference in an
+# f32 intermediate (another summation order) flips the bf16 rounding of
+# an operand element; Adam then turns such gradient differences into
+# params ~5e-5 past rtol 5e-4 / atol 5e-6 in 10 steps at lr 1e-4. On the
+# card the shares read at most 0.49 (gradient) and 0.60 (params), every
+# 2 x 1 encoder element's difference within u (|partial 0| + |partial 1|
+# + |total|), u = 2^-8, with partials that do not cancel (their sizes sum
+# to ~1.0 of the total's); a factor of 2 in the gradient would read each
+# leaf's gradient norm over its bf16 difference (`grad_l2` beside
+# `grad_bf16_l2`)
+MESH_BF16_GRAD_SHARE = 1.0
+MESH_BF16_PARAM_SHARE = 1.0
+MESH_GRAD_SEED = 3                        # the gradient step's noise
+# the runs' Adam rate: at the smoke's 5e-3 the flagship's first Adam steps
+# move each of the first layer's 7,168 input rows by +-lr, its
+# pre-activations by ~10, and the ELBO triples in a step; such a
+# trajectory amplifies the f32 summation order of two shards (4e-7 of the
+# first step's ELBO) to 1e-2 of the ELBO in 10 steps (a probe on the
+# card), which would test the flagship's early dynamics, not the mesh
+MESH_GLOO_LR = 1e-4
+# one-rank steps before the compared ones, which then start from Adam's
+# warmed moments: Adam's first step moves every element by +-lr whatever
+# its gradient's size, so an element whose gradient is rounding noise
+# (a hidden unit's sum over 10,240 students that nearly cancels) takes
+# opposite signs in the two runs and parts by 2 lr (measured on the card:
+# 2.2e-4 to 5.4e-4 past the params' tolerance after 10 steps from the
+# init); with the moments warmed the update is continuous in the gradient
+MESH_GLOO_WARMUP = 5
+# each run's kernels a step: rows 1-3 (1f-2f at f32) on the students-only
+# step's shards, the one-pass loglik on theta (B, K) and no first layer on
+# a 2D tile
+MESH_GLOO_PATHS = {"2pl_2x1": {"first_layer_fwd_f32": 1,
+                               "first_layer_bwd_f32": 1,
+                               "loglik_2pl_train": 1},
+                   "2pl_1x2": {"loglik_2pl_train": 1},
+                   "grm_1x2": {"loglik_grm_train": 1},
+                   "2pl_2x1_bf16": {"first_layer_fwd": 1,
+                                    "first_layer_bwd": 1,
+                                    "loglik_2pl_train": 1},
+                   "2pl_1x2_bf16": {"loglik_2pl_train": 1}}
+MESH_GLOO_LAYOUT = {"2pl_2x1": "kb", "2pl_1x2": "bk", "2pl_2x1_bf16": "kb",
+                    "2pl_1x2_bf16": "bk"}
+
+
+def decoded_fused(smi: str, data: dict) -> dict:
+    """fit(packed=False) on the 2PL flagship: the decoded full batch, each
+    chunk one CUDA graph of DECODED_FUSED[1] steps on the (response, mask)
+    on the card (fused_phase: graph against eager bitwise, replay and eager
+    step, busy and idle share); the masked 2PL loglik's two kernels (rows
+    5-6) run once a step and no first-layer kernel."""
+    ds = data["ds"]
+    decoded = tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32))
+                    .cuda() for x in (ds.response, ds.train_mask))
+    res = fused_phase("2pl_decoded", flagship_config("2pl"),
+                      {**data, "decoded": decoded}, smi, DECODED_PATH,
+                      *DECODED_FUSED, decoded=True)
+    wrapper = {k: v.get("wrapper") for k, v in
+               res["launches_per_step"].items()}
+    if any(wrapper.get(k) != 1.0 for k in DECODED_PATH) or any(
+            k.startswith("first_layer") for k in wrapper):
+        raise AssertionError(f"decoded_fused: not rows 5-6 once a step "
+                             f"alone: {res['launches_per_step']}")
+    emit({"phase": "decoded_fused", "epochs": DECODED_FUSED[0],
+          "eval_every": DECODED_FUSED[1], **res, "card": smi})
+    return res
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """Each leaf's path, in convert.tree_leaves order (dict keys sorted,
+    lists in order)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _mesh_params_close(got: list, want: list, names: list,
+                       grad_rms: list) -> tuple:
+    """(max over leaves of max(|got - want| - atol - rtol |want|), the
+    largest |got - want| / max |want|, and for each leaf with elements
+    past the tolerance: their count, the leaf's size, the largest excess,
+    and the RMS gradient (Adam's sqrt(exp_avg_sq)) at those elements
+    against the leaf's median) at MESH_PARAM_RTOL/ATOL."""
+    excess, over = float("-inf"), {}
+    for a, b, name, rms in zip(got, want, names, grad_rms):
+        e = ((a.double() - b.double()).abs() - MESH_PARAM_ATOL
+             - MESH_PARAM_RTOL * b.double().abs())
+        excess = max(excess, float(e.max()))
+        bad = e > 0
+        if bad.any():
+            over[name] = {"count": int(bad.sum()), "size": e.numel(),
+                          "excess_max": float(e.max()),
+                          "grad_rms_max_there": float(rms[bad].max()),
+                          "grad_rms_median": float(rms.median())}
+    return excess, max(rel_err(a, b) for a, b in zip(got, want)), over
+
+
+def mesh_nccl(smi: str, data: dict) -> dict:
+    """A world of one NCCL rank, started in process through a file store:
+    make_mesh (students only) and a fit of MESH_NCCL_FIT on the 2PL
+    flagship through it (eager steps, one host fetch a chunk) against the
+    same fit without a mesh (CUDA graphs): the per-epoch ELBOs and the
+    params within MESH_NCCL_TOL (and whether bitwise equal); rows 1-3 once
+    in each step, by their wrappers and in a profiler window of the mesh
+    fit (read for its device calls only, as checkpoint_resume's); then
+    MESH_TIMED_STEPS mesh steps timed and a profiler window of them for
+    their busy and idle time."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vibo_tpu_torch import parallel
+    from vibo_tpu_torch.convert import tree_leaves
+    from vibo_tpu_torch.models import VIBO
+    from vibo_tpu_torch.ops import _build
+    from vibo_tpu_torch.train import Trainer, TrainConfig
+
+    ds = data["ds"]
+    model = VIBO(flagship_config("2pl"))
+    cfg = TrainConfig(lr=5e-3, epochs=MESH_NCCL_FIT[0],
+                      eval_every=MESH_NCCL_FIT[1], log_every=1)
+    ref = Trainer(model, cfg).fit(ds)
+    out = {"phase": "mesh_nccl", "world": 1, "backend": "nccl",
+           "epochs": MESH_NCCL_FIT[0], "eval_every": MESH_NCCL_FIT[1],
+           "card": smi}
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh(
+                device=torch.device("cuda", torch.cuda.current_device()))
+            out["mesh"] = dict(mesh.shape)
+            trainer = Trainer(model, cfg, mesh=mesh)
+            box = {}
+
+            def mesh_fit():
+                box["res"] = trainer.fit(ds)
+
+            for _ in range(PROFILER_TRIES):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                prof = profile_steps(mesh_fit, 1, 1.0, smi, counts=True)
+                out["fit_seconds"] = time.perf_counter() - t0
+                launches = launch_counts()
+                check_path("mesh_nccl", launches, MESH_DP_PATH,
+                           MESH_DP_PATH, MESH_NCCL_FIT[0])
+                dev = device_counts(prof["counts"])
+                out["device_calls_in_fit"] = {k: dev[k]
+                                              for k in MESH_DP_PATH}
+                if all(dev[k] == MESH_NCCL_FIT[0] for k in MESH_DP_PATH):
+                    break
+            else:
+                raise AssertionError(f"mesh_nccl: rows 1-3 not once a "
+                                     f"step in the fit: {out}")
+            res = box["res"]
+            out["wrapper_launches"] = {k: launches[k] for k in MESH_DP_PATH}
+            elbos = [[h["elbo"] for h in r["history"]
+                      if h["event"] == "train"] for r in (res, ref)]
+            got = [p.detach() for p in tree_leaves(res["params"])]
+            want = [p.detach() for p in tree_leaves(ref["params"])]
+            out["elbo_max_rel"] = max(abs(a - b) / abs(b)
+                                      for a, b in zip(*elbos))
+            out["params_max_rel"] = max(rel_err(a, b)
+                                        for a, b in zip(got, want))
+            out["bitwise"] = bool(elbos[0] == elbos[1] and all(
+                torch.equal(a, b) for a, b in zip(got, want)))
+            out["heldout_acc"] = [[h["acc"] for h in r["history"]
+                                   if h["event"] == "eval"]
+                                  for r in (res, ref)]
+
+            packed, row_valid = trainer._full_batch_data(ds, True)
+            params, optimizer = res["params"], res["optimizer"]
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(7)
+
+            def step():
+                return trainer.step(params, optimizer, packed, row_valid,
+                                    gen, B)
+
+            times = []
+            for _ in range(MESH_TIMED_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["step_ms_median"] = statistics.median(times[1:])
+            # a window that lost a record of the path is opened again (as
+            # eager_counts does); each window's path records in the order
+            # they ran show where a lost one was
+            out["profile_windows"] = []
+            for _ in range(PROFILER_TRIES):
+                _build.reset_launches()
+                prof = profile_steps(step, MESH_TIMED_STEPS,
+                                     out["step_ms_median"], smi, counts=True,
+                                     sequence=True)
+                wrapper = launch_counts()
+                dev = device_counts(prof.pop("counts"))
+                out["profile_windows"].append({
+                    "device_calls": {k: v * MESH_TIMED_STEPS
+                                     for k, v in dev.items() if v},
+                    "sequence": prof.pop("sequence")})
+                out["window_complete"] = all(
+                    dev[k] * MESH_TIMED_STEPS == wrapper[k]
+                    for k in MESH_DP_PATH)
+                if out["window_complete"]:
+                    break
+            out["device_calls_per_step"] = {k: v for k, v in dev.items()
+                                            if v}
+            out["profile"] = prof
+        finally:
+            dist.destroy_process_group()
+    emit(out)
+    if not (out["elbo_max_rel"] <= MESH_NCCL_TOL
+            and out["params_max_rel"] <= MESH_NCCL_TOL):
+        raise AssertionError(f"mesh_nccl: the mesh fit is not the fit: "
+                             f"{out}")
+    return out
+
+
+def tree_leaves_of(params) -> list:
+    """convert.tree_leaves (imported when called)."""
+    from vibo_tpu_torch.convert import tree_leaves
+    return tree_leaves(params)
+
+
+def _gloo_step(trainer, params, optimizer, packed, row_valid, gen,
+               axis: int) -> dict:
+    """One one-rank step of a mesh_gloo2 run: noise for the whole batch
+    from `gen` in the layout the run's mesh step draws (theta (K, B) where
+    the link takes it on a 2 x 1 mesh, (B, K) on a 2D tile), then
+    Trainer.step_with_noise without a mesh."""
+    tp = trainer.model.wants_transposed_theta() if axis == 1 else False
+    noise = trainer.model.sample_noise(B, 1, transposed=tp, generator=gen)
+    return trainer.step_with_noise(params, optimizer, packed, row_valid,
+                                   *noise, transposed=tp)
+
+
+def _raw_grads(trainer, params, step) -> list:
+    """One step's gradient, leaf by leaf: `step(sgd)` runs the trainer's
+    step with an SGD at rate 0 (the params stay) and the trainer's clipping
+    off, so each leaf's .grad is the step's raw (all-reduced) gradient."""
+    sgd = torch.optim.SGD(tree_leaves_of(params), lr=0.0)
+    if trainer.cfg.max_grad_norm is not None:
+        raise ValueError("_raw_grads needs a trainer without clipping")
+    step(sgd)
+    return [p.grad.detach().clone() for p in tree_leaves_of(params)]
+
+
+def _bf16_shares(ref, ranks: list, names: list) -> dict:
+    """A bf16 run's gate readings, leaf by leaf: the L2 norm of (two ranks
+    - one rank) over that of (one rank at bf16 - one rank at f32), for one
+    step's raw gradient and for the params after the Adam steps; and at the
+    gradient's worst element, where the two ranks and one rank part most:
+    the one-rank gradient there against the leaf's median magnitude, the
+    ranks' partial sums' magnitudes over it (a near-cancelling sum gives a
+    large ratio), and the difference in units of bf16's unit roundoff
+    (2^-8) times |partial 0| + |partial 1| + |total|, the size of the
+    rounding of three sums; and the leaf's elements whose difference is
+    beyond that size."""
+    u = 2.0 ** -8
+    out = {}
+    for i, name in enumerate(names):
+        row = {}
+        for what, mesh_key, one_key, f32_key in (
+                ("grad", "grad", "grad_one", "grad_f32"),
+                ("params", "params", "params_one", "params_f32")):
+            got = torch.from_numpy(ranks[0][f"{mesh_key}_{i}"]).double()
+            one = torch.from_numpy(ref[f"{one_key}_{i}"]).double()
+            f32 = torch.from_numpy(ref[f"{f32_key}_{i}"]).double()
+            d_mesh = float((got - one).norm())
+            d_bf16 = float((one - f32).norm())
+            row[f"{what}_l2"] = float(one.norm())
+            row[f"{what}_mesh_l2"] = d_mesh
+            row[f"{what}_bf16_l2"] = d_bf16
+            row[f"{what}_share"] = (0.0 if d_mesh == 0.0 else
+                                    d_mesh / d_bf16 if d_bf16 else
+                                    float("inf"))
+        got = torch.from_numpy(ranks[0][f"grad_{i}"]).double()
+        one = torch.from_numpy(ref[f"grad_one_{i}"]).double()
+        parts = [torch.from_numpy(r[f"local_{i}"]).double() for r in ranks]
+        diff = (got - one).abs().reshape(-1)
+        size = u * (sum(q.abs() for q in parts) + one.abs()).reshape(-1)
+        j = int(diff.argmax())
+        g = float(one.reshape(-1)[j].abs())
+        p = sum(float(q.reshape(-1)[j].abs()) for q in parts)
+        row.update({
+            "worst_diff": float(diff[j]),
+            "worst_grad": g,
+            "leaf_median_grad": float(one.abs().median()),
+            "worst_partials_over_grad": p / g if g else float("inf"),
+            "worst_diff_in_roundings":
+                float(diff[j]) / (u * (p + g)) if p + g else 0.0,
+            "beyond_roundings": int((diff > size).sum()),
+            "size": diff.numel()})
+        out[name] = row
+    return out
+
+
+def mesh_gloo2(smi: str, data: dict) -> dict:
+    """Two spawned ranks share the card over gloo (NCCL takes one rank a
+    card): MESH_GLOO_RUNS, the 2PL flagship's students-only step (2 x 1:
+    each rank 5,120 x 1,024 of the code) and 2D step (1 x 2: 10,240 x 512),
+    at f32 and at bf16, and the GRM flagship's 2D step, each rank copying
+    only its tile. This process first runs each one on one rank without a
+    mesh (_gloo_step: the ordinary packed step) from the same init and
+    generator; Adam at MESH_GLOO_LR; both start from the state after
+    MESH_GLOO_WARMUP one-rank steps (a checkpoint: params, Adam's moments,
+    the generator). Each rank holds its run against the one-rank run (the
+    ELBOs at MESH_ELBO_RTOL; at f32 the params after the Adam steps at
+    MESH_PARAM_RTOL / MESH_PARAM_ATOL), gathers the other rank's params'
+    digest (they must be equal), and counts its kernels' launches a step
+    (MESH_GLOO_PATHS). A bf16 run also takes one step's raw gradient on
+    both sides, and this process holds it and the params, leaf by leaf,
+    against the one-rank run at f32 from the same state (_bf16_shares,
+    MESH_BF16_GRAD_SHARE, MESH_BF16_PARAM_SHARE)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from vibo_tpu_torch.models import VIBO
+    from vibo_tpu_torch.ops.packing import pack_responses
+    from vibo_tpu_torch.train import Trainer, TrainConfig, make_optimizer
+    from vibo_tpu_torch.train import checkpoint as ckpt
+
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    out = {"phase": "mesh_gloo2", "world": 2, "backend": "gloo",
+           "card": smi}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        for link in {run[1] for run in MESH_GLOO_RUNS}:
+            ds = data[link]["ds"]
+            np.save(tmp / f"{link}_code.npy",
+                    pack_responses(ds.response, ds.train_mask))
+            np.save(tmp / f"{link}_rows.npy",
+                    (ds.train_mask.sum(-1) > 0).astype(np.float32))
+        names = {}
+        for tag, link, axis, steps, dtype in MESH_GLOO_RUNS:
+            d = data[link]
+            x = (d["packed"], d["row_valid"])
+            model = VIBO(flagship_config(link, dtype))
+            trainer = Trainer(model, TrainConfig(lr=MESH_GLOO_LR))
+            params = model.init_params(0)
+            names[tag] = tree_paths(params)
+            optimizer = make_optimizer(params, MESH_GLOO_LR)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(1)
+            for _ in range(MESH_GLOO_WARMUP):
+                _gloo_step(trainer, params, optimizer, *x, gen, axis)
+            start = str(tmp / f"{tag}_start.npz")
+            ckpt.save_checkpoint(start, ckpt.train_state(params, optimizer),
+                                 gen, MESH_GLOO_WARMUP)
+            ref = {}
+            if dtype != "float32":
+                # one raw gradient at bf16 and at f32 on the same params
+                # and noise, then the f32 trajectory from the same state
+                f32_model = VIBO(flagship_config(link, "float32"))
+                for key, m in (("one", model), ("f32", f32_model)):
+                    raw = Trainer(m, TrainConfig(max_grad_norm=None))
+                    g = torch.Generator(device="cuda")
+                    g.manual_seed(MESH_GRAD_SEED)
+                    grads = _raw_grads(raw, params, lambda sgd: _gloo_step(
+                        raw, params, sgd, *x, g, axis))
+                    ref.update({f"grad_{key}_{i}": v.cpu().numpy()
+                                for i, v in enumerate(grads)})
+                f_params = f32_model.init_params(0)
+                f_opt = make_optimizer(f_params, MESH_GLOO_LR)
+                f_gen = torch.Generator(device="cuda")
+                state, gen_state, _, _ = ckpt.load_checkpoint(
+                    start, ckpt.train_state(f_params, f_opt))
+                ckpt.restore_train_state(state, f_params, f_opt)
+                f_gen.set_state(gen_state)
+                f32_trainer = Trainer(f32_model, TrainConfig(lr=MESH_GLOO_LR))
+                for _ in range(steps):
+                    _gloo_step(f32_trainer, f_params, f_opt, *x, f_gen, axis)
+                ref.update({f"params_f32_{i}": p.detach().cpu().numpy()
+                            for i, p in enumerate(tree_leaves_of(f_params))})
+            elbos = [float(_gloo_step(trainer, params, optimizer, *x, gen,
+                                      axis)["elbo"]) for _ in range(steps)]
+            np.savez(tmp / f"{tag}_ref.npz", elbos=np.asarray(elbos),
+                     **ref,
+                     **{f"params_one_{i}": p.detach().cpu().numpy()
+                        for i, p in enumerate(tree_leaves_of(params))})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_rank, args=(2, str(tmp)), nprocs=2,
+                           join=True, start_method="spawn")
+        out["spawn_seconds"] = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        out["runs"] = {tag: [r[tag] for r in ranks]
+                       for tag, *_ in MESH_GLOO_RUNS}
+        for tag, _, _, _, dtype in MESH_GLOO_RUNS:
+            if dtype == "float32":
+                continue
+            ref = np.load(tmp / f"{tag}_ref.npz")
+            saved = [np.load(tmp / f"{tag}_rank{r}.npz") for r in range(2)]
+            shares = _bf16_shares(ref, saved, names[tag])
+            worst = {what: max(row[f"{what}_share"]
+                               for row in shares.values())
+                     for what in ("grad", "params")}
+            bf16_ok = (worst["grad"] <= MESH_BF16_GRAD_SHARE
+                       and worst["params"] <= MESH_BF16_PARAM_SHARE)
+            for r in out["runs"][tag]:
+                r["bf16_shares_max"] = worst
+                r["ok"] = bool(r["ok"] and bf16_ok)
+            out["runs"][tag][0]["bf16_shares"] = shares
+    emit(out)
+    bad = [(tag, r) for tag, rs in out["runs"].items() for r in rs
+           if not r["ok"]]
+    if bad:
+        raise AssertionError(f"mesh_gloo2: runs that failed their gates "
+                             f"{bad}")
+    return out
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of mesh_gloo2 (a spawned process on the card): each run of
+    MESH_GLOO_RUNS on its mesh (gloo over CUDA tensors), its tile of the
+    code on the card, the steps from the one-rank run's warmed state
+    (params, Adam's moments, generator); writes rank<r>.json, and for a
+    bf16 run rank<r>.npz: its raw gradient of one step (all-reduced, and
+    its own partial before the all-reduce) and its params after the
+    steps."""
+    import torch.distributed as dist
+
+    from vibo_tpu_torch import parallel
+    from vibo_tpu_torch._device import resolve_device
+    from vibo_tpu_torch.models import VIBO
+    from vibo_tpu_torch.ops import _build
+    from vibo_tpu_torch.parallel import mesh as meshlib
+    from vibo_tpu_torch.train import Trainer, TrainConfig, make_optimizer
+    from vibo_tpu_torch.train import checkpoint as ckpt
+
+    dev = resolve_device("cuda:0")
+    torch.cuda.set_device(dev)
+    tmp = Path(tmp)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
+        world_size=world)
+    results = {}
+    for tag, link, axis, steps, dtype in MESH_GLOO_RUNS:
+        mesh = parallel.make_mesh(axis, backend="gloo", device=dev)
+        code = np.load(tmp / f"{link}_code.npy", mmap_mode="r")
+        lo, hi = mesh.student_rows(B)
+        c0, c1 = mesh.item_block(M)
+        packed = torch.from_numpy(np.array(code[lo:hi, c0:c1])).to(dev)
+        row_valid = torch.from_numpy(np.load(
+            tmp / f"{link}_rows.npy")[lo:hi]).to(dev)
+        model = VIBO(flagship_config(link, dtype), device=dev)
+        trainer = Trainer(model, TrainConfig(lr=MESH_GLOO_LR), mesh=mesh)
+        params = model.init_params(0)
+        optimizer = make_optimizer(params, MESH_GLOO_LR)
+        gen = torch.Generator(device=dev)
+
+        def restore():
+            state, gen_state, _, _ = ckpt.load_checkpoint(
+                str(tmp / f"{tag}_start.npz"),
+                ckpt.train_state(params, optimizer))
+            ckpt.restore_train_state(state, params, optimizer)
+            gen.set_state(gen_state)
+
+        restore()
+        saved = {}
+        if dtype != "float32":
+            raw = Trainer(model, TrainConfig(max_grad_norm=None), mesh=mesh)
+            g = torch.Generator(device=dev)
+            g.manual_seed(MESH_GRAD_SEED)
+            reduce = meshlib.all_reduce_grads
+
+            def keep_partials(leaves, group):
+                saved.update({f"local_{i}": (torch.zeros_like(p)
+                                             if p.grad is None else p.grad)
+                              .detach().cpu().numpy()
+                              for i, p in enumerate(leaves)})
+                reduce(leaves, group)
+
+            meshlib.all_reduce_grads = keep_partials
+            try:
+                grads = _raw_grads(raw, params, lambda sgd: raw.step(
+                    params, sgd, packed, row_valid, g, B))
+            finally:
+                meshlib.all_reduce_grads = reduce
+            saved.update({f"grad_{i}": v.cpu().numpy()
+                          for i, v in enumerate(grads)})
+            restore()
+        _build.reset_launches()
+        elbos, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = trainer.step(params, optimizer, packed, row_valid, gen, B)
+            elbos.append(float(aux["elbo"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: v / steps for k, v in launch_counts().items() if v}
+        by = dict(_build.KERNELS["loglik_2pl_train"].launches_by)
+        ref = np.load(tmp / f"{tag}_ref.npz")
+        leaves = tree_leaves_of(params)
+        want = [torch.from_numpy(ref[f"params_one_{i}"]).to(dev)
+                for i in range(len(leaves))]
+        got = [p.detach() for p in leaves]
+        excess, params_rel, over = _mesh_params_close(
+            got, want, tree_paths(params),
+            [optimizer.state[p]["exp_avg_sq"].sqrt() for p in leaves])
+        elbo_rel = max(abs(a - b) / abs(b) for a, b in zip(elbos,
+                                                           ref["elbos"]))
+        digest = zlib.crc32(b"".join(p.cpu().numpy().tobytes()
+                                     for p in got))
+        digests = [None] * world
+        dist.all_gather_object(digests, digest, group=mesh.world)
+        path_ok = (launches == MESH_GLOO_PATHS[tag]
+                   and (tag not in MESH_GLOO_LAYOUT
+                        or set(by) == {MESH_GLOO_LAYOUT[tag]}))
+        f32 = dtype == "float32"
+        if not f32:
+            saved.update({f"params_{i}": p.cpu().numpy()
+                          for i, p in enumerate(got)})
+            np.savez(tmp / f"{tag}_rank{rank}.npz", **saved)
+        results[tag] = {
+            "rank": rank, "mesh": dict(mesh.shape), "dtype": dtype,
+            "tile": [hi - lo, c1 - c0], "steps": steps,
+            "step_ms_median": statistics.median(times[1:]),
+            "step_ms_first": times[0], "elbo_first": elbos[0],
+            "elbo_last": elbos[-1], "elbo_max_rel": elbo_rel,
+            "params_max_rel": params_rel,
+            "params_excess_over_tol": excess, "params_over_tol": over,
+            "digests_equal": len(set(digests)) == 1,
+            "launches_per_step": launches, "loglik_2pl_by_layout": by,
+            # a bf16 run's params are gated by _bf16_shares instead
+            "ok": bool(elbo_rel <= MESH_ELBO_RTOL
+                       and (excess <= 0.0 or not f32)
+                       and len(set(digests)) == 1 and path_ok)}
+    (tmp / f"rank{rank}.json").write_text(json.dumps(results))
+    dist.destroy_process_group()
+
+
 # ------------------------------------------------------------ the CLI phases
 
 REPO_DIR = Path(__file__).resolve().parent
@@ -4054,6 +4679,7 @@ def main() -> None:
     minibatch_phase("deep", deep["ds"], smi, deep_config(True), (),
                     must_rise=False)
     emit({"phase": "fused_paths", "card": smi, "paths": fused})
+    decoded = decoded_fused(smi, data["2pl"])
     families = families_phase(smi, data["2pl"])
     full = {k: v["launches"] for k, v in full.items()}
     hmc_runs = hmc_phases(smi)
@@ -4061,6 +4687,8 @@ def main() -> None:
     mle_phase(smi)
     em_phases(smi)
     checkpoint_resume(smi, data["2pl"])
+    nccl = mesh_nccl(smi, data["2pl"])
+    gloo2 = mesh_gloo2(smi, data)
     cli_runs = cli_phases(smi)
     hmc_launches = {
         name: {tag: hmc_runs[tag]["kernel_launches"] for tag in tags}
@@ -4169,6 +4797,17 @@ def main() -> None:
             for tag, run in cli_runs.items() if "launches" in run}
         entry["cli_cfg1_trace_calls"] = cli_runs["cli_cfg1"][
             "trace_kernel_calls"].get(entry["name"], 0)
+        # the mesh and decoded paths: device calls a step of the
+        # NCCL mesh's fit, each gloo run's wrapper launches a step on its
+        # rank 0, the decoded full batch's eager wrapper launches
+        entry["mesh_launches_per_step"] = {
+            "mesh_nccl_2pl_1x1": nccl["device_calls_in_fit"].get(
+                entry["name"], 0) / MESH_NCCL_FIT[0],
+            **{f"mesh_gloo2_{tag}": runs[0]["launches_per_step"].get(
+                entry["name"], 0)
+               for tag, runs in gloo2["runs"].items()}}
+        entry["decoded_launches_per_step"] = decoded[
+            "launches_per_step"].get(entry["name"], {}).get("wrapper", 0)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

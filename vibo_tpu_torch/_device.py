@@ -29,6 +29,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def same_device(a, b) -> bool:
+    """Whether two devices are one: "cuda" without an index is the current
+    card, so it equals "cuda:<current>"."""
+    def key(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return d.type, torch.cuda.current_device()
+        return d.type, d.index
+    return key(a) == key(b)
+
+
 def as_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype or its name ("bfloat16", "float32")."""
     if isinstance(dtype, torch.dtype):

@@ -10,6 +10,8 @@ students (or new items) from a checkpoint.
       --hmc-cache artifacts/gold/grm
   python -m vibo_tpu_torch.cli score --checkpoint run/best.npz \\
       --input new.npz --output scores.npz
+  torchrun --nproc_per_node 4 -m vibo_tpu_torch.cli train synthetic-2pl \\
+      --data-parallel         # students over 4 cards; rank 0 prints
 
 Every command runs on the CUDA card and raises where there is none;
 `--cpu` runs it on the CPU (the plain PyTorch versions of the kernels). On
@@ -106,6 +108,20 @@ def _categorical_table(irt_model: str, b) -> np.ndarray:
         irt_model, torch.from_numpy(np.asarray(b, np.float32))).numpy()
 
 
+def _train_mesh(args, dev):
+    """`train --data-parallel` under torchrun (WORLD_SIZE > 1): this rank's
+    process group (NCCL on the card, gloo with --cpu) and a students-only
+    mesh over every rank, as the JAX CLI builds one over every device;
+    None otherwise (one process trains without a mesh, as JAX does on one
+    device)."""
+    if not (args.data_parallel and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        return None
+    from vibo_tpu_torch import parallel
+    dev = parallel.rank_device(cpu=dev.type == "cpu")
+    parallel.init_distributed(dev)
+    return parallel.make_mesh(device=dev)
+
+
 def cmd_train(args):
     import torch
 
@@ -117,6 +133,9 @@ def cmd_train(args):
     from vibo_tpu_torch.utils.prof import peak_hbm_bytes
 
     dev = resolve_device(_device(args))
+    mesh = _train_mesh(args, dev)
+    if mesh is not None:
+        dev = mesh.device
     ds, sim = _load(args)
     test_ds = None
     if args.eval_new_persons > 0:
@@ -158,22 +177,22 @@ def cmd_train(args):
         # route, as the JAX CLI leaves it
         use_pallas=(dev.type == "cuda" and args.irt_model in _FAMILIES)),
         device=dev)
-    if args.data_parallel and dev.type == "cuda" \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data-parallel over several cards is not ported yet "
-            "(ROADMAP's 'Multi-GPU'); one card trains without it")
     trainer = Trainer(model, TrainConfig(
         lr=args.lr, epochs=args.epochs, batch_size=args.batch_size,
         num_mc_samples=args.num_posterior_samples, seed=args.seed,
         eval_every=args.eval_every, out_dir=args.out_dir,
         objective=getattr(args, "objective", "elbo"),
         warm_start=getattr(args, "warm_start", None),
-        restarts=getattr(args, "restarts", 1)), device=dev)
+        restarts=getattr(args, "restarts", 1)), device=dev, mesh=mesh)
     res = trainer.fit(
         ds, truth=sim if (test_ds is None and test_items_ds is None) else None,
         resume=getattr(args, "resume", None))
     params = res["params"]
+    if mesh is not None:
+        # rank 0 evaluates and prints; the params are the same on every rank
+        torch.distributed.destroy_process_group()
+        if mesh.rank != 0:
+            return None
 
     summary = {"dataset": ds.name, "shape": list(ds.shape),
                "irt_model": args.irt_model,
@@ -860,8 +879,10 @@ def main(argv=None):
                    help="hold out this fraction of persons and score the "
                         "amortized encoder on them")
     t.add_argument("--data-parallel", action="store_true",
-                   help="shard students over all devices (one card: no "
-                        "effect; several: not ported yet)")
+                   help="shard students over every rank of a torchrun "
+                        "world (torchrun --nproc_per_node N -m "
+                        "vibo_tpu_torch.cli train ...); one process trains "
+                        "without a mesh")
     t.add_argument("--resume", default=None,
                    help="checkpoint (.npz from --out-dir) to restore params/"
                         "optimizer/generator from before training further "

@@ -21,6 +21,7 @@ import time
 import numpy as np
 import scipy.stats
 import torch
+import torch.distributed as tdist
 
 from vibo_tpu_torch.convert import tree_map
 from vibo_tpu_torch.data.masking import Dataset
@@ -30,6 +31,7 @@ from vibo_tpu_torch.ops import distributions as dist
 from vibo_tpu_torch.ops import likelihood as lik
 from vibo_tpu_torch.ops import links, objectives
 from vibo_tpu_torch.ops.links import CATEGORICAL_MODELS
+from vibo_tpu_torch.parallel.mesh import pad_rows
 
 _DEEP_CHUNK_BYTES = 2 << 30   # one deep-link activation of an IWAE chunk
 
@@ -169,25 +171,11 @@ def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
     through it), else model.sample_noise drawn from `generator`."""
     if on not in ("heldout", "train"):
         raise ValueError(f"on must be 'heldout' or 'train', got {on!r}")
-    cfg = model.cfg
-    if cfg.use_pallas or cfg.condition_on == "mean":
-        # JAX's evaluator conditions the encoder on each sample's item draw
-        # whatever condition_on says (vibo_tpu/evaluation.py:272), so
-        # "mean" is scored as "sample" (the same params)
-        model = VIBO(dataclasses.replace(
-            cfg, use_pallas=False,
-            condition_on=("sample" if cfg.condition_on == "mean"
-                          else cfg.condition_on)), device=model.device)
+    model = _iwae_model(model)
     dev = model.device
     n = ds.response.shape[0]
     rows = n if n <= block_size else block_size
-    cap = 10
-    if model.cfg.irt_model == "deep":
-        items = min(model.cfg.deep_item_chunk or ds.shape[1], ds.shape[1])
-        cap = max(1, min(cap, _DEEP_CHUNK_BYTES // (
-            4 * rows * items * model.cfg.deep_hidden_dim)))
-    chunk = max(d for d in range(1, min(num_samples, cap) + 1)
-                if num_samples % d == 0)
+    chunk = _iwae_chunk(model, num_samples, rows, ds.shape[1])
     emask_host = ds.train_mask if on == "train" else ds.heldout_mask
     post = full_item_dist(model, params, ds)
     total, cells = 0.0, 0.0
@@ -211,6 +199,34 @@ def iwae_loglik(model: VIBO, params, ds: Dataset, num_samples: int = 100,
         cells += float(emask_host[s:e].sum())
     return {"loglik": total, "loglik_per_cell": total / max(cells, 1.0),
             "num_cells": int(cells), "num_samples": num_samples}
+
+
+def _iwae_model(model: VIBO) -> VIBO:
+    """The model the IWAE evaluators score with: use_pallas off, and the
+    encoder conditioned on each sample's item draw whatever condition_on
+    says, as JAX's evaluator does (vibo_tpu/evaluation.py:272), so "mean"
+    is scored as "sample" (the same params)."""
+    cfg = model.cfg
+    if not (cfg.use_pallas or cfg.condition_on == "mean"):
+        return model
+    return VIBO(dataclasses.replace(
+        cfg, use_pallas=False,
+        condition_on=("sample" if cfg.condition_on == "mean"
+                      else cfg.condition_on)), device=model.device)
+
+
+def _iwae_chunk(model: VIBO, num_samples: int, rows: int, m: int) -> int:
+    """Samples an IWAE chunk: the largest divisor of num_samples up to 10,
+    for the deep link up to as many as keep one (chunk, rows,
+    deep_item_chunk, H) f32 activation of the plain link within
+    _DEEP_CHUNK_BYTES (the bound's value does not depend on it)."""
+    cap = 10
+    if model.cfg.irt_model == "deep":
+        items = min(model.cfg.deep_item_chunk or m, m)
+        cap = max(1, min(cap, _DEEP_CHUNK_BYTES // (
+            4 * rows * items * model.cfg.deep_hidden_dim)))
+    return max(d for d in range(1, min(num_samples, cap) + 1)
+               if num_samples % d == 0)
 
 
 def amortized_new_person_eval(model: VIBO, params, test_ds: Dataset,
@@ -796,3 +812,144 @@ def calibration_from_category_probs(prob: np.ndarray, resp: np.ndarray,
     cf = np.bincount(idx, weights=w * conf.ravel(), minlength=bins)
     brier = (w * brier_cells.ravel()).sum()
     return _calib_summary(cnt, acc, cf, brier)
+
+
+# ---------------------------------------------- mesh-sharded evaluation (A9)
+
+
+def _decode_bits(code: torch.Tensor, num_categories: int = 2) -> tuple:
+    """uint8 bit-code -> (response, train_mask, heldout_mask) f32: binary
+    data response | train << 1 | heldout << 2, polytomous data the category
+    in bits 0-4 and the masks in bits 5 and 6 (JAX's layout)."""
+    c = code.to(torch.int32)
+    if num_categories > 2:
+        return ((c & 31).float(), ((c >> 5) & 1).float(),
+                ((c >> 6) & 1).float())
+    return (c & 1).float(), ((c >> 1) & 1).float(), ((c >> 2) & 1).float()
+
+
+def dataset_code_on_mesh(ds: Dataset, mesh) -> torch.Tensor:
+    """This rank's rows of the dataset's uint8 bit-code (_decode_bits's
+    layout) on its device: the rows padded to a multiple of the students
+    axis, zero rows past the end (they decode to all-zero masks, so every
+    reduction below ignores them). Only the rank's rows are coded and
+    copied."""
+    if ds.num_categories > 32:
+        raise ValueError(
+            f"num_categories={ds.num_categories} exceeds the uint8 "
+            "bit-code's 32-category budget (bits 0-4; masks at bits 5/6)")
+    lo, hi = mesh.student_rows(ds.response.shape[0])
+    e = min(hi, ds.response.shape[0])
+    code = np.zeros((hi - lo, ds.response.shape[1]), np.uint8)
+    if e > lo:
+        t = (ds.train_mask[lo:e] > 0).astype(np.uint8)
+        h = (ds.heldout_mask[lo:e] > 0).astype(np.uint8)
+        if ds.num_categories > 2:
+            code[:e - lo] = (ds.response[lo:e].astype(np.uint8) | t << 5
+                             | h << 6)
+        else:
+            code[:e - lo] = ((ds.response[lo:e] > 0).astype(np.uint8)
+                             | t << 1 | h << 2)
+    return torch.from_numpy(code).to(mesh.device)
+
+
+@torch.no_grad()
+def _impute_stats_sharded(model: VIBO, params, ds: Dataset, mesh,
+                          bins: int, item_mean: dict | None,
+                          block_size: int) -> np.ndarray:
+    """The imputation and calibration sums of the whole dataset, summed
+    over the students group: each rank decodes and scores its own rows (in
+    blocks of block_size; the encoder is per-person, so nothing crosses
+    the mesh before these sums) -> (3 bins + 1 + C,) f64: _calib_stats'
+    bins and Brier total, then the held-out count of each category."""
+    if item_mean is None:
+        item_mean = full_item_mean(model, params, ds)
+    cats = model.cfg.num_categories
+    code = dataset_code_on_mesh(ds, mesh)
+    total = torch.zeros(3 * bins + 1 + cats, dtype=torch.float64,
+                        device=code.device)
+    for s in range(0, code.shape[0], block_size):
+        resp, tmask, hmask = _decode_bits(code[s:s + block_size], cats)
+        total[:3 * bins + 1] += _calib_stats(model, params, item_mean, resp,
+                                             tmask, hmask, bins)
+        total[3 * bins + 1:] += torch.stack(
+            [(hmask * (resp == c)).sum() for c in range(cats)]).double()
+    tdist.all_reduce(total, group=mesh.students)
+    return total.cpu().numpy()
+
+
+def imputation_accuracy_sharded(model: VIBO, params, ds: Dataset, mesh,
+                                item_mean: dict | None = None,
+                                block_size: int = 16384) -> dict:
+    """imputation_accuracy over a mesh: each rank scores its own rows of
+    the bit-code (dataset_code_on_mesh) and only the sums cross the mesh,
+    over the students group (the items axis repeats them). The same
+    counts as the single-device evaluator, whose predictions it repeats."""
+    bins = 10
+    t = _impute_stats_sharded(model, params, ds, mesh, bins, item_mean,
+                              block_size)
+    total, correct = float(t[:bins].sum()), float(t[bins:2 * bins].sum())
+    return {"acc": correct / max(total, 1.0),
+            "base_rate": float(t[3 * bins + 1:].max()) / max(total, 1.0),
+            "num_heldout": int(total)}
+
+
+def calibration_sharded(model: VIBO, params, ds: Dataset, mesh,
+                        bins: int = 10, item_mean: dict | None = None,
+                        block_size: int = 16384) -> dict:
+    """calibration over a mesh (the reduction of
+    imputation_accuracy_sharded, the per-bin sums summed over the students
+    group)."""
+    t = _impute_stats_sharded(model, params, ds, mesh, bins, item_mean,
+                              block_size)
+    return _calib_summary(t[:bins], t[bins:2 * bins], t[2 * bins:3 * bins],
+                          float(t[3 * bins]))
+
+
+@torch.no_grad()
+def iwae_loglik_sharded(model: VIBO, params, ds: Dataset, mesh,
+                        num_samples: int = 100, on: str = "heldout",
+                        generator: torch.Generator | None = None,
+                        noise: tuple | None = None) -> dict:
+    """iwae_loglik over a mesh, one block of all N persons: the noise is
+    drawn whole on every rank (sample_noise on N rows from `generator`, or
+    `noise` = (item_eps {name: (S, M, D)}, theta_eps (S, N, K)); padding
+    rows get zero noise) and each rank keeps its rows, so the bound does not
+    depend on the device count and equals iwae_loglik's when N fits its
+    one block. Each rank sums its rows' log-weight terms a sample (the
+    encoder on the train-visible cells, the loglik on the evaluated ones;
+    padding rows evaluate none); the sums cross the mesh over the students
+    group and the item log-ratio, the same on every rank, is added once."""
+    if on not in ("heldout", "train"):
+        raise ValueError(f"on must be 'heldout' or 'train', got {on!r}")
+    model = _iwae_model(model)
+    n = ds.response.shape[0]
+    code = dataset_code_on_mesh(ds, mesh)
+    resp, tmask, hmask = _decode_bits(code, model.cfg.num_categories)
+    emask = tmask if on == "train" else hmask
+    post = full_item_dist(model, params, ds)
+    if noise is None:
+        noise = model.sample_noise(n, num_samples, generator=generator)
+    item_eps, theta_eps = noise
+    item_eps = {k: v.to(mesh.device) for k, v in item_eps.items()}
+    pad = pad_rows(n, mesh.num_students) - theta_eps.shape[1]
+    theta_eps = torch.nn.functional.pad(theta_eps.to(mesh.device),
+                                        (0, 0, 0, pad))
+    lo, hi = mesh.student_rows(n)
+    theta_eps = theta_eps[:, lo:hi]
+    chunk = _iwae_chunk(model, num_samples, hi - lo, ds.shape[1])
+    local, ratio = [], []
+    for c in range(0, num_samples, chunk):
+        lw, r = model.iwae_terms(
+            params, resp, tmask, {k: v[c:c + chunk]
+                                  for k, v in item_eps.items()},
+            theta_eps[c:c + chunk], eval_mask=emask, post=post)
+        local.append(lw)
+        ratio.append(r)
+    local = torch.cat(local)
+    tdist.all_reduce(local, group=mesh.students)
+    bound = objectives.iwae_bound(local + torch.cat(ratio))
+    cells = float((ds.train_mask if on == "train" else ds.heldout_mask).sum())
+    total = float(bound)
+    return {"loglik": total, "loglik_per_cell": total / max(cells, 1.0),
+            "num_cells": int(cells), "num_samples": num_samples}

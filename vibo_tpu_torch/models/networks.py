@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from vibo_tpu_torch._device import as_dtype, cast_through
 from vibo_tpu_torch.ops import links, pallas_encoder
 from vibo_tpu_torch.ops.packing import decode_packed
+from vibo_tpu_torch.parallel.mesh import group_size, psum
 
 # ---------------------------------------------------------------- MLP core
 
@@ -154,6 +155,56 @@ def apply_ability_encoder_packed(params, packed, item_feats=None,
     return split_ability_head(x @ rest[-1]["w"] + rest[-1]["b"], ability_dim)
 
 
+def apply_ability_encoder_item_sharded(params, response, mask, item_sample,
+                                       num_items_total: int, item_index: int,
+                                       group, compute_dtype="float32",
+                                       ability_dim: int | None = None,
+                                       cond_mats=None):
+    """The dense encoder on a 2D mesh tile: response/mask (B, M_l) are the
+    columns [item_index * M_l, (item_index + 1) * M_l) of the rank's rows.
+    The first layer, a contraction over items, runs as this tile's partial
+    products against the matching rows of W1 (at off and at
+    num_items_total + off) and of each item head's feature block, summed
+    over the items group (psum); the hidden layers and the head then run
+    replicated. The same math as apply_ability_encoder on the whole row.
+
+    item_sample: {name: (M_l, D)} the tile's block of the conditioning
+    ("sample"/"mean"), or None (mean-field, or "stats"). cond_mats: the
+    tile's (A_r, A_m) blocks of condition_stat_mats(local draw, num_items=
+    GLOBAL M), which modulate this tile's weight rows, so the psum adds up
+    the global statistics' modulation."""
+    cd = as_dtype(compute_dtype)
+    w1, rest = params[0], params[1:]
+    m_l = response.shape[-1]
+    off = item_index * m_l
+    w_r = w1["w"][off:off + m_l]
+    w_m = w1["w"][num_items_total + off:num_items_total + off + m_l]
+    if cond_mats is not None:
+        if item_sample is not None:
+            raise ValueError("cond_mats and item_sample are exclusive")
+        a_r, a_m = cond_mats
+        fr = a_r.shape[-1]
+        wf = w1["w"][2 * num_items_total:]
+        w_r = w_r + a_r @ wf[:fr]
+        w_m = w_m + a_m @ wf[fr:]
+    h = _mm(response * mask, w_r, cd) + _mm(mask, w_m, cd)
+    if item_sample is not None:
+        # flatten_item_sample's layout: sorted names, each an item-major
+        # (M * D,) block from 2M plus the earlier blocks
+        base = 2 * num_items_total
+        for name in sorted(item_sample):
+            x = item_sample[name]                         # (M_l, D)
+            d = x.shape[-1]
+            w_f = w1["w"][base + off * d:base + (off + m_l) * d]
+            h = h + _mm(x.reshape(-1), w_f, cd)[None, :]
+            base += num_items_total * d
+    h = psum(h, group)
+    x = torch.relu(h + w1["b"])
+    for layer in rest[:-1]:
+        x = torch.relu(_mm(x, layer["w"], cd) + layer["b"])
+    return split_ability_head(x @ rest[-1]["w"] + rest[-1]["b"], ability_dim)
+
+
 # ------------------------------------------------------ item posteriors
 
 
@@ -275,22 +326,36 @@ def modulated_first_layer(w1: dict, cond_mats, num_items: int):
 ITEM_STAT_DIM = 6
 
 
-def item_stats(response, mask, num_persons=None):
+def item_stats(response, mask, num_persons=None, group=None,
+               item_group=None):
     """Permutation-invariant per-item column statistics (M, 6) of a (B, M)
     masked response matrix, in f32: the item p-value, the respondents' mean
     raw score, the item-total covariance and point-biserial correlation,
     the observed fraction (of num_persons, default B) and log(1 + count).
-    The amortized item encoder's input; any number of persons or items."""
+    The amortized item encoder's input; any number of persons or items.
+
+    group: the students group of a mesh whose ranks hold student rows: the
+    column partial sums are summed over it, and B counts every rank's rows,
+    so the statistics are global. item_group: on a 2D mesh a rank holds an
+    item block of each row, so the per-person raw score's count and sum are
+    summed over the items group too (JAX's axis_name / item_axis_name)."""
     m = mask.float()
     r = response.float() * m
     row_cnt = m.sum(-1, keepdim=True)
     row_sum = r.sum(-1, keepdim=True)
+    if item_group is not None:
+        row_cnt, row_sum = psum(torch.stack([row_cnt, row_sum]),
+                                item_group)
     s = row_sum / torch.clamp_min(row_cnt, 1.0)                 # (B, 1)
-    succ, cnt = r.sum(-2), m.sum(-2)
-    s_sum, rs_sum = (s * m).sum(-2), (s * r).sum(-2)
-    ss_sum = (s * s * m).sum(-2)
+    partial = torch.stack([r.sum(-2), m.sum(-2), (s * m).sum(-2),
+                           (s * r).sum(-2), (s * s * m).sum(-2)])
+    n_local = float(mask.shape[-2])
+    if group is not None:
+        partial = psum(partial, group)
+        n_local *= group_size(group)
+    succ, cnt, s_sum, rs_sum, ss_sum = partial
     if num_persons is None:
-        num_persons = float(mask.shape[-2])
+        num_persons = n_local
     denom = torch.clamp_min(cnt, 1.0)
     p = succ / denom
     ms = s_sum / denom

@@ -28,9 +28,16 @@ ELBO and IWAE bounds on decoded (response, mask) minibatches (`elbo`,
 outside (`elbo_eps`, `iwae_eps`, `elbo_packed_sums`, `iwae_packed_terms`),
 so the tests feed the JAX package and the port the same numbers;
 `sample_noise` draws that noise from a torch.Generator, and `elbo` /
-`iwae` / `iwae_packed` wrap it around the cores. Samples run batched along
-a leading axis on decoded data and one at a time on the code; the item
-posterior is computed once an objective.
+`iwae` / `iwae_packed` / `elbo_packed` wrap it around the cores. Samples
+run batched along a leading axis on decoded data and one at a time on the
+code; the item posterior is computed once an objective.
+
+On a mesh (`vibo_tpu_torch.parallel`) the packed objectives take the
+students group (`group=`: the item encoder's column statistics summed over
+it), and a 2D (students, items) tile has its own forms
+(`elbo_packed_sums_2d`, `iwae_packed_terms_2d`: the tile's item posterior,
+the item-sharded encoder, the Fisher anchor's pair statistic summed over
+the items group), as JAX's shard_map steps call them.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from vibo_tpu_torch.ops import distributions as dist
 from vibo_tpu_torch.ops import (likelihood, links, objectives, pallas_deep,
                                 pallas_elbo, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.ops.packing import decode_packed, packed_row_valid
+from vibo_tpu_torch.parallel.mesh import group_size, psum
 
 # the one-pass training loglik on theta (B, K) by link (1pl/2pl: the 2PL op)
 _PACKED_TRAIN = {"3pl": pallas_elbo.masked_loglik_3pl_packed_train,
@@ -192,20 +200,23 @@ class VIBO:
     # ------------------------------------------------------ item posterior
 
     def item_dist(self, params: dict, response=None, mask=None,
-                  new_items: bool = False) -> dict:
+                  new_items: bool = False, group=None) -> dict:
         """The item posterior {name: {'mu', 'logvar': (M, D)}}: free-form,
         the per-item Gaussians in params; with item_encoder the shared
         encoder on the columns' statistics of (response, mask) (B, M) plus
         the training items' residuals, or without them for new_items
         (cold start; any column count). Deterministic given (params, data):
-        each objective computes it once."""
+        each objective computes it once. group: on a mesh whose ranks hold
+        student rows, the students group the column statistics are summed
+        over (global, device-count-invariant statistics; JAX's
+        axis_name)."""
         if not self.cfg.item_encoder:
             return params["item_post"]
         if response is None or mask is None:
             raise ValueError(
                 "item_encoder=True amortizes q(d | r) from data: pass the "
                 "(response, mask) the posterior should condition on")
-        stats = networks.item_stats(response, mask)
+        stats = networks.item_stats(response, mask, group=group)
         residual = None if new_items else params["item_resid"]
         return networks.apply_item_encoder(params["item_enc"], stats,
                                            self._head_spec, residual)
@@ -227,6 +238,19 @@ class VIBO:
         """Analytic sum_j KL(q(d_j) || N(0, I)) over all items and params."""
         return sum(dist.kl_standard_normal(p["mu"], p["logvar"]).sum()
                    for p in post.values())
+
+    # the data-free forms (the free-form posterior; the amortized one needs
+    # data: item_dist and the *_from methods)
+
+    def sample_items(self, params: dict,
+                     generator: torch.Generator | None = None) -> dict:
+        return self.sample_items_from(self.item_dist(params), generator)
+
+    def item_kl(self, params: dict) -> torch.Tensor:
+        return self.item_kl_from(self.item_dist(params))
+
+    def item_log_ratio(self, params: dict, sample: dict) -> torch.Tensor:
+        return self.item_log_ratio_from(self.item_dist(params), sample)
 
     def item_log_ratio_from(self, post: dict, sample: dict) -> torch.Tensor:
         """log p(d) - log q(d) of an item draw (IWAE weights), summed over
@@ -290,20 +314,24 @@ class VIBO:
 
     # ---------------------------------------------------- ability encoder
 
-    def _anchor_theta_head(self, params: dict, head, mask):
+    def _anchor_theta_head(self, params: dict, head, mask,
+                           items_group=None, item_post: dict | None = None):
         """laplace / laplace-w: the head's second block is the per-dim log
         correction c, and (mu, logvar, off) the Cholesky token of (I + D S
         D)^-1 (dist.laplace_anchor_parts), S_i = sum_j m_ij [w_ij] a_j
         a_j^T over the item-posterior means, w the expected Fisher weight
         at the head's own mean under laplace-w. mask (B, M) (any float
         dtype); the head may carry a leading sample axis. Other families:
-        the head unchanged."""
+        the head unchanged. items_group / item_post: on a 2D mesh tile,
+        mask is the tile's (B, M_l) block and item_post its block of the
+        posterior; the block's pair statistic is summed over the items
+        group into the global per-person information."""
         if not self._laplace:
             return head
         mu, c, _ = head
         cfg = self.cfg
         k = cfg.ability_dim
-        post = params["item_post"]
+        post = params["item_post"] if item_post is None else item_post
         mask = mask.float()
         if cfg.irt_model == "1pl":
             a = torch.ones((mask.shape[-1], k), device=mask.device)
@@ -326,7 +354,8 @@ class VIBO:
                 w = likelihood.bernoulli_fisher_weight(
                     links.logits_2pl(mu32, a, b_mu[:, 0]))
             mask = mask * w
-        logvar, off = dist.laplace_anchor_parts(c, mask @ a2)
+        logvar, off = dist.laplace_anchor_parts(
+            c, psum(mask @ a2, items_group))
         return mu, logvar, off
 
     def encode(self, params: dict, response, mask, item_sample):
@@ -467,14 +496,15 @@ class VIBO:
         return post, item_sample, q, theta
 
     def elbo_sums(self, params: dict, response, mask, item_eps: dict,
-                  theta_eps, row_weight=None):
+                  theta_eps, row_weight=None, post: dict | None = None):
         """(loglik_sum, kl_theta_sum, kl_items) on decoded data from
         exogenous noise (sample_noise), the first two averaged over the
         sample axis. Rows with no observed cell (the zero padding of a last
         minibatch) are inert: their loglik is 0 by the mask and row_weight
-        ((B,), None = derived from the mask) drops their KL."""
+        ((B,), None = derived from the mask) drops their KL. post: the item
+        posterior to draw from (None = item_dist on (response, mask))."""
         post, item_sample, q, theta = self._draw(
-            params, response, mask, item_eps, theta_eps)
+            params, response, mask, item_eps, theta_eps, post)
         ll = self.loglik_per_person(params, theta, item_sample, response,
                                     mask)
         valid = ((mask.sum(-1) > 0).to(q[0].dtype) if row_weight is None
@@ -600,19 +630,41 @@ class VIBO:
             raise ValueError("transposed=True requires the fused kernels "
                              "(use_pallas=True)")
 
+    def _packed_loglik(self, params: dict, theta, item_sample: dict, packed,
+                       decoded, transposed: bool = False):
+        """The masked loglik of a draw on the int8 code, summed over the
+        persons: the link's one-pass op where _use_packed_kernel holds
+        (theta (K, B) when transposed, else (B, K); the sum sees one scalar
+        cotangent, the ops' uniform-cotangent contract), else
+        loglik_per_person on the decoded code `decoded` ((mask, resp);
+        deep without deep_fused_kernel, or a 2D tile without use_pallas)."""
+        if not self._use_packed_kernel(params):
+            return self.loglik_per_person(params, theta, item_sample,
+                                          decoded[1], decoded[0]).sum()
+        if self._deep:
+            return pallas_deep.masked_loglik_deep_packed_train(
+                theta, item_sample["d"], params["deep_link"], packed).sum()
+        a, b, g_hat = self._link_params(item_sample, packed.shape[-1])
+        if self._categorical:
+            items = (a, links.categorical_table(self.cfg.irt_model, b))
+        else:
+            items = (a, b) if g_hat is None else (a, b, g_hat)
+        if transposed:
+            train_t = (pallas_elbo.masked_loglik_2pl_packed_train_t
+                       if g_hat is None else
+                       pallas_elbo.masked_loglik_3pl_packed_train_t)
+            return train_t(theta, *items, packed)
+        train = _PACKED_TRAIN.get(self.cfg.irt_model,
+                                  pallas_elbo.masked_loglik_2pl_packed_train)
+        return train(theta, *items, packed).sum()
+
     def _packed_samples(self, params: dict, packed, item_eps: dict,
                         theta_eps, transposed: bool, post: dict, decoded):
         """What the packed objectives share under use_pallas, one sample at
         a time: yields (ll_s, item_sample, (mu, logvar, off), theta) with
-        ll_s the loglik summed over persons. The item posterior `post` and
-        the decoded code are the objective's, computed once. The encoder's
-        first layer runs the fused kernel, the loglik the link's one-pass
-        op where _use_packed_kernel holds (each sample's sum sees one
-        scalar cotangent: the ELBO's 1/S, the IWAE's weight w_s, so the
-        ops' uniform-cotangent contract holds); otherwise (deep without
-        deep_fused_kernel) the plain link on the decoded code."""
-        m = packed.shape[-1]
-        fused = self._use_packed_kernel(params)
+        ll_s the loglik summed over persons (_packed_loglik). The item
+        posterior `post` and the decoded code are the objective's, computed
+        once. The encoder's first layer runs the fused kernel."""
         for s in range(theta_eps.shape[0]):
             item_sample = {
                 name: dist.reparameterize_eps(item_eps[name][s],
@@ -623,62 +675,50 @@ class VIBO:
                 params, packed, self._encoder_conditioning(post, item_sample),
                 decoded, transposed=transposed)
             theta = dist.tril_reparameterize_eps(theta_eps[s], *q)
-            if self._deep:
-                ll = (pallas_deep.masked_loglik_deep_packed_train(
-                    theta, item_sample["d"], params["deep_link"], packed)
-                    if fused else self.loglik_per_person(
-                        params, theta, item_sample, decoded[1],
-                        decoded[0])).sum()
-                yield ll, item_sample, q, theta
-                continue
-            a, b, g_hat = self._link_params(item_sample, m)
-            if self._categorical:
-                items = (a, links.categorical_table(self.cfg.irt_model, b))
-            else:
-                items = (a, b) if g_hat is None else (a, b, g_hat)
-            if transposed:
-                train_t = (pallas_elbo.masked_loglik_2pl_packed_train_t
-                           if g_hat is None else
-                           pallas_elbo.masked_loglik_3pl_packed_train_t)
-                ll = train_t(theta, *items, packed)
-            else:
-                train = _PACKED_TRAIN.get(
-                    self.cfg.irt_model,
-                    pallas_elbo.masked_loglik_2pl_packed_train)
-                ll = train(theta, *items, packed).sum()
-            yield ll, item_sample, q, theta
+            yield (self._packed_loglik(params, theta, item_sample, packed,
+                                       decoded, transposed),
+                   item_sample, q, theta)
 
-    def _packed_post(self, params: dict, packed):
+    def _packed_post(self, params: dict, packed, group=None):
         """(item posterior, decoded code or None) of a packed objective:
-        the item encoder's posterior conditions on the whole code."""
+        the item encoder's posterior conditions on the whole code (its
+        statistics summed over the students group `group` on a mesh)."""
         decoded = self._decode_if_needed(params, packed)
-        post = (self.item_dist(params, decoded[1], decoded[0])
+        post = (self.item_dist(params, decoded[1], decoded[0], group=group)
                 if self.cfg.item_encoder else self.item_dist(params))
         return post, decoded
 
     def elbo_packed_sums(self, params: dict, packed, item_eps: dict,
                          theta_eps, row_weight=None,
-                         transposed: bool = False):
+                         transposed: bool = False, group=None):
         """(loglik_sum, kl_theta_sum, kl_items) from the int8 code and
         exogenous noise, the first two averaged over the sample axis.
 
         With use_pallas the samples run _packed_samples (the fused first
         layer and the link's one-pass op). Without use_pallas the code is
         decoded and elbo_sums runs on (response, mask). row_weight ((B,),
-        0/1) masks the theta-KL of rows with no observed cell; None derives
-        it from the code. transposed: theta in (K, B), theta_eps from
-        sample_noise(..., transposed=True), fused kernels of the 1pl/2pl/3pl
-        links and the diagonal family only (grm/gpcm run their one-pass op
-        on theta (B, K), the table reparameterized outside it; deep its op
-        or the plain link on theta (B, K)). Same math either way."""
+        0/1) masks the theta-KL of rows with no observed cell and of a
+        mesh's padding rows; None derives it from the code. transposed:
+        theta in (K, B), theta_eps from sample_noise(..., transposed=True),
+        fused kernels of the 1pl/2pl/3pl links and the diagonal family only
+        (grm/gpcm run their one-pass op on theta (B, K), the table
+        reparameterized outside it; deep its op or the plain link on theta
+        (B, K)). Same math either way.
+
+        group: on a students-only mesh, the students group: packed is this
+        rank's rows, the two sums are its share, and the item encoder's
+        column statistics are summed over the group, so kl_items is the
+        same on every rank (the caller divides it by the group's size
+        before the ranks' losses add up; JAX's axis_name)."""
         valid = (packed_row_valid(packed) if row_weight is None
                  else row_weight)
         self._check_packed_layout(transposed)
         if not self.cfg.use_pallas:
             mask, response = decode_packed(packed)
-            return self.elbo_sums(params, response, mask, item_eps,
-                                  theta_eps, valid)
-        post, decoded = self._packed_post(params, packed)
+            return self.elbo_sums(
+                params, response, mask, item_eps, theta_eps, valid,
+                self.item_dist(params, response, mask, group=group))
+        post, decoded = self._packed_post(params, packed, group)
         lls, klts = [], []
         for ll, _, q, _ in self._packed_samples(
                 params, packed, item_eps, theta_eps, transposed, post,
@@ -692,21 +732,26 @@ class VIBO:
 
     def iwae_packed_terms(self, params: dict, packed, item_eps: dict,
                           theta_eps, row_weight=None,
-                          transposed: bool = False):
+                          transposed: bool = False, group=None):
         """(local (S,), ratio (S,)) of the IWAE log-weights from the int8
-        code and exogenous noise (the JAX `iwae_packed_terms` on one
-        device): local_s = loglik + log p(theta_s) - log q(theta_s) over the
-        valid rows (row_weight, None = derived from the code), ratio_s =
-        log p(d_s) - log q(d_s). Samples, layouts and the use_pallas=False
-        fallback as in elbo_packed_sums (iwae_terms on the decoded code)."""
+        code and exogenous noise (the JAX `iwae_packed_terms`): local_s =
+        loglik + log p(theta_s) - log q(theta_s) over the valid rows
+        (row_weight, None = derived from the code), ratio_s = log p(d_s) -
+        log q(d_s). Samples, layouts and the use_pallas=False fallback as
+        in elbo_packed_sums (iwae_terms on the decoded code). group: on a
+        students-only mesh local_s is this rank's rows' and ratio_s the
+        same on every rank, so psum(local + item_scale * ratio / n) over
+        the group is the global log-weight vector."""
         valid = (packed_row_valid(packed) if row_weight is None
                  else row_weight)
         self._check_packed_layout(transposed)
         if not self.cfg.use_pallas:
             mask, response = decode_packed(packed)
-            return self.iwae_terms(params, response, mask, item_eps,
-                                   theta_eps, row_weight=valid)
-        post, decoded = self._packed_post(params, packed)
+            return self.iwae_terms(
+                params, response, mask, item_eps, theta_eps,
+                post=self.item_dist(params, response, mask, group=group),
+                row_weight=valid)
+        post, decoded = self._packed_post(params, packed, group)
         local, ratio = [], []
         for s, (ll, item_sample, q, theta) in enumerate(self._packed_samples(
                 params, packed, item_eps, theta_eps, transposed, post,
@@ -734,6 +779,149 @@ class VIBO:
         local, ratio = self.iwae_packed_terms(
             params, packed, item_eps, theta_eps, row_valid, transposed=tp)
         return objectives.iwae_bound(local + item_scale * ratio)
+
+    def elbo_packed(self, params: dict, packed, item_scale: float = 1.0,
+                    num_samples: int = 1, row_valid=None,
+                    generator: torch.Generator | None = None,
+                    noise: tuple | None = None):
+        """ELBO (scalar) and its aux dict on the int8 code (the JAX
+        `elbo_packed`, which draws its noise from a key): elbo_packed_sums
+        on theta (B, K) with num_samples draws of noise from `generator`,
+        or `noise` ((item_eps, theta_eps) as sample_noise gives them; the
+        tests replay JAX's keys through it), the item KL scaled by
+        item_scale."""
+        if noise is None:
+            noise = self.sample_noise(packed.shape[0], num_samples,
+                                      generator=generator)
+        ll, klt, kli = self.elbo_packed_sums(params, packed, *noise,
+                                             row_valid)
+        bound = objectives.elbo(ll, klt, kli, item_scale)
+        return bound, {"elbo": bound, "loglik": ll, "kl_theta": klt,
+                       "kl_items": kli}
+
+    # ------------------------------------------------ 2D mesh tile (A9)
+
+    def _encode_item_sharded(self, params: dict, response, mask, post: dict,
+                             item_sample: dict, item_index: int,
+                             items_group):
+        """The encoder on a 2D mesh tile (networks.
+        apply_ability_encoder_item_sharded), conditioned per condition_on:
+        the tile's block of the draw or the means ("sample"/"mean"), or the
+        tile's sufficient-statistic blocks at the GLOBAL item count
+        ("stats"), whose psum over the items group gives the unsharded
+        statistics."""
+        conditioning = self._encoder_conditioning(post, item_sample)
+        cond = None
+        if conditioning is not None and self._stats:
+            cond = networks.condition_stat_mats(
+                conditioning, self.cfg.num_items, self.cfg.irt_model)
+            conditioning = None
+        return networks.apply_ability_encoder_item_sharded(
+            params["encoder"], response, mask, conditioning,
+            self.cfg.num_items, item_index, items_group,
+            compute_dtype=self.cfg.compute_dtype, ability_dim=self._enc_k,
+            cond_mats=cond)
+
+    def _tile_item_post(self, params: dict, response, mask, item_index: int,
+                        m_l: int, students_group, items_group) -> dict:
+        """The item posterior of a 2D tile's item block: free-form, the
+        per-item Gaussians sliced at item_index * m_l (their gradients are
+        block-sparse); amortized, the shared encoder on the block's column
+        statistics (partial sums over the students group, the per-person
+        raw score over the items group: the global statistics) plus the
+        sliced residuals."""
+        off = item_index * m_l
+
+        def block(tree):
+            return {name: {k: v[k][off:off + m_l] for k in ("mu", "logvar")}
+                    for name, v in tree.items()}
+        if not self.cfg.item_encoder:
+            return block(params["item_post"])
+        stats = networks.item_stats(response, mask, group=students_group,
+                                    item_group=items_group)
+        return networks.apply_item_encoder(params["item_enc"], stats,
+                                           self._head_spec,
+                                           block(params["item_resid"]))
+
+    def _tile_samples(self, params: dict, packed, item_eps: dict, theta_eps,
+                      item_index: int, students_group, items_group):
+        """What the 2D tile objectives share: the tile's (B_l, M_l) code
+        decoded, its item posterior (computed once), and per sample (one at
+        a time) the item draw on the block (item_eps sliced at item_index *
+        M_l), the item-sharded encoder's (mu, logvar, off) (the Fisher
+        anchor's pair statistic summed over the items group), theta (B_l,
+        K) and the tile's loglik summed (_packed_loglik: the link's
+        one-pass op on theta (B, K), or the plain deep link). Returns
+        (post, generator of (ll, item_sample, q, theta))."""
+        mask, response = decode_packed(packed)
+        m_l = packed.shape[1]
+        off = item_index * m_l
+        post = self._tile_item_post(params, response, mask, item_index, m_l,
+                                    students_group, items_group)
+
+        def samples():
+            for s in range(theta_eps.shape[0]):
+                item_sample = {
+                    name: dist.reparameterize_eps(
+                        item_eps[name][s, off:off + m_l], post[name]["mu"],
+                        post[name]["logvar"])
+                    for name in item_eps}
+                q = self._anchor_theta_head(
+                    params, self._encode_item_sharded(
+                        params, response, mask, post, item_sample,
+                        item_index, items_group),
+                    mask, items_group=items_group, item_post=post)
+                theta = dist.tril_reparameterize_eps(theta_eps[s], *q)
+                yield (self._packed_loglik(params, theta, item_sample,
+                                           packed, (mask, response)),
+                       item_sample, q, theta)
+        return post, samples()
+
+    def elbo_packed_sums_2d(self, params: dict, packed, item_eps: dict,
+                            theta_eps, row_weight, item_index: int,
+                            items_group=None, students_group=None):
+        """A 2D ('students', 'items') mesh tile's ELBO partial sums from
+        exogenous noise (the JAX `elbo_packed_sums_2d`): packed is the
+        rank's (B_l, M_l) block, item_eps the whole (S, M, D) noise and
+        theta_eps (S, B_l, K) its rows'. Returns (ll, klt, kli): the tile's
+        masked loglik (the ranks' sum is the global one); its rows' theta
+        KL, the same on every item shard of the row (theta comes from the
+        psum'd encoder), so the caller divides it by the items axis; the
+        item block's KL, the same on every student shard, divided by the
+        students axis. row_weight is the rows' GLOBAL validity (a person
+        may have no observed cell in this block and still be valid)."""
+        post, samples = self._tile_samples(params, packed, item_eps,
+                                           theta_eps, item_index,
+                                           students_group, items_group)
+        lls, klts = [], []
+        for ll, _, q, _ in samples:
+            lls.append(ll)
+            klts.append((self.theta_kl(*q) * row_weight).sum())
+        return (torch.stack(lls).mean(), torch.stack(klts).mean(),
+                self.item_kl_from(post))
+
+    def iwae_packed_terms_2d(self, params: dict, packed, item_eps: dict,
+                             theta_eps, row_weight, item_index: int,
+                             item_scale: float = 1.0, items_group=None,
+                             students_group=None) -> torch.Tensor:
+        """A 2D mesh tile's share of the IWAE log-weights (S,) (the JAX
+        `iwae_packed_terms_2d`): the tile's loglik, its rows' log p(theta)
+        - log q(theta) over the items axis (the same on every item shard)
+        and the block's item log-ratio times item_scale over the students
+        axis (the same on every student shard), so their psum over the
+        whole mesh is the global log-weight vector."""
+        n_i = group_size(items_group)
+        n_s = group_size(students_group)
+        post, samples = self._tile_samples(params, packed, item_eps,
+                                           theta_eps, item_index,
+                                           students_group, items_group)
+        local = []
+        for s, (ll, item_sample, q, theta) in enumerate(samples):
+            lp, lq = self._theta_log_ratio(theta, theta_eps[s], q,
+                                           row_weight)
+            ratio = self.item_log_ratio_from(post, item_sample)
+            local.append(ll + (lp - lq) / n_i + item_scale * ratio / n_s)
+        return torch.stack(local)
 
     # ------------------------------------------------- scoring / imputation
 
