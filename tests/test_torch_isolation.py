@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from vibo_tpu_torch.models import VIBO, VIBOConfig, em, hmc, mle
+from vibo_tpu_torch.scripts import run_at_scale
 from vibo_tpu_torch.ops import (_build, pallas_deep, pallas_elbo,
                                 pallas_encoder, pallas_gpcm, pallas_grm)
 from vibo_tpu_torch.serve import AbilityScorer
@@ -40,7 +41,10 @@ def test_import_loads_no_jax_or_reference_package():
                 "vibo_tpu_torch.utils.metrics", "vibo_tpu_torch.cli",
                 "vibo_tpu_torch.data.loaders", "vibo_tpu_torch.data.native",
                 "vibo_tpu_torch.utils.prof",
-                "vibo_tpu_torch.utils.hostmem"} <= set(sys.modules)
+                "vibo_tpu_torch.utils.hostmem",
+                "vibo_tpu_torch.scripts.gen_duolingo_csv",
+                "vibo_tpu_torch.scripts.bench_ingest",
+                "vibo_tpu_torch.scripts.run_at_scale"} <= set(sys.modules)
         from vibo_tpu_torch.data import native
         assert native._lib is None      # the CSV parser builds on first use
     """)
@@ -76,6 +80,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         em.response_prob({"a": resp[0], "b": resp[0],
                           "posterior_node_weights": resp})
+    # before it writes or reads a CSV
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_at_scale.run(os.path.join(REPO, "no_such_dir", "duolingo.csv"),
+                         device=None)
+    assert not os.path.exists(os.path.join(REPO, "no_such_dir"))
 
 
 def test_out_of_scope_config_raises():

@@ -57,14 +57,14 @@ def _close(got, want, tol):
 POLYTOMOUS = ("grm", "gpcm")
 
 
-def _item_shapes(irt_model: str) -> dict:
+def _item_shapes(irt_model: str, k: int = K) -> dict:
     """{name: (M, D)} of the link's item parameters."""
     if irt_model in POLYTOMOUS:
         return {"a": (M, K), "b": (M, C - 1)}
     if irt_model.startswith("deep"):
         return {"d": (M, DL)}
-    return ({"a": (M, K), "b": (M, 1)} if irt_model == "2pl"
-            else {"a": (M, K), "b": (M, 1), "g_hat": (M, 1)})
+    return ({"a": (M, k), "b": (M, 1)} if irt_model == "2pl"
+            else {"a": (M, k), "b": (M, 1), "g_hat": (M, 1)})
 
 
 def _data(rng, irt_model: str, n: int):
@@ -92,7 +92,7 @@ def _start_from_jax(params, optimizer, jparams, opt_state) -> None:
                     "exp_avg_sq": torch.from_numpy(np.array(nu))}
 
 
-def _config(irt_model: str, **kw) -> dict:
+def _config(irt_model: str, k: int = K, **kw) -> dict:
     """"deep_fused": the deep link with deep_fused_kernel (its op's width
     128, item blocks of 10 for the plain link)."""
     if irt_model.startswith("deep"):
@@ -100,25 +100,28 @@ def _config(irt_model: str, **kw) -> dict:
                   deep_item_chunk=10,
                   deep_fused_kernel=irt_model == "deep_fused")
         irt_model = "deep"
-    return dict(num_items=M, irt_model=irt_model, ability_dim=K,
+    return dict(num_items=M, irt_model=irt_model, ability_dim=k,
                 hidden_dim=H, compute_dtype="float32",
                 num_categories=C if irt_model in POLYTOMOUS else 2, **kw)
 
 
 @pytest.mark.parametrize("irt_model", ["2pl", "3pl", "grm", "gpcm", "deep",
-                                       "deep_fused"])
+                                       "deep_fused", "2pl_k1"])
 def test_five_steps_track_jax(irt_model):
+    # "2pl_k1": the 2PL link at ability_dim 1 (the at-scale pipeline's)
+    k = 1 if irt_model == "2pl_k1" else K
+    irt_model = irt_model.removesuffix("_k1")
     rng = np.random.default_rng(0)
     resp, mask = _data(rng, irt_model, N)
-    kw = _config(irt_model, use_pallas=True)
+    kw = _config(irt_model, k, use_pallas=True)
     # lr large enough that Adam moves every param, max_grad_norm small
     # enough that the clip fires
     lr, max_norm = 2e-2, 5.0
     # grm/gpcm and deep run theta as (B, K), the binary links transposed
     transposed = irt_model in ("2pl", "3pl")
     noise = [({n: rng.standard_normal((1,) + shp).astype(np.float32)
-               for n, shp in _item_shapes(irt_model).items()},
-              rng.standard_normal((1, K, N) if transposed else (1, N, K)
+               for n, shp in _item_shapes(irt_model, k).items()},
+              rng.standard_normal((1, k, N) if transposed else (1, N, k)
                                   ).astype(np.float32))
              for _ in range(STEPS)]
 
