@@ -165,11 +165,12 @@ capturable Adam is held against the plain form.
 The posterior families (`family` lines, after the fused paths): the K = 4
 commands' width (10,240 x 1,024, K = 4, hidden 512, S = 5, f32 first
 layer) on the 2PL flagship's data under stats + chol, stats + laplace,
-stats + laplace-w and the item encoder (diagonal): the packed objectives
-with the kernels against the dense ones on the card at 300 x 200 (1e-4),
-then fused_phase at 20 epochs of chunks of 2 (its profiler window one
-chunk), and the one-pass op's launches by layout: row 4 (theta (B, K))
-only under chol and laplace, row 3 (theta (K, B)) only under the item
+stats + laplace-w and the item encoder (diagonal), and on the 3PL
+flagship's under stats + chol: the packed objectives with the kernels
+against the dense ones on the card at 300 x 200 (1e-4), then fused_phase
+at 20 epochs of chunks of 2 (its profiler window one chunk), and the
+one-pass op's launches by layout: row 4 (theta (B, K)) only under chol
+and laplace (the 3PL's row 9), row 3 (theta (K, B)) only under the item
 encoder.
 
 The at-scale pipeline (`vibo_tpu_torch/scripts/run_at_scale.py`): a
@@ -184,9 +185,10 @@ x 2,048, the shape it drives, the same tolerances); gated on the ELBO
 rising over the chunks, held-out accuracy >= base rate + 0.01, new-person
 accuracy >= base rate - 0.05 (tests/test_at_scale.py's gates), IWAE a
 cell in (-1, 0), and a profiler window of one chunk's replay in which
-rows 1-3 run S times a step (once a sample: the encoder and the loglik
-run each sample) and no other kernel of DEVICE_KERNELS beside their
-prologue and second pass. Its checks draw from a generator of their own.
+rows 1-2 run once a step (the encoder once, on the samples' axis, as
+JAX's vmap runs it) and row 3 S times (once a sample), and no other
+kernel of DEVICE_KERNELS beside their prologue and second pass. Its
+checks draw from a generator of their own.
 
 The decoded full batch and the mesh: `decoded_fused` (after the
 fused paths) is fused_phase on fit(packed=False) at the 2PL flagship: each
@@ -200,7 +202,8 @@ window of mesh steps (a window that lost a record opened again, each
 window's records in the order they ran). `mesh_gloo2`: two ranks spawned
 on the card over gloo (NCCL takes one rank a card), each holding only its
 tile: the 2PL flagship's students-only step (2 x 1) and 2D step (1 x 2),
-at f32 and at bf16, and the GRM flagship's 2D step at f32, from the state
+at f32 and at bf16, the 2D step at f32 of the GRM, 3PL and GPCM flagships
+(rows 13, 9, 14) and at bf16 of config 5's deep model (row 15), from the state
 after MESH_GLOO_WARMUP one-rank steps, held against the ordinary packed
 step on one rank (no mesh, no tile code): the ELBO within 5e-5; at f32 the
 params after the Adam steps within rtol 5e-4 and atol 5e-6; at bf16 one
@@ -377,8 +380,9 @@ EM_CPU_CASES = (("1pl", 1), ("2pl", 1), ("2pl", 2), ("2pl", 4), ("3pl", 1),
 # FUSED_EVAL_EVERY)
 RESUME_EPOCHS = 20
 # the fixed-trajectory probe: warm-up, timed and profiled iterations (2,
-# 5, 3 until the PR 19 phases joined the 600 s budget)
-HMC_PROBE_ITERS = (1, 2, 2)
+# 5, 3 until the families and their CLI phases joined the 600 s budget;
+# 1, 2, 2 until the 3PL family and the 3PL, GPCM and deep tiles did)
+HMC_PROBE_ITERS = (1, 1, 1)
 # NUTS's probe: warm-up, timed and profiled iterations (a saturated
 # depth-7 iteration holds 16,000-33,000 device records, more than 3 of the
 # k4 flagship's fixed ones; 1, 2, 1 until PR 19)
@@ -3372,42 +3376,49 @@ def checkpoint_resume(smi: str, data: dict) -> dict:
 # ------------------------------------------------- the posterior families
 
 # the K = 4 commands' families at their width (run_benchmark_configs.sh
-# :34-65: 10,240 x 1,024, K = 4, hidden 512, S = 5, 2PL, the CLI's f32
-# compute): the tag, the config's family fields, and the one-pass op the
-# step must run: "bk" the per-person op on theta (B, K) (row 4), "kb" the
-# scalar op on theta (K, B) (row 3); one device kernel serves both, so the
-# wrapper's launches_by tells them apart
+# :34-65: 10,240 x 1,024, K = 4, hidden 512, S = 5, the CLI's f32
+# compute): the tag, the config's family fields, the one-pass op the step
+# must run: "bk" the per-person op on theta (B, K) (row 4; the 3PL's row
+# 9), "kb" the scalar op on theta (K, B) (row 3); one device kernel serves
+# both, so the wrapper's launches_by tells them apart; and the link (its
+# flagship data)
 FAMILY_RUNS = (("stats_chol", {"condition_on": "stats",
-                               "theta_posterior": "chol"}, "bk"),
+                               "theta_posterior": "chol"}, "bk", "2pl"),
                ("stats_laplace", {"condition_on": "stats",
-                                  "theta_posterior": "laplace"}, "bk"),
+                                  "theta_posterior": "laplace"}, "bk", "2pl"),
                ("stats_laplace_w", {"condition_on": "stats",
-                                    "theta_posterior": "laplace-w"}, "bk"),
-               ("item_encoder", {"item_encoder": True}, "kb"))
+                                    "theta_posterior": "laplace-w"}, "bk",
+                "2pl"),
+               ("item_encoder", {"item_encoder": True}, "kb", "2pl"),
+               ("3pl_stats_chol", {"condition_on": "stats",
+                                   "theta_posterior": "chol"}, "bk", "3pl"))
 FAMILY_H, FAMILY_S = 512, 5
 FAMILY_FUSED = (20, 2)                    # epochs, eval_every (40, 10 cut for
                                           # the 600 s budget: a chunk's
                                           # capture and profile scale with
                                           # its steps)
-FAMILY_PATH = (*FIRST_LAYER_F32, "loglik_2pl_train")
+FAMILY_PATH = {"2pl": (*FIRST_LAYER_F32, "loglik_2pl_train"),
+               "3pl": (*FIRST_LAYER_F32, "loglik_3pl_train")}
 # a window of one chunk: a laplace step is ~5,400 device records, whose
 # processing the profiler takes its time over
 FAMILY_PROFILE_CHUNKS = 1
-FAMILY_ROWS = {"bk": "row 4 (vibo_tpu/ops/pallas_elbo.py:613 "
-                     "_fused_train_fwd)",
-               "kb": "row 3 (vibo_tpu/ops/pallas_elbo.py:1244 "
-                     "_fused_train_fwd_t)"}
+FAMILY_ROWS = {("2pl", "bk"): "row 4 (vibo_tpu/ops/pallas_elbo.py:613 "
+                            "_fused_train_fwd)",
+               ("2pl", "kb"): "row 3 (vibo_tpu/ops/pallas_elbo.py:1244 "
+                            "_fused_train_fwd_t)",
+               ("3pl", "bk"): "row 9 (vibo_tpu/ops/pallas_elbo.py:741 "
+                            "_fused_train_fwd_3pl)"}
 
 
 def family_config(extra: dict, use_pallas: bool = True, m: int = M,
-                  hidden: int = FAMILY_H):
+                  hidden: int = FAMILY_H, link: str = "2pl"):
     from vibo_tpu_torch.models import VIBOConfig
-    return VIBOConfig(num_items=m, irt_model="2pl", ability_dim=K,
+    return VIBOConfig(num_items=m, irt_model=link, ability_dim=K,
                       hidden_dim=hidden, use_pallas=use_pallas,
                       compute_dtype="float32", **extra)
 
 
-def family_packed_matches_dense(extra: dict) -> dict:
+def family_packed_matches_dense(extra: dict, link: str = "2pl") -> dict:
     """A family's packed objectives on the card with the kernels
     (use_pallas: the f32 first layer and the link's one-pass op) against
     the same objectives on the decoded code without them (use_pallas off:
@@ -3425,7 +3436,7 @@ def family_packed_matches_dense(extra: dict) -> dict:
     resp = (rng.random((n, m)) < 0.6).astype(np.float32)
     mask = (rng.random((n, m)) < 0.9).astype(np.float32)
     mask[7] = 0.0
-    fused = VIBO(family_config(extra, True, m, 64))
+    fused = VIBO(family_config(extra, True, m, 64, link))
     params_np = params_to_numpy(fused.init_params(7))
     item_eps = {name: torch.from_numpy(rng.standard_normal(
         (s, m, d)).astype(np.float32)).cuda()
@@ -3435,7 +3446,7 @@ def family_packed_matches_dense(extra: dict) -> dict:
     packed, rv = packed_on_device(resp, mask)
     results = []
     for use_pallas in (True, False):
-        model = VIBO(family_config(extra, use_pallas, m, 64))
+        model = VIBO(family_config(extra, use_pallas, m, 64, link))
         tp = model.wants_transposed_theta()
         te = theta_eps.transpose(1, 2).contiguous() if tp else theta_eps
         out = []
@@ -3456,35 +3467,40 @@ def family_packed_matches_dense(extra: dict) -> dict:
         results.append(out)
     worst = max(rel_err(a, b) for a, b in zip(*results))
     if not worst <= 1e-4:
-        raise AssertionError(f"family {extra}: the packed objectives with "
-                             f"the kernels are {worst} from the dense ones")
+        raise AssertionError(f"family {link} {extra}: the packed objectives "
+                             f"with the kernels are {worst} from the dense "
+                             "ones")
     return {"shape": [n, m], "samples": s, "max_rel_err": worst}
 
 
 def families_phase(smi: str, data: dict) -> dict:
     """The posterior and conditioning families of the K = 4 commands
-    (FAMILY_RUNS) at their width on the 2PL flagship's data: for each, the
-    packed objectives with the kernels against the dense ones at 300 x 200
-    (family_packed_matches_dense), then fused_phase: FAMILY_FUSED[0] steps
-    through Trainer.fit at S = FAMILY_S (the ELBO finite and rising), the
-    graph replays bitwise equal to eager steps, the replay step's ms and
-    the device's busy and idle time, and a profiler window of one chunk in
-    which the first layer's f32 kernels and the 2PL one-pass kernel run as
-    many times a step as in eager steps (S each). The eager steps'
-    launches by layout must be the run's row only: row 4 under chol and
-    laplace, row 3 under the item encoder (diagonal)."""
+    (FAMILY_RUNS) at their width on their link's flagship data (`data`:
+    link_data by link): for each, the packed objectives with the kernels
+    against the dense ones at 300 x 200 (family_packed_matches_dense),
+    then fused_phase: FAMILY_FUSED[0] steps through Trainer.fit at S =
+    FAMILY_S (the ELBO finite and rising), the graph replays bitwise equal
+    to eager steps, the replay step's ms and the device's busy and idle
+    time, and a profiler window of one chunk in which the first layer's
+    f32 kernels (once a step) and the one-pass kernel (S a step) run as
+    many times a step as in eager steps. The eager steps' launches by
+    layout must be the run's row only: row 4 under chol and laplace (the
+    3PL's row 9), row 3 under the item encoder (diagonal)."""
     from vibo_tpu_torch.ops import _build
     out = {}
-    for tag, extra, layout in FAMILY_RUNS:
-        agree = family_packed_matches_dense(extra)
-        res = fused_phase(f"family_{tag}", family_config(extra), data, smi,
-                          FAMILY_PATH, *FAMILY_FUSED, samples=FAMILY_S,
+    for tag, extra, layout, link in FAMILY_RUNS:
+        agree = family_packed_matches_dense(extra, link)
+        path = FAMILY_PATH[link]
+        res = fused_phase(f"family_{tag}", family_config(extra, link=link),
+                          data[link], smi, path, *FAMILY_FUSED,
+                          samples=FAMILY_S,
                           profile_chunks=FAMILY_PROFILE_CHUNKS)
-        by = dict(_build.KERNELS["loglik_2pl_train"].launches_by)
-        row = {"phase": "family", "family": tag, "config": extra,
-               "packed_vs_dense": agree, "hidden": FAMILY_H,
-               "samples": FAMILY_S, "loglik_launches_by_layout": by,
-               "row": FAMILY_ROWS[layout], **res, "card": smi}
+        by = dict(_build.KERNELS[path[-1]].launches_by)
+        row = {"phase": "family", "family": tag, "link": link,
+               "config": extra, "packed_vs_dense": agree,
+               "hidden": FAMILY_H, "samples": FAMILY_S,
+               "loglik_launches_by_layout": by,
+               "row": FAMILY_ROWS[link, layout], **res, "card": smi}
         emit(row)
         if set(by) != {layout}:
             raise AssertionError(f"family {tag} launched the one-pass op in "
@@ -3510,12 +3526,19 @@ MESH_TIMED_STEPS = 5
 # link, item_axis, steps, compute dtype); each run held against one rank's
 # run of the same step on the card (Trainer.step_with_noise without a mesh,
 # theta (K, B) on a 2 x 1 mesh where the link takes it, (B, K) on a 2D
-# tile as the tile runs it), so the reference runs none of the tile's code
+# tile as the tile runs it), so the reference runs none of the tile's code.
+# The link's flagship model and data; deep: config 5's (mesh_config), at
+# its own bf16: the deep link's one-pass op (row 15) rounds its operands to
+# bf16 at any compute dtype, so the f32 params' tolerance cannot hold for
+# it (deep_one_ulp) and it is held as the bf16 runs are
 MESH_GLOO_RUNS = (("2pl_2x1", "2pl", 1, 10, "float32"),
                   ("2pl_1x2", "2pl", 2, 10, "float32"),
                   ("grm_1x2", "grm", 2, 5, "float32"),
+                  ("3pl_1x2", "3pl", 2, 5, "float32"),
+                  ("gpcm_1x2", "gpcm", 2, 5, "float32"),
                   ("2pl_2x1_bf16", "2pl", 1, 10, "bfloat16"),
-                  ("2pl_1x2_bf16", "2pl", 2, 10, "bfloat16"))
+                  ("2pl_1x2_bf16", "2pl", 2, 10, "bfloat16"),
+                  ("deep_1x2_bf16", "deep", 2, 5, "bfloat16"))
 # the f32 runs at JAX's test_train_step_sharded_equals_replicated
 # tolerances (an f32 test's)
 MESH_ELBO_RTOL = 5e-5
@@ -3557,19 +3580,35 @@ MESH_GLOO_LR = 1e-4
 # init); with the moments warmed the update is continuous in the gradient
 MESH_GLOO_WARMUP = 5
 # each run's kernels a step: rows 1-3 (1f-2f at f32) on the students-only
-# step's shards, the one-pass loglik on theta (B, K) and no first layer on
-# a 2D tile
+# step's shards, the one-pass loglik on theta (B, K) (rows 4, 9, 13, 14,
+# 15) and no first layer on a 2D tile
 MESH_GLOO_PATHS = {"2pl_2x1": {"first_layer_fwd_f32": 1,
                                "first_layer_bwd_f32": 1,
                                "loglik_2pl_train": 1},
                    "2pl_1x2": {"loglik_2pl_train": 1},
                    "grm_1x2": {"loglik_grm_train": 1},
+                   "3pl_1x2": {"loglik_3pl_train": 1},
+                   "gpcm_1x2": {"loglik_gpcm_train": 1},
                    "2pl_2x1_bf16": {"first_layer_fwd": 1,
                                     "first_layer_bwd": 1,
                                     "loglik_2pl_train": 1},
-                   "2pl_1x2_bf16": {"loglik_2pl_train": 1}}
-MESH_GLOO_LAYOUT = {"2pl_2x1": "kb", "2pl_1x2": "bk", "2pl_2x1_bf16": "kb",
-                    "2pl_1x2_bf16": "bk"}
+                   "2pl_1x2_bf16": {"loglik_2pl_train": 1},
+                   "deep_1x2_bf16": {"deep_link_train": 1}}
+# the layout the 2PL / 3PL one-pass kernel must run in (its launches_by)
+MESH_GLOO_LAYOUT = {"2pl_2x1": ("loglik_2pl_train", "kb"),
+                    "2pl_1x2": ("loglik_2pl_train", "bk"),
+                    "3pl_1x2": ("loglik_3pl_train", "bk"),
+                    "2pl_2x1_bf16": ("loglik_2pl_train", "kb"),
+                    "2pl_1x2_bf16": ("loglik_2pl_train", "bk")}
+
+
+def mesh_config(link: str, dtype: str):
+    """A mesh_gloo2 run's model: the link's flagship, or for the deep link
+    config 5's (the one-pass deep kernel, width DEEP_H), at `dtype`."""
+    import dataclasses
+    if link == "deep":
+        return dataclasses.replace(deep_config(True), compute_dtype=dtype)
+    return flagship_config(link, dtype)
 
 
 def decoded_fused(smi: str, data: dict) -> dict:
@@ -3767,9 +3806,37 @@ def _gloo_step(trainer, params, optimizer, packed, row_valid, gen,
     the link takes it on a 2 x 1 mesh, (B, K) on a 2D tile), then
     Trainer.step_with_noise without a mesh."""
     tp = trainer.model.wants_transposed_theta() if axis == 1 else False
-    noise = trainer.model.sample_noise(B, 1, transposed=tp, generator=gen)
+    noise = trainer.model.sample_noise(packed.shape[0], 1, transposed=tp,
+                                       generator=gen)
     return trainer.step_with_noise(params, optimizer, packed, row_valid,
                                    *noise, transposed=tp)
+
+
+def _one_rank_run(model, start: str, steps: int, x: tuple, axis: int,
+                  nudge: bool = False) -> tuple:
+    """`steps` one-rank steps (_gloo_step) of `model` from a mesh_gloo2
+    run's warmed checkpoint `start` (params, Adam's moments, the
+    generator), the first layer's weights moved one ulp up first where
+    `nudge` -> (ELBOs, params, Adam's RMS gradient), leaf by leaf."""
+    from vibo_tpu_torch.train import Trainer, TrainConfig, make_optimizer
+    from vibo_tpu_torch.train import checkpoint as ckpt
+    params = model.init_params(0)
+    optimizer = make_optimizer(params, MESH_GLOO_LR)
+    gen = torch.Generator(device="cuda")
+    state, gen_state, _, _ = ckpt.load_checkpoint(
+        start, ckpt.train_state(params, optimizer))
+    ckpt.restore_train_state(state, params, optimizer)
+    gen.set_state(gen_state)
+    if nudge:
+        with torch.no_grad():
+            w = params["encoder"][0]["w"]
+            w.copy_(torch.nextafter(w, torch.full_like(w, float("inf"))))
+    trainer = Trainer(model, TrainConfig(lr=MESH_GLOO_LR))
+    elbos = [float(_gloo_step(trainer, params, optimizer, *x, gen,
+                              axis)["elbo"]) for _ in range(steps)]
+    leaves = tree_leaves_of(params)
+    return (elbos, [p.detach() for p in leaves],
+            [optimizer.state[p]["exp_avg_sq"].sqrt() for p in leaves])
 
 
 def _raw_grads(trainer, params, step) -> list:
@@ -3837,8 +3904,9 @@ def mesh_gloo2(smi: str, data: dict) -> dict:
     """Two spawned ranks share the card over gloo (NCCL takes one rank a
     card): MESH_GLOO_RUNS, the 2PL flagship's students-only step (2 x 1:
     each rank 5,120 x 1,024 of the code) and 2D step (1 x 2: 10,240 x 512),
-    at f32 and at bf16, and the GRM flagship's 2D step, each rank copying
-    only its tile. This process first runs each one on one rank without a
+    at f32 and at bf16, the 2D step at f32 of the GRM, 3PL and GPCM
+    flagships, and at bf16 of config 5's deep model (`data` holds its data
+    under "deep"; 5,520 x 340 a rank), each rank copying only its tile. This process first runs each one on one rank without a
     mesh (_gloo_step: the ordinary packed step) from the same init and
     generator; Adam at MESH_GLOO_LR; both start from the state after
     MESH_GLOO_WARMUP one-rank steps (a checkpoint: params, Adam's moments,
@@ -3849,7 +3917,9 @@ def mesh_gloo2(smi: str, data: dict) -> dict:
     (MESH_GLOO_PATHS). A bf16 run also takes one step's raw gradient on
     both sides, and this process holds it and the params, leaf by leaf,
     against the one-rank run at f32 from the same state (_bf16_shares,
-    MESH_BF16_GRAD_SHARE, MESH_BF16_PARAM_SHARE)."""
+    MESH_BF16_GRAD_SHARE, MESH_BF16_PARAM_SHARE). For the deep run it also
+    reads the f32 params' gate on the one-rank f32 run against itself with
+    its first layer's weights one ulp up (`deep_one_ulp`, reported)."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3875,7 +3945,7 @@ def mesh_gloo2(smi: str, data: dict) -> dict:
         for tag, link, axis, steps, dtype in MESH_GLOO_RUNS:
             d = data[link]
             x = (d["packed"], d["row_valid"])
-            model = VIBO(flagship_config(link, dtype))
+            model = VIBO(mesh_config(link, dtype))
             trainer = Trainer(model, TrainConfig(lr=MESH_GLOO_LR))
             params = model.init_params(0)
             names[tag] = tree_paths(params)
@@ -3891,7 +3961,7 @@ def mesh_gloo2(smi: str, data: dict) -> dict:
             if dtype != "float32":
                 # one raw gradient at bf16 and at f32 on the same params
                 # and noise, then the f32 trajectory from the same state
-                f32_model = VIBO(flagship_config(link, "float32"))
+                f32_model = VIBO(mesh_config(link, "float32"))
                 for key, m in (("one", model), ("f32", f32_model)):
                     raw = Trainer(m, TrainConfig(max_grad_norm=None))
                     g = torch.Generator(device="cuda")
@@ -3900,18 +3970,25 @@ def mesh_gloo2(smi: str, data: dict) -> dict:
                         raw, params, sgd, *x, g, axis))
                     ref.update({f"grad_{key}_{i}": v.cpu().numpy()
                                 for i, v in enumerate(grads)})
-                f_params = f32_model.init_params(0)
-                f_opt = make_optimizer(f_params, MESH_GLOO_LR)
-                f_gen = torch.Generator(device="cuda")
-                state, gen_state, _, _ = ckpt.load_checkpoint(
-                    start, ckpt.train_state(f_params, f_opt))
-                ckpt.restore_train_state(state, f_params, f_opt)
-                f_gen.set_state(gen_state)
-                f32_trainer = Trainer(f32_model, TrainConfig(lr=MESH_GLOO_LR))
-                for _ in range(steps):
-                    _gloo_step(f32_trainer, f_params, f_opt, *x, f_gen, axis)
-                ref.update({f"params_f32_{i}": p.detach().cpu().numpy()
-                            for i, p in enumerate(tree_leaves_of(f_params))})
+                f_elbos, f_params, f_rms = _one_rank_run(f32_model, start,
+                                                         steps, x, axis)
+                ref.update({f"params_f32_{i}": p.cpu().numpy()
+                            for i, p in enumerate(f_params)})
+                if link == "deep":
+                    # the f32 one-rank run against itself with its first
+                    # layer's weights one ulp up: how far row 15's bf16
+                    # operands and relu hinges, through Adam, carry a
+                    # rounding-level difference (the f32 gate's reading)
+                    n_elbos, n_params, _ = _one_rank_run(
+                        f32_model, start, steps, x, axis, nudge=True)
+                    excess, rel, over = _mesh_params_close(
+                        n_params, f_params, names[tag], f_rms)
+                    out["deep_one_ulp"] = {
+                        "elbo_max_rel": max(abs(a - b) / abs(b) for a, b
+                                            in zip(n_elbos, f_elbos)),
+                        "params_max_rel": rel,
+                        "params_excess_over_tol": excess,
+                        "params_over_tol": over}
             elbos = [float(_gloo_step(trainer, params, optimizer, *x, gen,
                                       axis)["elbo"]) for _ in range(steps)]
             np.savez(tmp / f"{tag}_ref.npz", elbos=np.asarray(elbos),
@@ -3980,12 +4057,13 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
     for tag, link, axis, steps, dtype in MESH_GLOO_RUNS:
         mesh = parallel.make_mesh(axis, backend="gloo", device=dev)
         code = np.load(tmp / f"{link}_code.npy", mmap_mode="r")
-        lo, hi = mesh.student_rows(B)
-        c0, c1 = mesh.item_block(M)
+        rows, items = code.shape
+        lo, hi = mesh.student_rows(rows)
+        c0, c1 = mesh.item_block(items)
         packed = torch.from_numpy(np.array(code[lo:hi, c0:c1])).to(dev)
         row_valid = torch.from_numpy(np.load(
             tmp / f"{link}_rows.npy")[lo:hi]).to(dev)
-        model = VIBO(flagship_config(link, dtype), device=dev)
+        model = VIBO(mesh_config(link, dtype), device=dev)
         trainer = Trainer(model, TrainConfig(lr=MESH_GLOO_LR), mesh=mesh)
         params = model.init_params(0)
         optimizer = make_optimizer(params, MESH_GLOO_LR)
@@ -4016,7 +4094,7 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
             meshlib.all_reduce_grads = keep_partials
             try:
                 grads = _raw_grads(raw, params, lambda sgd: raw.step(
-                    params, sgd, packed, row_valid, g, B))
+                    params, sgd, packed, row_valid, g, rows))
             finally:
                 meshlib.all_reduce_grads = reduce
             saved.update({f"grad_{i}": v.cpu().numpy()
@@ -4027,11 +4105,13 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
         for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            aux = trainer.step(params, optimizer, packed, row_valid, gen, B)
+            aux = trainer.step(params, optimizer, packed, row_valid, gen,
+                               rows)
             elbos.append(float(aux["elbo"]))
             times.append((time.perf_counter() - t0) * 1e3)
         launches = {k: v / steps for k, v in launch_counts().items() if v}
-        by = dict(_build.KERNELS["loglik_2pl_train"].launches_by)
+        kernel, layout = MESH_GLOO_LAYOUT.get(tag, (None, None))
+        by = dict(_build.KERNELS[kernel].launches_by) if kernel else {}
         ref = np.load(tmp / f"{tag}_ref.npz")
         leaves = tree_leaves_of(params)
         want = [torch.from_numpy(ref[f"params_one_{i}"]).to(dev)
@@ -4047,8 +4127,7 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
         digests = [None] * world
         dist.all_gather_object(digests, digest, group=mesh.world)
         path_ok = (launches == MESH_GLOO_PATHS[tag]
-                   and (tag not in MESH_GLOO_LAYOUT
-                        or set(by) == {MESH_GLOO_LAYOUT[tag]}))
+                   and (kernel is None or set(by) == {layout}))
         f32 = dtype == "float32"
         if not f32:
             saved.update({f"params_{i}": p.cpu().numpy()
@@ -4063,7 +4142,7 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
             "params_max_rel": params_rel,
             "params_excess_over_tol": excess, "params_over_tol": over,
             "digests_equal": len(set(digests)) == 1,
-            "launches_per_step": launches, "loglik_2pl_by_layout": by,
+            "launches_per_step": launches, "loglik_by_layout": by,
             # a bf16 run's params are gated by _bf16_shares instead
             "ok": bool(elbo_rel <= MESH_ELBO_RTOL
                        and (excess <= 0.0 or not f32)
@@ -4574,6 +4653,11 @@ AT_SCALE_RUN = {"rows": 2_000_000, "users": 30_000, "lexemes": 2048,
                 "epochs": 300, "chunk": 100, "hidden_dim": 256,
                 "num_samples": 5, "iwae_samples": 100}
 AT_SCALE_PATH = (*FIRST_LAYER, "loglik_2pl_train")
+# their device calls a step: the encoder once (its first layer once on the
+# code, on the samples' axis as JAX's vmap runs it), the loglik once a
+# sample
+AT_SCALE_CALLS = {"first_layer_fwd": 1, "first_layer_bwd": 1,
+                  "loglik_2pl_train": AT_SCALE_RUN["num_samples"]}
 
 
 def at_scale_code(seed: int = 21) -> torch.Tensor:
@@ -4618,7 +4702,7 @@ def at_scale_phase(smi: str) -> dict:
     from vibo_tpu_torch.scripts import run_at_scale
     from vibo_tpu_torch.train.trainer import _restore, _snapshot
 
-    s, chunk = AT_SCALE_RUN["num_samples"], AT_SCALE_RUN["chunk"]
+    chunk = AT_SCALE_RUN["chunk"]
     seen = {}
 
     def after_train(state, out):
@@ -4641,7 +4725,7 @@ def at_scale_phase(smi: str) -> dict:
                                  out["ms_per_epoch"], smi, per_call=chunk,
                                  counts=True)
             calls = device_counts(prof.pop("counts"))
-            if all(calls[n] == s for n in AT_SCALE_PATH):
+            if all(calls[n] == c for n, c in AT_SCALE_CALLS.items()):
                 break
         _restore(saved, state["params"], state["optimizer"], gen)
         seen.update(profile=prof, device_calls_per_step={
@@ -4660,8 +4744,8 @@ def at_scale_phase(smi: str) -> dict:
         "new_person_acc":
             out["new_person_acc"] >= out["heldout_base_rate"] - 0.05,
         "iwae_per_cell": -1.0 < out["iwae100_loglik_per_cell"] < 0.0,
-        "rows_1_3_s_a_step": all(calls.get(n, 0) == s
-                                 for n in AT_SCALE_PATH),
+        "rows_1_2_once_row_3_s_a_step": all(
+            calls.get(n, 0) == c for n, c in AT_SCALE_CALLS.items()),
         "no_other_kernel": not any(
             calls.get(n, 0) for n in DEVICE_KERNELS
             if n not in (*AT_SCALE_PATH, "first_layer_prep", "sum_rows"))}
@@ -4894,7 +4978,7 @@ def main() -> None:
     emit({"phase": "fused_paths", "card": smi, "paths": fused})
     decoded = decoded_fused(smi, data["2pl"])
     at_scale = at_scale_phase(smi)
-    families = families_phase(smi, data["2pl"])
+    families = families_phase(smi, data)
     full = {k: v["launches"] for k, v in full.items()}
     hmc_runs = hmc_phases(smi)
     hmc_runs.update(nuts_phases(smi))
@@ -4902,7 +4986,7 @@ def main() -> None:
     em_phases(smi)
     checkpoint_resume(smi, data["2pl"])
     nccl = mesh_nccl(smi, data["2pl"])
-    gloo2 = mesh_gloo2(smi, data)
+    gloo2 = mesh_gloo2(smi, {**data, "deep": deep})
     cli_runs = cli_phases(smi)
     hmc_launches = {
         name: {tag: hmc_runs[tag]["kernel_launches"] for tag in tags}
@@ -4944,13 +5028,13 @@ def main() -> None:
             "MAP's Adam steps and for ll_ref"
             + ("; hmc_nuts_k2: NUTS, the evaluations its trees took"
                if link == "2pl" else ""),
-            **({"family_launches_by_layout": {
+            family_launches_by_layout={
                 tag: r["loglik_launches_by_layout"]
-                for tag, r in families.items()},
-                "family_note": f"the families phase's eager steps (its "
-                "counting window and the capture's warm-up): bk the (B, "
-                f"K) layout (:{bk}, row 4), kb the (K, B) one (:{kb}, "
-                f"row 3), {FAMILY_S} a step"} if link == "2pl" else {})))
+                for tag, r in families.items() if r["link"] == link},
+            family_note=f"the families phase's eager steps (its counting "
+            f"window and the capture's warm-up): bk the (B, K) layout "
+            f"(:{bk}), kb the (K, B) one (:{kb}), {FAMILY_S} a step (the "
+            "first layer's f32 kernels once a step)"))
     for fam, line in (("grm", 198), ("gpcm", 148)):
         name = LINK_KERNELS[fam]["train"]
         kernels.append(kernel_entry(
@@ -5019,6 +5103,7 @@ def main() -> None:
                 "launches": at_scale["launches"][entry["name"]],
                 "device_calls_per_step":
                     at_scale["device_calls_per_step"][entry["name"]],
+                "expected_calls_per_step": AT_SCALE_CALLS[entry["name"]],
                 "samples_per_step": AT_SCALE_RUN["num_samples"]}
         # the CLI phases: launches in process (score, compare, deep) and
         # the device calls in cfg 1's own trace (a separate process)

@@ -12,6 +12,8 @@ JAX package's (`scripts/run_at_scale.py`, `scripts/gen_duolingo_csv.py`,
   new-person accuracy near the base rate);
 - the IWAE evaluator at the at-scale model's bf16 encoder equals JAX's on
   the same params and replayed noise;
+- tests/at_scale_reference.py's paired mode starts the port from JAX's
+  params and steps it on JAX's noise;
 - bench_ingest's native and Python paths agree;
 - run() ends where an untimed loop of make_scan chunks from the same
   state ends: the same chunk ELBOs, accuracy and IWAE (so its capture
@@ -165,6 +167,36 @@ def test_run_ends_where_an_untimed_scan_loop_ends(small_csv, one_thread):
                                   generator=iwae_gen)
     assert acc["acc"] == out["heldout_acc"]
     assert iwae["loglik_per_cell"] == out["iwae100_loglik_per_cell"]
+
+
+def test_paired_mode_starts_from_jax_and_takes_its_noise(small_csv,
+                                                         one_thread):
+    """tests/at_scale_reference.py's paired mode at a tiny size (two
+    chunks of two steps, f32): the port's first step from JAX's initial
+    params on the noise JAX's scan drew gives JAX's ELBO, the noise drawn
+    outside the scan is the scan's (JAX's loss on it is the scan's ELBO),
+    the chunks' ELBOs stay together, and the port's gradient on JAX's
+    state agrees with JAX's leaf by leaf."""
+    from at_scale_reference import paired_seed, paired_summary
+    ours, _ = small_csv
+    size = dict(rows=SMALL["rows"], users=SMALL["users"],
+                lexemes=SMALL["lexemes"], hidden_dim=16, num_samples=2,
+                epochs=4, iwae_samples=4)
+    out = paired_seed(SMALL["seed"], "float32", size, chunk=2, grad_every=1,
+                      csv=str(ours))
+    jax_first, port_first = out["first_step_elbo"]
+    assert abs(port_first - jax_first) <= 1e-4 * abs(jax_first)
+    assert out["jax_noise_replay_max_rel"] <= 1e-6
+    assert out["epochs"] == 4 and out["grad_points"] == 4
+    assert len(out["jax_chunk_elbo"]) == len(out["port_chunk_elbo"]) == 2
+    np.testing.assert_allclose(out["port_chunk_elbo"], out["jax_chunk_elbo"],
+                               rtol=1e-4)
+    assert max(g["rel_l2"] for g in out["grad_gaps"].values()) <= 1e-4
+    assert set(out["grad_gaps"]) >= {"encoder/0/w", "item_post/a/mu"}
+    json.dumps(out)
+    summary = paired_summary([out, {**out, "port_iwae": out["jax_iwae"]}])
+    assert summary["iwae"]["se"] is not None
+    assert summary["iwae"]["negative"] + summary["iwae"]["positive"] <= 1
 
 
 def test_iwae_evaluator_matches_jax_with_the_bf16_encoder():

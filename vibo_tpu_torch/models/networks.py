@@ -135,7 +135,10 @@ def apply_ability_encoder_packed(params, packed, item_feats=None,
     (mask, resp) of decode_packed(packed) where the caller has them.
 
     transposed_head=True returns (mu, logvar) as (K, B) from W^T @ x^T,
-    the layout the transposed loglik consumes."""
+    the layout the transposed loglik consumes. item_feats (S, F) or
+    cond_mats with a leading sample axis give every output that axis
+    ((S, B, K), transposed (S, K, B)), the first layer's kernel still
+    running once on the code."""
     cd = as_dtype(compute_dtype)
     w1, rest = params[0], params[1:]
     m = packed.shape[-1]
@@ -150,8 +153,8 @@ def apply_ability_encoder_packed(params, packed, item_feats=None,
              + _mm(_mm(mk, a_m, cd), wf[fr:], cd))
     x = _hidden_layers(w1, rest, h, m, item_feats, cd)
     if transposed_head:
-        out_t = rest[-1]["w"].T @ x.T + rest[-1]["b"][:, None]
-        return split_ability_head(out_t, ability_dim, axis=0)
+        out_t = rest[-1]["w"].T @ x.transpose(-1, -2) + rest[-1]["b"][:, None]
+        return split_ability_head(out_t, ability_dim, axis=-2)
     return split_ability_head(x @ rest[-1]["w"] + rest[-1]["b"], ability_dim)
 
 
@@ -172,7 +175,8 @@ def apply_ability_encoder_item_sharded(params, response, mask, item_sample,
     ("sample"/"mean"), or None (mean-field, or "stats"). cond_mats: the
     tile's (A_r, A_m) blocks of condition_stat_mats(local draw, num_items=
     GLOBAL M), which modulate this tile's weight rows, so the psum adds up
-    the global statistics' modulation."""
+    the global statistics' modulation. A leading sample axis on either
+    ((S, M_l, D), (S, M_l, F)) gives the outputs that axis."""
     cd = as_dtype(compute_dtype)
     w1, rest = params[0], params[1:]
     m_l = response.shape[-1]
@@ -193,10 +197,11 @@ def apply_ability_encoder_item_sharded(params, response, mask, item_sample,
         # (M * D,) block from 2M plus the earlier blocks
         base = 2 * num_items_total
         for name in sorted(item_sample):
-            x = item_sample[name]                         # (M_l, D)
+            x = item_sample[name]                      # ([S,] M_l, D)
             d = x.shape[-1]
             w_f = w1["w"][base + off * d:base + (off + m_l) * d]
-            h = h + _mm(x.reshape(-1), w_f, cd)[None, :]
+            h = h + _mm(x.reshape(x.shape[:-2] + (-1,)), w_f,
+                        cd)[..., None, :]
             base += num_items_total * d
     h = psum(h, group)
     x = torch.relu(h + w1["b"])

@@ -660,24 +660,44 @@ class VIBO:
 
     def _packed_samples(self, params: dict, packed, item_eps: dict,
                         theta_eps, transposed: bool, post: dict, decoded):
-        """What the packed objectives share under use_pallas, one sample at
-        a time: yields (ll_s, item_sample, (mu, logvar, off), theta) with
-        ll_s the loglik summed over persons (_packed_loglik). The item
-        posterior `post` and the decoded code are the objective's, computed
-        once. The encoder's first layer runs the fused kernel."""
-        for s in range(theta_eps.shape[0]):
-            item_sample = {
-                name: dist.reparameterize_eps(item_eps[name][s],
-                                              post[name]["mu"],
-                                              post[name]["logvar"])
-                for name in item_eps}
-            q = self._encode_packed(
-                params, packed, self._encoder_conditioning(post, item_sample),
-                decoded, transposed=transposed)
-            theta = dist.tril_reparameterize_eps(theta_eps[s], *q)
+        """What the packed objectives share under use_pallas: yields per
+        sample (ll_s, item_sample, (mu, logvar, off), theta) with ll_s the
+        loglik summed over persons (_packed_loglik). The item posterior
+        `post` and the decoded code are the objective's, computed once.
+
+        The samples run as the JAX package's vmap over them runs: the item
+        draws and the encoder once, on the draws' leading sample axis (the
+        first layer's fused kernel once on the code, its backward once on
+        the cotangent summed over the samples; each later layer one
+        product on (S, B, H), its weight rounded to the compute dtype once
+        and its gradient rounded once, after the sum over the samples); an
+        encoder that reads no draw once for every sample. Then theta and
+        the link's one-pass op, sample by sample."""
+        items = {name: dist.reparameterize_eps(item_eps[name],
+                                               post[name]["mu"],
+                                               post[name]["logvar"])
+                 for name in item_eps}
+        q_all = self._encode_packed(
+            params, packed, self._encoder_conditioning(post, items),
+            decoded, transposed=transposed)
+        for item_sample, q, theta in self._by_sample(items, q_all,
+                                                     theta_eps):
             yield (self._packed_loglik(params, theta, item_sample, packed,
                                        decoded, transposed),
                    item_sample, q, theta)
+
+    def _by_sample(self, items: dict, q_all: tuple, theta_eps):
+        """(item draw, (mu, logvar, off), theta) sample by sample, from the
+        draws and the encoder's output on their leading sample axis; an
+        encoder that reads no draw ("mean", mean-field) gave one output,
+        every sample's."""
+        per_sample = (self.cfg.conditional_posterior
+                      and self.cfg.condition_on != "mean")
+        for s in range(theta_eps.shape[0]):
+            q = (tuple(None if t is None else t[s] for t in q_all)
+                 if per_sample else q_all)
+            yield ({name: v[s] for name, v in items.items()}, q,
+                   dist.tril_reparameterize_eps(theta_eps[s], *q))
 
     def _packed_post(self, params: dict, packed, group=None):
         """(item posterior, decoded code or None) of a packed objective:
@@ -846,13 +866,14 @@ class VIBO:
     def _tile_samples(self, params: dict, packed, item_eps: dict, theta_eps,
                       item_index: int, students_group, items_group):
         """What the 2D tile objectives share: the tile's (B_l, M_l) code
-        decoded, its item posterior (computed once), and per sample (one at
-        a time) the item draw on the block (item_eps sliced at item_index *
-        M_l), the item-sharded encoder's (mu, logvar, off) (the Fisher
-        anchor's pair statistic summed over the items group), theta (B_l,
-        K) and the tile's loglik summed (_packed_loglik: the link's
-        one-pass op on theta (B, K), or the plain deep link). Returns
-        (post, generator of (ll, item_sample, q, theta))."""
+        decoded, its item posterior (computed once), the item draws on the
+        block (item_eps sliced at item_index * M_l) and the item-sharded
+        encoder's (mu, logvar, off) (the Fisher anchor's pair statistic
+        summed over the items group), once on the draws' sample axis as
+        _packed_samples runs them; then per sample theta (B_l, K) and the
+        tile's loglik summed (_packed_loglik: the link's one-pass op on
+        theta (B, K), or the plain deep link). Returns (post, generator of
+        (ll, item_sample, q, theta))."""
         mask, response = decode_packed(packed)
         m_l = packed.shape[1]
         off = item_index * m_l
@@ -860,18 +881,17 @@ class VIBO:
                                     students_group, items_group)
 
         def samples():
-            for s in range(theta_eps.shape[0]):
-                item_sample = {
-                    name: dist.reparameterize_eps(
-                        item_eps[name][s, off:off + m_l], post[name]["mu"],
-                        post[name]["logvar"])
-                    for name in item_eps}
-                q = self._anchor_theta_head(
-                    params, self._encode_item_sharded(
-                        params, response, mask, post, item_sample,
-                        item_index, items_group),
-                    mask, items_group=items_group, item_post=post)
-                theta = dist.tril_reparameterize_eps(theta_eps[s], *q)
+            items = {name: dist.reparameterize_eps(
+                         item_eps[name][:, off:off + m_l], post[name]["mu"],
+                         post[name]["logvar"])
+                     for name in item_eps}
+            q_all = self._anchor_theta_head(
+                params, self._encode_item_sharded(
+                    params, response, mask, post, items, item_index,
+                    items_group),
+                mask, items_group=items_group, item_post=post)
+            for item_sample, q, theta in self._by_sample(items, q_all,
+                                                         theta_eps):
                 yield (self._packed_loglik(params, theta, item_sample,
                                            packed, (mask, response)),
                        item_sample, q, theta)
