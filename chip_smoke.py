@@ -92,29 +92,38 @@ rows) and 3 IWAE steps (S = 5) on the plain link (no kernel at all), the
 held-out IWAE-100 with its peak memory; profiles of the three; 5 fused
 steps at link width 384 (the deep kernel's wide variant). Then the HMC
 baseline (vibo_tpu_torch/models/hmc.py, fixed trajectories, 4 chains,
-target accept 0.65), each run through run_hmc with its kernel launched
-once a chain each potential evaluation and no other kernel: the flagship
-gold (simulate_irt("2pl", 10,240, 1,024, K = 4, seed 0), 10 % held out,
-row 4; 20 + 20 iterations at 64 leapfrogs) and the GRM gold (2,000 x
-100, K = 1, C = 5, the dense potential; 30 + 30 at 32) held against the
+target accept 0.65), each run through run_hmc (its iterations replayed
+from CUDA graphs, hmc.Sampler; the MAP init one graph) with its kernel
+launched once a chain each potential evaluation and no other kernel: the
+flagship gold (simulate_irt("2pl", 10,240, 1,024, K = 4, seed 0), 10 %
+held out, row 4; 200 + 200 iterations at 64 leapfrogs) and the GRM gold
+(2,000 x 100, K = 1, C = 5, the dense potential; 100 + 100 at 32) held
+against the
 JAX package's posteriors in artifacts/gold (theta-mean Pearson after
 Procrustes >= 0.99, held-out accuracy within 0.003 / 0.01), short runs
 of 1PL and 3PL (rows 4, 9) and of the opt-in GRM and GPCM kernels (rows
 13, 14), and a decoder trained by Trainer.fit on synthetic-nonlinear
 2,000 x 200 sampled through the dense deep potential and row 15f; every
 kernel potential held against the dense one (value, per-person loglik
-and gradients, at the MAP and one sd off it, per-chain items); each with
-ms a potential
-evaluation, ms an iteration and a profiler window's busy and idle
-shares and kernel calls an iteration. Then NUTS (trajectory="nuts", tree
-depth 7, target 0.8) against the JAX package's NUTS golds at 2,000 x 200,
-15 + 15 iterations (their 800 + 1,200 cut): k2-nuts (2PL, K = 2, row 4
-through the chain axis, launched once a chain each evaluation its trees
-took) and grm-k2 (C = 5, the dense potential; grm-k4 runs in hmc_depth.py
-only, the smoke's time budget), each gated on the
-theta means, a's means after theta's rotation and b's means (grm: the
-threshold tables) at Pearson >= 0.99 and held-out accuracy within 0.01,
-and probed (evaluations and host syncs an iteration, busy and idle); and
+and gradients, at the MAP and one sd off it, per-chain items); each
+probed path with its hmc_graph gate (the sampler's graphs against its
+eager steps from one state and generator seed over 6 iterations that
+cross the warm-up's flags: every output and the end state bit for bit,
+the replays under torch's sync debug mode "error"), the MAP's graph
+against its eager Adam steps bit for bit on the k4, GRM and dense deep
+paths, ms a potential evaluation, ms an iteration replayed beside the
+eager one, and a profiler window of replays: busy and idle shares and
+kernel calls an iteration. Then NUTS (trajectory="nuts", tree depth 7,
+target 0.8) against the JAX package's NUTS golds at 2,000 x 200 (their
+800 + 1,200 cut): k2-nuts (2PL, K = 2, row 4 through the chain axis,
+launched once a chain each evaluation its trees took; 100 + 100),
+grm-k2 and grm-k4 (C = 5, the dense potential; 50 + 50), each gated on
+the theta means, a's means after theta's rotation and b's means (grm:
+the threshold tables) at Pearson >= 0.99 and held-out accuracy within
+0.01, k2-nuts and grm-k2 probed (hmc_graph: at most one host sync a tree
+depth, the leaves the masked subtrees ran against those the eager loop
+needed; evaluations and host syncs an iteration, busy and idle; whole
+subtrees against blocks of 8 leaves on the same draws); and
 the MLE/MAP baseline (fit_mle, 500 Adam steps) on k2-nuts's data, its
 objective falling, with the card held against the CPU at 300 x 200; the EM
 phases and checkpoint_resume. Then the command line (`vibo_tpu_torch.cli`),
@@ -329,20 +338,22 @@ DEEP_F32_KERNEL = lambda h: (   # noqa: E731
 GOLD_DIR = Path(__file__).resolve().parent / "artifacts" / "gold"
 HMC_CHAINS, HMC_TARGET = 4, 0.65
 NUTS_TREE_DEPTH, NUTS_TARGET = 7, 0.8
-# the smoke's depths (k2-nuts and grm-k2 at 15 + 15 since the mesh and
-# decoded phases joined the 600 s budget; k4 at 20 + 20 since the
-# families and the k2-nuts and item-encoder CLI phases joined it, all
-# three 30 + 30 before; hmc_depth.py held every gate at 20 + 20 on the
-# card; grm stays at 30 + 30: at 20 + 20 its chains barely moved, accept
-# 0.013, theta 0.9949 against the 0.99 gate), grm-k4's hmc_depth.py's
-HMC_GOLD_DEPTH = {"k4": (20, 20, 64), "grm": (30, 30, 32),
-                  "k2-nuts": (15, 15), "grm-k2": (15, 15),
+# the smoke's depths, raised when the sampler became CUDA graphs (an
+# iteration 5-140 ms replayed where it took 89-766 eager; hmc_depth.py's
+# sweep on the card: k4 R-hat 1.184 at 200 + 200 and 1.021 at the gold's
+# own 800 + 1,600 in 124 s, every run of it within its gates). Before: k4
+# 20 + 20, grm 30 + 30, k2-nuts and grm-k2 15 + 15 for the 600 s budget
+# of the eager sampler, and grm-k4 in hmc_depth.py only
+HMC_GOLD_DEPTH = {"k4": (200, 200, 64), "grm": (100, 100, 32),
+                  "k2-nuts": (100, 100), "grm-k2": (50, 50),
                   "grm-k4": (50, 50)}
 NUTS_GOLDS = {"k2-nuts": ("2pl", 2), "grm-k2": ("grm", 2),
               "grm-k4": ("grm", 4)}              # link, K at 2,000 x 200
-# the smoke's NUTS golds: grm-k4 runs in hmc_depth.py only (the smoke's
-# 600 s budget; it waits for ROADMAP B11)
-SMOKE_NUTS_GOLDS = ("k2-nuts", "grm-k2")
+# the smoke's NUTS golds (grm-k4 since the sampler's graphs; until then
+# in hmc_depth.py only, for the 600 s budget) and those probed (grm-k4's
+# dense potential and NUTS path are grm-k2's)
+SMOKE_NUTS_GOLDS = ("k2-nuts", "grm-k2", "grm-k4")
+PROBED_NUTS_GOLDS = ("k2-nuts", "grm-k2")
 NUTS_GOLD_SHAPE = (2000, 200)
 HMC_SHORT = (20, 20, 16)
 HMC_PEARSON_MIN = 0.99                    # posterior means vs a gold's
@@ -381,12 +392,20 @@ EM_CPU_CASES = (("1pl", 1), ("2pl", 1), ("2pl", 2), ("2pl", 4), ("3pl", 1),
 RESUME_EPOCHS = 20
 # the fixed-trajectory probe: warm-up, timed and profiled iterations (2,
 # 5, 3 until the families and their CLI phases joined the 600 s budget;
-# 1, 2, 2 until the 3PL family and the 3PL, GPCM and deep tiles did)
-HMC_PROBE_ITERS = (1, 1, 1)
+# 1, 2, 2 until the 3PL family and the 3PL, GPCM and deep tiles did; 1, 1,
+# 1 until the iterations were graph replays of 5-140 ms; the window two,
+# so that its chunk replays a graph twice)
+HMC_PROBE_ITERS = (1, 5, 2)
 # NUTS's probe: warm-up, timed and profiled iterations (a saturated
 # depth-7 iteration holds 16,000-33,000 device records, more than 3 of the
 # k4 flagship's fixed ones; 1, 2, 1 until PR 19)
 NUTS_PROBE_ITERS = (1, 1, 1)
+# hmc_graph: the warm-up flags of the graph-vs-eager iterations (adapt,
+# collect, switch a row): a window of 4 draws, its metric switch, a draw
+# past warm-up
+HMC_GRAPH_FLAGS = ((1, 1, 1, 1, 1, 0), (1, 1, 1, 1, 0, 0),
+                   (0, 0, 0, 1, 0, 0))
+HMC_GRAPH_SEED = 7
 HMC_FLIP_BOUND = 4e-4                     # a relu flip's gradient row, of
                                           # the largest magnitude (4 x 1e-4)
 # the deep gold's shape (synthetic-nonlinear 2,000 x 200, K = 2; D = 16,
@@ -2506,18 +2525,133 @@ def hmc_evals_per_iter(cfg) -> int:
     return cfg.num_leapfrog + int(ridge or rot)
 
 
+def same_bits(a, b) -> bool:
+    """Bit for bit (NaN and inf where the other has them too)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == np.bool_:
+        return bool((a == b).all())
+    return bool((a.view(f"u{a.itemsize}") == b.view(f"u{b.itemsize}")).all())
+
+
+def tree_numpy(tree, prefix: str = "") -> dict:
+    """A dict tree of tensors as {path: numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_numpy(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v.detach().cpu().numpy()
+    return out
+
+
+def hmc_graph_gate(tag: str, prog, state: dict, data: dict, smi: str
+                   ) -> dict:
+    """The sampler's graphs (`hmc.Sampler`: the chunk program, NUTS's
+    depth and merge graphs) against the eager steps (`prog.step`, NUTS's
+    per-leaf loop) from the same state and a generator of the same seed,
+    over HMC_GRAPH_FLAGS' iterations: every output (pos, accept,
+    divergent, eps, dh, steps; NUTS depth) and every field of the end
+    state (u, g, the step size's and the metric's state) bit for bit. A
+    fixed trajectory's replays run under torch's sync debug mode "error"
+    (any host sync inside the chunk raises); NUTS's host syncs are
+    counted, at most one a depth, and the leaves the masked subtrees ran
+    against those the eager loop needed (which must equal the graph's
+    count of them). Times: ms an iteration eager (host clock, adapting)
+    and replayed, and the capture's seconds."""
+    from vibo_tpu_torch.models import hmc
+    flags = np.asarray(HMC_GRAPH_FLAGS, np.float32)
+    n = flags.shape[1]
+    nuts = prog.cfg.trajectory == "nuts"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(HMC_GRAPH_SEED)
+    st, eager = hmc._clone(state), []
+    hmc.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(n):
+            st, o = prog.step(st, *flags[:, i].tolist(), data, gen)
+            eager.append(o)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / n
+    eager_counts = hmc.counts()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(HMC_GRAPH_SEED)
+    sampler = hmc.Sampler(prog, state, data, gen, flags, n)
+    t0 = time.perf_counter()
+    sampler.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    hmc.reset_counts()
+    t0 = time.perf_counter()
+    if not nuts:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        sampler.advance(n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3 / n
+    got = sampler.fetch(n)
+    counted = hmc.counts()
+    keys = hmc.OUT_KEYS[1:] + (("depth",) if nuts else ())
+    want = {k: torch.stack([o[k] for o in eager], 1).cpu().numpy()
+            for k in keys}
+    for k in prog.names:
+        want["pos." + k] = torch.stack([o["pos"][k] for o in eager],
+                                       1).cpu().numpy()
+        got["pos." + k] = got["pos"][k]
+    got.pop("pos")
+    mism = [k for k in want if not same_bits(got[k], want[k])]
+    end_g, end_e = tree_numpy(sampler.state), tree_numpy(st)
+    mism += [f"state.{k}" for k in end_e if not same_bits(end_g[k], end_e[k])]
+    r = {"phase": "hmc_graph", "path": tag, "iterations": n,
+         "trajectory": prog.cfg.trajectory, "bitwise": not mism,
+         "mismatched": mism, "eager_ms_per_iteration": eager_ms,
+         "graph_ms_per_iteration": graph_ms, "capture_s": capture_s,
+         "graphs": len(sampler.graphs),
+         "evaluations_per_draw": counted["evaluations"] / n,
+         "eager_evaluations_per_draw": eager_counts["evaluations"] / n,
+         "host_syncs_per_draw": counted["syncs"] / n,
+         "eager_host_syncs_per_draw": eager_counts["syncs"] / n,
+         "accept": want["accept"].mean(0).tolist(), "card": smi}
+    ok = not mism
+    if nuts:
+        r.update(leaves_run=counted["leaves"],
+                 leaves_needed=counted["leaves_needed"],
+                 eager_leaves=eager_counts["leaves"],
+                 depth=want["depth"].mean(0).tolist())
+        ok = (ok and counted["leaves_needed"] == eager_counts["leaves"]
+              and counted["syncs"] <= n * prog.max_d)
+    else:
+        ok = ok and counted["syncs"] == 0
+    emit(r)
+    if not ok:
+        raise AssertionError(f"{tag}: the sampler's graphs part from its "
+                             f"eager steps: {r}")
+    return r
+
+
 def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
               deep_params=None, step_size: float | None = None) -> dict:
-    """Timing and a profiler window of the chain programs at the run's
-    posterior mean (the run's own MAP stays inside run_hmc): ms a potential
-    evaluation of all chains (CUDA events, L2 flushed), ms an iteration
-    (sampling flags; host clock over a synchronized run), and a profiler
-    window (HMC_PROBE_ITERS' warm-up, timed and window iterations; NUTS:
-    NUTS_PROBE_ITERS'): busy and idle shares, and each
-    loglik kernel's device calls an iteration, which must be C times the
-    evaluations for the path's kernel (its helpers beside it) and 0 for
-    every other. NUTS: at the run's step (step_size), its evaluations and
-    host syncs counted in each window (`hmc.counts`)."""
+    """The chain programs at the run's posterior mean (the run's own MAP
+    stays inside run_hmc), with HMC_CHAINS chains from x = 0: first
+    hmc_graph_gate (the graphs against the eager steps, bit for bit); then
+    ms a potential evaluation of all chains (CUDA events, L2 flushed), and
+    on a Sampler of sampling iterations (replayed graphs, as run_hmc runs
+    them): ms an iteration (host clock over a synchronized run of
+    HMC_PROBE_ITERS' timed iterations after its warm-up ones; NUTS:
+    NUTS_PROBE_ITERS', at the run's step size) and a profiler window of a
+    whole chunk of replayed iterations (advance, then its one fetch): busy
+    and idle shares, and each loglik kernel's device calls an iteration,
+    which must be C times the evaluations for the path's kernel (its
+    helpers beside it) and 0 for every other, and equal each wrapper's
+    launches in the window (which the graphs count as captured launches
+    times replays, so the device backs that accounting). NUTS: its
+    evaluations, host syncs and leaves run and needed counted in each
+    window (`hmc.counts`)."""
     import dataclasses
     from vibo_tpu_torch.models import hmc
     from vibo_tpu_torch.ops.packing import pack_responses
@@ -2548,53 +2682,69 @@ def hmc_probe(tag: str, cfg, ds, samples: dict, kernel, smi: str,
     if nuts:
         state["log_eps"] = state["log_eps_bar"] = torch.full_like(
             state["log_eps"], float(np.log(step_size)))
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    holder = [state]
+    gate = hmc_graph_gate(tag, prog, state, data, smi)
     warm, reps, window_iters = (NUTS_PROBE_ITERS if nuts
                                 else HMC_PROBE_ITERS)
-
-    def iteration():
-        holder[0], _ = prog.step(holder[0], 0.0, 0.0, 0.0, data, gen)
-
-    vg_ms = Timer()(lambda: prog.vg(holder[0]["pos"], data), reps=10)
-    for _ in range(warm):
-        iteration()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    iters = warm + reps + window_iters * PROFILER_TRIES
+    sampler = hmc.Sampler(prog, state, data, gen, np.zeros((3, iters)),
+                          max(warm, reps, window_iters))
+    vg_ms = Timer()(lambda: prog.vg(state["pos"], data), reps=10)
+    sampler.capture()
+    sampler.advance(warm)
     torch.cuda.synchronize()
     hmc.reset_counts()
     t0 = time.perf_counter()
-    for _ in range(reps):
-        iteration()
+    sampler.advance(reps)
     torch.cuda.synchronize()
     iter_ms = (time.perf_counter() - t0) * 1e3 / reps
+    sampler.fetch(reps)
     timed = {k: v / reps for k, v in hmc.counts().items()}
-    evals = timed["evaluations"] if nuts else hmc_evals_per_iter(run_cfg)
+    evals = timed["evaluations"]
+    def chunk():
+        sampler.advance(window_iters)
+        sampler.fetch(window_iters)
     for _ in range(PROFILER_TRIES):
         hmc.reset_counts()
-        prof = profile_steps(iteration, window_iters, iter_ms, smi,
+        before = launch_counts()
+        prof = profile_steps(chunk, 1, iter_ms, smi, per_call=window_iters,
                              counts=True)
         window = hmc.counts()
+        wrapper = {n: (c - before[n]) / window_iters
+                   for n, c in launch_counts().items()
+                   if n in LOGLIK_DEVICE_KERNELS}
         dev = device_counts(prof["counts"])
         calls = {n: dev[n] for n in LOGLIK_DEVICE_KERNELS}
-        want = {n: (HMC_CHAINS * (window["evaluations"] if nuts else
-                                  evals * window_iters)
-                    / window_iters if n == kernel else 0)
+        want = {n: (HMC_CHAINS * window["evaluations"] / window_iters
+                    if n == kernel else 0)
                 for n in LOGLIK_DEVICE_KERNELS}
         if calls == want:
             break
     else:
         raise AssertionError(f"{tag}: loglik kernels an iteration in the "
                              f"profiler window {calls}, want {want}")
+    if wrapper != calls:
+        raise AssertionError(f"{tag}: the wrappers' launches (captured x "
+                             f"replays) {wrapper} are not the device's "
+                             f"calls {calls} in the window")
     prof.pop("counts")
     out = {"ms_per_potential_eval": vg_ms, "ms_per_iteration": iter_ms,
+           "eager_ms_per_iteration": gate["eager_ms_per_iteration"],
            "evals_per_iteration": evals,
            "ms_per_eval_in_iteration": iter_ms / evals,
+           "host_syncs_per_iteration": timed["syncs"],
+           "graphs": len(sampler.graphs),
+           "window_iterations": window_iters,
            "device_calls_per_iteration": {n: v for n, v in dev.items()
                                           if v},
+           "wrapper_launches_per_iteration": {n: v for n, v in
+                                              wrapper.items() if v},
            "profile": prof}
     if nuts:
         out.update(step_size=step_size,
-                   host_syncs_per_iteration=timed["syncs"],
+                   leaves_run_per_iteration=timed["leaves"],
+                   leaves_needed_per_iteration=timed["leaves_needed"],
                    window_evals_per_iteration=window["evaluations"]
                    / window_iters,
                    window_syncs_per_iteration=window["syncs"]
@@ -2683,17 +2833,20 @@ def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
     launches = launch_counts()
     counted = hmc.counts()
     iters = cfg.num_warmup + cfg.num_samples
-    if nuts:
-        # the chains' first evaluation (init) and those of every iteration
-        evals_run = counted["evaluations"]
-        evals = (evals_run - 1) / iters
-    else:
-        evals = hmc_evals_per_iter(cfg)
-        evals_run = 1 + iters * evals
+    # the chains' first evaluation (init), the graphs' eager warm-up's
+    # and those of every iteration (a graph's at each replay)
+    evals_run = counted["evaluations"]
+    evals = (evals_run - 1 - counted["warmup_evaluations"]) / iters
+    if not nuts and evals != hmc_evals_per_iter(cfg):
+        raise AssertionError(f"{tag}: {evals} evaluations an iteration, "
+                             f"want {hmc_evals_per_iter(cfg)}: {counted}")
     if kernel is None:
         check_path(f"{tag} HMC path", launches, ())
         expected = 0
     else:
+        # the MAP's Adam steps, ll_ref once, and every chain's evaluations
+        # (the graphs': captured launches x replays, which the probe's
+        # profiler window holds against the device's calls)
         expected = cfg.map_init_steps + 1 + HMC_CHAINS * evals_run
         check_path(f"{tag} HMC path", launches, (kernel,), (kernel,),
                    expected)
@@ -2725,10 +2878,13 @@ def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
          "divergences": d["divergences"],
          "theta_sd_split_half_r": d["theta_sd_split_half_r"],
          "heldout_acc": heldout_accuracy(prob, ds), "card": smi}
+    r.update(host_syncs_per_iteration=counted["syncs"] / iters,
+             warmup_evaluations=counted["warmup_evaluations"],
+             kernel_launches_per_iteration=(
+                 HMC_CHAINS * evals if kernel else 0))
     if nuts:
-        r.update(host_syncs_per_iteration=counted["syncs"] / iters,
-                 kernel_launches_per_iteration=(
-                     HMC_CHAINS * evals if kernel else 0))
+        r.update(leaves_run=counted["leaves"],
+                 leaves_needed=counted["leaves_needed"])
     if gold is not None:
         r.update(gold_agreement(samples, r["heldout_acc"], gold))
         if not r["gold_gates_hold"]:
@@ -2976,7 +3132,8 @@ def nuts_phases(smi: str, golds: tuple = SMOKE_NUTS_GOLDS) -> dict:
             tag, hmc_cfg(model, k, C if model == "grm" else 2,
                          depth=HMC_GOLD_DEPTH[gold]), ds, smi,
             "loglik_2pl_train" if model == "2pl" else None, gold=gold,
-            probe=True, cut=depth_cut(HMC_GOLD_DEPTH[gold], gold=True))
+            probe=gold in PROBED_NUTS_GOLDS,
+            cut=depth_cut(HMC_GOLD_DEPTH[gold], gold=True))
     return runs
 
 
@@ -5024,8 +5181,12 @@ def main() -> None:
             occupancy=occ[f"{link} K={K}"],
             hmc_launches=hmc_launches[name],
             hmc_note=f"HMC: the (B, K) layout (:{bk}), {HMC_CHAINS} "
-            "launches (one a chain) a potential evaluation, once for the "
-            "MAP's Adam steps and for ll_ref"
+            "launches (one a chain) a potential evaluation, once for each "
+            "of the MAP's Adam steps and for ll_ref; the sampler's CUDA "
+            "graphs' launches are worked out, not counted at launch: the "
+            "launches captured in a graph times its replays, plus their "
+            "eager warm-up's; the probes' profiler windows hold that "
+            "accounting against the device's calls of the kernel"
             + ("; hmc_nuts_k2: NUTS, the evaluations its trees took"
                if link == "2pl" else ""),
             family_launches_by_layout={

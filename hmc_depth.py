@@ -14,7 +14,9 @@ leapfrogs a draw, and the agreement with the gold and whether its gates
 hold (`chip_smoke.gold_agreement`). Then the card's name and power limit,
 and last {"ok": true} when every run held its gates. Arguments: only those
 golds; --smoke: each gold at chip_smoke.py's HMC_GOLD_DEPTH only.
-chip_smoke.py's HMC_GOLD_DEPTH is taken from such a sweep.
+chip_smoke.py's HMC_GOLD_DEPTH is taken from such a sweep. run_hmc replays
+its iterations from CUDA graphs (`hmc.Sampler`), so the sweep reaches the
+k4 gold's own 800 + 1,600 iterations (~1 min of the card).
 """
 
 from __future__ import annotations
@@ -27,12 +29,11 @@ import torch
 
 import chip_smoke as cs
 
-DEPTHS = {"k4": [(20, 20, 64), (30, 30, 64), (50, 50, 64), (75, 75, 64),
-                 (100, 100, 64)],
-          "grm": [(50, 50, 64), (100, 100, 64), (20, 20, 32), (30, 30, 32),
-                  (50, 50, 32), (75, 75, 32), (100, 100, 32)],
-          **{gold: [(20, 20), (30, 30), (40, 40), (50, 50), (75, 75),
-                    (100, 100)]
+DEPTHS = {"k4": [(50, 50, 64), (100, 100, 64), (200, 200, 64),
+                 (400, 400, 64), (800, 1600, 64)],
+          "grm": [(30, 30, 32), (50, 50, 32), (100, 100, 32),
+                  (200, 200, 32)],
+          **{gold: [(30, 30), (50, 50), (100, 100), (200, 200)]
              for gold in cs.NUTS_GOLDS}}
 
 

@@ -31,12 +31,26 @@ H = 128); dense everywhere on the CPU, as JAX off its TPU. f32 products
 run at full precision (TF32 off, `resolve_device`), the
 counterpart of JAX's matmul precision "highest".
 
-NUTS runs the chains batched as JAX's vmap of its while loops does: the
-host loops over the tree depths while any chain is still doubling and,
-within a depth, over the subtree's leaves while any chain's subtree is
-still growing (one host sync a leaf); a chain that has stopped keeps its
-state through torch.where. Each leaf is one potential evaluation of every
-chain and a function of fixed shape (state, draws, depth, leaf index).
+NUTS runs the chains batched as JAX's vmap of its while loops does: a
+chain that has stopped keeps its state through torch.where. Each leaf is
+one potential evaluation of every chain and a function of fixed shape
+(state, draws, depth, leaf index). The eager draw (`nuts_draw`, what
+`step` runs) loops on the host over the tree depths while any chain is
+still doubling and, within a depth, over the subtree's leaves while any
+chain's subtree is still growing (one host sync a leaf).
+
+`run_hmc` runs its chunks through a `Sampler`, JAX's `run_chunk`: the
+state, the warm-up flags' table and the outputs live on the device and
+every iteration updates them in place. On the card an iteration is
+replayed from CUDA graphs: a fixed trajectory's is one graph (no host sync
+in a chunk); a NUTS draw's are a graph for its start, one for each depth's
+whole subtree of leaves (the chains masked as they stop, so the leaves
+past the last chain's stop run too) and one for each depth's merge, with
+one host sync a depth. A failed capture or replay raises; on the CPU the
+same bodies run eagerly, and both give the eager steps' values bit for
+bit. The MAP init's Adam steps (`_adam_map`) run eagerly on both devices:
+they make no host sync, and a graph replayed once would only add its
+capture (timed on the card, PERF.md).
 """
 
 from __future__ import annotations
@@ -50,13 +64,21 @@ import torch
 
 from vibo_tpu_torch._device import resolve_device
 from vibo_tpu_torch.models import networks
-from vibo_tpu_torch.ops import (likelihood as lik, links, pallas_deep,
-                                pallas_elbo, pallas_gpcm, pallas_grm)
+from vibo_tpu_torch.ops import (_build, likelihood as lik, links,
+                                pallas_deep, pallas_elbo, pallas_gpcm,
+                                pallas_grm)
 from vibo_tpu_torch.ops.packing import pack_responses
 
-# potential evaluations (each of every chain at once) and host syncs of the
-# NUTS loops since reset_counts(): the launch and sync accounting of a run
-_COUNTS = {"evaluations": 0, "syncs": 0}
+# what the sampler did since reset_counts(), the launch and sync accounting
+# of a run: potential evaluations (each of every chain at once; a graph's at
+# each replay), of them those of the graphs' eager warm-up; host syncs of the
+# NUTS loops; NUTS leaves run by the draws (not the warm-up's), and those
+# the eager loop runs (one sync a leaf, stopping when no chain's subtree
+# grows)
+_COUNTS = {"evaluations": 0, "warmup_evaluations": 0, "syncs": 0,
+           "leaves": 0, "leaves_needed": 0}
+# an iteration's outputs (NUTS adds "depth"), in JAX's order
+OUT_KEYS = ("pos", "accept", "divergent", "eps", "dh", "steps")
 
 
 def reset_counts() -> None:
@@ -386,47 +408,21 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
             new = {k: _pick(going, new[k], sub[k]) for k in sub}
         return new, going & ~(turning | diverging)
 
-    def nuts_subtree(depth, active, every, z, r, g, eps_d, kin, log_leaf,
-                     data):
-        """2^depth new leaves outward from one end of every active chain's
-        tree (every: all chains are), each chain stopping at its first
-        turning or diverging leaf. kin: h0, im and half_im of the draw;
-        log_leaf: the log of its leaf uniforms."""
-        push_tab, check_tab = leaf_tables(z.device)
-        e = eps_d[:, None]
-        step = dict(kin, half_e=0.5 * e, e_im=e * kin["im"])
-        zero = torch.zeros_like(kin["h0"])
-        ck = z.new_zeros((z.shape[0], max_d, z.shape[1]))
-        sub = {"z": z, "r": r, "g": g, "prop_z": z, "prop_u": zero,
-               "prop_g": g, "prop_dh": zero,
-               "log_w": torch.full_like(zero, -torch.inf),
-               "rho": torch.zeros_like(z), "ck_r": ck, "ck_s": ck,
-               "turning": torch.zeros_like(active),
-               "diverging": torch.zeros_like(active), "sum_acc": zero,
-               "n_lf": zero}
-        going = active
-        for i in range(1 << depth):
-            if i:
-                n_going = chains_on(going)
-                if not n_going:
-                    break
-                every = n_going == going.shape[0]
-            sub, going = nuts_leaf(
-                sub, going, every, step, log_leaf[:, (1 << depth) - 1 + i],
-                push_tab[i] if push_np[i].any() else None,
-                check_tab[i] if check_np[i].any() else None, data)
-        return sub
-
-    def nuts_draw(pos, u_cur, g_cur, mom, eps, inv_mass, noise, data):
-        """One dynamic-length draw of every chain -> (pos, u, grad,
-        accept statistic, divergent, leapfrogs, dh of the selected
-        proposal, tree depth), each with the chain axis."""
-        z0, r0, g0, im = (ravel(t) for t in (pos, mom, g_cur, inv_mass))
+    def nuts_begin(state, mom, eps, noise):
+        """A draw's constants and its one-leaf tree -> (ctx, st): ctx the
+        kinetic energy's h0, im and half_im (`kin`), eps, the doubling
+        directions' uniforms and the logs of the merge and leaf uniforms;
+        st the tree (both ends, the proposal, the weight, the momentum sum,
+        the stop flags and the counts)."""
+        z0, r0, g0, im = (ravel(t) for t in (state["pos"], mom, state["g"],
+                                             state["inv_mass"]))
+        u_cur = state["u"]
         half_im = 0.5 * im
         kin = {"h0": u_cur + (r0.square() * half_im).sum(-1), "im": im,
                "half_im": half_im}
-        log_leaf = torch.log(noise["nuts_leaf"])
-        log_take = torch.log(noise["nuts_take"])
+        ctx = {"kin": kin, "eps": eps, "dir": noise["nuts_dir"],
+               "log_leaf": torch.log(noise["nuts_leaf"]),
+               "log_take": torch.log(noise["nuts_take"])}
         zero = torch.zeros_like(u_cur)
         no = torch.zeros(u_cur.shape, dtype=torch.bool, device=u_cur.device)
         st = {"z_l": z0, "r_l": r0, "g_l": g0, "z_r": z0, "r_r": r0,
@@ -434,46 +430,112 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
               "prop_dh": zero, "log_w": zero, "rho": r0, "turning": no,
               "diverging": no, "sum_acc": zero, "n_lf": zero,
               "depth": zero}
+        return ctx, st
+
+    def nuts_active(st):
+        """The chains still doubling their tree."""
+        return ~(st["turning"] | st["diverging"])
+
+    def nuts_start(st, depth, ctx):
+        """A doubling's direction and its empty subtree at the tree's end
+        in that direction -> (right, sub, step): step the subtree's
+        constants (kin with half_e and e_im, 0.5 eps and eps M^-1 signed by
+        the direction)."""
+        kin = ctx["kin"]
+        right = ctx["dir"][:, depth] < 0.5
+        eps_d = torch.where(right, ctx["eps"], -ctx["eps"])
+        z, r, g = (_pick(right, st[k + "_r"], st[k + "_l"])
+                   for k in ("z", "r", "g"))
+        e = eps_d[:, None]
+        step = dict(kin, half_e=0.5 * e, e_im=e * kin["im"])
+        zero = torch.zeros_like(kin["h0"])
+        no = torch.zeros(zero.shape, dtype=torch.bool, device=zero.device)
+        ck = z.new_zeros((z.shape[0], max_d, z.shape[1]))
+        sub = {"z": z, "r": r, "g": g, "prop_z": z, "prop_u": zero,
+               "prop_g": g, "prop_dh": zero,
+               "log_w": torch.full_like(zero, -torch.inf),
+               "rho": torch.zeros_like(z), "ck_r": ck, "ck_s": ck,
+               "turning": no, "diverging": no, "sum_acc": zero,
+               "n_lf": zero}
+        return right, sub, step
+
+    def nuts_leaves(sub, going, every, step, depth, ctx, data, sync):
+        """The leaves of every chain's depth-`depth` subtree, each chain
+        stopping at its first turning or diverging leaf. sync: the eager
+        form, which reads on the host before each leaf past the first
+        whether any chain is still going (and stops the loop, or drops the
+        masking while all are); else every leaf runs, masked. -> (sub,
+        going)."""
+        push_tab, check_tab = leaf_tables(going.device)
+        for i in range(1 << depth):
+            if sync and i:
+                n_going = chains_on(going)
+                if not n_going:
+                    break
+                every = n_going == going.shape[0]
+            _COUNTS["leaves"] += 1
+            if sync:
+                _COUNTS["leaves_needed"] += 1
+            sub, going = nuts_leaf(
+                sub, going, every, step,
+                ctx["log_leaf"][:, (1 << depth) - 1 + i],
+                push_tab[i] if push_np[i].any() else None,
+                check_tab[i] if check_np[i].any() else None, data)
+        return sub, going
+
+    def nuts_merge(st, sub, active, right, depth, every, ctx):
+        """Merge a doubling's subtree into every active chain's tree: a
+        turning or diverging subtree is discarded whole (its leapfrogs
+        still count); the proposal's merge is biased toward the new
+        subtree (Betancourt 2017); then the whole tree's U-turn check."""
+        im = ctx["kin"]["im"]
+        ok = active & ~(sub["turning"] | sub["diverging"])
+        take = ok & (ctx["log_take"][:, depth] < (sub["log_w"] - st["log_w"]))
+        new = dict(st)
+        for k in ("z", "r", "g"):
+            new[k + "_r"] = _pick(ok & right, sub[k], st[k + "_r"])
+            new[k + "_l"] = _pick(ok & ~right, sub[k], st[k + "_l"])
+        new["rho"] = _pick(ok, st["rho"] + sub["rho"], st["rho"])
+        new["log_w"] = torch.where(
+            ok, torch.logaddexp(st["log_w"], sub["log_w"]), st["log_w"])
+        for k in ("prop_z", "prop_u", "prop_g", "prop_dh"):
+            new[k] = _pick(take, sub[k], st[k])
+        rho, r_l, r_r = new["rho"], new["r_l"], new["r_r"]
+        turn = (((rho * im * r_l).sum(-1) <= 0.0)
+                | ((rho * im * r_r).sum(-1) <= 0.0))
+        new["turning"] = sub["turning"] | (ok & turn)
+        new["diverging"] = st["diverging"] | sub["diverging"]
+        new["sum_acc"] = st["sum_acc"] + sub["sum_acc"]
+        new["n_lf"] = st["n_lf"] + sub["n_lf"]
+        new["depth"] = st["depth"] + 1.0
+        return new if every else {k: _pick(active, new[k], st[k]) for k in st}
+
+    def nuts_result(st, ctx):
+        """The draw's outcome, as the fixed trajectory's (`propose`)."""
+        return {"pos": unravel(st["prop_z"]), "u": st["prop_u"],
+                "g": unravel(st["prop_g"]),
+                "accept": st["sum_acc"] / torch.clamp(st["n_lf"], min=1.0),
+                "divergent": st["diverging"].float(), "steps": st["n_lf"],
+                "dh": st["prop_dh"], "eps": ctx["eps"], "depth": st["depth"]}
+
+    def nuts_draw(state, mom, eps, noise, data):
+        """One dynamic-length draw of every chain, eagerly: the host loops
+        over the depths while any chain is doubling and over a subtree's
+        leaves while any chain's subtree is growing (one sync a leaf) ->
+        nuts_result's dict (the accept statistic, divergent, leapfrogs, dh
+        of the selected proposal, tree depth, each with the chain axis)."""
+        ctx, st = nuts_begin(state, mom, eps, noise)
         for depth in range(max_d):
-            active = ~(st["turning"] | st["diverging"])
+            active = nuts_active(st)
             n_active = chains_on(active)
             if not n_active:
                 break
             every = n_active == active.shape[0]
-            right = noise["nuts_dir"][:, depth] < 0.5
-            eps_d = torch.where(right, eps, -eps)
-            ends = [_pick(right, st[k + "_r"], st[k + "_l"])
-                    for k in ("z", "r", "g")]
-            sub = nuts_subtree(depth, active, every, *ends, eps_d, kin,
-                               log_leaf, data)
-            # a turning or diverging subtree is discarded whole (its
-            # leapfrogs still count); the merge is biased toward the new
-            # subtree (Betancourt 2017)
-            ok = active & ~(sub["turning"] | sub["diverging"])
-            take = ok & (log_take[:, depth] < (sub["log_w"] - st["log_w"]))
-            new = dict(st)
-            for k in ("z", "r", "g"):
-                new[k + "_r"] = _pick(ok & right, sub[k], st[k + "_r"])
-                new[k + "_l"] = _pick(ok & ~right, sub[k], st[k + "_l"])
-            new["rho"] = _pick(ok, st["rho"] + sub["rho"], st["rho"])
-            new["log_w"] = torch.where(
-                ok, torch.logaddexp(st["log_w"], sub["log_w"]), st["log_w"])
-            for k in ("prop_z", "prop_u", "prop_g", "prop_dh"):
-                new[k] = _pick(take, sub[k], st[k])
-            rho, r_l, r_r = new["rho"], new["r_l"], new["r_r"]
-            turn = (((rho * im * r_l).sum(-1) <= 0.0)
-                    | ((rho * im * r_r).sum(-1) <= 0.0))
-            new["turning"] = sub["turning"] | (ok & turn)
-            new["diverging"] = st["diverging"] | sub["diverging"]
-            new["sum_acc"] = st["sum_acc"] + sub["sum_acc"]
-            new["n_lf"] = st["n_lf"] + sub["n_lf"]
-            new["depth"] = st["depth"] + 1.0
-            st = new if every else {k: _pick(active, new[k], st[k])
-                                    for k in st}
-        accept = st["sum_acc"] / torch.clamp(st["n_lf"], min=1.0)
-        return (unravel(st["prop_z"]), st["prop_u"], unravel(st["prop_g"]),
-                accept, st["diverging"].float(), st["n_lf"], st["prop_dh"],
-                st["depth"])
+            right, sub, step = nuts_start(st, depth, ctx)
+            sub, _ = nuts_leaves(sub, active, every, step, depth, ctx, data,
+                                 sync=True)
+            st = nuts_merge(st, sub, active, right, depth, every, ctx)
+        return nuts_result(st, ctx)
 
     gamma, t0, kappa = 0.05, 10.0, 0.75
     log10 = math.log(10.0)
@@ -532,127 +594,176 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
                 b_q = b_q + shift
         return theta_q, a_q, b_q
 
-    def step_with_noise(state, noise, adapt, collect, switch, data):
-        """One iteration of every chain on exogenous draws -> (state, out).
-        noise: {"z": {name: (C, ...)}, "ridge": (C, ridge_moves, K, 4),
-        "rotation": (C, K, K)} and, fixed trajectories, "jitter" (C,) and
-        "accept" (C,); NUTS, uniforms "nuts_dir" (C, max_d) (right where
-        < 0.5), "nuts_take" (C, max_d) (each doubling's merge) and
-        "nuts_leaf" (C, 2^max_d - 1) (leaf l of the depth-d subtree at
-        2^d - 1 + l); adapt, collect, switch: this iteration's warm-up
-        flags (floats)."""
+    def momentum(state, noise):
+        """p ~ N(0, M) with M = 1/inv_mass: p = z / sqrt(inv_mass)."""
+        return {k: noise["z"][k] * torch.rsqrt(state["inv_mass"][k])
+                for k in names}
+
+    def step_size(state, adapt):
+        """The iteration's step: the adapting one in warm-up, else the
+        averaged one (adapt a tensor flag, as JAX's jnp.where)."""
+        return torch.exp(torch.where(adapt != 0, state["log_eps"],
+                                     state["log_eps_bar"]))
+
+    def fixed_draw(state, mom, eps, noise, data):
+        """One jittered fixed-length trajectory of every chain and its
+        Metropolis test -> the moved chains (pos, u, g) with the accept
+        probability, divergent, leapfrogs, dh and the jittered step."""
         pos, u_cur, g_cur = state["pos"], state["u"], state["g"]
+        inv_mass = state["inv_mass"]
+        # jitter the trajectory length through the step (state-independent:
+        # detailed balance holds): a fixed eps L resonates
+        eps = eps * (1.0 - noise["jitter"] / 3.0)
+        u0 = u_cur + kinetic(mom, inv_mass)
+        new_pos, new_mom, u_pot, g_new = leapfrog(pos, mom, eps, inv_mass,
+                                                  g_cur, data)
+        u1 = u_pot + kinetic(new_mom, inv_mass)
+        log_accept = torch.clamp(u0 - u1, max=0.0)
+        # a NaN trajectory (divergence) is rejected
+        log_accept = torch.where(torch.isfinite(log_accept), log_accept,
+                                 -torch.inf)
+        accept = torch.log(noise["accept"]) < log_accept
+        return {"pos": {k: _pick(accept, new_pos[k], pos[k]) for k in names},
+                "u": torch.where(accept, u_pot, u_cur),
+                "g": {k: _pick(accept, g_new[k], g_cur[k]) for k in names},
+                "accept": torch.exp(log_accept),
+                "divergent": 1.0 - torch.isfinite(u1 - u0).float(),
+                "steps": torch.full_like(u_cur, float(cfg.num_leapfrog)),
+                "dh": u1 - u0, "eps": eps}
+
+    def gibbs(pos, noise, data):
+        """Metropolis-within-Gibbs along the likelihood-null ridges (the
+        accepts cost prior ratios only), then the exact O(K) rotation
+        move; one potential evaluation refreshes the (U, grad) cache ->
+        (pos, u, g)."""
+        q0 = to_q(pos, data)
+        theta_q, a_q, b_q = q0["theta"], q0.get("a"), q0.get("b")
+        if do_ridge:
+            eye = torch.eye(kdim, device=theta_q.device)
+            for r in range(cfg.ridge_moves):
+                theta_q, a_q, b_q = ridge_sweep(theta_q, a_q, b_q,
+                                                noise["ridge"][:, r], eye)
+        if do_rot:
+            # R ~ Haar(O(K)): QR of a Gaussian with the R-diagonal sign
+            # fix; the posterior is invariant under (theta R, a R)
+            qm, rm = torch.linalg.qr(noise["rotation"])
+            rot = qm * torch.sign(torch.diagonal(rm, dim1=-2, dim2=-1)
+                                  )[:, None, :]
+            theta_q = theta_q @ rot
+            a_q = a_q @ rot
+        q1 = dict(q0)
+        q1["theta"] = theta_q
+        if b_q is not None:
+            q1["b"] = b_q
+        if a_q is not None:
+            q1["a"] = a_q
+        pos = {k: (q1[k] - data["center"][k]) / data["scale"][k]
+               for k in names}
+        u_cur, g_cur = vg(pos, data)
+        return pos, u_cur, g_cur
+
+    def adaptation(state, pos, accept_prob, adapt, collect, switch):
+        """The warm-up's step-size and metric state after an iteration,
+        its flags tensors applied with torch.where as JAX's jnp.where:
+        every update is computed, then selected."""
         log_eps, log_eps_bar = state["log_eps"], state["log_eps_bar"]
         h_bar, t, mu = state["h_bar"], state["t"], state["mu"]
         inv_mass = state["inv_mass"]
         w_mean, w_m2, w_cnt = state["w_mean"], state["w_m2"], state["w_cnt"]
-        # p ~ N(0, M) with M = 1/inv_mass  =>  p = z / sqrt(inv_mass)
-        mom = {k: noise["z"][k] * torch.rsqrt(inv_mass[k]) for k in names}
-        eps = torch.exp(log_eps if adapt else log_eps_bar)
-        extra = {}
-        if cfg.trajectory == "nuts":
-            # dynamic lengths: no jitter (the random doubling directions and
-            # the multinomial selection break resonances)
-            (pos, u_cur, g_cur, accept_prob, divergent, steps, dh_rep,
-             extra["depth"]) = nuts_draw(pos, u_cur, g_cur, mom, eps,
-                                         inv_mass, noise, data)
-        else:
-            # jitter the trajectory length through the step (state-
-            # independent: detailed balance holds): a fixed eps L resonates
-            eps = eps * (1.0 - noise["jitter"] / 3.0)
-            u0 = u_cur + kinetic(mom, inv_mass)
-            new_pos, new_mom, u_pot, g_new = leapfrog(pos, mom, eps,
-                                                      inv_mass, g_cur, data)
-            u1 = u_pot + kinetic(new_mom, inv_mass)
-            log_accept = torch.clamp(u0 - u1, max=0.0)
-            # a NaN trajectory (divergence) is rejected
-            log_accept = torch.where(torch.isfinite(log_accept), log_accept,
-                                     -torch.inf)
-            divergent = 1.0 - torch.isfinite(u1 - u0).float()
-            accept = torch.log(noise["accept"]) < log_accept
-            pos = {k: _pick(accept, new_pos[k], pos[k]) for k in names}
-            u_cur = torch.where(accept, u_pot, u_cur)
-            g_cur = {k: _pick(accept, g_new[k], g_cur[k]) for k in names}
-            accept_prob = torch.exp(log_accept)
-            dh_rep = u1 - u0
-            steps = torch.full_like(u_cur, float(cfg.num_leapfrog))
-        if do_ridge or do_rot:
-            # Metropolis-within-Gibbs along the likelihood-null ridges (the
-            # accepts cost prior ratios only), then the exact O(K) rotation
-            # move; one potential evaluation refreshes the (U, grad) cache
-            q0 = to_q(pos, data)
-            theta_q, a_q, b_q = q0["theta"], q0.get("a"), q0.get("b")
-            if do_ridge:
-                eye = torch.eye(kdim, device=theta_q.device)
-                for r in range(cfg.ridge_moves):
-                    theta_q, a_q, b_q = ridge_sweep(theta_q, a_q, b_q,
-                                                    noise["ridge"][:, r], eye)
-            if do_rot:
-                # R ~ Haar(O(K)): QR of a Gaussian with the R-diagonal sign
-                # fix; the posterior is invariant under (theta R, a R)
-                qm, rm = torch.linalg.qr(noise["rotation"])
-                rot = qm * torch.sign(torch.diagonal(rm, dim1=-2, dim2=-1)
-                                      )[:, None, :]
-                theta_q = theta_q @ rot
-                a_q = a_q @ rot
-            q1 = dict(q0)
-            q1["theta"] = theta_q
-            if b_q is not None:
-                q1["b"] = b_q
-            if a_q is not None:
-                q1["a"] = a_q
-            pos = {k: (q1[k] - data["center"][k]) / data["scale"][k]
-                   for k in names}
-            u_cur, g_cur = vg(pos, data)
-        if adapt:
-            # dual averaging, its statistic pooled over the chains (JAX's
-            # pmean over the vmapped axis); the accept stays per chain
-            t = t + adapt
-            accept_stat = accept_prob.mean()
-            h_bar = ((1.0 - 1.0 / (t + t0)) * h_bar
+        # dual averaging, its statistic pooled over the chains (JAX's pmean
+        # over the vmapped axis); the accept stays per chain
+        adapting = adapt != 0
+        t = t + adapt
+        accept_stat = accept_prob.mean()
+        h_bar_new = ((1.0 - 1.0 / (t + t0)) * h_bar
                      + (cfg.target_accept - accept_stat) / (t + t0))
-            log_eps = mu - torch.sqrt(t) / gamma * h_bar
-            eta = t ** (-kappa)
-            log_eps_bar = eta * log_eps + (1.0 - eta) * log_eps_bar
+        log_eps_new = mu - torch.sqrt(t) / gamma * h_bar_new
+        eta = t ** (-kappa)
+        log_eps_bar_new = eta * log_eps_new + (1.0 - eta) * log_eps_bar
+        log_eps = torch.where(adapting, log_eps_new, log_eps)
+        log_eps_bar = torch.where(adapting, log_eps_bar_new, log_eps_bar)
+        h_bar = torch.where(adapting, h_bar_new, h_bar)
         if do_mass:
             # Welford accumulation over the memoryless windows (the flags
             # come from the host's schedule)
-            if collect > 0:
-                w_cnt_new = w_cnt + 1.0
-                w_mean_new = {k: w_mean[k] + (pos[k] - w_mean[k])
-                              / _bc(w_cnt_new, pos[k]) for k in names}
-                w_m2 = {k: w_m2[k] + (pos[k] - w_mean[k])
-                        * (pos[k] - w_mean_new[k]) for k in names}
-                w_mean, w_cnt = w_mean_new, w_cnt_new
-            if switch > 0:
-                denom = torch.clamp(w_cnt - 1.0, min=1.0)
-                shrink = w_cnt / (w_cnt + 5.0)
+            collecting, switching = collect > 0, switch > 0
+            w_cnt_new = w_cnt + 1.0
+            w_mean_new = {k: w_mean[k] + (pos[k] - w_mean[k])
+                          / _bc(w_cnt_new, pos[k]) for k in names}
+            w_m2 = {k: torch.where(collecting, w_m2[k] + (pos[k] - w_mean[k])
+                                   * (pos[k] - w_mean_new[k]), w_m2[k])
+                    for k in names}
+            w_mean = {k: torch.where(collecting, w_mean_new[k], w_mean[k])
+                      for k in names}
+            w_cnt = torch.where(collecting, w_cnt_new, w_cnt)
+            denom = torch.clamp(w_cnt - 1.0, min=1.0)
+            shrink = w_cnt / (w_cnt + 5.0)
 
-                def new_im(k):
-                    # the window variances pooled over the chains; shrunk
-                    # toward the whitened prior metric 1; an almost empty
-                    # window keeps the old metric
-                    var = (w_m2[k] / _bc(denom, w_m2[k])).mean(
-                        0, keepdim=True)
-                    sh = _bc(shrink, w_m2[k])
-                    est = torch.clamp(sh * var + (1.0 - sh), 1e-6, 1e6)
-                    return torch.where(_bc(w_cnt >= 4.0, w_m2[k]), est,
-                                       inv_mass[k])
-                inv_mass = {k: new_im(k) for k in names}
-                w_cnt = torch.zeros_like(w_cnt)
-                w_mean = {k: torch.zeros_like(v) for k, v in w_mean.items()}
-                w_m2 = {k: torch.zeros_like(v) for k, v in w_m2.items()}
-                mu = log10 + log_eps_bar
-                log_eps = log_eps_bar
-                h_bar = torch.zeros_like(h_bar)
-                t = torch.zeros_like(t)
-        state = {"pos": pos, "u": u_cur, "g": g_cur, "log_eps": log_eps,
-                 "log_eps_bar": log_eps_bar, "h_bar": h_bar, "t": t,
-                 "mu": mu, "inv_mass": inv_mass, "w_mean": w_mean,
-                 "w_m2": w_m2, "w_cnt": w_cnt}
-        out = {"pos": pos, "accept": accept_prob, "divergent": divergent,
-               "eps": eps, "dh": dh_rep, "steps": steps, **extra}
+            def new_im(k):
+                # the window variances pooled over the chains; shrunk toward
+                # the whitened prior metric 1; an almost empty window keeps
+                # the old metric
+                var = (w_m2[k] / _bc(denom, w_m2[k])).mean(0, keepdim=True)
+                sh = _bc(shrink, w_m2[k])
+                est = torch.clamp(sh * var + (1.0 - sh), 1e-6, 1e6)
+                return torch.where(_bc(w_cnt >= 4.0, w_m2[k]), est,
+                                   inv_mass[k])
+            inv_mass = {k: torch.where(switching, new_im(k), inv_mass[k])
+                        for k in names}
+            w_cnt = torch.where(switching, 0.0, w_cnt)
+            w_mean = {k: torch.where(switching, 0.0, v)
+                      for k, v in w_mean.items()}
+            w_m2 = {k: torch.where(switching, 0.0, v) for k, v in w_m2.items()}
+            mu = torch.where(switching, log10 + log_eps_bar, mu)
+            log_eps = torch.where(switching, log_eps_bar, log_eps)
+            h_bar = torch.where(switching, 0.0, h_bar)
+            t = torch.where(switching, 0.0, t)
+        return {"log_eps": log_eps, "log_eps_bar": log_eps_bar,
+                "h_bar": h_bar, "t": t, "mu": mu, "inv_mass": inv_mass,
+                "w_mean": w_mean, "w_m2": w_m2, "w_cnt": w_cnt}
+
+    def finish(state, moved, noise, adapt, collect, switch, data):
+        """An iteration's end from the moved chains (fixed_draw's or
+        nuts_result's dict): the ridge and rotation moves and the
+        adaptation -> (state, out)."""
+        pos, u_cur, g_cur = moved["pos"], moved["u"], moved["g"]
+        if do_ridge or do_rot:
+            pos, u_cur, g_cur = gibbs(pos, noise, data)
+        state = {"pos": pos, "u": u_cur, "g": g_cur,
+                 **adaptation(state, pos, moved["accept"], adapt, collect,
+                              switch)}
+        out = {"pos": pos, **{k: moved[k] for k in OUT_KEYS[1:]}}
+        if "depth" in moved:
+            out["depth"] = moved["depth"]
         return state, out
+
+    def flags_of(adapt, collect, switch, like):
+        """The warm-up flags as f32 tensors on like's device (numbers or
+        tensors: 0-d views of the sampler's flag table)."""
+        return tuple(torch.as_tensor(f, dtype=torch.float32,
+                                     device=like.device)
+                     for f in (adapt, collect, switch))
+
+    def step_with_noise(state, noise, adapt, collect, switch, data):
+        """One iteration of every chain on exogenous draws -> (state, out),
+        JAX's `step`. noise: {"z": {name: (C, ...)}, "ridge": (C,
+        ridge_moves, K, 4), "rotation": (C, K, K)} and, fixed trajectories,
+        "jitter" (C,) and "accept" (C,); NUTS, uniforms "nuts_dir" (C,
+        max_d) (right where < 0.5), "nuts_take" (C, max_d) (each doubling's
+        merge) and "nuts_leaf" (C, 2^max_d - 1) (leaf l of the depth-d
+        subtree at 2^d - 1 + l); adapt, collect, switch: this iteration's
+        warm-up flags (numbers or 0-d tensors), applied with torch.where,
+        so one function serves every iteration of the schedule."""
+        adapt, collect, switch = flags_of(adapt, collect, switch, state["u"])
+        mom = momentum(state, noise)
+        eps = step_size(state, adapt)
+        if cfg.trajectory == "nuts":
+            # dynamic lengths: no jitter (the random doubling directions and
+            # the multinomial selection break resonances)
+            moved = nuts_draw(state, mom, eps, noise, data)
+        else:
+            moved = fixed_draw(state, mom, eps, noise, data)
+        return finish(state, moved, noise, adapt, collect, switch, data)
 
     def draw_noise(generator, chains: int) -> dict:
         """One iteration's draws for `chains` chains from the generator."""
@@ -711,9 +822,292 @@ def _chain_programs(cfg: HMCConfig, n: int, m: int):
             return per_person(params, data)
 
     return types.SimpleNamespace(
-        spec=spec, names=names, vg=vg, step_with_noise=step_with_noise,
-        draw_noise=draw_noise, step=step, init=init_chain, map_run=map_run,
-        ll_ref_fn=ll_ref_fn)
+        cfg=cfg, spec=spec, names=names, max_d=max_d, vg=vg,
+        step_with_noise=step_with_noise, draw_noise=draw_noise, step=step,
+        init=init_chain, map_run=map_run, ll_ref_fn=ll_ref_fn,
+        # the pieces of step_with_noise that the sampler's graphs split
+        momentum=momentum, step_size=step_size, fixed_draw=fixed_draw,
+        finish=finish, gibbs=gibbs, nuts_draw=nuts_draw,
+        nuts_begin=nuts_begin,
+        nuts_active=nuts_active, nuts_start=nuts_start,
+        nuts_leaves=nuts_leaves, nuts_merge=nuts_merge,
+        nuts_result=nuts_result)
+
+
+def _clone(tree):
+    """A copy of a dict tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _assign(dst, src) -> None:
+    """Copy a dict tree of tensors into one of the same structure, in place
+    (dst keeps its addresses)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _assign(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+class _Graph:
+    """One CUDA graph of body(), captured in the memory pool `pool`, with
+    the counts (`_COUNTS`) and kernel launches (`_build.recording_captures`)
+    its capture made, which every replay adds again: a launch count is the
+    launches captured times the replays. generator: registered with the
+    graph, so each replay draws anew from it as eager steps would."""
+
+    def __init__(self, body, pool=None, generator=None):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        before = dict(_COUNTS)
+        with _build.recording_captures() as launched:
+            with torch.cuda.graph(graph, pool=pool):
+                body()
+        self.counts = {k: _COUNTS[k] - before[k] for k in _COUNTS}
+        _COUNTS.update(before)
+        self.graph, self.launched = graph, launched
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, v in self.counts.items():
+            _COUNTS[k] += v
+        _build.add_launches(self.launched)
+
+
+class Sampler:
+    """JAX's `run_chunk` (a lax.scan of `step` over a chunk's iterations,
+    one device program a dispatch; `vibo_tpu/models/hmc.py` :824-848) for
+    the port's chain programs: `run(n)` takes n iterations of every chain
+    and returns their outputs in one host fetch.
+
+    The chain state, the outputs' (C, chunk, ...) buffers, the warm-up
+    flags' (3, T) table (adapt, collect, switch an iteration) and the
+    iteration counter that indexes it all live on the device at fixed
+    addresses; an iteration updates them in place and moves the counter
+    on. On the card it is replayed from CUDA graphs, captured at the first
+    run after one eager pass of their bodies on a side stream whose effects
+    are then put back (state, counter, generator): a fixed trajectory is
+    one graph, its draws from the generator registered with it, so a chunk
+    makes no host sync; NUTS is a graph for the draw's start (its draws),
+    one for each depth's whole subtree of leaves (its chains masked as they
+    stop) and one for each depth's merge, and the host reads one count
+    before each depth (is any chain doubling?). A failed capture or replay
+    raises; nothing
+    falls back to eager steps. On the CPU the same bodies run eagerly, so
+    both give the eager steps' values bit for bit (`step`; NUTS's masked
+    leaves equal its per-leaf loop, whose stopped chains keep their state).
+    draw: the iteration's noise, by default `draw_noise` from the
+    generator; another source (JAX's draws in the tests) on the CPU only."""
+
+    def __init__(self, programs, state: dict, data: dict,
+                 generator: torch.Generator, flags, chunk: int, draw=None):
+        self.p, self.data, self.gen = programs, data, generator
+        self.nuts = programs.cfg.trajectory == "nuts"
+        dev = state["u"].device
+        if draw is not None and dev.type == "cuda":
+            raise ValueError("a Sampler on the card draws from its "
+                             "generator (draw= is for the CPU)")
+        chains = state["u"].shape[0]
+        self.draw = draw or (lambda: programs.draw_noise(generator, chains))
+        self.state = _clone(state)
+        self.flags = torch.as_tensor(np.asarray(flags, np.float32)).to(dev)
+        self.it = torch.zeros(1, dtype=torch.long, device=dev)
+        self.slot = torch.zeros(1, dtype=torch.long, device=dev)
+        self.chunk = chunk
+        lead = (chains, chunk)
+        self.out = {"pos": {k: torch.zeros(lead + v, device=dev)
+                            for k, v in programs.spec.items()},
+                    **{k: torch.zeros(lead, device=dev)
+                       for k in OUT_KEYS[1:]}}
+        if self.nuts:
+            self.out["depth"] = torch.zeros(lead, device=dev)
+            self.out["leaves_needed"] = torch.zeros((1, chunk), device=dev)
+        self.nt: dict = {}          # NUTS's tensors between its graphs
+        self.graphs = None
+
+    # ---- the bodies (eager on the CPU, captured on the card) --------------
+    def _flags(self):
+        f = self.flags.index_select(1, self.it)[:, 0]
+        return f[0], f[1], f[2]
+
+    def _keep(self, name: str, value) -> None:
+        """NUTS's tensor `name` at its fixed address (made by the first,
+        eager pass; copied into after)."""
+        if name in self.nt:
+            _assign(self.nt[name], value)
+        else:
+            self.nt[name] = _clone(value)
+
+    def _record(self, out: dict) -> None:
+        """An iteration's outputs into the chunk's buffers at its slot."""
+        for k, buf in self.out["pos"].items():
+            buf.index_copy_(1, self.slot, out["pos"][k].unsqueeze(1))
+        for k in OUT_KEYS[1:] + (("depth",) if self.nuts else ()):
+            self.out[k].index_copy_(1, self.slot, out[k].unsqueeze(1))
+
+    def _advance(self, new_state: dict) -> None:
+        _assign(self.state, new_state)
+        self.it.add_(1)
+        self.slot.add_(1)
+
+    def _iteration(self) -> None:
+        new, out = self.p.step_with_noise(self.state, self.draw(),
+                                          *self._flags(), self.data)
+        self._record(out)
+        self._advance(new)
+
+    def _begin(self) -> None:
+        p, state = self.p, self.state
+        noise = self.draw()
+        ctx, st = p.nuts_begin(state, p.momentum(state, noise),
+                               p.step_size(state, self._flags()[0]), noise)
+        # read by the later graphs at these (the begin graph's) addresses
+        self.noise, self.ctx = noise, ctx
+        self._keep("st", st)
+        self._keep("n_on", p.nuts_active(st).sum())
+        self._keep("needed", torch.zeros(1, device=st["n_lf"].device))
+
+    def _leaves(self, depth: int) -> None:
+        p, nt = self.p, self.nt
+        active = p.nuts_active(nt["st"])
+        right, sub, step = p.nuts_start(nt["st"], depth, self.ctx)
+        sub, _ = p.nuts_leaves(sub, active, False, step, depth, self.ctx,
+                               self.data, sync=False)
+        self._keep("active", active)
+        self._keep("right", right)
+        self._keep("sub", sub)
+
+    def _merge(self, depth: int) -> None:
+        p, nt = self.p, self.nt
+        st = p.nuts_merge(nt["st"], nt["sub"], nt["active"], nt["right"],
+                          depth, False, self.ctx)
+        # the leaves the eager loop runs at this depth: the most any chain
+        # took before it stopped
+        nt["needed"].add_(nt["sub"]["n_lf"].max())
+        self._keep("st", st)
+        self._keep("n_on", p.nuts_active(st).sum())
+
+    def _end(self) -> None:
+        nt = self.nt
+        new, out = self.p.finish(self.state, self.p.nuts_result(
+            nt["st"], self.ctx), self.noise, *self._flags(), self.data)
+        self._record(out)
+        self.out["leaves_needed"].index_copy_(1, self.slot,
+                                              nt["needed"][None])
+        self._advance(new)
+
+    def _body(self, key):
+        if key == "iteration":
+            return self._iteration
+        if key == "begin":
+            return self._begin
+        if key == "end":
+            return self._end
+        kind, depth = key
+        if kind == "leaves":
+            return lambda: self._leaves(depth)
+        return lambda: self._merge(depth)
+
+    # ---- the host's loop --------------------------------------------------
+    def _keys(self, depths: int) -> list:
+        """The graphs of an iteration through `depths` tree depths."""
+        if not self.nuts:
+            return ["iteration"]
+        keys = ["begin"]
+        for d in range(depths):
+            keys += [("leaves", d), ("merge", d)]
+        return keys + ["end"]
+
+    def _on(self) -> int:
+        """The host sync of the NUTS loop: chains still doubling."""
+        _COUNTS["syncs"] += 1
+        return int(self.nt["n_on"])
+
+    def _one(self, call) -> None:
+        if not self.nuts:
+            call("iteration")
+            return
+        call("begin")
+        for depth in range(self.p.max_d):
+            if not self._on():
+                break
+            call(("leaves", depth))
+            call(("merge", depth))
+        call("end")
+
+    def capture(self) -> None:
+        """On the card, capture the graphs (once); on the CPU nothing."""
+        if self.graphs is not None or not self.state["u"].is_cuda:
+            return
+        dev = self.state["u"].device
+        saved = (_clone(self.state), self.it.clone(), self.slot.clone(),
+                 self.gen.get_state())
+        before = dict(_COUNTS)
+        with torch.no_grad():
+            # one eager pass on a side stream, as a capture wants before it:
+            # it loads every kernel and library the graphs will launch and
+            # makes cuBLAS's workspace; its effects are put back below
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for key in self._keys(min(2, self.p.max_d)):
+                    self._body(key)()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            # its evaluations launched kernels and stay counted, apart; its
+            # leaves were no draw's
+            _COUNTS["warmup_evaluations"] += (_COUNTS["evaluations"]
+                                              - before["evaluations"])
+            _COUNTS["leaves"] = before["leaves"]
+            _assign(self.state, saved[0])
+            self.it.copy_(saved[1])
+            self.slot.copy_(saved[2])
+            self.gen.set_state(saved[3])
+            pool = torch.cuda.graph_pool_handle()
+            self.graphs = {
+                key: _Graph(self._body(key), pool,
+                            self.gen if key in ("iteration", "begin")
+                            else None)
+                for key in self._keys(self.p.max_d)}
+
+    def advance(self, n: int) -> None:
+        """n (<= chunk) iterations of every chain into the chunk's buffers,
+        from its first slot; on the card graph replays (captured at the
+        first call), with no host sync but NUTS's counts."""
+        if not 0 < n <= self.chunk:
+            raise ValueError(f"a run takes 1 to {self.chunk} iterations, "
+                             f"got {n}")
+        self.capture()
+        self.slot.zero_()
+        if self.graphs is not None:
+            def call(key):
+                self.graphs[key].replay()
+        else:
+            def call(key):
+                self._body(key)()
+        with torch.no_grad():
+            for _ in range(n):
+                self._one(call)
+
+    def fetch(self, n: int) -> dict:
+        """The last advance's n iterations as numpy (C, n, ...): {"pos":
+        {name: ...}, "accept", "divergent", "eps", "dh", "steps"} and, NUTS,
+        "depth" (its leaves needed go to counts()); one host fetch."""
+        def host(v):
+            # a copy: on the CPU .cpu() would hand out the buffer itself
+            return v[:, :n].to("cpu", copy=True).numpy()
+        out = {"pos": {k: host(v) for k, v in self.out["pos"].items()},
+               **{k: host(v) for k, v in self.out.items() if k != "pos"}}
+        if self.nuts:
+            _COUNTS["leaves_needed"] += int(out.pop("leaves_needed").sum())
+        return out
+
+    def run(self, n: int) -> dict:
+        """advance(n), then fetch(n)."""
+        self.advance(n)
+        return self.fetch(n)
 
 
 def _pick(flag: torch.Tensor, new: torch.Tensor, old: torch.Tensor
@@ -806,8 +1200,9 @@ def run_hmc(resp, mask, cfg: HMCConfig, deep_params=None, device=None):
 
     Returns {"samples": {name: (C*S, ...)} pooled draws (numpy),
     "accept_rate", "step_size", "diagnostics"}, the JAX package's keys.
-    The chains run in chunks of scan_chunk iterations with one host fetch
-    a chunk; the draws come from a torch.Generator seeded with cfg.seed."""
+    The chains run in chunks of scan_chunk iterations (a `Sampler`: CUDA
+    graph replays on the card) with one host fetch a chunk; the draws come
+    from a torch.Generator seeded with cfg.seed."""
     dev = resolve_device(device)
     return _run_hmc_impl(resp, mask, cfg, deep_params, dev)
 
@@ -871,33 +1266,19 @@ def _run_hmc_impl(resp, mask, cfg: HMCConfig, deep_params, dev):
     ll_ref = programs.ll_ref_fn(center, base_data)
     data = dict(base_data, center=center, scale=scale, ll_ref=ll_ref)
 
-    adapt_f, collect_f, switch_f = _warmup_schedule(cfg)
     total = cfg.num_warmup + cfg.num_samples
     state = programs.init(positions, data)
     chunk = max(1, int(cfg.scan_chunk))
     if cfg.trajectory == "fixed" and cfg.num_leapfrog > 64:
         # keep leapfrogs per chunk at the 64 * scan_chunk budget
         chunk = max(1, (chunk * 64) // int(cfg.num_leapfrog))
-    keys = ("pos", "accept", "divergent", "eps", "dh", "steps")
-    outs = {k: [] for k in keys}
-    with torch.no_grad():
-        for i in range(0, total, chunk):
-            part = {k: [] for k in keys}
-            for it in range(i, min(total, i + chunk)):
-                state, o = programs.step(state, float(adapt_f[it]),
-                                         float(collect_f[it]),
-                                         float(switch_f[it]), data, gen)
-                for k in keys:
-                    part[k].append(o[k])
-            # one host fetch a chunk
-            outs["pos"].append({k: torch.stack([p[k] for p in part["pos"]],
-                                               1).cpu().numpy()
-                                for k in names})
-            for k in keys[1:]:
-                outs[k].append(torch.stack(part[k], 1).cpu().numpy())
-    out = {k: np.concatenate(v, axis=1) for k, v in outs.items()
-           if k != "pos"}
-    out["pos"] = {k: np.concatenate([p[k] for p in outs["pos"]], axis=1)
+    sampler = Sampler(programs, state, data, gen,
+                      np.stack(_warmup_schedule(cfg)), min(chunk, total))
+    outs = [sampler.run(min(chunk, total - i)) for i in range(0, total, chunk)]
+    state = sampler.state
+    out = {k: np.concatenate([o[k] for o in outs], axis=1)
+           for k in OUT_KEYS[1:]}
+    out["pos"] = {k: np.concatenate([o["pos"][k] for o in outs], axis=1)
                   for k in names}
     sample_slice = slice(cfg.num_warmup, total, cfg.thin)
     # (C, S', ...) per-chain stacks feed the diagnostics; the pooled

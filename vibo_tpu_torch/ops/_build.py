@@ -15,6 +15,7 @@ through `build()`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -122,8 +123,11 @@ class Kernel:
     `launches` counts successful launches through __call__ only; the
     wrapper calls it where it launches the kernel and nowhere else. A call
     on a stream that a CUDA graph is capturing records the launch in the
-    graph and is not counted: the graph's replays launch it, and a profiler
-    window sees them, not this count.
+    graph and is not counted: the graph's replays launch it. Inside
+    `recording_captures()` such a call is noted in the recorder instead,
+    and the graph's owner adds the noted launches at each replay
+    (`add_launches`); elsewhere (the fused trainer's graphs) a profiler
+    window sees the replays, not this count.
     `launches_by` splits the count by the `variant` the wrapper names (the
     input reader of a kernel templated on it), or is empty."""
 
@@ -145,13 +149,39 @@ class Kernel:
         rc = self._bind()(*args)
         check(rc, self._lib, f"CUDA kernel {self.name} launch")
         if torch.cuda.is_current_stream_capturing():
+            if _RECORDERS:
+                key = (self.name, variant)
+                _RECORDERS[-1][key] = _RECORDERS[-1].get(key, 0) + 1
             return
-        self.launches += 1
+        self._count(1, variant)
+
+    def _count(self, n: int, variant: str | None) -> None:
+        self.launches += n
         if variant is not None:
-            self.launches_by[variant] = self.launches_by.get(variant, 0) + 1
+            self.launches_by[variant] = self.launches_by.get(variant, 0) + n
 
 
 KERNELS: dict[str, Kernel] = {}
+# the launches noted while a CUDA graph is captured, innermost last
+_RECORDERS: list[dict] = []
+
+
+@contextlib.contextmanager
+def recording_captures():
+    """Note the kernel launches captured inside the block: yields a dict
+    {(kernel name, variant): launches} for add_launches."""
+    rec: dict = {}
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.pop()
+
+
+def add_launches(rec: dict) -> None:
+    """Count the launches a recorder noted once more: a graph's replay."""
+    for (name, variant), n in rec.items():
+        KERNELS[name]._count(n, variant)
 
 
 def register(kernel: Kernel) -> Kernel:
