@@ -13,8 +13,8 @@ run: its exit code and seconds, each kernel's time from its kernels line
 (with the one-pass kernels' and the masked loglik's main kernel, second pass
 and GRM prologue apart, the (B, K) layout and the int8 reader where it has
 them; the deep
-link's kernel also at the 10,240 x 1,024 shape and at widths 256 and
-384, its f32 kernel, row 15f, at the deep gold's shape and at config 5),
+link's kernel also at the 10,240 x 1,024 shape and at widths 256, 384
+and 512, its f32 kernel, row 15f, at the deep gold's shape and at config 5),
 the step median, device busy time and idle share of each training phase,
 by link, and each probed HMC run's ms a potential evaluation and an
 iteration; and last {"ok": ...}, true when all four runs exited 0.
@@ -54,7 +54,8 @@ def summarize(stdout: str) -> dict:
             for extra, tag in (("bk_layout", "bk"), ("int8_reader", "int8"),
                                ("table_shape", "10240x1024"),
                                ("config5", "config5"),
-                               ("h256", "H256"), ("h384_wide", "H384")):
+                               ("h256", "H256"), ("h384", "H384"),
+                               ("h384_wide", "H384"), ("h512", "H512")):
                 if extra in e:
                     kernels[f"{e['name']} {tag}"] = e[extra].get("ms")
         phase = obj.get("phase")

@@ -45,14 +45,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      graded code, meeting all three code readers; every loglik kernel at K
      = 9, 12 and 16 (the wide variant) on the ragged shape; the deep-link kernel (csrc/deep_link.cu) at paper config 5
      (5,520 x 680, K = 2, link width 128, on its own code), at 10,240 x
-     1,024 with K = 4, at 777 x 301 with K = 1 and 8, at width 256, through
-     its autograd op (a non-uniform cotangent, a sample axis of 3 with per-
+     1,024 with K = 4, at 777 x 301 with K = 1 and 8, at widths 256, 384
+     and 512 (the cluster kernel, each timed on config 5), through its
+     autograd op (a non-uniform cotangent, a sample axis of 3 with per-
      sample and shared d) against the CPU, at the extreme points
      (|logit| > 30, rows with no observed cell, every cell right or wrong),
-     and at widths 384 and 512 (the kernel's wide variant) on config 5,
-     and at width 256 on 777 x 301 over 8 draws of its own (each s_theta
-     and s_d row past 1e-4 explained by the relu flips its pairs can
-     carry, counted in f64);
+     at width 640 (the kernel's wide variant) on 777 x 301, and at width
+     256 on 777 x 301 over 8 draws of its own (each s_theta and s_d row
+     past 1e-4 explained by the relu flips its pairs can carry, counted in
+     f64); every deep check launches the kernel twice, bitwise equal;
      the deep link's f32 kernel (csrc/deep_link_f32.cu, row 15f, the deep
      HMC potential's: split-bf16 products on the tensor cores at H = 128,
      whose SASS must hold HMMA lines) against the plain f32 version at the
@@ -90,7 +91,7 @@ and the plain link: the first layer only) with both step medians; 4
 minibatch epochs at 4,096 (2 steps, the second padded with 2,672 empty
 rows) and 3 IWAE steps (S = 5) on the plain link (no kernel at all), the
 held-out IWAE-100 with its peak memory; profiles of the three; 5 fused
-steps at link width 384 (the deep kernel's wide variant). Then the HMC
+steps at link width 384 (the deep kernel's cluster of 8). Then the HMC
 baseline (vibo_tpu_torch/models/hmc.py, fixed trajectories, 4 chains,
 target accept 0.65), each run through run_hmc (its iterations replayed
 from CUDA graphs, hmc.Sampler; the MAP init one graph) with its kernel
@@ -236,11 +237,14 @@ function's special functions whatever kernel computes it (the SASS's
 count beside it), as a 2PL training cell counts TRAIN_2PL_CELL_MUFU and
 a 2PL masked forward cell MASKED_FWD_2PL_CELL_MUFU. The
 build phase also prints each one-pass kernel's and the masked forward's
-and VJP's registers, spills and blocks an SM; the deep kernel's at
-H = 128 are in its config-5 check. The deep kernel's operations are the
-larger of its three products on the bf16 tensor cores (6 H^2 a pair at 989
-TFLOP/s) and its f32 work outside them (DEEP_PAIR_OPS a pair at 67
-TFLOP/s); its MUFU lines run once a pair (at H = 128 a lane's serve two).
+and VJP's registers, spills and blocks an SM; the deep kernel's (and at
+H = 256, 384, 512 its cluster size and resident clusters) are in its
+timed checks. The deep kernel's operations are the larger of its three
+products on the bf16 tensor cores (6 H^2 a pair at 989 TFLOP/s) and its
+f32 work outside them (DEEP_PAIR_OPS a pair at 67 TFLOP/s); its MUFU
+lines run once a pair (at H = 128 a lane's serve two; in the cluster
+kernel each of a pair's lanes in every CTA runs them for the pair: the
+bound counts them once).
 """
 
 from __future__ import annotations
@@ -275,7 +279,8 @@ FIRST_LAYER = ("first_layer_fwd", "first_layer_bwd")
 FIRST_LAYER_F32 = ("first_layer_fwd_f32", "first_layer_bwd_f32")
 F32_STEPS = 10                            # full-batch steps at f32 (JAX's CLI)
 WIDE_K = (9, 12, 16)                      # K past the instantiated 1..8
-WIDE_H = (384, 512)                       # deep widths of the wide variant
+CLUSTER_H = (256, 384, 512)               # deep widths of the cluster kernel
+DEEP_WIDE_H = 640                         # a deep width of the wide variant
 FAMILIES = ("grm", "gpcm")                # the polytomous links
 GPCM_FIXED_C = 8                          # GPCM's compile-time C up to here
 SPLIT_TAIL = (10240, 700)                 # 6 item splits, the last shorter
@@ -320,6 +325,11 @@ DEEP_F32_PAIR_MUFU = 3
 # product)
 DEEP_SPLIT_PAIR_TC_OPS = lambda h: 36 * h * h   # noqa: E731
 DEEP_SPLIT_PAIR_OPS = lambda h: 11 * h + 3 * h * h // 16   # noqa: E731
+# row 15's kernel at width h, as its SASS names it
+DEEP_KERNEL = lambda h: (   # noqa: E731
+    "deep_link_kernelILi128E" if h == 128 else
+    f"deep_link_cluster_kernelILi{h}E" if h in CLUSTER_H else
+    "deep_link_wide_kernelILi32E")
 # row 15f's kernel at width h, as its SASS names it
 DEEP_F32_KERNEL = lambda h: (   # noqa: E731
     "deep_link_f32_mma_kernel" if h == 128 else
@@ -471,7 +481,7 @@ DEVICE_KERNELS = {
     "loglik_3pl_train": r"loglik_train_kernel<vibo::Link3PL",
     "loglik_grm_train": r"loglik_categorical_kernel<vibo::LinkGRM",
     "loglik_gpcm_train": r"loglik_categorical_kernel<vibo::LinkGPCM",
-    "deep_link_train": r"deep_link_kernel<",
+    "deep_link_train": r"deep_link_(cluster_)?kernel<",
     "deep_link_f32_train": r"deep_link_f32_(mma_)?kernel[<(]",
     "masked_loglik_2pl_fwd": r"masked_fwd_kernel<vibo::Link2PL",
     "masked_loglik_2pl_bwd": r"masked_bwd_kernel<vibo::Link2PL",
@@ -501,7 +511,8 @@ FIRST_LAYER_REPEATS = 200
 def ptxas_lines(log: str) -> list:
     """ptxas's register and spill lines of a build log, each after the
     kernel it describes (kernel<link, K> for the templated loglik
-    kernels, deep_link_kernel<H=...>, kernel<N> for one integer parameter:
+    kernels, deep_link_kernel<H=...> and deep_link_cluster_kernel<H=...>,
+    kernel<N> for one integer parameter:
     the first layer's bf16 parts, the wide deep kernel's students)."""
     out = []
     for ln in log.splitlines():
@@ -509,7 +520,8 @@ def ptxas_lines(log: str) -> list:
             name = ln.split("Function properties for", 1)[1].strip()
             m = re.search(r"([a-z][a-z_]*_kernel)I(?:N4vibo\d+)?(\w+?)ELi(\d+)E",
                           name)
-            deep = re.search(r"(deep_link_kernel)ILi(\d+)E", name)
+            deep = re.search(r"(deep_link_(?:cluster_)?kernel)ILi(\d+)E",
+                             name)
             one = re.search(r"([a-z][a-z_]*_kernel)ILi(\d+)E", name)
             out.append(f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m
                        else f"{deep.group(1)}<H={deep.group(2)}>" if deep
@@ -638,12 +650,14 @@ def occupancy(family: str, k: int, c: int = 0) -> dict:
     call of `family` at (K, C) launches first, and its resident blocks an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its block size and
     shared memory), from the library's occupancy entry point; family "deep":
-    deep_link_kernel<H> at link width H = k (128 or 256); "masked_fwd_2pl",
+    the kernel of link width H = k (deep_link_kernel<128>, or
+    deep_link_cluster_kernel<H> at 256, 384, 512, also its cluster size and
+    the clusters the card holds at once); "masked_fwd_2pl",
     "masked_bwd_2pl" (and 3pl): the masked forward's or VJP's kernel, c = 0
     the dense reader, 1 int8."""
     import ctypes
     from vibo_tpu_torch.ops import _build
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     if family.startswith("masked_"):
         _, direction, link = family.split("_")
         fn, lib = _build.bind("masked_loglik.cu",
@@ -664,8 +678,11 @@ def occupancy(family: str, k: int, c: int = 0) -> dict:
                               [ctypes.c_int] * 2 + [ctypes.c_void_p])
         rc = fn(("2pl", "3pl").index(family), k, out)
     _build.check(rc, lib, f"occupancy query of {family} K={k} C={c}")
-    return {"registers": out[0], "local_bytes": out[1],
-            "blocks_per_sm": out[2]}
+    occ = {"registers": out[0], "local_bytes": out[1],
+           "blocks_per_sm": out[2]}
+    if family == "deep":
+        occ.update(cluster_size=out[3], resident_clusters=out[4])
+    return occ
 
 
 def inert_rows(pk, ll, dth) -> int:
@@ -2116,8 +2133,9 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
                timed: bool = False, link=None, theta=None, d=None,
                f32_dots: bool = False) -> dict:
     """The deep-link kernel (csrc/deep_link.cu; f32_dots: row 15f,
-    csrc/deep_link_f32.cu, against the plain version's f32 mode, a second
-    launch bitwise equal to the first) against its plain version on
+    csrc/deep_link_f32.cu, against the plain version's f32 mode; either
+    launched a second time, bitwise equal to the first) against its plain
+    version on
     the code pk: ll, s_theta, s_d, dW2, db2, dwo and dbo. Both round the
     same operands to bf16 (or, f32_dots, neither does: at H = 128 the
     kernel sums the six products of each operand's three bf16 parts, f32
@@ -2145,7 +2163,7 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
     args = deep_args(link, theta, d, pk)
     got = pd.train_cuda(*args, f32_dots=f32_dots)
     ref = pd.fused_deep_plain(*args, f32_dots=f32_dots)
-    again = pd.train_cuda(*args, f32_dots=True) if f32_dots else got
+    again = pd.train_cuda(*args, f32_dots=f32_dots)
     torch.cuda.synchronize()
     names = ("ll", "s_theta", "s_d", "dW2", "db2", "dwo", "dbo")
     by_output = {n: rel_err(x, y) for n, x, y in zip(names, got, ref)}
@@ -2230,15 +2248,16 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
         r["plain_ms"] = timer(lambda: pd.fused_deep_plain(*args))
         r["library_ms"] = None
         pairs = bsz * m
-        # H = 128, 256: their own instantiations; other widths the wide
-        # variant (32 students a block up to H = 832). At H = 128 a lane's
-        # special-function lines serve its two pairs (rows g and g + 8 of
-        # its row tile); elsewhere one lane takes a pair
-        mufu = roof.mufu_lines("deep_link.cu", f"deep_link_kernelILi{h}E"
-                               if h in (128, 256) else
-                               "deep_link_wide_kernelILi32E")
+        # H = 128: one block a student tile; 256, 384, 512: a cluster;
+        # other widths the wide variant (32 students a block up to H =
+        # 832). At H = 128 a lane's special-function lines serve its two
+        # pairs (rows g and g + 8 of its row tile); elsewhere a lane's
+        # serve one pair (in the cluster kernel every lane of the pair in
+        # every CTA runs them: the function's count is taken once)
+        mufu = roof.mufu_lines("deep_link.cu", DEEP_KERNEL(h))
         if h == 128:
             mufu /= 2
+        if h == 128 or h in CLUSTER_H:
             r["occupancy"] = occupancy("deep", h)
         # inputs t1, t2, W2, b2, wo, bo and the code read once; ll, s_theta,
         # s_d, dW2, db2, dwo, dbo written once
@@ -2352,10 +2371,12 @@ def deep_extremes(gen) -> dict:
 def deep_kernel_checks(timer, roof, data: dict, gen) -> dict:
     """Every check of the deep-link kernel (phase 3): config 5 on its own
     code (timed), the 10,240 x 1,024 table shape at K = 4 (timed), the
-    ragged 777 x 301 at K = 1 and 8, H = 256 (timed), the autograd op with
-    a non-uniform cotangent and with a sample axis of 3 (per-sample and
-    shared d), the extreme points, and the H = 256 check at 777 x 301 on
-    DEEP_DRAWS draws of its own (deep_draws)."""
+    ragged 777 x 301 at K = 1 and 8, the cluster kernel at H = 256, 384 and
+    512 on config 5 (timed) and 777 x 301, the wide variant at H = 640 on
+    777 x 301, the autograd op with a non-uniform cotangent and with a
+    sample axis of 3 (per-sample and shared d), the extreme points, and the
+    H = 256 check at 777 x 301 on DEEP_DRAWS draws of its own
+    (deep_draws)."""
     big = torch.randint(0, 3, (B, M), generator=gen, device="cuda",
                         dtype=torch.int8)
     odd = torch.randint(0, 3, ODD, generator=gen, device="cuda",
@@ -2365,14 +2386,19 @@ def deep_kernel_checks(timer, roof, data: dict, gen) -> dict:
         "table_shape_K4": check_deep(timer, roof, big, gen, k=K, timed=True),
         "odd_K1": check_deep(timer, roof, odd, gen, k=1),
         "odd_K8": check_deep(timer, roof, odd, gen, k=8),
+        # the cluster kernel (W2 and dW2 outgrow one SM)
         "config5_H256": check_deep(timer, roof, data["packed"], gen, h=256,
                                    timed=True),
         "odd_H256": check_deep(timer, roof, odd, gen, h=256),
-        # the wide variant (W2 outgrows a block's shared memory)
         "config5_H384": check_deep(timer, roof, data["packed"], gen, h=384,
                                    timed=True),
-        "config5_H512": check_deep(timer, roof, data["packed"], gen, h=512),
+        "config5_H512": check_deep(timer, roof, data["packed"], gen, h=512,
+                                   timed=True),
         "odd_H384_K8": check_deep(timer, roof, odd, gen, k=8, h=384),
+        "odd_H512": check_deep(timer, roof, odd, gen, h=512),
+        # the wide variant (past the cluster's shared memory and registers)
+        f"odd_H{DEEP_WIDE_H}": check_deep(timer, roof, odd, gen,
+                                          h=DEEP_WIDE_H),
         "cotangent": check_deep_op(odd, gen),
         "S3_per_sample": check_deep_op(odd, gen, 3),
         "S3_shared_d": check_deep_op(odd, gen, 3, shared_d=True),
@@ -5053,7 +5079,9 @@ def main() -> None:
     emit({"phase": "kernel_check", "kernel": "deep_link_train",
           "dims": {"config5": [DEEP_B, DEEP_M, DEEP_K, DEEP_H],
                    "table_shape": [B, M, K, DEEP_H], "odd": list(ODD),
-                   "H256": [DEEP_B, DEEP_M, DEEP_K, 256]},
+                   **{f"H{h}": [DEEP_B, DEEP_M, DEEP_K, h]
+                      for h in CLUSTER_H},
+                   f"odd_H{DEEP_WIDE_H}": [*ODD, DEEP_K, DEEP_WIDE_H]},
           "results": deep_checks, "card": smi})
     deep_f32 = deep_f32_checks(timer, roof, deep, gen)
     emit({"phase": "kernel_check", "kernel": "deep_link_f32_train (row 15f)",
@@ -5118,9 +5146,9 @@ def main() -> None:
     fused["deep_default"] = fused_phase(
         "deep_default", deep_config(False), deep, smi, FIRST_LAYER,
         *DEEP_DEFAULT_FUSED, must_rise=False, eager=deep_default)
-    # a width of the deep kernel's wide variant, a few fused steps
+    # a width of the deep kernel's cluster of 8, a few steps
     full["deep_H384"] = full_batch_phase(
-        "deep_H384", deep_config(True, WIDE_H[0]), deep, smi, deep_path,
+        "deep_H384", deep_config(True, CLUSTER_H[1]), deep, smi, deep_path,
         deep_path, 5, must_rise=False)
     emit({"phase": "deep_full_batch_paths", "card": smi,
           "fused_step_ms_median": full["deep"]["step_ms_median"],
@@ -5232,7 +5260,8 @@ def main() -> None:
         full["deep"]["deep_link_train"], dc,
         table_shape=deep_checks["table_shape_K4"],
         h256=deep_checks["config5_H256"],
-        h384_wide=deep_checks["config5_H384"],
+        h384=deep_checks["config5_H384"],
+        h512=deep_checks["config5_H512"],
         library_note="no single PyTorch call gives the deep link's loglik "
         "and its gradients"))
     kernels.append(kernel_entry(

@@ -150,11 +150,13 @@ def test_op_sample_axis_and_ragged_shape(lead, shared_d, b, m):
         _close(got, want, 1e-3)
 
 
+@pytest.mark.parametrize("h", [256, 384, 512])
 @pytest.mark.parametrize("f32_dots,tol", [(False, 1e-3), (True, 1e-5)])
-def test_op_matches_pallas_at_width_384(f32_dots, tol):
-    """A width the CUDA kernel takes through its wide variant (W2 outgrows
-    a block's shared memory): the op's contract does not depend on H."""
-    for got, want in _op_case(f32_dots, 24, 70, seed=5, h=384):
+def test_op_matches_pallas_at_width_384(h, f32_dots, tol):
+    """384 and the other widths the CUDA kernel takes on a thread-block
+    cluster (256, 512: W2 and dW2 outgrow one SM): the op's contract does
+    not depend on H."""
+    for got, want in _op_case(f32_dots, 24, 70, seed=5, h=h):
         _close(got, want, tol)
 
 

@@ -14,88 +14,111 @@
 // and the sums ll (B,), s_theta = sum_j dpre1 (B, H), s_d = sum_i dpre1
 // (M, H), dW2 = sum bf16(h1)^T bf16(dpre2) (H, H), db2 = sum dpre2,
 // dwo = sum h2 dlogit, dbo = sum dlogit. The (B, M, H) activations never
-// leave the SM. The relu masks use the f32 pre-activations; the products'
+// leave the chip. The relu masks use the f32 pre-activations; the products'
 // operands are rounded to bf16 (round to nearest even) and accumulate in f32,
 // the rounding points of the Pallas kernel.
 //
 // What bounds it on an H100: three products of 2 H^2 operations a pair on
 // the bf16 tensor cores (6 H^2 a pair: 3.7e11 at 5,520 x 680 and H = 128,
-// ~0.37 ms at 989 TFLOP/s), against about 17 H f32 operations a pair of
-// elementwise work outside them (~0.12 ms at 67 TFLOP/s), three
-// special-function results a pair (exp, log1p, the reciprocal of 1 + e) and
-// ~10 MB of traffic (a few microseconds): the tensor-core operations.
+// ~0.37 ms at 989 TFLOP/s; 1.49, 3.36 and 5.97 ms at H = 256, 384 and
+// 512), against about 17 H f32 operations a pair of elementwise work
+// outside them (~0.12 ms at 67 TFLOP/s at H = 128), three special-function
+// results a pair (exp, log1p, the reciprocal of 1 + e) and ~10 MB of
+// traffic (a few microseconds): the tensor-core operations.
 //
-// Common to both fixed widths: a block of 512 threads owns P students (64
-// at H = 128, 32 at H = 256) and walks a contiguous run of items one at a
-// time (grid y splits the items so that the blocks fill the SMs); an item's
-// P pairs are the M side of the three products. W2 is staged once per block
-// in shared memory as bf16. The tensor cores do not round their f32
-// accumulation to nearest, so each item's dW2 product starts from a zero
-// accumulator and is added to the running sum with f32 adds; the forward
-// product and dh1 are each one chain over k, 16 at a time. Every sum across
-// blocks (ll and s_theta over the item splits, s_d over the student tiles,
-// the weight gradients over all blocks) is a per-block partial that a second
-// kernel adds in block order: no atomics, deterministic.
+// Common to every width: a block of 512 threads walks a contiguous run of
+// items one at a time for its students (grid y splits the items so that the
+// blocks fill the SMs); an item's pairs are the M side of the three
+// products, on inline-PTX mma.sync m16n8k16 (bf16 in, f32 accumulate) from
+// ldmatrix (.trans where an operand is read transposed). W2 is read from
+// device memory once a block, rounded to bf16 into shared memory, and the
+// block's running sum of dW2 stays in registers until the block ends. The
+// tensor cores do not round their f32 accumulation to nearest, so each
+// item's dW2 product starts from a zero accumulator and is added to the
+// running sum with f32 adds (a chain over the block's whole item run drifted
+// by 3e-4 to 9e-4 of dW2's largest element against the plain version). Every
+// sum across blocks (ll and s_theta over the item splits, s_d over the
+// student tiles, the weight gradients over all blocks) is a per-block
+// partial that a second kernel adds in block order: no atomics,
+// deterministic.
 //
-// H = 128 (paper config 5), deep_link_kernel<128>: inline-PTX mma.sync
-// m16n8k16 (bf16 in, f32 accumulate; the instruction nvcuda::wmma's 16x16x16
-// step compiles to, twice) from ldmatrix, .trans where an operand is read
-// transposed (W2 for pre2, h1^T and dpre2 for dW2). Warp w owns 16 pairs x
-// 32 columns of each (P x H) product, so pre2 and dh1 stay in the
-// accumulators: a lane sums relu(pre2 + b2) wo over its 8 columns, its quad
-// over 32, and the row tile's four column groups through a 64 x 4 array in
-// a fixed order; dlogit, dpre2 (bf16 to shared), db2 and dwo are formed in
-// registers; dh1 is masked by the f32 pre-activations of the lane's own h1
-// (a bit mask kept from building it), s_theta accumulates in shared memory
-// at the lane's own positions and s_d is reduced over the warp's rows with
-// shuffles. h1 and dpre2 are double-buffered by item parity: an item has one
-// block-wide barrier (dpre2 ready) and two of its row tile's 128 threads (h1
-// ready, logit partials), against six block-wide ones and two f32 staging
-// passes in the WMMA design it replaced. dW2's running sum stays in
-// registers (32 a lane). 126 registers a thread, no spill, one block an SM.
-// What holds it back (estimates from the code, not measured): shared-memory
-// traffic of ~0.6 MB an item for a block, each warp loading its own A and B
-// fragments through ldmatrix (a W2 tile is read by the four row tiles, an h1
-// or dpre2 row tile by the four column groups), against ~0.8 us of tensor
-// work an item at one SM's share of the peak; and one block of 16 warps an
-// SM, whose phases wait at the barriers with nothing else to run. wgmma
-// (B read once per warpgroup from shared memory) on this register layout is
-// the next step.
+// H = 128 (paper config 5), deep_link_kernel<128>: one block owns P = 64
+// students and all of W2 (34 KB bf16) and dW2 (32 floats a lane). Warp w
+// owns 16 pairs x 32 columns of each (P x H) product, so pre2 and dh1 stay
+// in the accumulators: a lane sums relu(pre2 + b2) wo over its 8 columns,
+// its quad over 32, and the row tile's four column groups through a 64 x 4
+// array in a fixed order; dlogit, dpre2 (bf16 to shared), db2 and dwo are
+// formed in registers; dh1 is masked by the f32 pre-activations of the
+// lane's own h1 (a bit mask kept from building it), s_theta accumulates in
+// shared memory at the lane's own positions and s_d is reduced over the
+// warp's rows with shuffles. h1 and dpre2 are double-buffered by item
+// parity: an item has one block-wide barrier (dpre2 ready) and two of its
+// row tile's 128 threads (h1 ready, logit partials). 126 registers a
+// thread, no spill, one block an SM. What holds it back (estimates from the
+// code, not measured): shared-memory traffic of ~0.6 MB an item for a
+// block, each warp loading its own A and B fragments through ldmatrix,
+// against ~0.8 us of tensor work an item at one SM's share of the peak; and
+// one block of 16 warps an SM, whose phases wait at the barriers with
+// nothing else to run.
 //
-// H = 256, deep_link_kernel<256>: plain WMMA from shared memory. Per item:
-// build bf16(h1) (P x H) in shared memory; the forward product h1 W2
-// (nvcuda::wmma, 16x16x16 bf16 -> f32) goes to an f32 staging tile; a row
-// pass (TPR threads a pair) reduces the logit and takes ll and dlogit; a
-// column pass (a thread owns one of the H columns for 16 pairs) forms dpre2
-// as bf16 and sums db2 and dwo in registers; then dW2 += h1^T dpre2 and
-// dh1 = dpre2 W2^T, whose column pass applies the f32 h1 mask and sums
-// s_theta (registers, the block owns its students) and the item's s_d over
-// the block's pairs. The dW2 sums do not fit in registers, and each warp
-// adds its tiles into the block's own partial in device memory (a slice no
-// other block touches).
+// H = 256, 384, 512, deep_link_cluster_kernel<H>: W2 in bf16 (128 KB to
+// 512 KB) and dW2 in f32 (256 KB to 1 MB) outgrow one SM, so a thread-block
+// cluster of C CTAs (4, 8 and 16: 16 is a non-portable size) shares P = 32
+// students and the item, and CTA r owns a panel of N = H / C columns (64,
+// 48, 32). It holds W2[:, panel] (pre2's B) and W2[panel, :] (dh1's B) in
+// shared memory and dW2[:, panel]'s running sum in registers (32, 36 and
+// 32 floats a lane), and computes for the item:
+//   - pre2[:, panel] = h1 W2[:, panel]: each warp 16 pairs x N / 2
+//     columns over a quarter of k, the four partial sums added in order
+//     (+ b2) by an element pass (16 lanes a pair, 4 or 2 columns a lane);
+//   - its P partial sums of the logit, sent to every CTA and added there in
+//     rank order (every CTA gets the same logit and dlogit);
+//   - dpre2[:, panel] (bf16), db2, dwo, and bf16(h1) of the next item's
+//     k-slice (the panel's columns of h1, with its relu mask kept in
+//     registers), both sent to every CTA's whole (P x H) copy;
+//   - dW2[:, panel] += h1^T dpre2[:, panel] while the panels travel (its
+//     operands are local);
+//   - dh1[:, panel] = dpre2 W2[panel, :]^T over the whole gathered dpre2
+//     (quarters of n added in order), masked into s_theta and, summed over
+//     the pairs with shuffles, the item's s_d.
+// What crosses the CTAs is bf16 panels and P floats, moved by the copy
+// engine (cp.async.bulk shared::cta -> shared::cluster) onto the receiver's
+// mbarrier: P H 2 (C - 1) / C bytes of h1 and as many of dpre2 an item a
+// CTA. h1 and dpre2 are kept panel-major (a panel is one contiguous copy;
+// at N = 32 its rows are XOR-swizzled instead of padded to fit the shared
+// memory). An item has two such waits and five block-wide barriers, no
+// cluster barrier. W2 is read once a CTA and dW2 written once a CTA, never
+// an item. What holds it back (times in PERF.md; this split is estimated
+// from the code, not measured): shared-memory traffic of the mma.sync
+// operands and the split-k partials (~0.6 MB an item a CTA at H = 256, as
+// at H = 128 for half the products), and at C = 8-16 the ~43-60 KB an item
+// a CTA through distributed shared memory.
 //
-// Every other width (H % 16 == 0; the op admits H % 128 == 0, as JAX's
-// does) takes the wide variant, deep_link_wide_kernel: at H = 384, W2 alone
-// (384 x 392 bf16, 301 KB) outgrows a block's 227 KB of shared memory. A
-// prologue kernel rounds W2 to bf16 once a call into the scratch, where it
-// stays L2-resident (0.3 MB at H = 384, 0.5 MB at 512), and both products
-// that read W2 load their B fragments straight from there. H is a run-time
-// value: a block of 512 threads owns P = 32 students (16 where 32 do not fit
-// the shared memory, H > 832), the products' tiles go round-robin over the
-// warps, the row pass takes a warp a pair and the column passes a thread a
-// column (db2, dwo in shared memory); s_theta and dW2 are added into the
-// block's own partials in device memory every item. The rounding points and
-// the per-item fresh dW2 fragment are those of the fixed widths. Its time is
-// that of a repair (PERF.md), not a design for speed.
+// Every other width (any other H % 16 == 0; of those the op admits, H %
+// 128 == 0 as JAX's, 640 and up) takes the wide variant,
+// deep_link_wide_kernel: a prologue kernel rounds W2 to bf16 once a call
+// into the scratch, where it stays L2-resident, and both products that read
+// W2 load their B fragments straight from there. H is a run-time value: a
+// block of 512 threads owns P = 32 students (16 where 32 do not fit the
+// shared memory, H > 832), the products' tiles (nvcuda::wmma) go
+// round-robin over the warps, the row pass takes a warp a pair and the
+// column passes a thread a column (db2, dwo in shared memory); s_theta and
+// dW2 are added into the block's own partials in device memory every item.
+// The rounding points and the per-item fresh dW2 fragment are those of the
+// other kernels. Its time is that of a repair (PERF.md), not a design for
+// speed: at these widths the cluster's shared memory no longer holds its
+// panels and dW2 no longer fits a cluster of 16 CTAs' registers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -108,37 +131,9 @@ __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
 }
 
+// The layout of deep_link_kernel<H>: H = 128 only (below)
 template <int H>
-struct Cfg {
-  static constexpr int P = 32;                   // students a block, pairs an item
-  static constexpr int LD = H + 8;               // bf16 row stride (ldm % 8 == 0)
-  static constexpr int TPR = THREADS / P;        // row pass: threads a pair
-  static constexpr int LDF = H + TPR;            // f32 row stride: row pass conflict-free
-  static constexpr int RPT = P * H / THREADS;    // column pass: pairs a thread
-  static constexpr int GROUPS = THREADS / H;     // column pass: row groups
-  static constexpr int TR = P / 16;              // tile rows of a (P x H) product
-  static constexpr int WPR = WARPS / TR;         // warps a tile row
-  static constexpr int TCW = H / 16 / WPR;       // tile columns a warp
-  static constexpr int TCOLS = H / 16;           // tile columns of dW2
-  static constexpr int DW2_TILES = TCOLS * TCOLS / WARPS;   // a warp
-  // dynamic shared memory, each region 128-byte aligned
-  static constexpr size_t W2_OFF = 0;
-  static constexpr size_t H1_OFF = W2_OFF + align128(sizeof(__nv_bfloat16) * H * LD);
-  static constexpr size_t DP_OFF = H1_OFF + align128(sizeof(__nv_bfloat16) * P * LD);
-  static constexpr size_t ST_OFF = DP_OFF + align128(sizeof(__nv_bfloat16) * P * LD);
-  static constexpr size_t B2_OFF = ST_OFF + align128(sizeof(float) * P * LDF);
-  static constexpr size_t WO_OFF = B2_OFF + align128(sizeof(float) * H);
-  static constexpr size_t DL_OFF = WO_OFF + align128(sizeof(float) * H);
-  static constexpr size_t RED_OFF = DL_OFF + align128(sizeof(float) * P);
-  static constexpr size_t DBO_OFF =
-      RED_OFF + align128(sizeof(float) * 2 * H * (GROUPS > 1 ? GROUPS - 1 : 1));
-  static constexpr size_t CODE_OFF = DBO_OFF + align128(sizeof(float) * WARPS);
-  static constexpr size_t SMEM = CODE_OFF + align128(P * CHUNK);
-  static_assert(RPT * GROUPS == P && GROUPS * H == THREADS, "column pass");
-  static_assert(TPR * P == THREADS && WPR * TR == WARPS, "row pass, tiles");
-  static_assert(DW2_TILES * WARPS == TCOLS * TCOLS, "dW2 tiles");
-  static_assert(SMEM <= 232448, "shared memory of one block");
-};
+struct Cfg;
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                              wmma::row_major>;
@@ -174,257 +169,14 @@ struct Parts {
   }
 };
 
+// The one-block kernel: H = 128 only (below)
 template <int H>
 __global__ void __launch_bounds__(THREADS, 1)
 deep_link_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
                  const float* __restrict__ w2, const float* __restrict__ b2,
                  const float* __restrict__ wo, const float* __restrict__ bo,
                  const int8_t* __restrict__ pk, float* __restrict__ scratch,
-                 int B, int M, int items_per_split) {
-  using C = Cfg<H>;
-  constexpr int P = C::P, LD = C::LD, LDF = C::LDF, RPT = C::RPT,
-                TPR = C::TPR, TCW = C::TCW;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* w2_s = reinterpret_cast<__nv_bfloat16*>(smem + C::W2_OFF);
-  __nv_bfloat16* h1_s = reinterpret_cast<__nv_bfloat16*>(smem + C::H1_OFF);
-  __nv_bfloat16* dp_s = reinterpret_cast<__nv_bfloat16*>(smem + C::DP_OFF);
-  float* st_s = reinterpret_cast<float*>(smem + C::ST_OFF);
-  float* b2_s = reinterpret_cast<float*>(smem + C::B2_OFF);
-  float* wo_s = reinterpret_cast<float*>(smem + C::WO_OFF);
-  float* dl_s = reinterpret_cast<float*>(smem + C::DL_OFF);
-  float* red_s = reinterpret_cast<float*>(smem + C::RED_OFF);
-  float* dbo_s = reinterpret_cast<float*>(smem + C::DBO_OFF);
-  int8_t* code_s = reinterpret_cast<int8_t*>(smem + C::CODE_OFF);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tile = blockIdx.x, split = blockIdx.y;
-  const int tiles = gridDim.x, splits = gridDim.y;
-  const int blk = tile * splits + split;
-  const int b0 = tile * P;
-  const int j0 = split * items_per_split;
-  const int j1 = min(M, j0 + items_per_split);
-  Parts parts(scratch, B, M, H, tiles, splits);
-  float* dw2_blk = parts.dw2 + static_cast<size_t>(blk) * H * H;
-
-  for (int i = tid; i < H * H; i += THREADS)
-    w2_s[(i / H) * LD + i % H] = __float2bfloat16(w2[i]);
-  for (int i = tid; i < H; i += THREADS) {
-    b2_s[i] = b2[i];
-    wo_s[i] = wo[i];
-  }
-  const float bov = bo[0];
-
-  // column passes: this thread owns column `col` of pairs r0 .. r0 + RPT
-  const int col = tid % H, grp = tid / H, r0 = grp * RPT;
-  float t1r[RPT], sth[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int row = b0 + r0 + k;
-    t1r[k] = row < B ? t1[static_cast<size_t>(row) * H + col] : 0.f;
-    sth[k] = 0.f;
-  }
-  const float b2c = b2[col], woc = wo[col];
-  float dwo_acc = 0.f, db2_acc = 0.f;
-  // row pass: this thread takes columns q, q + TPR, ... of pair `prow`
-  const int prow = tid / TPR, q = tid % TPR;
-  float ll_acc = 0.f, dbo_acc = 0.f;
-  // the warp's tiles of a (P x H) product: rows wr0.., columns wc0..
-  const int wr0 = (warp / C::WPR) * 16, wc0 = (warp % C::WPR) * TCW * 16;
-
-  float t2_next = j0 < j1 ? t2[static_cast<size_t>(j0) * H + col] : 0.f;
-  for (int j = j0; j < j1; ++j) {
-    const int jj = (j - j0) % CHUNK;
-    if (jj == 0) {
-      for (int i = tid; i < P * CHUNK; i += THREADS) {
-        const int row = b0 + i / CHUNK, item = j + i % CHUNK;
-        code_s[i] = (row < B && item < j1)
-                        ? pk[static_cast<size_t>(row) * M + item] : int8_t(0);
-      }
-    }
-    const float t2c = t2_next;
-    if (j + 1 < j1) t2_next = t2[static_cast<size_t>(j + 1) * H + col];
-
-    // 1. bf16(h1) of the item's P pairs
-#pragma unroll
-    for (int k = 0; k < RPT; ++k)
-      h1_s[(r0 + k) * LD + col] = __float2bfloat16(fmaxf(t1r[k] + t2c, 0.f));
-    __syncthreads();
-
-    // 2. h1 W2 -> staging (b2 is added by the passes that read it)
-    {
-      FragC acc[TCW];
-#pragma unroll
-      for (int t = 0; t < TCW; ++t) wmma::fill_fragment(acc[t], 0.f);
-#pragma unroll 2
-      for (int k0 = 0; k0 < H; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, h1_s + wr0 * LD + k0, LD);
-#pragma unroll
-        for (int t = 0; t < TCW; ++t) {
-          FragB b;
-          wmma::load_matrix_sync(b, w2_s + k0 * LD + wc0 + 16 * t, LD);
-          wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < TCW; ++t)
-        wmma::store_matrix_sync(st_s + wr0 * LDF + wc0 + 16 * t, acc[t], LDF,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 3. row pass: logit, ll and dlogit of pair `prow`
-    {
-      const float* row = st_s + prow * LDF;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int c = q; c < H; c += TPR)
-        acc = fmaf(fmaxf(row[c] + b2_s[c], 0.f), wo_s[c], acc);
-#pragma unroll
-      for (int o = TPR / 2; o > 0; o >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (q == 0) {
-        const float logit = acc + bov;
-        const float cf = static_cast<float>(code_s[prow * CHUNK + jj]);
-        const float m = fminf(cf, 1.f), r = fmaxf(cf - 1.f, 0.f);
-        const float e = expf(-fabsf(logit));
-        const float sp = log1pf(e) + fmaxf(logit, 0.f);   // softplus(logit)
-        ll_acc += -m * (r > 0.5f ? sp - logit : sp);
-        const float inv = 1.f / (1.f + e);
-        const float s = logit >= 0.f ? inv : 1.f - inv;   // sigmoid(logit)
-        const float dl = m * (r - s);
-        dbo_acc += dl;
-        dl_s[prow] = dl;
-      }
-    }
-    __syncthreads();
-
-    // 4. column pass: dpre2 (bf16 to shared), db2 and dwo
-#pragma unroll 8
-    for (int k = 0; k < RPT; ++k) {
-      const int r = r0 + k;
-      const float pre2 = st_s[r * LDF + col] + b2c;
-      const float dl = dl_s[r];
-      dwo_acc = fmaf(fmaxf(pre2, 0.f), dl, dwo_acc);
-      const float dp = pre2 > 0.f ? dl * woc : 0.f;
-      db2_acc += dp;
-      dp_s[r * LD + col] = __float2bfloat16(dp);
-    }
-    __syncthreads();
-
-    // 5. dW2 += h1^T dpre2, and dh1 = dpre2 W2^T -> staging. The item's
-    // product goes to a fresh fragment (a chain of P/16 tensor-core steps)
-    // and is added to the running sum with f32 adds: the tensor cores do
-    // not round their f32 accumulation to nearest, so a chain over the
-    // block's whole item run would drift (measured 3e-4 to 9e-4 of dW2's
-    // largest element against the plain version).
-    // warp w owns dW2's tiles w * DW2_TILES .. + DW2_TILES in row-major
-    // tile order, added into the block's own partial
-    for (int i = 0; i < C::DW2_TILES; ++i) {
-      const int tr = (warp * C::DW2_TILES + i) / C::TCOLS,
-                tc = (warp * C::DW2_TILES + i) % C::TCOLS;
-      float* dst = dw2_blk + static_cast<size_t>(tr * 16) * H + tc * 16;
-      FragC part;
-      wmma::fill_fragment(part, 0.f);
-#pragma unroll
-      for (int p0 = 0; p0 < P; p0 += 16) {
-        FragAT a;
-        FragB b;
-        wmma::load_matrix_sync(a, h1_s + p0 * LD + tr * 16, LD);
-        wmma::load_matrix_sync(b, dp_s + p0 * LD + tc * 16, LD);
-        wmma::mma_sync(part, a, b, part);
-      }
-      if (j > j0) {
-        FragC acc;
-        wmma::load_matrix_sync(acc, dst, H, wmma::mem_row_major);
-#pragma unroll
-        for (int e = 0; e < part.num_elements; ++e) part.x[e] += acc.x[e];
-      }
-      wmma::store_matrix_sync(dst, part, H, wmma::mem_row_major);
-    }
-    {
-      FragC acc[TCW];
-#pragma unroll
-      for (int t = 0; t < TCW; ++t) wmma::fill_fragment(acc[t], 0.f);
-#pragma unroll 2
-      for (int k0 = 0; k0 < H; k0 += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, dp_s + wr0 * LD + k0, LD);
-#pragma unroll
-        for (int t = 0; t < TCW; ++t) {
-          // W2^T as a column-major operand: element (n, k) at w2_s[k][n]
-          FragBT b;
-          wmma::load_matrix_sync(b, w2_s + (wc0 + 16 * t) * LD + k0, LD);
-          wmma::mma_sync(acc[t], a, b, acc[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < TCW; ++t)
-        wmma::store_matrix_sync(st_s + wr0 * LDF + wc0 + 16 * t, acc[t], LDF,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // 6. column pass: dpre1 = [h1 > 0] dh1 into s_theta and the item's s_d
-    float colsum = 0.f;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const float dp1 = t1r[k] + t2c > 0.f ? st_s[(r0 + k) * LDF + col] : 0.f;
-      sth[k] += dp1;
-      colsum += dp1;
-    }
-    float* sd_row = parts.sd + (static_cast<size_t>(tile) * M + j) * H;
-    if constexpr (C::GROUPS == 1) {
-      sd_row[col] = colsum;
-    } else {
-      if (grp > 0) red_s[(grp - 1) * H + col] = colsum;
-      __syncthreads();
-      if (grp == 0) {
-#pragma unroll
-        for (int g = 1; g < C::GROUPS; ++g) colsum += red_s[(g - 1) * H + col];
-        sd_row[col] = colsum;
-      }
-    }
-  }
-
-  // this split's ll and s_theta of the block's students
-  if (q == 0 && b0 + prow < B)
-    parts.ll[static_cast<size_t>(split) * B + b0 + prow] = ll_acc;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int row = b0 + r0 + k;
-    if (row < B)
-      parts.sth[(static_cast<size_t>(split) * B + row) * H + col] = sth[k];
-  }
-  if (j0 >= j1) {
-    for (int i = tid; i < H * H; i += THREADS) dw2_blk[i] = 0.f;
-  }
-  // db2, dwo over the row groups; dbo over the block's pairs
-  __syncthreads();
-  if (grp > 0) {
-    red_s[(grp - 1) * 2 * H + col] = db2_acc;
-    red_s[(grp - 1) * 2 * H + H + col] = dwo_acc;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    dbo_acc += __shfl_xor_sync(0xffffffffu, dbo_acc, o);
-  if (lane == 0) dbo_s[warp] = dbo_acc;
-  __syncthreads();
-  if (grp == 0) {
-#pragma unroll
-    for (int g = 1; g < C::GROUPS; ++g) {
-      db2_acc += red_s[(g - 1) * 2 * H + col];
-      dwo_acc += red_s[(g - 1) * 2 * H + H + col];
-    }
-    parts.db2[static_cast<size_t>(blk) * H + col] = db2_acc;
-    parts.dwo[static_cast<size_t>(blk) * H + col] = dwo_acc;
-  }
-  if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += dbo_s[w];
-    parts.dbo[blk] = s;
-  }
-}
+                 int B, int M, int items_per_split);
 
 // ---- H = 128: mma.sync from ldmatrix, pre2 and dh1 in registers ---------
 
@@ -862,7 +614,650 @@ deep_link_kernel<128>(const float* __restrict__ t1,
   }
 }
 
-// ---- the wide variant (any H % 16 == 0 other than 128 and 256) ----------
+// ---- H = 256, 384, 512: a thread-block cluster a student tile -----------
+
+// Two 8x8 bf16 matrices from shared memory, lanes 0 .. 15 giving the row
+// addresses (ldsm_x4's first two).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+// bf16(lo), bf16(hi) (round to nearest even) in one word, lo first in
+// memory.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Every thread of the cluster here (and every CTA of it running).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `local`'s place in CTA `rank` of the
+// cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* local,
+                                                 int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(local)), "r"(rank));
+  return a;
+}
+
+// V consecutive floats at p (16 or 8 bytes aligned) and their store.
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+// bf16 of V floats (round to nearest even) at p (8 or 4 bytes aligned).
+template <int V>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* p,
+                                           const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v[0], v[1]);
+}
+
+// The cluster's size C at each width, and a warp's tile of the CTA's dW2
+// panel (DR m16 row tiles x DN n8 tiles): C keeps the panel at 32-36
+// floats a lane of 512 threads.
+template <int H>
+struct ClusterWidth;
+template <>
+struct ClusterWidth<256> { static constexpr int C = 4, DR = 2, DN = 4; };
+template <>
+struct ClusterWidth<384> { static constexpr int C = 8, DR = 3, DN = 3; };
+template <>
+struct ClusterWidth<512> { static constexpr int C = 16, DR = 2, DN = 4; };
+
+// Layout of deep_link_cluster_kernel<H>. h1 and dpre2 are kept whole in
+// every CTA, panel-major (CTA q's panel, P rows, at q PANEL), so that a
+// CTA's panel is one contiguous copy; a panel's rows are N + 8 bf16 apart,
+// or at N = 32 (where the padding would outgrow the shared memory) N apart
+// with the 16-byte chunks of row p XOR-swizzled by (p / 2) % 4, both free of
+// ldmatrix bank conflicts. In the (P x N) products
+// (pre2, dh1) warp w takes row tile w / 8, column half (w / 4) % 2 and
+// contraction quarter w % 4; in dW2's panel, rows 16 DR (w / DCG) .. and n8
+// tiles DN (w % DCG) ... The element passes give a pair 16 lanes, each VEC
+// of the panel's columns.
+template <int H>
+struct Clu {
+  static constexpr int C = ClusterWidth<H>::C;
+  static constexpr int P = 32;          // students a cluster, pairs an item
+  static constexpr int N = H / C;       // a CTA's panel of columns
+  static constexpr int NT = N / 8;      // n8 tiles of a panel
+  static constexpr int NW = N / 16;     // n8 tiles of a warp in pre2, dh1
+  static constexpr int KQ = H / 4;      // a warp's quarter of the contraction
+  static constexpr int VEC = N == 32 ? 2 : 4;  // columns a lane (element passes)
+  static constexpr int LP = 16;         // lanes a pair (element passes)
+  static constexpr int DR = ClusterWidth<H>::DR, DN = ClusterWidth<H>::DN;
+  static constexpr int DCG = NT / DN;   // dW2's column groups of warps
+  static constexpr bool SWZ = N == 32;  // swizzled panels
+  static constexpr int LDP = SWZ ? N : N + 8;   // bf16 stride of a panel
+  static constexpr int LDC = N + 8;     // bf16 stride: W2's column panel
+  static constexpr int LDH = H + 8;     // bf16 stride: W2's row panel
+  static constexpr int LDR = N + 4;     // f32 stride: the (P x N) arrays
+  static constexpr int PANEL = P * LDP;         // bf16 of a panel of h1, dpre2
+  static constexpr int BUFE = C * PANEL;        // bf16 of a whole h1, dpre2
+  static constexpr uint32_t PANEL_BYTES = sizeof(__nv_bfloat16) * PANEL;
+  static constexpr size_t PN = align128(sizeof(float) * P * LDR);
+  static constexpr size_t W2C_OFF = 0;
+  static constexpr size_t W2R_OFF =
+      W2C_OFF + align128(sizeof(__nv_bfloat16) * H * LDC);
+  static constexpr size_t H1_OFF =
+      W2R_OFF + align128(sizeof(__nv_bfloat16) * N * LDH);
+  static constexpr size_t DP_OFF =
+      H1_OFF + 2 * align128(sizeof(__nv_bfloat16) * BUFE);
+  static constexpr size_t RED_OFF =         // 4 split-k partials
+      DP_OFF + align128(sizeof(__nv_bfloat16) * BUFE);
+  static constexpr size_t T1_OFF = RED_OFF + 4 * PN;
+  static constexpr size_t STH_OFF = T1_OFF + PN;
+  static constexpr size_t DB2_OFF = STH_OFF + PN;
+  static constexpr size_t DWO_OFF = DB2_OFF + PN;
+  static constexpr size_t SD_OFF = DWO_OFF + PN;
+  static constexpr size_t T2_OFF = SD_OFF + PN;
+  static constexpr size_t B2_OFF = T2_OFF + align128(sizeof(float) * 2 * N);
+  static constexpr size_t WO_OFF = B2_OFF + align128(sizeof(float) * N);
+  static constexpr size_t LGX_OFF = WO_OFF + align128(sizeof(float) * N);
+  static constexpr size_t BAR_OFF =          // the logit partials' [2][C][P]
+      LGX_OFF + align128(sizeof(float) * 2 * C * P);
+  static constexpr size_t DBO_OFF = BAR_OFF + align128(3 * sizeof(uint64_t));
+  static constexpr size_t CODE_OFF = DBO_OFF + align128(sizeof(float) * P);
+  static constexpr size_t SMEM = CODE_OFF + align128(P * CHUNK);
+  static_assert(C * N == H && N % 16 == 0, "panels");
+  static_assert((H / 16 / DR) * DCG == WARPS && DCG * DN == NT, "dW2 tiles");
+  static_assert(P * CHUNK == THREADS && P * LP == THREADS &&
+                N <= LP * VEC && N <= THREADS && NT <= WARPS, "passes");
+  static_assert(2 * 2 * 4 == WARPS && KQ % 16 == 0, "product tiles");
+  static_assert(PANEL_BYTES % 128 == 0 && P * sizeof(float) % 16 == 0,
+                "bulk copies");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+
+  // Offset (bf16) of row p, 8-column chunk c in a panel
+  static __device__ __forceinline__ int at(int p, int c) {
+    if constexpr (SWZ) return p * N + 8 * (c ^ ((p >> 1) & 3));
+    return p * LDP + 8 * c;
+  }
+};
+
+// Stores a warp's (16 x 8 NW) accumulator tile at rows r0.., columns n0..
+// of dst (f32, row stride LDR).
+template <int NW, int LDR>
+__device__ __forceinline__ void store_tile(float* dst, int r0, int n0,
+                                           int lane,
+                                           const float (&acc)[NW][4]) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int u = 0; u < NW; ++u) {
+    const int c = n0 + 8 * u + 2 * t;
+    *reinterpret_cast<float2*>(dst + (r0 + g) * LDR + c) =
+        make_float2(acc[u][0], acc[u][1]);
+    *reinterpret_cast<float2*>(dst + (r0 + g + 8) * LDR + c) =
+        make_float2(acc[u][2], acc[u][3]);
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+// This thread's arrival on bar, which also expects `bytes` of copies.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// This thread's shared-memory stores, before a bulk copy reads them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` at `local` into the same place of CTA `rank`'s shared memory, by
+// the copy engine, completing on that CTA's barrier at `bar`'s place.
+__device__ __forceinline__ void copy_to_rank(const void* local,
+                                             uint32_t bytes,
+                                             const uint64_t* bar, int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(cluster_addr(local, rank)),
+      "r"(smem_addr(local)), "r"(bytes), "r"(cluster_addr(bar, rank))
+      : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until this thread's committed copies have read their sources.
+__device__ __forceinline__ void copies_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// What crosses the CTAs goes by bulk copies onto the receiver's barriers,
+// each completing once an item (phase = item parity): bar[0] the item's
+// logit partials, bar[1] its dpre2 panels, bar[2] its h1 panels (sent
+// during the item before). No cluster barrier is needed an item: a CTA
+// sends item j's logit partials only after every CTA's h1 of item j has
+// reached it, and item j's dpre2 and item j + 1's h1 only after every CTA's
+// logit partials of item j have, so each copy lands where every CTA has
+// finished reading (h1 and the logit partials are double-buffered by item
+// parity; dpre2 is read before a CTA's item j + 1 partials go out).
+template <int H>
+__global__ void __launch_bounds__(THREADS, 1)
+deep_link_cluster_kernel(const float* __restrict__ t1,
+                         const float* __restrict__ t2,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         const float* __restrict__ wo,
+                         const float* __restrict__ bo,
+                         const int8_t* __restrict__ pk,
+                         float* __restrict__ scratch, int B, int M,
+                         int items_per_split) {
+  using K = Clu<H>;
+  constexpr int C = K::C, P = K::P, N = K::N, NT = K::NT, NW = K::NW,
+                KQ = K::KQ, LP = K::LP, V = K::VEC, DR = K::DR, DN = K::DN,
+                DCG = K::DCG, LDC = K::LDC, LDH = K::LDH, LDR = K::LDR,
+                PANEL = K::PANEL, BUFE = K::BUFE;
+  constexpr int RS = K::PN / sizeof(float);      // floats between partials
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* w2c_s = reinterpret_cast<__nv_bfloat16*>(smem + K::W2C_OFF);
+  __nv_bfloat16* w2r_s = reinterpret_cast<__nv_bfloat16*>(smem + K::W2R_OFF);
+  __nv_bfloat16* h1_2 = reinterpret_cast<__nv_bfloat16*>(smem + K::H1_OFF);
+  __nv_bfloat16* dp_s = reinterpret_cast<__nv_bfloat16*>(smem + K::DP_OFF);
+  float* red_s = reinterpret_cast<float*>(smem + K::RED_OFF);
+  float* t1_s = reinterpret_cast<float*>(smem + K::T1_OFF);
+  float* sth_s = reinterpret_cast<float*>(smem + K::STH_OFF);
+  float* db2_s = reinterpret_cast<float*>(smem + K::DB2_OFF);
+  float* dwo_s = reinterpret_cast<float*>(smem + K::DWO_OFF);
+  float* sd_s = reinterpret_cast<float*>(smem + K::SD_OFF);
+  float* t2_s = reinterpret_cast<float*>(smem + K::T2_OFF);
+  float* b2_s = reinterpret_cast<float*>(smem + K::B2_OFF);
+  float* wo_s = reinterpret_cast<float*>(smem + K::WO_OFF);
+  float* lgx_s = reinterpret_cast<float*>(smem + K::LGX_OFF);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + K::BAR_OFF);
+  float* dbo_s = reinterpret_cast<float*>(smem + K::DBO_OFF);
+  int8_t* code_s = reinterpret_cast<int8_t*>(smem + K::CODE_OFF);
+
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tile = blockIdx.x / C, split = blockIdx.y;
+  const int tiles = gridDim.x / C, splits = gridDim.y;
+  const int blk = tile * splits + split;
+  const int b0 = tile * P, c0 = rank * N;   // students, the panel's columns
+  const int j0 = split * items_per_split;
+  const int j1 = min(M, j0 + items_per_split);
+  // element passes: pair ep, the panel's columns en .. en + V
+  const int ep = tid / LP, en = (tid % LP) * V;
+  const bool elem = en < N;
+  // the offset of the pair's columns in a panel (bf16)
+  const int pan = K::at(ep, en / 8) + en % 8;
+  // the (P x N) products' warp tile; dW2's
+  const int rt = warp / 8, half = (warp / 4) % 2, quarter = warp % 4;
+  const int rg = warp / DCG, cgd = warp % DCG;
+
+  // bytes at `local` into the same place of every other CTA, lane q of
+  // warp 0 sending to rank + q
+  const bool sender = warp == 0 && lane >= 1 && lane < C;
+  auto send = [&](const void* local, uint32_t bytes, const uint64_t* b) {
+    if (sender) copy_to_rank(local, bytes, b, (rank + lane) % C);
+  };
+  // bf16(h1) of the pair's V columns of the panel for the item whose t2 is
+  // t2_s[buf], into this CTA's panel of h1 buffer buf; returns the relu mask
+  // of their f32 pre-activations (bit e: column en + e)
+  auto build_h1 = [&](int buf) -> uint32_t {
+    float x[V], u[V];
+    load_vec(t1_s + ep * LDR + en, x);
+    load_vec(t2_s + buf * N + en, u);
+    uint32_t live = 0;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      x[e] += u[e];
+      live |= (x[e] > 0.f ? 1u : 0u) << e;
+      x[e] = fmaxf(x[e], 0.f);
+    }
+    store_bf16(h1_2 + buf * BUFE + rank * PANEL + pan, x);
+    return live;
+  };
+
+  // W2's column panel (pre2's B) and row panel (dh1's B), once a CTA, 4
+  // floats a load
+#pragma unroll 4
+  for (int i = tid; i < H * N / 4; i += THREADS) {
+    const int k = i / (N / 4), n = i % (N / 4) * 4;
+    float v[4];
+    load_vec(w2 + static_cast<size_t>(k) * H + c0 + n, v);
+    store_bf16(w2c_s + k * LDC + n, v);
+  }
+#pragma unroll 4
+  for (int i = tid; i < N * H / 4; i += THREADS) {
+    const int q = i / (H / 4), n = i % (H / 4) * 4;
+    float v[4];
+    load_vec(w2 + static_cast<size_t>(c0 + q) * H + n, v);
+    store_bf16(w2r_s + q * LDH + n, v);
+  }
+  for (int i = tid; i < P * N; i += THREADS) {
+    const int p = i / N, n = i % N, o = p * LDR + n;
+    t1_s[o] = b0 + p < B ? t1[static_cast<size_t>(b0 + p) * H + c0 + n] : 0.f;
+    sth_s[o] = 0.f;
+    db2_s[o] = 0.f;
+    dwo_s[o] = 0.f;
+  }
+  if (tid < N) {
+    b2_s[tid] = b2[c0 + tid];
+    wo_s[tid] = wo[c0 + tid];
+    t2_s[tid] = j0 < j1 ? t2[static_cast<size_t>(j0) * H + c0 + tid] : 0.f;
+  }
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_init(&bar[2], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const float bov = bo[0];
+  __syncthreads();
+  cluster_sync();   // every CTA runs, its barriers ready, before any copy
+  uint32_t live = 0;   // relu mask bits: this item's 0..V-1, the next's V..
+  if (j0 < j1) {   // the first item's h1 everywhere
+    if (elem) {
+      live = build_h1(0);
+      fence_async_shared();
+    }
+    __syncthreads();
+    if (tid == 0) mbar_arrive_expect(&bar[2], (C - 1) * K::PANEL_BYTES);
+    send(h1_2 + rank * PANEL, K::PANEL_BYTES, &bar[2]);
+    if (sender) copies_commit();
+  }
+
+  // Sums over the block's item run: dW2[:, panel] in registers (element e
+  // of n8 tile u of row tile i: row 16 (DR rg + i) + g + 8 (e / 2), panel
+  // column 8 (DN cgd + u) + 2 t + e % 2); s_theta, db2 and dwo a pair and
+  // panel column in shared memory; ll and dbo a pair in its first lane
+  float dw2[DR][DN][4] = {};
+  float ll_acc = 0.f, dbo_acc = 0.f;
+
+  for (int j = j0; j < j1; ++j) {
+    const int jj = (j - j0) % CHUNK, buf = (j - j0) & 1;
+    const bool next = j + 1 < j1;
+    const __nv_bfloat16* h1_s = h1_2 + buf * BUFE;
+    if (jj == 0) {   // the next CHUNK items' codes, one a thread
+      const int p = tid / CHUNK, i = tid % CHUNK;
+      code_s[tid] = b0 + p < B && j + i < j1
+                        ? pk[static_cast<size_t>(b0 + p) * M + j + i]
+                        : int8_t(0);
+    }
+    float t2_next = 0.f;
+    if (tid < N && next)
+      t2_next = t2[static_cast<size_t>(j + 1) * H + c0 + tid];
+    // this CTA's earlier copies have read the panels step 3 rewrites
+    if (sender) copies_read();
+    mbar_wait(&bar[2], buf);   // every CTA's panel of this item's h1
+
+    // 1. pre2[:, panel]: the warp's 16 pairs x N / 2 columns over its
+    // quarter of k, one chain, into the quarter's partial sums
+    {
+      const int r0 = rt * 16, n0 = half * (N / 2);
+      float acc[NW][4] = {};
+#pragma unroll 2
+      for (int k0 = quarter * KQ; k0 < (quarter + 1) * KQ; k0 += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, h1_s + (k0 / N) * PANEL +
+                       K::at(r0 + lane % 16, (k0 % N) / 8 + lane / 16));
+#pragma unroll
+        for (int u = 0; u < NW; u += 2) {
+          if (u + 1 < NW) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, w2c_s + (k0 + lane % 16) * LDC + n0 + 8 * u +
+                                 (lane / 16) * 8);
+            mma_bf16(acc[u], a, b[0], b[1]);
+            mma_bf16(acc[u + 1], a, b[2], b[3]);
+          } else {
+            uint32_t b[2];
+            ldsm_x2_trans(b, w2c_s + (k0 + lane % 16) * LDC + n0 + 8 * u);
+            mma_bf16(acc[u], a, b[0], b[1]);
+          }
+        }
+      }
+      store_tile<NW, LDR>(red_s + quarter * RS, r0, n0, lane, acc);
+    }
+    if (tid < N && next) t2_s[(buf ^ 1) * N + tid] = t2_next;
+    __syncthreads();
+
+    // 2. pre2 = the quarters in order + b2, and the panel's share of each
+    // pair's logit (its V columns, its LP lanes in order), sent to every CTA
+    float pre2[V], wov[V];
+    {
+      float lg = 0.f;
+      if (elem) {
+        float q[4][V], b[V];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_vec(red_s + i * RS + ep * LDR + en, q[i]);
+        load_vec(b2_s + en, b);
+        load_vec(wo_s + en, wov);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          pre2[e] = (((q[0][e] + q[1][e]) + q[2][e]) + q[3][e]) + b[e];
+          lg = fmaf(fmaxf(pre2[e], 0.f), wov[e], lg);
+        }
+      }
+#pragma unroll
+      for (int o = LP / 2; o > 0; o >>= 1)
+        lg += __shfl_xor_sync(0xffffffffu, lg, o);
+      if (en == 0) {
+        lgx_s[(buf * C + rank) * P + ep] = lg;
+        fence_async_shared();
+      }
+    }
+    __syncthreads();
+    if (tid == 0) mbar_arrive_expect(&bar[0], (C - 1) * P * sizeof(float));
+    send(lgx_s + (buf * C + rank) * P, P * sizeof(float), &bar[0]);
+    if (sender) copies_commit();
+    mbar_wait(&bar[0], buf);   // every CTA's logit partials here
+
+    // 3. the logit (the panels in rank order, the same in every CTA), ll,
+    // dlogit; dpre2[:, panel] (bf16), db2, dwo; the next item's h1
+    if (elem) {
+      const float* lgx = lgx_s + buf * C * P + ep;
+      float logit = lgx[0];
+#pragma unroll
+      for (int q = 1; q < C; ++q) logit += lgx[q * P];
+      logit += bov;
+      const float cf = static_cast<float>(code_s[ep * CHUNK + jj]);
+      const float m = fminf(cf, 1.f), rr = fmaxf(cf - 1.f, 0.f);
+      const float e = expf(-fabsf(logit));
+      const float inv = 1.f / (1.f + e);
+      const float s = logit >= 0.f ? inv : 1.f - inv;   // sigmoid(logit)
+      const float dl = m * (rr - s);
+      if (en == 0) {   // one lane a pair sums ll and dbo
+        const float sp = log1pf(e) + fmaxf(logit, 0.f);   // softplus(logit)
+        ll_acc += -m * (rr > 0.5f ? sp - logit : sp);
+        dbo_acc += dl;
+      }
+      float d[V], db[V], dw[V];
+      load_vec(db2_s + ep * LDR + en, db);
+      load_vec(dwo_s + ep * LDR + en, dw);
+#pragma unroll
+      for (int e2 = 0; e2 < V; ++e2) {
+        d[e2] = pre2[e2] > 0.f ? dl * wov[e2] : 0.f;
+        db[e2] += d[e2];
+        dw[e2] = fmaf(fmaxf(pre2[e2], 0.f), dl, dw[e2]);
+      }
+      store_vec(db2_s + ep * LDR + en, db);
+      store_vec(dwo_s + ep * LDR + en, dw);
+      store_bf16(dp_s + rank * PANEL + pan, d);
+      if (next) live |= build_h1(buf ^ 1) << V;
+      fence_async_shared();
+    }
+    __syncthreads();   // this CTA's panels of dpre2 and the next h1
+    if (tid == 0) {
+      mbar_arrive_expect(&bar[1], (C - 1) * K::PANEL_BYTES);
+      if (next) mbar_arrive_expect(&bar[2], (C - 1) * K::PANEL_BYTES);
+    }
+    send(dp_s + rank * PANEL, K::PANEL_BYTES, &bar[1]);
+    if (next)
+      send(h1_2 + (buf ^ 1) * BUFE + rank * PANEL, K::PANEL_BYTES, &bar[2]);
+    if (sender) copies_commit();
+
+    // 4. dW2[:, panel] += h1^T dpre2[:, panel]: the item's product from a
+    // fresh accumulator (a chain of P / 16 steps), added with f32 adds
+#pragma unroll
+    for (int i = 0; i < DR; ++i) {
+      const int k0 = (rg * DR + i) * 16;
+      float fresh[DN][4] = {};
+#pragma unroll
+      for (int p0 = 0; p0 < P; p0 += 16) {
+        uint32_t a[4];   // h1^T: rows k0.. of dW2 by pairs p0..
+        ldsm_x4_trans(a, h1_s + (k0 / N) * PANEL +
+                             K::at(p0 + lane % 8 + (lane / 16) * 8,
+                                   (k0 % N) / 8 + (lane / 8) % 2));
+#pragma unroll
+        for (int u = 0; u < DN; u += 2) {
+          const __nv_bfloat16* dp_r = dp_s + rank * PANEL;
+          if (u + 1 < DN) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, dp_r + K::at(p0 + lane % 16,
+                                          cgd * DN + u + lane / 16));
+            mma_bf16(fresh[u], a, b[0], b[1]);
+            mma_bf16(fresh[u + 1], a, b[2], b[3]);
+          } else {
+            uint32_t b[2];
+            ldsm_x2_trans(b, dp_r + K::at(p0 + lane % 16, cgd * DN + u));
+            mma_bf16(fresh[u], a, b[0], b[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < DN; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dw2[i][u][e] += fresh[u][e];
+    }
+    mbar_wait(&bar[1], buf);   // every CTA's panel of dpre2 here
+
+    // 5. dh1[:, panel] = dpre2 W2[panel, :]^T: the warp's 16 pairs x N / 2
+    // of the panel's columns over its quarter of n, into the partial sums
+    {
+      const int r0 = rt * 16, q0 = half * (N / 2);
+      float acc[NW][4] = {};
+#pragma unroll 2
+      for (int n0 = quarter * KQ; n0 < (quarter + 1) * KQ; n0 += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, dp_s + (n0 / N) * PANEL +
+                       K::at(r0 + lane % 16, (n0 % N) / 8 + lane / 16));
+#pragma unroll
+        for (int u = 0; u < NW; u += 2) {
+          // W2[panel, :]^T as a col operand: (n, q) at w2r_s[q][n]
+          if (u + 1 < NW) {
+            uint32_t b[4];
+            ldsm_x4(b, w2r_s + (q0 + 8 * u + lane % 8 + (lane / 16) * 8) * LDH +
+                           n0 + ((lane / 8) % 2) * 8);
+            mma_bf16(acc[u], a, b[0], b[1]);
+            mma_bf16(acc[u + 1], a, b[2], b[3]);
+          } else {
+            uint32_t b[2];
+            ldsm_x2(b, w2r_s + (q0 + 8 * u + lane % 8) * LDH + n0 +
+                           ((lane / 8) % 2) * 8);
+            mma_bf16(acc[u], a, b[0], b[1]);
+          }
+        }
+      }
+      store_tile<NW, LDR>(red_s + quarter * RS, r0, q0, lane, acc);
+    }
+    __syncthreads();
+
+    // 6. dpre1 = [t1 + t2 > 0] dh1 (the mask of the f32 pre-activations,
+    // kept from building h1) into s_theta and the item's s_d
+    if (elem) {
+      const int o = ep * LDR + en;
+      float q[4][V], st[V], d[V];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_vec(red_s + i * RS + o, q[i]);
+      load_vec(sth_s + o, st);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float v = ((q[0][e] + q[1][e]) + q[2][e]) + q[3][e];
+        d[e] = (live >> e) & 1u ? v : 0.f;
+        st[e] += d[e];
+      }
+      store_vec(sth_s + o, st);
+      store_vec(sd_s + o, d);
+    }
+    live >>= V;
+    __syncthreads();
+    // the item's s_d of the panel: the last NT warps, 8 columns each, a
+    // lane summing 8 pairs, then the lanes' four groups of pairs in order
+    if (warp >= WARPS - NT) {
+      const int col = (warp - (WARPS - NT)) * 8 + lane % 8, pg = lane / 8;
+      const float* src = sd_s + pg * 8 * LDR + col;
+      float s = src[0];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) s += src[i * LDR];
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (pg == 0)
+        Parts(scratch, B, M, H, tiles, splits)
+            .sd[(static_cast<size_t>(tile) * M + j) * H + c0 + col] = s;
+    }
+  }
+
+  // the block's dW2 panel, this split's s_theta, ll and dbo of the block's
+  // students, db2 and dwo over the pairs in order; no copy reaches this CTA
+  // after its last wait, and its own have read their sources before it ends
+  const Parts parts(scratch, B, M, H, tiles, splits);
+  float* dw2_blk = parts.dw2 + static_cast<size_t>(blk) * H * H + c0;
+  {
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < DR; ++i)
+#pragma unroll
+      for (int u = 0; u < DN; ++u)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(
+              dw2_blk + static_cast<size_t>((rg * DR + i) * 16 + g + 8 * r) * H +
+              (cgd * DN + u) * 8 + 2 * t) =
+              make_float2(dw2[i][u][2 * r], dw2[i][u][2 * r + 1]);
+  }
+  if (en == 0) {
+    dbo_s[ep] = dbo_acc;
+    if (rank == 0 && b0 + ep < B)
+      parts.ll[static_cast<size_t>(split) * B + b0 + ep] = ll_acc;
+  }
+  __syncthreads();
+  for (int i = tid; i < P * N; i += THREADS) {
+    const int p = i / N, n = i % N;
+    if (b0 + p < B)
+      parts.sth[(static_cast<size_t>(split) * B + b0 + p) * H + c0 + n] =
+          sth_s[p * LDR + n];
+  }
+  if (tid < N) {
+    float sb = 0.f, sw = 0.f;
+    for (int p = 0; p < P; ++p) {
+      sb += db2_s[p * LDR + tid];
+      sw += dwo_s[p * LDR + tid];
+    }
+    parts.db2[static_cast<size_t>(blk) * H + c0 + tid] = sb;
+    parts.dwo[static_cast<size_t>(blk) * H + c0 + tid] = sw;
+  }
+  if (rank == 0 && tid == 0) {
+    float s = 0.f;
+    for (int p = 0; p < P; ++p) s += dbo_s[p];
+    parts.dbo[blk] = s;
+  }
+  if (sender) copies_read();
+}
+
+// ---- the wide variant (every other H % 16 == 0) -----------------------
 
 // Dynamic shared memory of deep_link_wide_kernel, each region 128-byte
 // aligned; ld, ldf: the bf16 and f32 row strides.
@@ -1149,10 +1544,27 @@ __global__ void deep_link_reduce_kernel(const float* __restrict__ scratch,
   }
 }
 
+// The item splits of a grid of `tiles` x splits blocks (or clusters) that
+// fill `slots` resident ones best (the fewest among equals): every block
+// does the same work. Every split gets at least one item.
+int best_splits(long long tiles, long long slots, int M) {
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= std::min(MAX_SPLITS, std::max(M, 1)); ++s) {
+    const long long blocks = tiles * s;
+    const double fill = static_cast<double>(blocks) /
+                        (((blocks + slots - 1) / slots) * slots);
+    if (fill > best_fill + 1e-9) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  const int per = (std::max(M, 1) + best - 1) / best;
+  return (std::max(M, 1) + per - 1) / per;
+}
+
 // The item splits of a grid of `kernel` (P students a block, `smem` bytes
-// of dynamic shared memory) whose blocks fill the resident slots best (the
-// fewest among equals): every block does the same work. Every split gets
-// at least one item.
+// of dynamic shared memory): best_splits over its resident blocks.
 template <class Kern>
 int fill_splits(Kern kernel, size_t smem, int P, int B, int M, int* splits) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -1168,20 +1580,7 @@ int fill_splits(Kern kernel, size_t smem, int P, int B, int M, int* splits) {
     return static_cast<int>(err);
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long tiles = std::max(1, (B + P - 1) / P);
-  const long long slots = static_cast<long long>(sms) * occ;
-  int best = 1;
-  double best_fill = 0.0;
-  for (int s = 1; s <= std::min(MAX_SPLITS, std::max(M, 1)); ++s) {
-    const long long blocks = tiles * s;
-    const double fill = static_cast<double>(blocks) /
-                        (((blocks + slots - 1) / slots) * slots);
-    if (fill > best_fill + 1e-9) {
-      best = s;
-      best_fill = fill;
-    }
-  }
-  const int per = (std::max(M, 1) + best - 1) / best;
-  *splits = (std::max(M, 1) + per - 1) / per;
+  *splits = best_splits(tiles, static_cast<long long>(sms) * occ, M);
   return 0;
 }
 
@@ -1191,6 +1590,63 @@ int plan(int B, int M, int* splits, long long* scratch_floats) {
   const int rc = fill_splits(deep_link_kernel<H>, C::SMEM, C::P, B, M, splits);
   if (rc != 0) return rc;
   const long long tiles = std::max(1, (B + C::P - 1) / C::P);
+  *scratch_floats = Parts::floats(B, M, H, tiles, *splits);
+  return 0;
+}
+
+// The launch of deep_link_cluster_kernel<H>: clusters of C CTAs along x.
+// The configuration points into this object: use it in place.
+template <int H>
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(dim3 grid, cudaStream_t stream) : attr{}, cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = Clu<H>::C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = Clu<H>::SMEM;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The kernel's shared memory and, for a cluster of 16, the non-portable
+// cluster size.
+template <int H>
+cudaError_t cluster_attributes() {
+  const void* fn = reinterpret_cast<const void*>(deep_link_cluster_kernel<H>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Clu<H>::SMEM));
+  if (err == cudaSuccess && Clu<H>::C > 8)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// The clusters of deep_link_cluster_kernel<H> the device holds at once.
+template <int H>
+int resident_clusters(int* clusters) {
+  cudaError_t err = cluster_attributes<H>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch<H> launch(dim3(Clu<H>::C), nullptr);
+  err = cudaOccupancyMaxActiveClusters(clusters, deep_link_cluster_kernel<H>,
+                                       &launch.cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return *clusters < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+}
+
+template <int H>
+int plan_cluster(int B, int M, int* splits, long long* scratch_floats) {
+  int clusters = 0;
+  const int rc = resident_clusters<H>(&clusters);
+  if (rc != 0) return rc;
+  const long long tiles = std::max(1, (B + Clu<H>::P - 1) / Clu<H>::P);
+  *splits = best_splits(tiles, clusters, M);
   *scratch_floats = Parts::floats(B, M, H, tiles, *splits);
   return 0;
 }
@@ -1277,6 +1733,32 @@ int launch(const void* t1, const void* t2, const void* w2, const void* b2,
 }
 
 template <int H>
+int launch_cluster(const void* t1, const void* t2, const void* w2,
+                   const void* b2, const void* wo, const void* bo,
+                   const void* pk, void* out, void* scratch, int B, int M,
+                   int splits, cudaStream_t stream) {
+  using K = Clu<H>;
+  const int tiles = std::max(1, (B + K::P - 1) / K::P);
+  const int per = (std::max(M, 1) + splits - 1) / splits;
+  if (splits < 1 || (splits - 1) * per >= std::max(M, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cluster_attributes<H>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch<H> launch(dim3(K::C * tiles, splits), stream);
+  err = cudaLaunchKernelEx(
+      &launch.cfg, deep_link_cluster_kernel<H>, static_cast<const float*>(t1),
+      static_cast<const float*>(t2), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(wo),
+      static_cast<const float*>(bo), static_cast<const int8_t*>(pk),
+      static_cast<float*>(scratch), B, M, per);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce(static_cast<const float*>(scratch),
+                                 static_cast<float*>(out), B, M, H, tiles,
+                                 splits, stream));
+}
+
+template <int H>
 int occupancy(int* out) {
   const void* fn = reinterpret_cast<const void*>(deep_link_kernel<H>);
   cudaFuncAttributes attr;
@@ -1294,6 +1776,26 @@ int occupancy(int* out) {
   return static_cast<int>(err);
 }
 
+// deep_link_cluster_kernel<H>: out[0..5) as deep_link_occupancy's.
+template <int H>
+int occupancy_cluster(int* out) {
+  const void* fn = reinterpret_cast<const void*>(deep_link_cluster_kernel<H>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int clusters = 0, blocks = 0;
+  const int rc = resident_clusters<H>(&clusters);
+  if (rc != 0) return rc;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
+                                                      Clu<H>::SMEM);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  out[3] = Clu<H>::C;
+  out[4] = clusters;
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1303,15 +1805,17 @@ const char* vibo_error_string(int err) {
 }
 
 // The item splits of the grid for (B, M, H) on the current device, and the
-// scratch deep_link_train needs (floats). H is 128, 256 (their own
-// instantiations) or any other multiple of 16 up to what the wide
-// variant's shared memory takes (1,600).
+// scratch deep_link_train needs (floats). H is 128 (one block a student
+// tile), 256, 384, 512 (a cluster a student tile) or any other multiple of
+// 16 up to what the wide variant's shared memory takes (1,600).
 int deep_link_plan(int B, int M, int H, int* splits,
                    long long* scratch_floats) {
   if (B < 0 || M < 0 || H < 16 || H % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (H == 128) return plan<128>(B, M, splits, scratch_floats);
-  if (H == 256) return plan<256>(B, M, splits, scratch_floats);
+  if (H == 256) return plan_cluster<256>(B, M, splits, scratch_floats);
+  if (H == 384) return plan_cluster<384>(B, M, splits, scratch_floats);
+  if (H == 512) return plan_cluster<512>(B, M, splits, scratch_floats);
   switch (wide_rows(H)) {
     case 32: return plan_wide<32>(B, M, H, splits, scratch_floats);
     case 16: return plan_wide<16>(B, M, H, splits, scratch_floats);
@@ -1333,7 +1837,14 @@ int deep_link_train(const void* t1, const void* t2, const void* w2,
   if (H == 128)
     return launch<128>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M, splits, s);
   if (H == 256)
-    return launch<256>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M, splits, s);
+    return launch_cluster<256>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
+                               splits, s);
+  if (H == 384)
+    return launch_cluster<384>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
+                               splits, s);
+  if (H == 512)
+    return launch_cluster<512>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
+                               splits, s);
   switch (wide_rows(H)) {
     case 32:
       return launch_wide<32>(t1, t2, w2, b2, wo, bo, pk, out, scratch, B, M,
@@ -1345,11 +1856,26 @@ int deep_link_train(const void* t1, const void* t2, const void* w2,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// deep_link_kernel<H> (H = 128 or 256): ptxas's registers a thread, its
-// local (spill) bytes and its resident blocks an SM, into out[0..3).
+// The kernel of link width H (128: deep_link_kernel<128>; 256, 384, 512:
+// deep_link_cluster_kernel<H>) into out[0..5): ptxas's registers a thread,
+// its local (spill) bytes, its resident blocks an SM, its cluster size (1
+// for a kernel without clusters) and the clusters the device holds at once
+// (for H = 128 its resident blocks).
 int deep_link_occupancy(int H, int* out) {
-  if (H == 128) return occupancy<128>(out);
-  if (H == 256) return occupancy<256>(out);
+  if (H == 128) {
+    const int rc = occupancy<128>(out);
+    if (rc != 0) return rc;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    out[3] = 1;
+    out[4] = out[2] * sms;
+    return static_cast<int>(err);
+  }
+  if (H == 256) return occupancy_cluster<256>(out);
+  if (H == 384) return occupancy_cluster<384>(out);
+  if (H == 512) return occupancy_cluster<512>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,8 +23,10 @@ the relu masks use the f32 pre-activations. f32_dots=True keeps them in
 f32 (the Pallas op's mode for HMC).
 
 On a CUDA tensor the op runs csrc/deep_link.cu (`deep_link_train`, bf16
-products; H = 128 and 256 have their own instantiations, every other width
-the kernel's wide variant, with W2 read from L2), or with f32_dots
+products; H = 128: one block a student tile holding W2 and dW2; H = 256,
+384, 512: a thread-block cluster of 4, 8 or 16 blocks a student tile, W2
+and dW2 split into column panels over it; every other width the kernel's
+wide variant, with W2 read from L2), or with f32_dots
 csrc/deep_link_f32.cu (`deep_link_f32_train`, any H % 128 == 0: at
 H = 128 each product's operands split into three bf16 parts on the tensor
 cores, at f32 accuracy; other widths f32 products on the CUDA cores); on a
