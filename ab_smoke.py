@@ -14,7 +14,8 @@ run: its exit code and seconds, each kernel's time from its kernels line
 and GRM prologue apart, the (B, K) layout and the int8 reader where it has
 them; the deep
 link's kernel also at the 10,240 x 1,024 shape and at widths 256, 384
-and 512, its f32 kernel, row 15f, at the deep gold's shape and at config 5),
+and 512, its f32 kernel, row 15f, at the deep gold's shape, at config 5
+and at the deep gold's shape at widths 256, 384 and 512),
 the step median, device busy time and idle share of each training phase,
 by link, and each probed HMC run's ms a potential evaluation and an
 iteration; and last {"ok": ...}, true when all four runs exited 0.

@@ -55,12 +55,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
      past 1e-4 explained by the relu flips its pairs can carry, counted in
      f64); every deep check launches the kernel twice, bitwise equal;
      the deep link's f32 kernel (csrc/deep_link_f32.cu, row 15f, the deep
-     HMC potential's: split-bf16 products on the tensor cores at H = 128,
-     whose SASS must hold HMMA lines) against the plain f32 version at the
-     deep gold's 2,000 x 200 with 4 chains on one code and at config 5
-     (both timed, beside the CUDA-core f32 bound and the split's), at 777 x
-     301 (K = 1, 8, empty rows), 40 students and widths 256 and 512, a
-     second launch of each bitwise equal to the first;
+     HMC potential's: split-bf16 products on the tensor cores at H = 128
+     and, on a thread-block cluster, 256-512, whose SASS must hold HMMA
+     lines) against the plain f32 version at the deep gold's 2,000 x 200
+     with 4 chains on one code and at config 5 (both timed, beside the
+     CUDA-core f32 bound and the split's), at 777 x 301 (K = 1, 8, empty
+     rows), 40 students, at the deep gold's shape at widths 256, 384 and
+     512 (timed), at 777 x 301 at 256 and 384 and at 300 x 200 at 512, a
+     second launch of each bitwise equal to the first, with the pre2
+     values the kernel recomputed in f64 (hinge_recomputes);
   4. small-shape checks of the packed ELBO, the decoded-data ELBO and the
      packed IWAE terms (S = 3, a fixed non-uniform cotangent a sample) and
      every gradient on the card against the CPU path, per link (deep: the
@@ -104,7 +107,8 @@ JAX package's posteriors in artifacts/gold (theta-mean Pearson after
 Procrustes >= 0.99, held-out accuracy within 0.003 / 0.01), short runs
 of 1PL and 3PL (rows 4, 9) and of the opt-in GRM and GPCM kernels (rows
 13, 14), and a decoder trained by Trainer.fit on synthetic-nonlinear
-2,000 x 200 sampled through the dense deep potential and row 15f; every
+2,000 x 200 sampled through the dense deep potential and row 15f, and
+one of link width 256 through row 15f (its cluster kernel); every
 kernel potential held against the dense one (value, per-person loglik
 and gradients, at the MAP and one sd off it, per-chain items); each
 probed path with its hmc_graph gate (the sampler's graphs against its
@@ -330,10 +334,15 @@ DEEP_KERNEL = lambda h: (   # noqa: E731
     "deep_link_kernelILi128E" if h == 128 else
     f"deep_link_cluster_kernelILi{h}E" if h in CLUSTER_H else
     "deep_link_wide_kernelILi32E")
-# row 15f's kernel at width h, as its SASS names it
+# row 15f's kernel at width h, as its SASS names it: the split on the
+# tensor cores at 128 and (a thread-block cluster) 256-512, f32 on the CUDA
+# cores wider
 DEEP_F32_KERNEL = lambda h: (   # noqa: E731
     "deep_link_f32_mma_kernel" if h == 128 else
+    f"deep_link_f32_cluster_kernelILi{h}E" if h in CLUSTER_H else
     "deep_link_f32_kernelILb1EE" if h <= 384 else "deep_link_f32_kernelILb0EE")
+# the widths of row 15f's split (HMMA lines in their SASS)
+DEEP_SPLIT_H = (128, *CLUSTER_H)
 # The HMC baseline (vibo_tpu_torch/models/hmc.py, fixed trajectories). The
 # golds under artifacts/gold were sampled by the JAX package with 800
 # warm-up and 1,600 draws a chain at 64 leapfrogs
@@ -421,6 +430,13 @@ HMC_FLIP_BOUND = 4e-4                     # a relu flip's gradient row, of
 # the deep gold's shape (synthetic-nonlinear 2,000 x 200, K = 2; D = 16,
 # H = 128 as config 5's decoder) and the decoder's fused training epochs
 DEEP_GOLD_B, DEEP_GOLD_M, DEEP_DECODER_EPOCHS = 2000, 200, 200
+# a wider decoder's HMC through row 15f: its width and depth (warm-up,
+# draws, leapfrogs). At HMC_SHORT's 20 warm-up iterations the kernel
+# route's chains diverge in the last step-size window and its draws accept
+# none; from the same state and noise the dense potential diverges alike
+# and accepts none of those draws either (`hmc_depth.py deep-H256`, which
+# also runs both routes at 20, 30 and 50): at 50 both routes accept
+DEEP_HMC_WIDE_H, DEEP_HMC_WIDE_DEPTH = 256, (50, 20, 16)
 GRM_GOLD = (2000, 100)                    # the GRM gold's students, items
 # the loglik kernels of DEVICE_KERNELS (the others are their helpers)
 LOGLIK_DEVICE_KERNELS = ("loglik_2pl_train", "loglik_3pl_train",
@@ -482,7 +498,7 @@ DEVICE_KERNELS = {
     "loglik_grm_train": r"loglik_categorical_kernel<vibo::LinkGRM",
     "loglik_gpcm_train": r"loglik_categorical_kernel<vibo::LinkGPCM",
     "deep_link_train": r"deep_link_(cluster_)?kernel<",
-    "deep_link_f32_train": r"deep_link_f32_(mma_)?kernel[<(]",
+    "deep_link_f32_train": r"deep_link_f32_(mma_|cluster_)?kernel[<(]",
     "masked_loglik_2pl_fwd": r"masked_fwd_kernel<vibo::Link2PL",
     "masked_loglik_2pl_bwd": r"masked_bwd_kernel<vibo::Link2PL",
     "first_layer_prep": r"prep_kernel<1>",
@@ -2129,6 +2145,51 @@ def deep_rows_f64(args, f32_dots: bool, axis: int, rows) -> tuple:
             torch.tensor(moves, dtype=torch.float64))
 
 
+def hinge_counts(args, h: int, rec: int) -> dict:
+    """Row 15f's f64 recomputes of pre2 (the kernel's count, rec; -1 where
+    the width's kernel does not count: printed as None) and their share of
+    the B M H pre2 values; beside them the values its hinge test flags on
+    the plain f32 version's pre2 (|pre2| <= hinge(H) max_k h1_k sum_k
+    |W2_kn|; at 256-512 the kernel tests observed cells of the table only,
+    at 128 every cell): an estimate of the kernel's count, which differs
+    only where the split's pre2 and cuBLAS's part across the bound."""
+    from vibo_tpu_torch.ops.packing import decode_packed
+    if h not in DEEP_SPLIT_H:
+        return {}
+    t1, t2, w2, b2, wo, bo, pk = args
+    bsz, m = pk.shape
+    hinge = deep_f32_hinge(h)
+    bound = hinge * w2.abs().sum(0)                         # (H,)
+    observed = decode_packed(pk)[0] > 0
+    flagged = 0
+    block = max(1, (1 << 25) // max(1, bsz * h))
+    with torch.no_grad():
+        for s in range(0, m, block):
+            h1 = (t1[:, None, :] + t2[None, s:s + block, :]).clamp(min=0.0)
+            pre2 = h1 @ w2 + b2
+            near = pre2.abs() <= h1.amax(-1, keepdim=True) * bound
+            if h != 128:
+                near &= observed[:, s:s + block, None]
+            flagged += int(near.sum())
+    values = bsz * m * h
+    return {"hinge_recomputes": rec if rec >= 0 else None,
+            "hinge_recompute_share": rec / values if rec >= 0 else None,
+            "hinge_flagged_plain": flagged,
+            "hinge_flagged_plain_share": flagged / values,
+            "hinge": hinge}
+
+
+def deep_f32_hinge(h: int) -> float:
+    """Row 15f's hinge at width h, as its library states it
+    (`deep_link_f32_hinge`: HINGE at 128, deep_hinge(H) at 256-512)."""
+    import ctypes
+    from vibo_tpu_torch.ops import _build
+    fn, _ = _build.bind("deep_link_f32.cu", "deep_link_f32_hinge",
+                        [ctypes.c_int])
+    fn.restype = ctypes.c_float
+    return float(fn(h))
+
+
 def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
                timed: bool = False, link=None, theta=None, d=None,
                f32_dots: bool = False) -> dict:
@@ -2161,10 +2222,13 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
         theta = torch.randn((bsz, k), generator=gen, device="cuda")
         d = torch.randn((m, DEEP_D), generator=gen, device="cuda")
     args = deep_args(link, theta, d, pk)
-    got = pd.train_cuda(*args, f32_dots=f32_dots)
+    got = pd.train_cuda(*args, f32_dots=f32_dots, recomputes=f32_dots)
     ref = pd.fused_deep_plain(*args, f32_dots=f32_dots)
-    again = pd.train_cuda(*args, f32_dots=f32_dots)
+    again = pd.train_cuda(*args, f32_dots=f32_dots, recomputes=f32_dots)
     torch.cuda.synchronize()
+    if f32_dots:   # the f64 recomputes of pre2 (-1: not counted)
+        (*got, rec), (*again, rec2) = got, again
+        rec, rec2 = int(rec), int(rec2)
     names = ("ll", "s_theta", "s_d", "dW2", "db2", "dwo", "dbo")
     by_output = {n: rel_err(x, y) for n, x, y in zip(names, got, ref)}
     wo_max = float(link["out"]["w"].abs().max())
@@ -2205,6 +2269,9 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
                         for n in ("dW2", "db2")))
     r["bitwise_repeat"] = all(bool(torch.equal(x, y))
                               for x, y in zip(got, again))
+    if f32_dots:
+        r["bitwise_repeat"] = r["bitwise_repeat"] and rec == rec2
+        r.update(hinge_counts(args, h, rec))
     if not (finite and inert and flips_ok and by_output["ll"] <= 1e-5
             and by_output["dwo"] <= 1e-4 and by_output["dbo"] <= 1e-4
             and r["bitwise_repeat"]):
@@ -2239,10 +2306,23 @@ def check_deep(timer, roof, pk, gen, k: int = DEEP_K, h: int = DEEP_H,
         kernel = DEEP_F32_KERNEL(h)
         r["sass_mufu_lines"] = roof.mufu_lines("deep_link_f32.cu", kernel)
         r["sass_hmma_lines"] = roof.hmma_lines("deep_link_f32.cu", kernel)
-        if h == 128 and not r["sass_hmma_lines"]:
+        if h in DEEP_SPLIT_H and not r["sass_hmma_lines"]:
             raise AssertionError(f"{kernel} has no HMMA line in its SASS: "
                                  "row 15f does not run on the tensor cores")
         r["occupancy"] = deep_f32_occupancy(h)
+        if h in DEEP_SPLIT_H:
+            # the f64 path's cost: the same launch with b2 raised past
+            # every |h1 . W2_n| (h1 <= max t1 + max t2), so that no pre2
+            # lies within the hinge; products, adds and exchanges the same
+            t1, t2, w2, b2 = args[:4]
+            lift = (2.0 * (t1.amax() + t2.amax()).clamp(min=0.0)
+                    * w2.abs().sum(0) + b2.abs())
+            lifted = (t1, t2, w2, b2 + lift, *args[4:])
+            r["no_recompute_ms"] = timer(
+                lambda: pd.train_cuda(*lifted, f32_dots=True))
+            r["no_recompute_count"] = int(pd.train_cuda(
+                *lifted, f32_dots=True, recomputes=True)[-1])
+            r["recompute_share_of_ms"] = 1.0 - r["no_recompute_ms"] / r["ms"]
     elif timed:
         r["ms"] = timer(lambda: pd.train_cuda(*args))
         r["plain_ms"] = timer(lambda: pd.fused_deep_plain(*args))
@@ -2430,16 +2510,19 @@ def deep_draws(timer, roof) -> dict:
 
 
 def deep_f32_occupancy(h: int) -> dict:
-    """Row 15f's kernel at width h: ptxas's registers, local (spill) bytes
-    and resident blocks an SM (`deep_link_f32_occupancy`)."""
+    """Row 15f's kernel at width h: ptxas's registers, local (spill) bytes,
+    resident blocks an SM, cluster size (1 without clusters) and the
+    clusters (blocks, without) the device holds at once
+    (`deep_link_f32_occupancy`)."""
     import ctypes
     from vibo_tpu_torch.ops import _build
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     fn, lib = _build.bind("deep_link_f32.cu", "deep_link_f32_occupancy",
                           [ctypes.c_int, ctypes.c_void_p])
     _build.check(fn(h, out), lib, f"deep_link_f32_occupancy H={h}")
     return {"registers": out[0], "local_bytes": out[1],
-            "blocks_per_sm": out[2]}
+            "blocks_per_sm": out[2], "cluster_size": out[3],
+            "resident_clusters": out[4]}
 
 
 def check_deep_f32_chains(timer, roof, pk, gen, k: int, chains: int,
@@ -2468,9 +2551,12 @@ def check_deep_f32_chains(timer, roof, pk, gen, k: int, chains: int,
 
 def deep_f32_checks(timer, roof, deep: dict, gen) -> dict:
     """Row 15f at the deep gold's shape (2,000 x 200, K = 2, H = 128) with
-    4 chains (timed), at config 5's (timed), and at the edges: 777 x 301
-    at K = 1 and 8 with empty rows, 40 students, widths 256 (its own
-    variant: W2 from L2) and 512 (its buffers in the scratch)."""
+    4 chains (timed), at config 5's (timed), at the edges: 777 x 301 at K =
+    1 and 8 with empty rows, 40 students; the cluster kernel at the deep
+    gold's shape at widths 256, 384 and 512 (one chain, timed), at 777 x
+    301 at 256 and 384 and at 300 x 200 at 512; the CUDA-core kernel at
+    width 640 on 777 x 301; every check with a second launch bitwise equal
+    to the first."""
     gold_pk = torch.randint(0, 3, (DEEP_GOLD_B, DEEP_GOLD_M), generator=gen,
                             device="cuda", dtype=torch.int8)
     odd = torch.randint(0, 3, ODD, generator=gen, device="cuda",
@@ -2489,6 +2575,13 @@ def deep_f32_checks(timer, roof, deep: dict, gen) -> dict:
         "odd_H256": check_deep(timer, roof, odd, gen, h=256, f32_dots=True),
         "gold_H512": check_deep(timer, roof, gold_pk[:300], gen, h=512,
                                 f32_dots=True),
+        "odd_H384": check_deep(timer, roof, odd, gen, h=384, f32_dots=True),
+        # wider widths: f32 on the CUDA cores, the buffers in the scratch
+        f"odd_H{DEEP_WIDE_H}": check_deep(timer, roof, odd, gen,
+                                          h=DEEP_WIDE_H, f32_dots=True),
+        **{f"deep_gold_H{h}": check_deep(timer, roof, gold_pk, gen, h=h,
+                                         timed=True, f32_dots=True)
+           for h in CLUSTER_H},
     }
 
 
@@ -2926,11 +3019,11 @@ def hmc_phase(tag: str, cfg, ds, smi: str, kernel=None, gold: str = None,
     return r
 
 
-def deep_decoder(smi: str) -> tuple:
+def deep_decoder(smi: str, width: int = DEEP_H) -> tuple:
     """A deep decoder trained by the port's Trainer.fit (fused full batch,
     DEEP_DECODER_EPOCHS epochs, config 5's widths: K = 2, item latent 16,
-    link width 128) on synthetic-nonlinear at the deep gold's shape, 10 %
-    held out -> (dataset, the decoder's params)."""
+    link width 128, or `width`) on synthetic-nonlinear at the deep gold's
+    shape, 10 % held out -> (dataset, the decoder's params)."""
     import dataclasses
     from vibo_tpu_torch.data import holdout_split, simulate_irt
     from vibo_tpu_torch.models import VIBO
@@ -2938,13 +3031,15 @@ def deep_decoder(smi: str) -> tuple:
     sim = simulate_irt("nonlinear", DEEP_GOLD_B, DEEP_GOLD_M,
                        ability_dim=DEEP_K, seed=0, missing_rate=0.0)
     ds = holdout_split(sim.response, sim.mask, 0.1, seed=0)
-    cfg = dataclasses.replace(deep_config(True), num_items=DEEP_GOLD_M)
+    cfg = dataclasses.replace(deep_config(True, width),
+                              num_items=DEEP_GOLD_M)
     t0 = time.perf_counter()
     res = Trainer(VIBO(cfg), TrainConfig(
         lr=5e-3, epochs=DEEP_DECODER_EPOCHS, eval_every=100)).fit(ds)
     torch.cuda.synchronize()
     emit({"phase": "hmc_deep_decoder", "shape": [DEEP_GOLD_B, DEEP_GOLD_M],
-          "epochs": DEEP_DECODER_EPOCHS, "seconds": time.perf_counter() - t0,
+          "width": width, "epochs": DEEP_DECODER_EPOCHS,
+          "seconds": time.perf_counter() - t0,
           "best_heldout_acc": res["best"]["heldout_acc"],
           "final_elbo": res["final_elbo"],
           "card": smi})
@@ -2955,7 +3050,77 @@ def deep_decoder(smi: str) -> tuple:
                 for k, v in res["params"]["deep_link"].items()}
 
 
-def potentials_agree(tag: str, cfg, ds, deep_params=None) -> dict:
+def deep_potential_f64(x, data, link) -> tuple:
+    """The deep HMC potential of the chain programs (U(x) = -sum_i (ll_i(q)
+    - ll_ref_i) + |q|^2 / 2 at q = center + scale x) and its gradient in
+    x, from the dense route's data (resp, mask, center, scale, ll_ref) and
+    the decoder, as the kernel route evaluates it but exactly: its first
+    layer's operands t1 = theta W_theta + b1 and t2 = d W_item take the
+    values the op computes in f32 (with their exact derivatives), every
+    later product, sum and relu branch is f64; a chain at a time -> ((C,)
+    U, {"d", "theta": (C, ...) dU/dx})."""
+    import torch.nn.functional as F
+    w_t, w_i, b1 = (link[k].double() for k in ("w_theta", "w_item", "b1"))
+    w2, b2 = (link["layer2"][k].double() for k in ("w", "b"))
+    wo, bo = (link["out"][k].double() for k in ("w", "b"))
+    resp, mask = data["resp"].double(), data["mask"].double()
+    ll_ref = data["ll_ref"].double()
+    us, gs = [], {"d": [], "theta": []}
+    for c in range(x["theta"].shape[0]):
+        with torch.enable_grad():
+            xs = {k: x[k][c].detach().double().requires_grad_() for k in gs}
+            q = {k: data["center"][k].double()
+                 + data["scale"][k].double() * xs[k] for k in gs}
+            qf = {k: data["center"][k] + data["scale"][k] * x[k][c].detach()
+                  for k in gs}
+            t1 = q["theta"] @ w_t + b1
+            t2 = q["d"] @ w_i
+            t1 = t1 + ((qf["theta"] @ link["w_theta"] + link["b1"]).double()
+                       - t1).detach()
+            t2 = t2 + ((qf["d"] @ link["w_item"]).double() - t2).detach()
+            h1 = torch.relu(t1[:, None, :] + t2[None])
+            logits = (torch.relu(h1 @ w2 + b2) @ wo + bo)[..., 0]
+            ll = (mask * (resp * logits - F.softplus(logits))).sum(-1)
+            u = (-(ll - ll_ref).sum()
+                 + 0.5 * sum(v.square().sum() for v in q.values()))
+            grads = torch.autograd.grad(u, [xs[k] for k in gs])
+        us.append(u.detach())
+        for k, g in zip(gs, grads):
+            gs[k].append(g)
+    return torch.stack(us), {k: torch.stack(v) for k, v in gs.items()}
+
+
+def exact_rows(x, prior, g0, g1, data, link) -> tuple:
+    """The deep potential's gradient in f64 (deep_potential_f64) and, for
+    each of its blocks, each route's rows (a student's theta or an item's d
+    in a chain; kernel g1, dense g0) against it: the largest row distance
+    and the rows past 1e-5, of the f64 gradient's largest magnitude and of
+    its loglik part's (the gradient less the prior's, `prior`); and the
+    rows where the routes part past 1e-5 of g0's largest magnitude, with
+    how many of them the dense route is the farther from f64 -> (the f64
+    gradient, {block: those counts})."""
+    _, g64 = deep_potential_f64(x, data, link)
+    out = {}
+    for k in g64:
+        scales = {"grad": float(g64[k].abs().max()),
+                  "loglik_part": float((g64[k] - prior[k]).abs().max())}
+        dist = {"kernel": (g1[k].double() - g64[k]).abs().amax(-1),
+                "dense": (g0[k].double() - g64[k]).abs().amax(-1)}
+        part = ((g1[k] - g0[k]).abs().amax(-1)
+                > 1e-5 * float(g0[k].abs().max()))
+        out[k] = {route: {f"{n}_max": float(d.max()) / v
+                          for n, v in scales.items()}
+                  | {f"{n}_rows_past_1e-5": int((d > 1e-5 * v).sum())
+                     for n, v in scales.items()}
+                  for route, d in dist.items()}
+        out[k]["parting_rows"] = int(part.sum())
+        out[k]["parting_dense_farther"] = int(
+            (part & (dist["dense"] > dist["kernel"])).sum())
+    return g64, out
+
+
+def potentials_agree(tag: str, cfg, ds, deep_params=None,
+                     exact: bool = False) -> dict:
     """An HMC potential's two routes through the chain programs (what
     run_hmc evaluates): dense PyTorch and the kernel (rows 4 and 9 through
     _TrainChains, 13 and 14 through their per-sample loop, 15f), on the
@@ -2976,7 +3141,17 @@ def potentials_agree(tag: str, cfg, ds, deep_params=None) -> dict:
     (check_deep's allowance), moving its student's and its item's rows,
     so there all but 1 % of the rows (a student's theta or an item's d in
     a chain; at least 2) within 1e-5 and every row within HMC_FLIP_BOUND
-    of U's gradient's largest magnitude."""
+    of U's gradient's largest magnitude.
+    exact (deep, the cluster kernel's widths): the gradient gates hold the
+    kernel route against the exact gradient of the function it evaluates
+    (deep_potential_f64: the kernel's own f32 t1 and t2, every later
+    product, sum and relu branch exact, as the cluster kernel's f64
+    recompute takes h1 = t1 + t2) in place of the dense route's f32 one,
+    whose pre2 near 0 takes the other relu branch now and then; each
+    route's rows against it are reported (exact_rows). The value and
+    loglik gates stay on the dense route. (The H = 128 kernel recomputes
+    from h1 rounded to f32, as the dense route computes it, and keeps the
+    dense route as its reference.)"""
     import dataclasses
     from vibo_tpu_torch.models import hmc
     from vibo_tpu_torch.ops.packing import pack_responses
@@ -3005,6 +3180,7 @@ def potentials_agree(tag: str, cfg, ds, deep_params=None) -> dict:
     ll_ref = dense.ll_ref_fn(center, base_dense)
     out = {"phase": "hmc_potentials", "path": tag, "model": cfg.irt_model,
            "shape": [n, m], "K": cfg.ability_dim, "chains": HMC_CHAINS}
+    failed = []
     for where, x in (("center", {k: torch.zeros((HMC_CHAINS,) + v,
                                                 device="cuda")
                                  for k, v in dense.spec.items()}),
@@ -3032,6 +3208,19 @@ def potentials_agree(tag: str, cfg, ds, deep_params=None) -> dict:
              "value": u0.tolist()}
         ok = (r["loglik_rel_err"] <= 1e-5
               and r["value_err_of_loglik_sum"] <= 1e-6)
+        if exact:
+            r["dense"] = {n: r[n] for n in ("grad_rel_err",
+                                            "grad_err_of_loglik_part")}
+            g0, vs_exact = exact_rows(x, {
+                k: scale[k] * q[k] for k in g0}, g0, g1, dict(
+                base_dense, center=center, scale=scale, ll_ref=ll_ref),
+                deep_params)
+            ll_part = {k: g0[k] - scale[k] * q[k] for k in g0}
+            r.update(vs_exact=vs_exact, grad_rel_err={
+                k: rel_err(g1[k], g0[k]) for k in g0},
+                grad_err_of_loglik_part={
+                k: max_abs(g1[k], g0[k]) / float(ll_part[k].abs().max())
+                for k in g0})
         if deep and where == "one_sd":
             far = {}
             for k in g0:
@@ -3053,8 +3242,10 @@ def potentials_agree(tag: str, cfg, ds, deep_params=None) -> dict:
                 or all(v <= 1e-5 for v in r["grad_rel_err"].values()))
         out[where] = r
         if not ok:
-            raise AssertionError(f"{tag}: the HMC potentials disagree at "
-                                 f"{where}: {out}")
+            failed.append(where)
+    if failed:
+        raise AssertionError(f"{tag}: the HMC potentials disagree at "
+                             f"{', '.join(failed)}: {out}")
     emit(out)
     return out
 
@@ -3085,9 +3276,10 @@ def hmc_phases(smi: str) -> dict:
     JAX package's posteriors, depth cut to HMC_GOLD_DEPTH; short runs of
     the opt-in GRM and GPCM potentials (rows 13, 14), of 3PL (row 9) and
     1PL (row 4 at unit a); a decoder trained by Trainer.fit and the deep
-    potential's two routes (dense; row 15f). Every kernel potential is held
-    against the dense one on its run's data (potentials_agree). Returns
-    each path's result."""
+    potential's two routes (dense; row 15f), and row 15f's route on a
+    decoder of link width 256 (DEEP_HMC_WIDE_H: the cluster kernel). Every
+    kernel potential is held against the dense one on its run's data
+    (potentials_agree). Returns each path's result."""
     from vibo_tpu_torch.data import holdout_split, simulate_irt
     short = depth_cut(HMC_SHORT)
     runs = {}
@@ -3135,7 +3327,25 @@ def hmc_phases(smi: str) -> dict:
         smi, "deep_link_f32_train", deep_params=decoder, probe=True,
         cut=short)
     potentials_agree("hmc_deep_f32", hmc_cfg("deep", DEEP_K), ds, decoder)
+    runs[f"hmc_deep_f32_H{DEEP_HMC_WIDE_H}"] = hmc_deep_wide(smi)
     return runs
+
+
+def hmc_deep_wide(smi: str) -> dict:
+    """Row 15f's cluster kernel on the sampler's graphs: a decoder of link
+    width DEEP_HMC_WIDE_H trained as deep_decoder's, sampled through the
+    f32 kernel's potential (DEEP_HMC_WIDE_DEPTH, probed) and held against
+    the dense potential (potentials_agree)."""
+    tag = f"hmc_deep_f32_H{DEEP_HMC_WIDE_H}"
+    ds, decoder = deep_decoder(smi, DEEP_HMC_WIDE_H)
+    run = hmc_phase(
+        tag, hmc_cfg("deep", DEEP_K, depth=DEEP_HMC_WIDE_DEPTH,
+                     use_packed_kernel=True), ds, smi,
+        "deep_link_f32_train", deep_params=decoder, probe=True,
+        cut=depth_cut(DEEP_HMC_WIDE_DEPTH))
+    potentials_agree(tag, hmc_cfg("deep", DEEP_K), ds, decoder,
+                     exact=True)
+    return run
 
 
 def nuts_phases(smi: str, golds: tuple = SMOKE_NUTS_GOLDS) -> dict:
@@ -5088,8 +5298,13 @@ def main() -> None:
           "dims": {"deep_gold": [DEEP_GOLD_B, DEEP_GOLD_M, DEEP_K, DEEP_H,
                                  HMC_CHAINS],
                    "config5": [DEEP_B, DEEP_M, DEEP_K, DEEP_H],
-                   "odd": list(ODD), "tiny": list(TINY), "H256": 256,
-                   "H512": [300, DEEP_GOLD_M, DEEP_K, 512]},
+                   "odd": list(ODD), "tiny": list(TINY),
+                   "odd_H256": [*ODD, DEEP_K, 256],
+                   "odd_H384": [*ODD, DEEP_K, 384],
+                   f"odd_H{DEEP_WIDE_H}": [*ODD, DEEP_K, DEEP_WIDE_H],
+                   "gold_H512": [300, DEEP_GOLD_M, DEEP_K, 512],
+                   **{f"deep_gold_H{h}": [DEEP_GOLD_B, DEEP_GOLD_M, DEEP_K, h]
+                      for h in CLUSTER_H}},
           "results": deep_f32, "card": smi})
     emit({"phase": "special_functions", "counts": roof.counts,
           "mufu_per_s": roof.mufu_per_s})
@@ -5270,8 +5485,12 @@ def main() -> None:
         "dot_dtype f32 :175)", "deep_link_f32.cu",
         hmc_runs["hmc_deep_f32"]["kernel_launches"],
         deep_f32["deep_gold_4_chains"], config5=deep_f32["config5"],
+        **{f"h{h}": deep_f32[f"deep_gold_H{h}"] for h in CLUSTER_H},
         launches_path="hmc_deep_f32: the deep HMC potential, "
         "use_packed_kernel=True",
+        launches_by_path={tag: hmc_runs[tag]["kernel_launches"]
+                          for tag in ("hmc_deep_f32",
+                                      f"hmc_deep_f32_H{DEEP_HMC_WIDE_H}")},
         gold_note="the decoder is trained here (Trainer.fit), not the one "
         "behind artifacts/gold/deep (other RNG streams; only its "
         "fingerprint is stored): the deep gold is not compared",

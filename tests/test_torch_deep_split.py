@@ -1,6 +1,7 @@
-"""The split-bf16 arithmetic of the deep link's f32 kernel at H = 128
-(csrc/deep_link_f32.cu, deep_link_f32_mma_kernel) against the JAX
-package's f32 mode, on the CPU.
+"""The split-bf16 arithmetic of the deep link's f32 kernel at H = 128,
+256, 384 and 512 (csrc/deep_link_f32.cu, deep_link_f32_mma_kernel and
+deep_link_f32_cluster_kernel<H>) against the JAX package's f32 mode, on
+the CPU.
 
 The kernel keeps its three pairwise products (pre2 = h1 W2, dW2 = h1^T
 dpre2, dh1 = dpre2 W2^T) at f32 accuracy on the bf16 tensor cores: each f32
@@ -28,7 +29,15 @@ both packages against the same sum in f64 from the same inputs, within the
 f32 rounding of the sum of its magnitudes: one unit in the last place of
 f32 at |g0| sum |dlogit| (g0 the first cotangent, the op's uniform
 contract); that case holds it so in place of the 1e-5.
+
+The kernels recompute in f64 a pre2 within the hinge of 0 (HINGE at H =
+128, deep_hinge(H) at 256-512, both read from the kernel's source), so
+that its relu branch is the exact sum's: the emulated split's pre2 must lie within hinge max_k h1_k sum_k |W2_kn|
+of the f64 sum at every width, on a random draw and on one whose
+positive terms b2 cancels; one bf16 rounding of each operand does not.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -40,10 +49,11 @@ from vibo_tpu.models import networks as jnet
 from vibo_tpu.ops import pallas_deep as jpd
 from vibo_tpu.ops.pallas_elbo import pack_responses as jpack
 from vibo_tpu_torch.convert import params_from_jax, tree_leaves
-from vibo_tpu_torch.ops import pallas_deep
+from vibo_tpu_torch.ops import _build, pallas_deep
 from vibo_tpu_torch.ops.packing import decode_packed
 
 D, H = 16, 128
+WIDE = (256, 384, 512)                # the cluster kernel's widths
 K_STEP = 16                           # the kernel's k-step
 # (a part, b part) of the split's products, in the kernel's order
 SPLIT = ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
@@ -114,14 +124,14 @@ def _dbo_f64(theta, d, link, resp, mask, g):
     return float(g[0]) * dl.sum(), abs(float(g[0])) * np.abs(dl).sum()
 
 
-def _rel_errs(b, m, k, products, monkeypatch, seed=7):
+def _rel_errs(b, m, k, products, monkeypatch, seed=7, h=H):
     """Max error of each output of the port's op (the emulation in place
     of the plain version) against JAX's f32 mode, over its largest
     magnitude: ll, dtheta, dd and the seven link gradients (sorted keys:
     dbo at DBO); and dbo's errors against f64 (JAX's, the port's) with the f32 rounding of
     |g0| sum |dlogit|."""
     rng = np.random.default_rng(seed)
-    link = jnet.init_deep_link(jax.random.key(seed), k, D, H)
+    link = jnet.init_deep_link(jax.random.key(seed), k, D, h)
     link = jax.tree.map(lambda x: x + jnp.asarray(
         0.05 * rng.standard_normal(x.shape).astype(np.float32)), link)
     theta = rng.standard_normal((b, k)).astype(np.float32)
@@ -166,15 +176,25 @@ def _rel_errs(b, m, k, products, monkeypatch, seed=7):
     return errs, dbo
 
 
-@pytest.mark.parametrize("b,m,k", [
+RAGGED = (37, 150, 2)              # padded to JAX's blocks
+CASES = [
     (24, 70, 2),
-    (37, 150, 2),                 # ragged: padded to JAX's blocks
+    RAGGED,
     (40, 70, 1),                  # more students than a kernel block
     CANCELLING,
+]
+
+
+# the ragged case at H = 128 only: JAX's padding does not depend on H, and
+# at 256-512 it takes 1.5-2 minutes a width beside the suite's other workers
+@pytest.mark.parametrize("b,m,k,h", [
+    *[pytest.param(*c, H, id="-".join(map(str, c))) for c in CASES],
+    *[pytest.param(*c, w, id="-".join(map(str, c)) + f"-H{w}")
+      for w in WIDE for c in CASES if c != RAGGED],
 ])
-def test_split_products_match_pallas_f32(b, m, k, monkeypatch):
+def test_split_products_match_pallas_f32(b, m, k, h, monkeypatch):
     errs, (jax_dbo, port_dbo, rounding) = _rel_errs(b, m, k, SPLIT,
-                                                    monkeypatch)
+                                                    monkeypatch, h=h)
     cancelling = (b, m, k) == CANCELLING
     held = [e for i, e in enumerate(errs) if not (cancelling and i == DBO)]
     assert max(held) <= 1e-5, errs
@@ -200,3 +220,57 @@ def test_split_parts_sum_to_the_operand():
     assert torch.equal(sum(p.double() for p in parts), x.double())
     for p in parts:
         assert torch.equal(p.to(torch.bfloat16).float(), p)
+
+
+def _hinge_draws(h):
+    """(h1 (R, h), W2 (h, h), b2 (h)) in f32: a random draw (half of h1
+    at 0, as relu leaves it) and one whose terms are all positive and large
+    with b2 cancelling row 0's sum exactly in f64 (pre2 ~ 0 where sum_k
+    h1_k |W2_kn| is largest)."""
+    rng = np.random.default_rng(h)
+    h1 = np.maximum(rng.standard_normal((64, h)), 0.0).astype(np.float32)
+    w2 = (rng.standard_normal((h, h)) / np.sqrt(h)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(h)).astype(np.float32)
+    yield h1, w2, b2
+    h1 = rng.uniform(50.0, 100.0, (64, h)).astype(np.float32)
+    w2 = rng.uniform(0.5, 1.0, (h, h)).astype(np.float32)
+    h1[1:] = h1[0] * rng.uniform(0.999, 1.001, (63, h)).astype(np.float32)
+    b2 = (-(h1[0].astype(np.float64) @ w2.astype(np.float64))
+          ).astype(np.float32)
+    yield h1, w2, b2
+
+
+def _source_hinge(h):
+    """The split's hinge at width h as csrc/deep_link_f32.cu defines it
+    (HINGE at 128, deep_hinge(H) at 256-512), evaluated from the source's
+    text, so that the test and the kernel cannot drift apart."""
+    src = (_build.CSRC_DIR / "deep_link_f32.cu").read_text()
+    if h == H:
+        found = re.search(r"constexpr float HINGE = ([^;]+);", src)
+    else:
+        found = re.search(r"constexpr float deep_hinge\(int H\) \{\s*"
+                          r"return ([^;]+);", src)
+    assert found, "the hinge's definition is not in the source"
+    expr = re.sub(r"(\d+\.\d*)f\b", r"\1", found.group(1))
+    expr = re.sub(r"\bH\b", str(h), expr)
+    assert re.fullmatch(r"[\d.\s()*/+\-]+", expr), expr
+    return float(eval(expr))    # digits and arithmetic only (checked)
+
+
+@pytest.mark.parametrize("h", [H, *WIDE])
+def test_split_pre2_lies_within_the_hinge(h):
+    """|split pre2 - exact| <= hinge(h) max_k h1_k sum_k |W2_kn| for every
+    value, the hinge read from csrc/deep_link_f32.cu; one bf16 rounding of
+    each operand is past it (the bound is tighter than bf16's error)."""
+    hinge = _source_hinge(h)
+    assert 0.0 < hinge < 2.0 ** -16
+    for h1, w2, b2 in _hinge_draws(h):
+        exact = (h1.astype(np.float64) @ w2.astype(np.float64)
+                 + b2.astype(np.float64))
+        bound = hinge * h1.max(1, keepdims=True) * np.abs(w2).sum(0)
+        t1, tw, tb = map(torch.from_numpy, (h1, w2, b2))
+        split = (split_matmul(t1, tw) + tb).numpy().astype(np.float64)
+        assert (np.abs(split - exact) <= bound).all(), \
+            float((np.abs(split - exact) / bound).max())
+        one = (split_matmul(t1, tw, ONE_ROUNDING) + tb).numpy()
+        assert (np.abs(one - exact) > bound).any()

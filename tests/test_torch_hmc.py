@@ -47,6 +47,9 @@ from vibo_tpu_torch.ops.packing import pack_responses
 N, M = 24, 10
 D, H = 3, 128                                  # deep: item latent, width
 MODELS = ("1pl", "2pl", "3pl", "grm", "gpcm", "deep")
+# the deep link at a wider width (the f32 kernel's cluster variant on the
+# card; JAX's f32 Pallas potential in interpret mode)
+WIDE_DEEP = {"deep_H256": 256}
 
 
 def _close(got, want, rtol=1e-5, atol=1e-4):
@@ -63,21 +66,24 @@ def _t(tree):
     return torch.from_numpy(np.array(tree, np.float32))
 
 
-def _deep_link():
+def _deep_link(h=H):
     return jax.tree.map(np.asarray,
-                        jnet.init_deep_link(jax.random.key(3), 2, D, H))
+                        jnet.init_deep_link(jax.random.key(3), 2, D, h))
 
 
 def _setup(model, k=2, seed=0, n=N, m=M):
-    """(cfg, resp, mask, deep params or None) for a link at (n, m)."""
+    """(cfg, resp, mask, deep params or None) for a link at (n, m); a key
+    of WIDE_DEEP is the deep link at its width."""
+    h = WIDE_DEEP.get(model, H)
+    model = "deep" if model in WIDE_DEEP else model
     c = 4 if model in ("grm", "gpcm") else 2
     sim = jsim("nonlinear" if model == "deep" else model, n, m,
                ability_dim=k, seed=seed, missing_rate=0.2,
                num_categories=c)
-    deep = _deep_link() if model == "deep" else None
+    deep = _deep_link(h) if model == "deep" else None
     kw = dict(irt_model=model, ability_dim=k, num_categories=c)
     if deep is not None:
-        kw.update(deep_latent_dim=D, deep_hidden_dim=H)
+        kw.update(deep_latent_dim=D, deep_hidden_dim=h)
     return kw, sim.response.astype(np.float32), sim.mask.astype(np.float32), \
         deep
 
@@ -94,7 +100,7 @@ def test_flatten_spec_matches_jax(model):
         jhmc._flatten_spec(7, 5, jhmc.HMCConfig(**kw))
 
 
-@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("model", MODELS + tuple(WIDE_DEEP))
 @pytest.mark.parametrize("packed", [False, True])
 def test_potential_matches_jax(model, packed):
     kw, resp, mask, deep = _setup(model)

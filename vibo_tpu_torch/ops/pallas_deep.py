@@ -28,8 +28,10 @@ products; H = 128: one block a student tile holding W2 and dW2; H = 256,
 and dW2 split into column panels over it; every other width the kernel's
 wide variant, with W2 read from L2), or with f32_dots
 csrc/deep_link_f32.cu (`deep_link_f32_train`, any H % 128 == 0: at
-H = 128 each product's operands split into three bf16 parts on the tensor
-cores, at f32 accuracy; other widths f32 products on the CUDA cores); on a
+H = 128, 256, 384 and 512 each product's operands split into three bf16
+parts on the tensor cores, at f32 accuracy, at 256-512 on a thread-block
+cluster of 4, 8 or 16 blocks a tile of 16 students; wider widths f32
+products on the CUDA cores); on a
 CPU tensor the plain PyTorch version `fused_deep_plain`, which repeats the
 kernel's arithmetic over item blocks without ever holding a (B, M, H)
 tensor. Nothing else falls back.
@@ -125,10 +127,14 @@ def _plan(bsz: int, m: int, h: int, device_index: int,
     return splits.value, floats.value
 
 
-def train_cuda(t1, t2, w2, b2, wo, bo, packed, f32_dots: bool = False):
+def train_cuda(t1, t2, w2, b2, wo, bo, packed, f32_dots: bool = False,
+               recomputes: bool = False):
     """Launch csrc/deep_link.cu (f32_dots: csrc/deep_link_f32.cu, H a
     multiple of 128) on contiguous f32 inputs (wo (H,), bo (1,)) -> the
-    seven outputs of fused_deep_plain, views of one buffer."""
+    seven outputs of fused_deep_plain, views of one buffer; with
+    recomputes (f32_dots only) also the pre2 values the kernel recomputed
+    in f64, a (1,) int32 tensor on the device (-1 where the width's kernel
+    does not count them: every width but 256, 384 and 512)."""
     bsz, h = t1.shape
     m = t2.shape[0]
     if f32_dots and (h < 128 or h % 128):
@@ -138,8 +144,12 @@ def train_cuda(t1, t2, w2, b2, wo, bo, packed, f32_dots: bool = False):
     splits, floats = _plan(bsz, m, h, dev.index
                            if dev.index is not None
                            else torch.cuda.current_device(), f32_dots)
+    if recomputes and not f32_dots:
+        raise ValueError("only the f32 kernel counts its recomputes")
     sizes = (bsz, bsz * h, m * h, h * h, h, h, 1)
-    out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    # the f32 kernel's last word: its f64 recomputes (an int)
+    out = torch.empty((sum(sizes) + f32_dots,), dtype=torch.float32,
+                      device=dev)
     scratch = torch.empty((floats,), dtype=torch.float32, device=dev)
     kernel = TRAIN_F32 if f32_dots else TRAIN
     with torch.cuda.device(dev):
@@ -147,9 +157,12 @@ def train_cuda(t1, t2, w2, b2, wo, bo, packed, f32_dots: bool = False):
                wo.data_ptr(), bo.data_ptr(), packed.data_ptr(),
                out.data_ptr(), scratch.data_ptr(), bsz, m, h, splits,
                torch.cuda.current_stream(dev).cuda_stream)
-    ll, sth, sd, dw2, db2, dwo, dbo = out.split(sizes)
-    return (ll, sth.view(bsz, h), sd.view(m, h), dw2.view(h, h), db2, dwo,
+    ll, sth, sd, dw2, db2, dwo, dbo = out[:sum(sizes)].split(sizes)
+    outs = (ll, sth.view(bsz, h), sd.view(m, h), dw2.view(h, h), db2, dwo,
             dbo)
+    if recomputes:
+        return outs + (out[sum(sizes):].view(torch.int32),)
+    return outs
 
 
 class _Train(torch.autograd.Function):
